@@ -19,6 +19,11 @@ def pytest_configure(config):
         "multi-device job also deselects them because it runs the same "
         "sharded checks in-process on its 8-device view",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (the PyTorch port's CUDA kernels); "
+        "skips with a reason on a host without one",
+    )
 
 # Property tests prefer real hypothesis (requirements-dev.txt); in
 # hermetic containers without it, install the deterministic fallback shim

@@ -1,1 +1,2 @@
-"""The sparse DNN forward (counterpart of ``repro.core``)."""
+"""The semiring algebra, the GraphBLAS primitives and the sparse DNN
+forward (counterpart of ``repro.core``)."""

@@ -3,11 +3,16 @@ and the wrappers (``ops``) the plans call.
 
 Kernel menu (counterparts of ``repro.kernels``):
 
-  bsr_spmm  — ELL-padded BSR × dense, fused bias+ReLU epilogue.
+  semiring_matmul — dense × dense, fused bias+ReLU epilogue.
+  bsr_spmm  — ELL-padded BSR × dense, same epilogue.
   bcsr_spmm — occupancy-exact block-CSR × dense, same epilogue.
   fused_mlp — the whole homogeneous square stack in one launch, with the
       ping-pong activation panel in shared memory (resident) or in
       global scratch (tiled).
+
+The first three take every semiring of the registry; their device
+functors live in ``csrc/semiring.cuh``, their f32 lowering in
+``semirings``.
 
 Every kernel module holds the launch of its kernel and the plain version
 of the same function. The wrappers in ``ops`` take the plain version only

@@ -1,8 +1,8 @@
 """Occupancy-exact block-CSR × dense: the CUDA kernel and its plain version.
 
 Counterpart of ``repro/kernels/bcsr_spmm.py`` (Pallas ``_kernel``, launch
-at ``bcsr_spmm.py:165``), ``plus_times`` form with the optional fused
-``max(C + bias, 0)`` epilogue. The kernel source is
+at ``bcsr_spmm.py:165``), over any registry semiring, with the
+optional fused ``max(C + bias, 0)`` epilogue. The kernel source is
 ``repro_torch/csrc/bcsr_spmm.cu``.
 
 Launch geometry: a row-split grid ``(nrb, n / block_n)``, block
@@ -22,14 +22,15 @@ import torch
 
 from repro_torch.kernels import DEFAULT_BLOCK_N
 from repro_torch.kernels import build as _build
+from repro_torch.kernels.semirings import kernel_semiring
 from repro_torch.sparse import ops as sparse_ops
 from repro_torch.sparse.bcsr import BlockCSRMatrix
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     # values, row_ptr, col_idx, valid, b, bias, out, nrb, bs_r, bs_c, n,
-    # block_n, fuse_bias_relu, stream
-    "bcsr_spmm_f32": (_P,) * 7 + (_I,) * 6 + (_P,),
+    # block_n, fuse_bias_relu, semiring, stream
+    "bcsr_spmm_f32": (_P,) * 7 + (_I,) * 7 + (_P,),
 }
 
 
@@ -51,12 +52,14 @@ def bcsr_spmm_plain(
     b: torch.Tensor,
     bias: torch.Tensor | None = None,
     *,
+    semiring_name: str = "plus_times",
     fuse_bias_relu: bool = False,
 ) -> torch.Tensor:
     """The kernel's function in plain PyTorch, on any device (f32).
     Empty block-rows come out as the semiring zero and then pass the
     epilogue, exactly the kernel's (and the reference wrapper's) fill."""
-    out = sparse_ops.bcsr_matmul(a.to(dtype=torch.float32), b.float())
+    out = sparse_ops.bcsr_matmul(a.to(dtype=torch.float32), b.float(),
+                                kernel_semiring(semiring_name))
     if fuse_bias_relu:
         out = sparse_ops.relu(out + bias.float()[:, None])
     return out
@@ -67,6 +70,7 @@ def bcsr_spmm_cuda(
     b: torch.Tensor,
     bias: torch.Tensor,
     *,
+    semiring_name: str = "plus_times",
     fuse_bias_relu: bool,
     block_n: int,
 ) -> torch.Tensor:
@@ -85,12 +89,13 @@ def bcsr_spmm_cuda(
     need(b.shape[0] == k and n % block_n == 0 and bias.shape == (m,),
          f"b ({k}, n) with n % {block_n} == 0 and bias ({m},)")
     need(block_n * bs_r <= 1024, "block_n * bs_r <= 1024 threads")
+    sid = kernel_semiring(semiring_name).id
     lib = _build.load("bcsr_spmm", SIGNATURES)
     out = torch.empty((m, n), dtype=torch.float32, device=b.device)
     p = _build.pointer
     err = lib.bcsr_spmm_f32(
         p(a.values), p(a.row_ptr), p(a.col_idx), p(a.valid), p(b), p(bias),
-        p(out), a.n_row_blocks, bs_r, bs_c, n, block_n, int(fuse_bias_relu),
+        p(out), a.n_row_blocks, bs_r, bs_c, n, block_n, int(fuse_bias_relu), sid,
         _build.stream_handle(b.device),
     )
     _build.check(lib, err, "bcsr_spmm")

@@ -1,8 +1,8 @@
 """ELL-padded BSR × dense: the CUDA kernel and its plain version.
 
 Counterpart of ``repro/kernels/bsr_spmm.py`` (Pallas ``_kernel``, launch
-at ``bsr_spmm.py:142``), ``plus_times`` form with the optional fused
-``max(C + bias, 0)`` epilogue. The kernel source is
+at ``bsr_spmm.py:142``), over any registry semiring, with the
+optional fused ``max(C + bias, 0)`` epilogue. The kernel source is
 ``repro_torch/csrc/bsr_spmm.cu``; its header says how it is laid out.
 
 Launch geometry: grid ``(nrb, n / block_n)``, block ``(block_n, bs_r)``;
@@ -19,14 +19,15 @@ import torch
 
 from repro_torch.kernels import DEFAULT_BLOCK_N
 from repro_torch.kernels import build as _build
+from repro_torch.kernels.semirings import kernel_semiring
 from repro_torch.sparse import ops as sparse_ops
 from repro_torch.sparse.bsr import BlockSparseMatrix
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     # blocks, col_idx, mask, b, bias, out, nrb, mbpr, bs_r, bs_c, n,
-    # block_n, fuse_bias_relu, stream
-    "bsr_spmm_f32": (_P,) * 6 + (_I,) * 7 + (_P,),
+    # block_n, fuse_bias_relu, semiring, stream
+    "bsr_spmm_f32": (_P,) * 6 + (_I,) * 8 + (_P,),
 }
 
 
@@ -50,10 +51,12 @@ def bsr_spmm_plain(
     b: torch.Tensor,
     bias: torch.Tensor | None = None,
     *,
+    semiring_name: str = "plus_times",
     fuse_bias_relu: bool = False,
 ) -> torch.Tensor:
     """The kernel's function in plain PyTorch, on any device (f32)."""
-    out = sparse_ops.bsr_matmul(a.to(dtype=torch.float32), b.float())
+    out = sparse_ops.bsr_matmul(a.to(dtype=torch.float32), b.float(),
+                               kernel_semiring(semiring_name))
     if fuse_bias_relu:
         out = sparse_ops.relu(out + bias.float()[:, None])
     return out
@@ -64,6 +67,7 @@ def bsr_spmm_cuda(
     b: torch.Tensor,
     bias: torch.Tensor,
     *,
+    semiring_name: str = "plus_times",
     fuse_bias_relu: bool,
     block_n: int,
 ) -> torch.Tensor:
@@ -83,12 +87,13 @@ def bsr_spmm_cuda(
     need(b.shape[0] == k and n % block_n == 0 and bias.shape == (m,),
          f"b ({k}, n) with n % {block_n} == 0 and bias ({m},)")
     need(block_n * bs_r <= 1024, "block_n * bs_r <= 1024 threads")
+    sid = kernel_semiring(semiring_name).id
     lib = _build.load("bsr_spmm", SIGNATURES)
     out = torch.empty((m, n), dtype=torch.float32, device=b.device)
     p = _build.pointer
     err = lib.bsr_spmm_f32(
         p(a.blocks), p(a.col_idx), p(a.block_mask), p(b), p(bias), p(out),
-        nrb, mbpr, bs_r, bs_c, n, block_n, int(fuse_bias_relu),
+        nrb, mbpr, bs_r, bs_c, n, block_n, int(fuse_bias_relu), sid,
         _build.stream_handle(b.device),
     )
     _build.check(lib, err, "bsr_spmm")

@@ -6,11 +6,12 @@ plain C interface (no PyTorch headers, so a build takes seconds):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o _build/lib<name>-<hash>.so <name>.cu
 
-The library name carries a hash of the source and the flags, so an
-edited source rebuilds and an unchanged one is reused. The build runs at
-first use, into ``src/repro_torch/_build/`` (listed in ``.gitignore``);
-:func:`build` compiles every missing library at once, one nvcc process
-per source, and waits for all of them.
+The library name carries a hash of the source, of every header in
+``csrc/`` and of the flags, so an edited source or header rebuilds and
+an unchanged one is reused. The build runs at first use, into
+``src/repro_torch/_build/`` (listed in ``.gitignore``); :func:`build`
+compiles every missing library at once, one nvcc process per source,
+and waits for all of them.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("bsr_spmm", "bcsr_spmm", "fused_mlp")
+SOURCES = ("semiring_matmul", "bsr_spmm", "bcsr_spmm", "fused_mlp")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -53,8 +54,13 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library of ``csrc/<name>.cu`` is built."""
+    """Where the library of ``csrc/<name>.cu`` is built. Every ``.cuh``
+    beside it is hashed in too: a source's includes are not parsed, and a
+    header edit must not reuse a library built from the old one."""
     h = hashlib.sha1((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 

@@ -1,10 +1,11 @@
 """Public wrappers around the kernels — counterpart of ``repro/kernels/ops.py``.
 
-One wrapper per kernel: ``bsr_spmm`` (ELL), ``bcsr_spmm`` (block-CSR),
-``fused_mlp_forward`` (panel in shared memory) and
-``fused_mlp_tiled_forward`` (panel in global scratch). Each pads the
-panel's columns to the tile width the launch runs at
-(:func:`effective_block_n`), then:
+One wrapper per kernel: ``semiring_matmul`` (dense), ``bsr_spmm`` (ELL),
+``bcsr_spmm`` (block-CSR), ``fused_mlp_forward`` (panel in shared
+memory) and ``fused_mlp_tiled_forward`` (panel in global scratch). The
+first three take any registry semiring by name. Each pads the panel's
+columns to the tile width the launch runs at (:func:`effective_block_n`;
+the dense wrapper also pads m and, with the semiring zero, k), then:
 
 * on CUDA tensors launches its CUDA kernel — there is no fallback: a
   kernel that cannot build or launch raises;
@@ -25,11 +26,13 @@ from repro_torch.kernels import DEFAULT_BLOCK_N
 from repro_torch.kernels import bcsr_spmm as _bcsr
 from repro_torch.kernels import bsr_spmm as _bsr
 from repro_torch.kernels import fused_mlp as _fmlp
+from repro_torch.kernels import semiring_matmul as _smm
+from repro_torch.kernels.semirings import kernel_zero
 from repro_torch.sparse.bcsr import BlockCSRMatrix
 from repro_torch.sparse.bsr import BlockSparseMatrix
-from repro_torch.sparse.ops import check_semiring
 
-KERNELS = ("bsr_spmm", "bcsr_spmm", "fused_mlp_forward", "fused_mlp_tiled_forward")
+KERNELS = ("semiring_matmul", "bsr_spmm", "bcsr_spmm", "fused_mlp_forward",
+           "fused_mlp_tiled_forward")
 _launches = dict.fromkeys(KERNELS, 0)
 
 
@@ -58,9 +61,21 @@ def effective_block_n(n: int, block_n: int = DEFAULT_BLOCK_N) -> int:
     return min(block_n, _ceil_mult(n))
 
 
-def _pad_cols(x: torch.Tensor, mult: int) -> torch.Tensor:
-    pad = (-x.shape[1]) % mult
-    return F.pad(x, (0, pad)) if pad else x
+def dense_block_sizes(
+    m: int, n: int, k: int, block_n: int = DEFAULT_BLOCK_N
+) -> tuple[int, int, int]:
+    """(block_m, block_n, block_k) the dense wrapper launches for an
+    (m, k) × (k, n) product — each tile clamped like the column tile."""
+    bm = min(DEFAULT_BLOCK_N, _ceil_mult(m))
+    bk = min(DEFAULT_BLOCK_N, _ceil_mult(k))
+    return bm, effective_block_n(n, block_n), bk
+
+
+def _pad_to(x: torch.Tensor, dim: int, mult: int, fill: float = 0.0) -> torch.Tensor:
+    pad = (-x.shape[dim]) % mult
+    if not pad:
+        return x
+    return F.pad(x, [0, 0] * (x.dim() - 1 - dim) + [0, pad], value=fill)
 
 
 def _bias_or_zeros(bias, m: int, like: torch.Tensor, fuse_bias_relu: bool):
@@ -69,6 +84,43 @@ def _bias_or_zeros(bias, m: int, like: torch.Tensor, fuse_bias_relu: bool):
     if bias is None:
         return torch.zeros((m,), dtype=torch.float32, device=like.device)
     return bias
+
+
+def semiring_matmul(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    bias: torch.Tensor | None = None,
+    *,
+    semiring_name: str = "plus_times",
+    fuse_bias_relu: bool = False,
+    block_n: int = DEFAULT_BLOCK_N,
+) -> torch.Tensor:
+    """Padded dense ``C = A ⊕.⊗ B`` (+ fused ``max(C + bias, 0)``).
+
+    k is padded with the semiring zero on both operands (the ⊕-identity
+    and ⊗-annihilator, so padded products change nothing in any
+    semiring — 0 would be a free edge under ``min_plus``); m and n with 0,
+    and those rows and columns are cut off again.
+    """
+    m, k = a.shape
+    n = b.shape[1]
+    bm, bn, bk = dense_block_sizes(m, n, k, block_n)
+    zero = kernel_zero(semiring_name)
+    bias = _bias_or_zeros(bias, m, b, fuse_bias_relu)
+    ap = _pad_to(_pad_to(a, 0, bm), 1, bk, fill=zero)
+    bp = _pad_to(_pad_to(b, 0, bk, fill=zero), 1, bn)
+    biasp = _pad_to(bias, 0, bm)
+    if bp.is_cuda:
+        out = _smm.semiring_matmul_cuda(
+            ap.contiguous(), bp.contiguous(), biasp.contiguous(),
+            semiring_name=semiring_name, fuse_bias_relu=fuse_bias_relu,
+            block_m=bm, block_n=bn, block_k=bk,
+        )
+        _launches["semiring_matmul"] += 1
+    else:
+        out = _smm.semiring_matmul_plain(ap, bp, biasp, semiring_name=semiring_name,
+                                         fuse_bias_relu=fuse_bias_relu)
+    return out[:m, :n]
 
 
 def bsr_spmm(
@@ -80,20 +132,20 @@ def bsr_spmm(
     fuse_bias_relu: bool = False,
     block_n: int = DEFAULT_BLOCK_N,
 ) -> torch.Tensor:
-    """Padded ELL-BSR ``C = A · B`` (+ fused ``max(C + bias, 0)``)."""
-    check_semiring(semiring_name)
+    """Padded ELL-BSR ``C = A ⊕.⊗ B`` (+ fused ``max(C + bias, 0)``)."""
     n = b.shape[1]
     block_n = effective_block_n(n, block_n)
     bias = _bias_or_zeros(bias, a.shape[0], b, fuse_bias_relu)
-    bp = _pad_cols(b, block_n)
+    bp = _pad_to(b, 1, block_n)
     if bp.is_cuda:
         out = _bsr.bsr_spmm_cuda(
-            a, bp.contiguous(), bias.contiguous(),
+            a, bp.contiguous(), bias.contiguous(), semiring_name=semiring_name,
             fuse_bias_relu=fuse_bias_relu, block_n=block_n,
         )
         _launches["bsr_spmm"] += 1
     else:
-        out = _bsr.bsr_spmm_plain(a, bp, bias, fuse_bias_relu=fuse_bias_relu)
+        out = _bsr.bsr_spmm_plain(a, bp, bias, semiring_name=semiring_name,
+                                  fuse_bias_relu=fuse_bias_relu)
     return out[:, :n]
 
 
@@ -106,25 +158,26 @@ def bcsr_spmm(
     fuse_bias_relu: bool = False,
     block_n: int = DEFAULT_BLOCK_N,
 ) -> torch.Tensor:
-    """Padded occupancy-exact block-CSR ``C = A · B`` (+ fused epilogue).
+    """Padded occupancy-exact block-CSR ``C = A ⊕.⊗ B`` (+ fused epilogue).
 
     Block-rows with no stored block come out as the epilogue of the
-    semiring zero (``max(bias, 0)`` when fused, else 0) — the kernel
-    writes them itself, the plain version gets them from its sum.
+    semiring zero (``max(zero + bias, 0)`` when fused, else the zero) —
+    the kernel writes them itself, the plain version gets them from its
+    segment-⊕.
     """
-    check_semiring(semiring_name)
     n = b.shape[1]
     block_n = effective_block_n(n, block_n)
     bias = _bias_or_zeros(bias, a.shape[0], b, fuse_bias_relu)
-    bp = _pad_cols(b, block_n)
+    bp = _pad_to(b, 1, block_n)
     if bp.is_cuda:
         out = _bcsr.bcsr_spmm_cuda(
-            a, bp.contiguous(), bias.contiguous(),
+            a, bp.contiguous(), bias.contiguous(), semiring_name=semiring_name,
             fuse_bias_relu=fuse_bias_relu, block_n=block_n,
         )
         _launches["bcsr_spmm"] += 1
     else:
-        out = _bcsr.bcsr_spmm_plain(a, bp, bias, fuse_bias_relu=fuse_bias_relu)
+        out = _bcsr.bcsr_spmm_plain(a, bp, bias, semiring_name=semiring_name,
+                                    fuse_bias_relu=fuse_bias_relu)
     return out[:, :n]
 
 
@@ -142,7 +195,7 @@ def _refuse_autograd(name: str, where: str, *tensors: torch.Tensor) -> None:
 def _fused(name, tiled, stacked_w, stacked_b, y0, block_n, panel_dtype):
     n = y0.shape[1]
     block_n = effective_block_n(n, block_n)
-    yp = _pad_cols(y0, block_n)
+    yp = _pad_to(y0, 1, block_n)
     if yp.is_cuda:
         out = _fmlp.fused_mlp_cuda(
             stacked_w, stacked_b.contiguous(), yp.contiguous(),

@@ -4,10 +4,16 @@ A sparse stack's layout choices, route (fused / fused-tiled / layered),
 exact launch bill and bound weights are analysed once per (topology
 fingerprint, width class) into a :class:`StackPlan`, cached in a
 :class:`PlanCache` and served through a :class:`DegradationLadder`.
+GraphBLAS products on one sparse operand get an :class:`MxmPlan` per
+(topology, width, semiring) from :func:`mxm_plan`.
 """
 
 from repro_torch.plan.cache import PlanCache  # noqa: F401
-from repro_torch.plan.cost import layer_grid_steps, stack_grid_steps  # noqa: F401
+from repro_torch.plan.cost import (  # noqa: F401
+    layer_grid_steps,
+    mxv_grid_steps,
+    stack_grid_steps,
+)
 from repro_torch.plan.degrade import (  # noqa: F401
     LEVEL_LAYERED,
     LEVEL_RESIDENT,
@@ -18,6 +24,12 @@ from repro_torch.plan.layout import (  # noqa: F401
     layer_layout,
     preferred_layout,
     to_preferred_layout,
+)
+from repro_torch.plan.mxm import (  # noqa: F401
+    MxmPlan,
+    mxm_cache_stats,
+    mxm_plan,
+    reset_mxm_cache,
 )
 from repro_torch.plan.routes import (  # noqa: F401
     ROUTE_FUSED,
@@ -47,6 +59,7 @@ __all__ = [
     "ROUTE_LAYERED",
     "DegradationLadder",
     "LayerPlan",
+    "MxmPlan",
     "PlanCache",
     "PlanKey",
     "StackPlan",
@@ -55,8 +68,12 @@ __all__ = [
     "layer_grid_steps",
     "layer_layout",
     "layer_path",
+    "mxm_cache_stats",
+    "mxm_plan",
+    "mxv_grid_steps",
     "preferred_layout",
     "quantize_width",
+    "reset_mxm_cache",
     "resident_eligible",
     "stack_grid_steps",
     "to_preferred_layout",

@@ -9,11 +9,14 @@ at the tile width the wrappers actually run (:func:`effective_block_n`):
   CTA visits its whole row of slots, padding included;
 * block-CSR (``bcsr_spmm``): ``valid_blocks × n_tiles`` — the row-split
   launch walks ``row_ptr`` ranges, so tail padding is never visited;
+* dense (``semiring_matmul``): ``(m/bm) × (n/bn) × (k/bk)`` tile
+  products at the wrapper's tiles (:func:`dense_block_sizes`) — every
+  CTA takes every k-step;
 * fused stack: the sum of its layers' ELL bills (each stripe's CTA walks
   every slot of every layer).
 
-``tests/test_torch_plan.py`` pins these against the launch geometry the
-kernel modules expose.
+``tests/test_torch_plan.py`` and ``tests/test_torch_mxm_plan.py`` pin
+these against the launch geometry the kernel modules expose.
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ from repro_torch.core.dnn import Weight
 from repro_torch.kernels import DEFAULT_BLOCK_N
 from repro_torch.kernels import bcsr_spmm as _bcsr
 from repro_torch.kernels import bsr_spmm as _bsr
-from repro_torch.kernels.ops import effective_block_n
+from repro_torch.kernels import semiring_matmul as _smm
+from repro_torch.kernels.ops import dense_block_sizes, effective_block_n
 from repro_torch.sparse.bcsr import BlockCSRMatrix
 from repro_torch.sparse.bsr import BlockSparseMatrix
 
@@ -36,10 +40,15 @@ def layer_grid_steps(w: Weight, n: int, *, block_n: int = DEFAULT_BLOCK_N) -> in
         return _bcsr.grid_steps(w, n, bn)
     if isinstance(w, BlockSparseMatrix):
         return _bsr.grid_steps(w, n, bn)
-    raise NotImplementedError(
-        "dense layers run through semiring_matmul, which the port brings "
-        "with the GraphBLAS slice (ROADMAP Queue 1 item 8)"
-    )
+    m, k = w.shape
+    return _smm.grid_steps(m, n, k, *dense_block_sizes(m, n, k, block_n))
+
+
+def mxv_grid_steps(w: Weight, *, block_n: int = DEFAULT_BLOCK_N) -> int:
+    """The bill of a GraphBLAS ``mxv``/``vxm``: the vector rides as a
+    width-1 panel, which the wrappers run at ``effective_block_n(1)``
+    (an 8-wide tile), not a full ``DEFAULT_BLOCK_N`` tile."""
+    return layer_grid_steps(w, 1, block_n=block_n)
 
 
 def stack_grid_steps(

@@ -6,10 +6,11 @@
       └─ panel past ``SMEM_LIMIT_BYTES`` → **fused-tiled**: ONE launch,
                the ping-pong panel in global scratch
       └─ no  → **layered**, per layer by execution layout:
-               block-CSR → kernel-bcsr, ELL-BSR → kernel-ell
+               block-CSR → kernel-bcsr, ELL-BSR → kernel-ell,
+               dense → kernel-dense (``semiring_matmul``)
 
-Dense layers (kernel-dense, the reference's ``semiring_matmul``) arrive
-with the GraphBLAS slice; a plan over one raises until then.
+The reference's ``xla-dense``/``xla`` routes serve its differentiable
+plans, which the port does not build yet.
 """
 
 from __future__ import annotations
@@ -87,7 +88,4 @@ def layer_path(w: Weight) -> str:
         return "kernel-bcsr"
     if layout == "ell":
         return "kernel-ell"
-    raise NotImplementedError(
-        "dense layers run through semiring_matmul, which the port brings "
-        "with the GraphBLAS slice (ROADMAP Queue 1 item 8)"
-    )
+    return "kernel-dense"

@@ -87,11 +87,17 @@ def topology_fingerprint(weights: Sequence[Weight]) -> str:
 
 class PlanKey(NamedTuple):
     """What a plan is keyed on: same topology + width class + residency
-    request → the same plan, hence a cache hit."""
+    request + semiring → the same plan, hence a cache hit.
+
+    ``semiring`` is the ⊕.⊗ algebra the plan computes: DNN stack plans
+    are ``plus_times``; the GraphBLAS ``mxm``/``mxv`` plans
+    (:mod:`repro_torch.plan.mxm`) key theirs here, so a ``plus_times``
+    and a ``min_plus`` plan over one topology never collide."""
 
     fingerprint: str
     width: int
     resident: bool | None  # the use_resident tri-state the caller asked
+    semiring: str = "plus_times"  # the plan's ⊕.⊗ algebra
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,8 +160,10 @@ class StackPlan:
             for lp, w, b in zip(self.layers, self.weights, self.biases):
                 if lp.path == "kernel-bcsr":
                     y = kernel_ops.bcsr_spmm(w, y, b, fuse_bias_relu=True)
-                else:
+                elif lp.path == "kernel-ell":
                     y = kernel_ops.bsr_spmm(w, y, b, fuse_bias_relu=True)
+                else:
+                    y = kernel_ops.semiring_matmul(w, y, b, fuse_bias_relu=True)
         return y[:, :k]
 
 

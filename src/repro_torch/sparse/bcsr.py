@@ -26,7 +26,53 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.sparse.bsr import BlockSparseMatrix
+
+# How many times a block-CSR topology has been sorted (the argsort behind
+# ``transpose``/``transpose_plan``) since the last reset; plans build a
+# transpose once per topology and count on this staying put afterwards.
+_transpose_sort_count = 0
+
+
+def transpose_sort_count() -> int:
+    """Process-wide count of topology sorts."""
+    return _transpose_sort_count
+
+
+def reset_transpose_sort_count() -> None:
+    global _transpose_sort_count
+    _transpose_sort_count = 0
+
+
+@dataclasses.dataclass
+class BcsrTransposePlan:
+    """The sorted layout and permutation of a block-CSR transpose.
+
+    Topology only (index and mask tensors, no values), so it stays valid
+    while the stored values change under a frozen pattern: :meth:`apply`
+    transposes with one gather, no sort. ``order`` is int64, torch's
+    index type (the reference keeps int32).
+    """
+
+    order: torch.Tensor  # (T,) permutation into transposed CSR order
+    row_ptr: torch.Tensor  # (ncb + 1,) int32 over valid transposed blocks
+    row_id: torch.Tensor  # (T,) int32 — transposed block-row per slot
+    col_idx: torch.Tensor  # (T,) int32 — transposed block-col per slot
+    valid: torch.Tensor  # (T,) bool
+    shape: Tuple[int, int]  # shape of the TRANSPOSED matrix
+    block_shape: Tuple[int, int]
+
+    def apply(self, a: "BlockCSRMatrix") -> "BlockCSRMatrix":
+        """Transpose ``a`` (the topology the plan was built from) through
+        the cached permutation; only ``a.values`` is read."""
+        values_t = a.values[self.order].transpose(-1, -2)
+        return BlockCSRMatrix(
+            torch.where(self.valid[:, None, None], values_t,
+                        torch.zeros((), dtype=values_t.dtype, device=values_t.device)),
+            self.row_ptr, self.row_id, self.col_idx, self.valid,
+            self.shape, self.block_shape,
+        )
 
 
 @dataclasses.dataclass
@@ -256,6 +302,105 @@ class BlockCSRMatrix:
             BlockSparseMatrix.from_dense(dense, block_shape, device=device),
             pad_to=pad_to,
         )
+
+    @classmethod
+    def random_skewed(
+        cls,
+        seed: int,
+        shape: Tuple[int, int],
+        block_shape: Tuple[int, int],
+        total_blocks: int,
+        *,
+        skew: float = 0.0,
+        dtype=np.float32,
+        device=None,
+    ) -> "BlockCSRMatrix":
+        """Random topology with ``total_blocks`` stored blocks spread over
+        the block-rows with Zipf-like ``skew`` ∈ [0, 1) (0 uniform, near 1
+        piled onto the first rows), values U[-1, 3) (paper §V-B).
+
+        The same numpy draws as the reference's ``random_skewed``, so the
+        same seed gives a bit-identical matrix. The reference writes the
+        blocks into an (m, n) dense matrix and re-blocks it; here they go
+        straight into the block arrays, which needs O(stored blocks)
+        memory instead of O(m·n). ``device`` defaults to the GPU.
+        """
+        device = resolve_device(device)
+        m, n = shape
+        bs_r, bs_c = block_shape
+        nrb, ncb = m // bs_r, n // bs_c
+        if total_blocks > nrb * ncb:
+            raise ValueError("total_blocks exceeds capacity")
+        rng = np.random.default_rng(seed)
+        w = (np.arange(nrb) + 1.0) ** (-4.0 * skew)
+        w /= w.sum()
+        counts = np.minimum(rng.multinomial(total_blocks, w), ncb)
+        deficit = total_blocks - counts.sum()
+        while deficit > 0:  # overflow goes to the first rows with room
+            spare = np.nonzero(counts < ncb)[0]
+            counts[spare[: int(deficit)]] += 1
+            deficit = total_blocks - counts.sum()
+
+        values = np.empty((total_blocks, bs_r, bs_c), dtype)
+        col_idx = np.empty((total_blocks,), np.int32)
+        t = 0
+        for i in range(nrb):
+            for c in np.sort(rng.choice(ncb, size=int(counts[i]), replace=False)):
+                blk = rng.uniform(-1.0, 3.0, (bs_r, bs_c)).astype(dtype)
+                # the reference keeps a block only if it has a nonzero
+                blk[0, 0] = blk[0, 0] if blk[0, 0] != 0 else 1.0
+                values[t], col_idx[t] = blk, c
+                t += 1
+        row_ptr = np.zeros((nrb + 1,), np.int32)
+        np.cumsum(counts, out=row_ptr[1:])
+        row_id = np.repeat(np.arange(nrb, dtype=np.int32), counts)
+        return cls(
+            torch.from_numpy(values).to(device),
+            torch.from_numpy(row_ptr).to(device),
+            torch.from_numpy(row_id).to(device),
+            torch.from_numpy(col_idx).to(device),
+            torch.ones((total_blocks,), dtype=torch.bool, device=device),
+            (m, n),
+            (bs_r, bs_c),
+        )
+
+    def transpose_plan(self) -> BcsrTransposePlan:
+        """Sort the topology into transposed CSR order once and return the
+        reusable :class:`BcsrTransposePlan` (no values). The only place the
+        transpose sorts; :func:`transpose_sort_count` counts the calls.
+
+        Invalid tail slots sort to the end and carry the last valid
+        transposed row, the tail rule of the layout.
+        """
+        global _transpose_sort_count
+        _transpose_sort_count += 1
+        ncb = self.n_col_blocks
+        cols = self.col_idx.long()
+        # stable: old rows (the new columns) stay ascending in each new row
+        order = torch.argsort(torch.where(self.valid, cols, ncb), stable=True)
+        new_row = self.col_idx[order]
+        new_col = self.row_id[order]
+        new_valid = self.valid[order]
+        counts = torch.bincount(cols[self.valid], minlength=ncb)
+        row_ptr = torch.zeros((ncb + 1,), dtype=torch.int32, device=self.device)
+        row_ptr[1:] = torch.cumsum(counts, 0)
+        nnz = int(row_ptr[-1])
+        last_row = new_row[max(nnz - 1, 0)]
+        return BcsrTransposePlan(
+            order,
+            row_ptr,
+            torch.where(new_valid, new_row, last_row),
+            torch.where(new_valid, new_col, torch.zeros_like(new_col)),
+            new_valid,
+            (self.shape[1], self.shape[0]),
+            (self.block_shape[1], self.block_shape[0]),
+        )
+
+    def transpose(self) -> "BlockCSRMatrix":
+        """The transpose, re-sorted into CSR order (no dense matrix). Sorts
+        on every call; for a frozen topology build :meth:`transpose_plan`
+        once and ``plan.apply(self)`` instead."""
+        return self.transpose_plan().apply(self)
 
     def to_bsr(self, *, pad_to: int | None = None) -> BlockSparseMatrix:
         """Re-widen to the ELL layout (host-side)."""

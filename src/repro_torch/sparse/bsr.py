@@ -200,6 +200,45 @@ class BlockSparseMatrix:
             (bs_r, bs_c),
         )
 
+    def transpose(self, *, pad_to: int | None = None) -> "BlockSparseMatrix":
+        """Regroup the stored blocks by column, transposing each — no
+        dense matrix is formed.
+
+        The stored topology is kept exactly (explicit zero blocks too);
+        new block-rows list their blocks in ascending column order.
+        ``pad_to`` is the transposed ``max_blocks_per_row``; ``None``
+        reads the largest column occupancy off the mask (one host sync).
+        A ``pad_to`` below it raises.
+        """
+        nrb, mbpr = self.col_idx.shape
+        ncb = self.n_col_blocks
+        bs_r, bs_c = self.block_shape
+        dev = self.device
+        cols = self.col_idx.reshape(-1).long()
+        valid = self.block_mask.reshape(-1)
+        counts = torch.bincount(cols[valid], minlength=ncb)
+        max_occ = int(counts.max()) if ncb else 0
+        if pad_to is None:
+            out_mbpr = max(max_occ, 1)
+        elif max_occ > pad_to:
+            raise ValueError(f"pad_to={pad_to} < max column occupancy {max_occ}")
+        else:
+            out_mbpr = int(pad_to)
+        # Stable sort by (valid first, column): valid blocks land grouped by
+        # their new block-row, old row order (the new columns) ascending.
+        order = torch.argsort(torch.where(valid, cols, ncb), stable=True)[: int(valid.sum())]
+        new_row = cols[order]
+        pos = torch.arange(len(order), device=dev) - (torch.cumsum(counts, 0) - counts)[new_row]
+        blocks_t = torch.zeros((ncb, out_mbpr, bs_c, bs_r), dtype=self.dtype, device=dev)
+        blocks_t[new_row, pos] = self.blocks.reshape(-1, bs_r, bs_c)[order].transpose(-1, -2)
+        col_idx_t = torch.zeros((ncb, out_mbpr), dtype=torch.int32, device=dev)
+        col_idx_t[new_row, pos] = (order // mbpr).to(torch.int32)
+        mask_t = torch.zeros((ncb, out_mbpr), dtype=torch.bool, device=dev)
+        mask_t[new_row, pos] = True
+        return BlockSparseMatrix(
+            blocks_t, col_idx_t, mask_t, (self.shape[1], self.shape[0]), (bs_c, bs_r)
+        )
+
     def to_dense(self) -> torch.Tensor:
         nrb, mbpr = self.col_idx.shape
         bs_r, bs_c = self.block_shape

@@ -1,32 +1,27 @@
 """Plain-PyTorch sparse products — the oracles of the CUDA kernels.
 
-Counterpart of ``repro/sparse/ops.py`` in its ``plus_times`` form, which
-is the only semiring the serving path uses. The other seven semirings
-of the reference registry arrive with the GraphBLAS slice (ROADMAP
-Queue 1 item 8) and raise ``NotImplementedError`` until then.
+Counterpart of ``repro/sparse/ops.py``, over every semiring of the
+registry (``repro_torch.core.semiring``):
 
-These run on any device. They repeat the kernels' arithmetic in another
-summation order (a gather of the needed B panels, then one batched
-product), so a kernel is compared with them under an f32 tolerance.
+* ``bsr_matmul`` — ``C = A ⊕.⊗ B`` for an ELL-padded BSR ``A``;
+* ``bcsr_matmul`` — the same for the occupancy-exact block-CSR layout:
+  one product per stored block, then a segment-⊕ over the row map.
+
+The ``semiring`` argument is a registry :class:`Semiring` (boolean
+algebras then give bool outputs, as in the reference) or its f32 kernel
+lowering (``repro_torch.kernels.semirings``), which the kernels' plain
+versions pass. These run on any device, in another order than the
+kernels (a gather of the needed B panels, then batched products), so
+``plus_times`` and ``log_plus`` are compared under f32 tolerances.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.semiring import PLUS_TIMES, Semiring
 from repro_torch.sparse.bcsr import BlockCSRMatrix
 from repro_torch.sparse.bsr import BlockSparseMatrix
-
-PLUS_TIMES = "plus_times"
-
-
-def check_semiring(semiring: str) -> None:
-    if semiring != PLUS_TIMES:
-        raise NotImplementedError(
-            f"semiring {semiring!r}: the port computes plus_times only; "
-            "the other semirings arrive with the GraphBLAS slice "
-            "(ROADMAP Queue 1 item 8, Queue 2 item 6)"
-        )
 
 
 def relu(x: torch.Tensor) -> torch.Tensor:
@@ -35,54 +30,81 @@ def relu(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x < 0, torch.zeros_like(x), x)
 
 
+def _panels(a, b: torch.Tensor) -> torch.Tensor:
+    """B's row-panels, one (bs_c, k) panel per block-column."""
+    m, n = a.shape
+    if b.shape[0] != n:
+        raise ValueError(f"shape mismatch: A {a.shape} @ B {tuple(b.shape)}")
+    return b.reshape(n // a.block_shape[1], a.block_shape[1], b.shape[1])
+
+
+def _fill(semiring, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(semiring.zero, dtype=like.dtype, device=like.device)
+
+
 def bsr_matmul(
-    a: BlockSparseMatrix, b: torch.Tensor, semiring: str = PLUS_TIMES
+    a: BlockSparseMatrix, b: torch.Tensor, semiring: Semiring = PLUS_TIMES
 ) -> torch.Tensor:
     """C (m, k) = A (m, n) ⊕.⊗ B (n, k) for an ELL-padded BSR ``A``.
 
-    Gathers the B row-panel of every slot, zeroes the padded slots and
-    contracts with one batched product.
+    Gathers the B row-panel of every slot and contracts per block;
+    padded slots are set to the semiring zero before the ⊕ across slots,
+    so no semiring sees the pad's zero block.
     """
-    check_semiring(semiring)
-    m, n = a.shape
-    if b.shape[0] != n:
-        raise ValueError(f"shape mismatch: A {a.shape} @ B {tuple(b.shape)}")
-    k = b.shape[1]
-    bs_r, bs_c = a.block_shape
-    dtype = torch.promote_types(a.dtype, b.dtype)
-    gathered = b.to(dtype).reshape(n // bs_c, bs_c, k)[a.col_idx.long()]
-    safe = torch.where(
-        a.block_mask[:, :, None, None], a.blocks.to(dtype),
-        torch.zeros((), dtype=dtype, device=b.device),
-    )
-    out = torch.einsum("rmbc,rmck->rbk", safe, gathered)
-    return out.reshape(m, k)
+    m = a.shape[0]
+    gathered = _panels(a, b)[a.col_idx.long()]  # (nrb, mbpr, bs_c, k)
+    if semiring.name == "plus_times":
+        dtype = torch.promote_types(a.dtype, b.dtype)
+        safe = torch.where(a.block_mask[:, :, None, None], a.blocks.to(dtype),
+                           torch.zeros((), dtype=dtype, device=b.device))
+        out = torch.einsum("rmbc,rmck->rbk", safe, gathered.to(dtype))
+        return out.reshape(m, -1)
+    prod = semiring.matmul(a.blocks, gathered)  # (nrb, mbpr, bs_r, k)
+    prod = torch.where(a.block_mask[:, :, None, None], prod, _fill(semiring, prod))
+    return semiring.add_reduce(prod, 1).reshape(m, -1)
+
+
+def _segment_add_reduce(semiring, x: torch.Tensor, a: BlockCSRMatrix) -> torch.Tensor:
+    """⊕-reduce the stored blocks' partials ``x`` (T, …) into their
+    block-rows; rows with no stored block hold the semiring zero."""
+    rows = a.row_id.long()
+    if semiring.add is torch.add:
+        out = torch.zeros((a.n_row_blocks, *x.shape[1:]), dtype=x.dtype, device=x.device)
+        return out.index_add_(0, rows, x)
+    out = torch.full((a.n_row_blocks, *x.shape[1:]), semiring.zero, dtype=x.dtype,
+                     device=x.device)
+    # Blocks are stored row-major, so a block's rank within its row is its
+    # offset from row_ptr; merging rank s of every row at once touches each
+    # row at most once per pass (max row occupancy passes, O(T) memory).
+    rank = torch.arange(len(rows), device=x.device) - a.row_ptr.long()[:-1][rows]
+    passes = int((a.row_ptr[1:] - a.row_ptr[:-1]).max()) if a.n_row_blocks else 0
+    for s in range(passes):
+        sel = torch.nonzero(a.valid & (rank == s)).flatten()
+        r = rows[sel]
+        out[r] = semiring.add(out[r], x[sel])
+    return out
 
 
 def bcsr_matmul(
-    a: BlockCSRMatrix, b: torch.Tensor, semiring: str = PLUS_TIMES
+    a: BlockCSRMatrix, b: torch.Tensor, semiring: Semiring = PLUS_TIMES
 ) -> torch.Tensor:
     """C (m, k) = A (m, n) ⊕.⊗ B (n, k) for the flattened CSR layout.
 
-    One block product per stored block, then a sum keyed by ``row_id``.
-    Block-rows with no stored block come out as the semiring zero.
+    One block product per stored block, invalid tail slots set to the
+    semiring zero, then a segment-⊕ keyed by ``row_id``. Block-rows with
+    no stored block come out as the semiring zero.
     """
-    check_semiring(semiring)
-    m, n = a.shape
-    if b.shape[0] != n:
-        raise ValueError(f"shape mismatch: A {a.shape} @ B {tuple(b.shape)}")
-    k = b.shape[1]
-    bs_r, bs_c = a.block_shape
-    dtype = torch.promote_types(a.dtype, b.dtype)
-    gathered = b.to(dtype).reshape(n // bs_c, bs_c, k)[a.col_idx.long()]
-    safe = torch.where(
-        a.valid[:, None, None], a.values.to(dtype),
-        torch.zeros((), dtype=dtype, device=b.device),
-    )
-    prod = torch.bmm(safe, gathered)  # (T, bs_r, k)
-    out = torch.zeros((a.n_row_blocks, bs_r, k), dtype=dtype, device=b.device)
-    out.index_add_(0, a.row_id.long(), prod)
-    return out.reshape(m, k)
+    m = a.shape[0]
+    gathered = _panels(a, b)[a.col_idx.long()]  # (T, bs_c, k)
+    if semiring.name == "plus_times":
+        dtype = torch.promote_types(a.dtype, b.dtype)
+        safe = torch.where(a.valid[:, None, None], a.values.to(dtype),
+                           torch.zeros((), dtype=dtype, device=b.device))
+        prod = torch.bmm(safe, gathered.to(dtype))  # (T, bs_r, k)
+    else:
+        prod = semiring.matmul(a.values, gathered)
+        prod = torch.where(a.valid[:, None, None], prod, _fill(semiring, prod))
+    return _segment_add_reduce(semiring, prod, a).reshape(m, -1)
 
 
 def bsr_matmul_fused_relu(

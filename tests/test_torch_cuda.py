@@ -8,7 +8,10 @@ it runs on a GPU host that has only PyTorch:
 
 Tolerances: one SpMM layer ``rtol=1e-5, atol=1e-6`` (f32, the summation
 order differs); an f32 stack ``rtol=1e-4, atol=1e-6`` plus exact
-categories; bf16 panels within 4 bf16 ulps of the output's scale.
+categories; bf16 panels within 4 bf16 ulps of the output's scale. The
+three semiring kernels see integer-valued inputs in all eight
+semirings: exact, except ``log_plus`` within 1e-5 (its reductions run in
+another order).
 """
 
 import numpy as np
@@ -16,11 +19,14 @@ import pytest
 import torch
 
 from repro_torch.core.dnn import stack_bsr
+from repro_torch.core.semiring import REGISTRY
 from repro_torch.data import radixnet as rx
 from repro_torch.kernels import build, ops
 from repro_torch.kernels.bcsr_spmm import bcsr_spmm_plain
 from repro_torch.kernels.bsr_spmm import bsr_spmm_plain
 from repro_torch.kernels.fused_mlp import fused_mlp_plain
+from repro_torch.kernels.semiring_matmul import semiring_matmul_plain
+from repro_torch.kernels.semirings import kernel_zero
 from repro_torch.serve import run_challenge
 from repro_torch.sparse import BlockCSRMatrix, BlockSparseMatrix
 
@@ -111,3 +117,74 @@ def test_challenge_routes_match_on_the_card(cuda):
         assert np.array_equal(res.categories, ref)
         assert all(ops.launch_counts()[k] > 0 for k in kernels)
     assert all(build.library_path(n).exists() for n in build.SOURCES)
+
+
+def _semiring_operands(rng, device):
+    """Integer-valued ELL (pad slots, empty block-row 1), its block-CSR
+    form with tail slots, a dense matrix with ragged k, and a panel."""
+    d = rng.integers(-3, 4, (64, 48)).astype(np.float32)
+    keep = rng.random((4, 3)) < 0.6
+    keep[0] = True
+    keep[1] = False
+    d *= np.kron(keep, np.ones((16, 16), np.float32))
+    a = BlockSparseMatrix.from_dense(d, (16, 16), pad_to=3, device=device)
+    c = BlockCSRMatrix.from_bsr(a, pad_to=a.nnz_blocks() + 2)
+    dense = torch.from_numpy(rng.integers(-3, 4, (40, 37)).astype(np.float32)).to(device)
+    y = torch.from_numpy(rng.integers(-3, 4, (48, 37)).astype(np.float32)).to(device)
+    return a, c, dense, y
+
+
+def _close(name, got, want):
+    if name == "log_plus":
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        assert torch.equal(got, want), float((got - want).abs().nan_to_num().max())
+
+
+@pytest.mark.parametrize("name", sorted(REGISTRY))
+def test_semiring_kernels_match_plain(cuda, name):
+    rng = np.random.default_rng(7)
+    a, c, dense, y = _semiring_operands(rng, cuda)
+    ops.reset_launch_counts()
+    for kern, plain, w, panel in ((ops.bsr_spmm, bsr_spmm_plain, a, y),
+                                  (ops.bcsr_spmm, bcsr_spmm_plain, c, y),
+                                  (ops.semiring_matmul, semiring_matmul_plain, dense, y[:37])):
+        got = kern(w, panel, semiring_name=name)
+        _close(name, got, plain(w, panel, semiring_name=name))
+        if w is not dense:  # the empty block-row holds the semiring's init
+            assert torch.all(got[16:32] == kernel_zero(name))
+    assert all(ops.launch_counts()[k] == 1 for k in ("bsr_spmm", "bcsr_spmm", "semiring_matmul"))
+
+
+@pytest.mark.parametrize("name", ["max_plus", "min_plus", "max_min", "min_max"])
+def test_max_and_min_keep_nan_in_every_kernel(cuda, name):
+    """jnp.maximum/minimum propagate NaN; CUDA's fmaxf/fminf would drop it."""
+    rng = np.random.default_rng(8)
+    a, c, dense, y = _semiring_operands(rng, cuda)
+    y[3, 5] = float("nan")  # feeds block-column 0 (every stored row) and dense k=3
+    for kern, w, panel in ((ops.bsr_spmm, a, y), (ops.bcsr_spmm, c, y),
+                           (ops.semiring_matmul, dense, y[:37])):
+        got = kern(w, panel, semiring_name=name)
+        assert torch.isnan(got[:16, 5]).all() and not torch.isnan(got[:, :5]).any()
+
+
+def test_log_plus_of_two_minus_infinities_is_minus_infinity(cuda):
+    inf = float("inf")
+    a = torch.full((16, 16), -inf, device=cuda)
+    b = torch.full((16, 8), -inf, device=cuda)
+    got = ops.semiring_matmul(a, b, semiring_name="log_plus")
+    assert torch.all(got == -inf)
+    w = BlockSparseMatrix.from_dense(np.ones((16, 16), np.float32), (16, 16), device=cuda)
+    w.blocks.fill_(-inf)
+    assert torch.all(ops.bsr_spmm(w, b, semiring_name="log_plus") == -inf)
+
+
+@pytest.mark.parametrize("name", ["plus_times", "min_plus", "max_plus"])
+def test_empty_bcsr_row_writes_the_epilogue_of_init(cuda, name):
+    rng = np.random.default_rng(9)
+    _, c, _, y = _semiring_operands(rng, cuda)
+    bias = torch.from_numpy(rng.standard_normal(64).astype(np.float32)).to(cuda)
+    got = ops.bcsr_spmm(c, y, bias, semiring_name=name, fuse_bias_relu=True)
+    want = torch.clamp_min(kernel_zero(name) + bias[16:32], 0)[:, None].expand(16, 37)
+    assert torch.equal(got[16:32], want)
+    assert torch.equal(got, bcsr_spmm_plain(c, y, bias, semiring_name=name, fuse_bias_relu=True))

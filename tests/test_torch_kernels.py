@@ -76,11 +76,13 @@ def test_bcsr_spmm_matches_reference_with_empty_row_and_tail(bs, fuse):
 
 
 def test_spmm_wrappers_reject_other_semirings_and_missing_bias():
+    """Every registry semiring is taken (tests/test_torch_semiring_kernels.py);
+    a name outside the registry is refused."""
     rng = np.random.default_rng(0)
     _, a = _weight(rng, 16, 16, 8)
     y = torch.zeros(16, 4)
-    with pytest.raises(NotImplementedError, match="GraphBLAS slice"):
-        ops.bsr_spmm(a, y, semiring_name="min_plus")
+    with pytest.raises(KeyError, match="unknown semiring"):
+        ops.bsr_spmm(a, y, semiring_name="min_plus_times")
     with pytest.raises(ValueError, match="requires bias"):
         ops.bsr_spmm(a, y, fuse_bias_relu=True)
 

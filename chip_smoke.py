@@ -7,13 +7,18 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
 
 1. device    — a CUDA card must be present; print its name and power
    limit, build the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
-   per source, all at once) and print nvcc's register/spill report.
+   per source, all at once) and print nvcc's register/spill report; the
+   register-tiled kernels (``semiring_matmul``, ``bsr_spmm``) must spill
+   nothing.
 2. kernels   — each of the five kernels against its plain PyTorch
    version at the serving shapes (RadiX-net 1024 neurons, block 16,
    panel 512; 16384 neurons for the tiled kernel; the dense kernel on a
    densified 1024 × 1024 layer): error, median time from CUDA events,
    the plain version's time, the bound and a library yardstick where one
-   PyTorch call computes the same function. Then ``semirings``: the
+   PyTorch call computes the same function, the stored work folded per
+   second (``tflops``) and the time over the library's (``vs_library``);
+   the two register-tiled kernels also on an 8-column panel
+   (``narrow``). Then ``semirings``: the
    three semiring kernels in all eight semirings on integer-valued
    operands with an empty block-row, ELL pad slots and block-CSR tail
    slots — exact, ``log_plus`` within 1e-5 — with their times.
@@ -55,6 +60,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -82,6 +88,8 @@ WIDE = 2048  # columns of the fused kernels' occupancy probe
 LOG_PLUS_TOL = 1e-5  # the reference's TOL: its reductions chain in another order
 GNN_TOL = 1e-5  # gnn_arm's scale-normalised conv agreement
 
+REDESIGNED = ("semiring_matmul", "bsr_spmm")  # register-tiled, cp.async-staged
+NARROW_N = 8  # the narrow-panel timing of the redesigned kernels (an mxv's width)
 KERNEL_SOURCES = {
     "semiring_matmul": ("src/repro_torch/csrc/semiring_matmul.cu",
                         "src/repro/kernels/semiring_matmul.py:112"),
@@ -152,6 +160,19 @@ def spmm_work(a, n: int, semiring: str = "plus_times") -> tuple[float, float]:
     nbytes = valid * bs_r * bs_c * 4 + index_bytes + k * n * 4 + m * 4 + m * n * 4
     weights = nonzero_weights(a) if semiring == "plus_times" else valid * bs_r * bs_c
     return nbytes, 2.0 * weights * n
+
+
+def stored_work(a, n: int) -> float:
+    """Operations a kernel folds for an (·, n) panel: 2 per stored
+    weight (zeros inside stored blocks included) and column."""
+    bs_r, bs_c = a.block_shape
+    return 2.0 * a.nnz_blocks() * bs_r * bs_c * n
+
+
+def rates(ms: float, work: float, library_ms) -> dict:
+    """The work folded per second, and the time against the library's."""
+    return {"tflops": work / ms / 1e9,
+            "vs_library": None if library_ms is None else ms / library_ms}
 
 
 def dense_work(m: int, k: int, n: int) -> tuple[float, float]:
@@ -251,6 +272,9 @@ def phase_device() -> dict:
                if "registers" in ln or "spill" in ln or "smem" in ln]
         for name, log in logs.items()
     }
+    for name in REDESIGNED:
+        spills = [int(v) for ln in report[name] for v in re.findall(r"(\d+) bytes spill", ln)]
+        check(spills and not any(spills), (name, "spills registers", spills))
     info = {
         "phase": "device",
         "name": torch.cuda.get_device_name(0),
@@ -290,6 +314,7 @@ def phase_kernels() -> dict:
           "RadiX-net 1024 phase layouts")
     rng = np.random.default_rng(0)
     y = torch.from_numpy(rng.random((1024, n), dtype=np.float32)).to(dev)
+    y_narrow = y[:, :NARROW_N].contiguous()
     b = biases[0]
 
     for name, a, kern, plain in (
@@ -307,16 +332,21 @@ def phase_kernels() -> dict:
                                    atol=SPMM_ATOL)
         nbytes, flops = spmm_work(a, n)
         bms, by = bound(nbytes, flops)
+        ms = gpu_time_ms(lambda: kern(a, y, b, fuse_bias_relu=True), per_rep=20, reps=5)
+        library_ms = gpu_time_ms(lambda: torch.addmm(bias_col, dense, y), per_rep=20, reps=5)
         out[name] = {
             **errors(got, want),
-            "ms": gpu_time_ms(lambda: kern(a, y, b, fuse_bias_relu=True), per_rep=20, reps=5),
+            "ms": ms,
             "plain_ms": gpu_time_ms(lambda: plain(a, y, b, fuse_bias_relu=True),
                                     per_rep=5, reps=5),
-            "library_ms": gpu_time_ms(lambda: torch.addmm(bias_col, dense, y),
-                                      per_rep=20, reps=5),
+            "library_ms": library_ms, **rates(ms, stored_work(a, n), library_ms),
             "bound_ms": bms, "bound_by": by, "shape": [1024, 1024, n],
             "stored_blocks": a.nnz_blocks(), "nonzero_weights": nonzero_weights(a),
         }
+        if name in REDESIGNED:
+            out[name]["narrow"] = narrow_timing(kern, plain, a, dense, y_narrow, b,
+                                                stored_work(a, NARROW_N),
+                                                spmm_work(a, NARROW_N))
 
     # dense: a densified stride-32 layer, as the dense phase runs it
     w_dense = ell.to_dense()
@@ -326,14 +356,19 @@ def phase_kernels() -> dict:
     torch.testing.assert_close(got, want, rtol=SPMM_RTOL, atol=SPMM_ATOL)
     bias_col = b[:, None]
     bms, by = bound(*dense_work(1024, 1024, n))
+    ms = gpu_time_ms(lambda: ops.semiring_matmul(w_dense, y, b, fuse_bias_relu=True),
+                     per_rep=10, reps=5)
+    library_ms = gpu_time_ms(lambda: torch.addmm(bias_col, w_dense, y), per_rep=10, reps=5)
     out["semiring_matmul"] = {
         **errors(got, want),
-        "ms": gpu_time_ms(lambda: ops.semiring_matmul(w_dense, y, b, fuse_bias_relu=True),
-                          per_rep=10, reps=5),
+        "ms": ms,
         "plain_ms": gpu_time_ms(lambda: semiring_matmul_plain(w_dense, y, b, fuse_bias_relu=True),
                                 per_rep=10, reps=5),
-        "library_ms": gpu_time_ms(lambda: torch.addmm(bias_col, w_dense, y), per_rep=10, reps=5),
+        "library_ms": library_ms, **rates(ms, dense_work(1024, 1024, n)[1], library_ms),
         "bound_ms": bms, "bound_by": by, "shape": [1024, 1024, n],
+        "narrow": narrow_timing(ops.semiring_matmul, semiring_matmul_plain, w_dense, w_dense,
+                                y_narrow, b, dense_work(1024, 1024, NARROW_N)[1],
+                                dense_work(1024, 1024, NARROW_N)),
     }
     out["semirings"] = semiring_checks(weights[1], dev, n)
 
@@ -381,13 +416,14 @@ def phase_kernels() -> dict:
         nbytes, flops = stack_work(args[0], n)
         bms, by = bound(nbytes, flops)
         reps = 3
+        ms = gpu_time_ms(lambda: kern(*args), per_rep=1, reps=reps)
         out[name] = {
             **err,
             "categories": int(len(cats_want)),
             "bf16": {**err16, "rtol": rtol16, "layers": BF16_DEPTH},
-            "ms": gpu_time_ms(lambda: kern(*args), per_rep=1, reps=reps),
+            "ms": ms,
             "plain_ms": gpu_time_ms(lambda: fused_mlp_plain(*args), per_rep=1, reps=reps),
-            "library_ms": None,
+            "library_ms": None, **rates(ms, stored_work(args[0], n), None),
             "bound_ms": bms, "bound_by": by,
             "shape": [args[0].shape[0], int(args[1].shape[0]), n],
             "stored_blocks": args[0].nnz_blocks(),
@@ -401,6 +437,27 @@ def phase_kernels() -> dict:
         }
     emit({"phase": "kernels", **out})
     return out
+
+
+def narrow_timing(kern, plain, a, dense, y, b, work: float, bytes_ops) -> dict:
+    """A redesigned kernel on a narrow (8-column) panel, which runs its
+    narrow tile: checked against the plain version, timed beside it and
+    beside one ``torch.addmm`` of the same product."""
+    import torch
+
+    got = kern(a, y, b, fuse_bias_relu=True)
+    want = plain(a, y, b, fuse_bias_relu=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=SPMM_RTOL, atol=SPMM_ATOL)
+    bias_col = b[:, None]
+    ms = gpu_time_ms(lambda: kern(a, y, b, fuse_bias_relu=True), per_rep=20, reps=5)
+    library_ms = gpu_time_ms(lambda: torch.addmm(bias_col, dense, y), per_rep=20, reps=5)
+    bms, by = bound(*bytes_ops)
+    return {**errors(got, want), "n": int(y.shape[1]), "ms": ms,
+            "plain_ms": gpu_time_ms(lambda: plain(a, y, b, fuse_bias_relu=True),
+                                    per_rep=5, reps=5),
+            "library_ms": library_ms, **rates(ms, work, library_ms),
+            "bound_ms": bms, "bound_by": by}
 
 
 def semiring_checks(topology, dev, n: int) -> dict:
@@ -468,12 +525,14 @@ def semiring_checks(topology, dev, n: int) -> dict:
             if name == "plus_times":
                 lib_a = a if a is dense else a.to_dense()
                 library = gpu_time_ms(lambda: torch.matmul(lib_a, y), per_rep=5, reps=3)
+            ms = gpu_time_ms(lambda: kern(a, y, semiring_name=name), per_rep=5, reps=3)
+            work = dense_work(m, k, n)[1] if a is dense else stored_work(a, n)
             per[name] = {
-                "max_abs_err": err, "check": rule,
-                "ms": gpu_time_ms(lambda: kern(a, y, semiring_name=name), per_rep=5, reps=3),
+                "max_abs_err": err, "check": rule, "ms": ms,
                 "plain_ms": gpu_time_ms(lambda: plain(a, y, semiring_name=name),
                                         per_rep=2, reps=3),
                 "bound_ms": bms, "bound_by": by, "library_ms": library,
+                **rates(ms, work, library),
             }
         results[kname] = per
     return results

@@ -67,15 +67,19 @@ def library_path(name: str) -> Path:
 
 def build(names=SOURCES) -> dict[str, str]:
     """Compile every library in ``names`` that is not built yet, all
-    nvcc processes at once. Returns each compiled source's nvcc output
-    (the ``-Xptxas -v`` register and shared-memory report); raises
-    RuntimeError naming each source that failed."""
+    nvcc processes at once. Returns each library's nvcc output (the
+    ``-Xptxas -v`` register, shared-memory and spill report), kept
+    beside a library built earlier; raises RuntimeError naming each
+    source that failed."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     compiler = None
     running = {}
+    logs = {}
     for name in names:
         target = library_path(name)
         if target.exists():
+            log = target.with_suffix(".log")
+            logs[name] = log.read_text() if log.exists() else ""
             continue
         compiler = compiler or nvcc()
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
@@ -84,13 +88,14 @@ def build(names=SOURCES) -> dict[str, str]:
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )
         running[name] = (proc, tmp, target)
-    logs, failed = {}, []
+    failed = []
     try:
         for name, (proc, tmp, target) in running.items():
             logs[name], _ = proc.communicate(timeout=BUILD_TIMEOUT_S)
             if proc.returncode != 0:
                 failed.append(f"{name}.cu (exit {proc.returncode}):\n{logs[name]}")
             else:
+                target.with_suffix(".log").write_text(logs[name])
                 os.replace(tmp, target)
     finally:
         for proc, tmp, _ in running.values():
@@ -150,6 +155,17 @@ def require_contiguous_on(device, kernel: str, *tensors) -> None:
                 f"{kernel} CUDA kernel needs contiguous tensors on {device}; "
                 f"got a {tuple(t.shape)} tensor on {t.device} "
                 f"(contiguous={t.is_contiguous()})"
+            )
+
+
+def require_aligned(kernel: str, *tensors) -> None:
+    """Raise unless every tensor starts on a 16-byte boundary (the
+    kernels copy rows with 16-byte ``cp.async``)."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(
+                f"{kernel} CUDA kernel needs 16-byte aligned tensors; got a "
+                f"{tuple(t.shape)} tensor at offset {t.data_ptr() % 16}"
             )
 
 

@@ -78,6 +78,14 @@ def _pad_to(x: torch.Tensor, dim: int, mult: int, fill: float = 0.0) -> torch.Te
     return F.pad(x, [0, 0] * (x.dim() - 1 - dim) + [0, pad], value=fill)
 
 
+def _contiguous16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous and starting on a 16-byte boundary (the SpMM and
+    dense kernels copy rows with 16-byte ``cp.async``); a view at an odd
+    offset is copied."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def _bias_or_zeros(bias, m: int, like: torch.Tensor, fuse_bias_relu: bool):
     if fuse_bias_relu and bias is None:
         raise ValueError("fuse_bias_relu requires bias")
@@ -100,7 +108,9 @@ def semiring_matmul(
     k is padded with the semiring zero on both operands (the ⊕-identity
     and ⊗-annihilator, so padded products change nothing in any
     semiring — 0 would be a free edge under ``min_plus``); m and n with 0,
-    and those rows and columns are cut off again.
+    and those rows and columns are cut off again. The pads keep the rows
+    16-byte aligned for the kernel's copies; the kernel masks the ragged
+    edge of its larger CTA tile itself.
     """
     m, k = a.shape
     n = b.shape[1]
@@ -112,9 +122,8 @@ def semiring_matmul(
     biasp = _pad_to(bias, 0, bm)
     if bp.is_cuda:
         out = _smm.semiring_matmul_cuda(
-            ap.contiguous(), bp.contiguous(), biasp.contiguous(),
+            _contiguous16(ap), _contiguous16(bp), biasp.contiguous(),
             semiring_name=semiring_name, fuse_bias_relu=fuse_bias_relu,
-            block_m=bm, block_n=bn, block_k=bk,
         )
         _launches["semiring_matmul"] += 1
     else:
@@ -139,8 +148,8 @@ def bsr_spmm(
     bp = _pad_to(b, 1, block_n)
     if bp.is_cuda:
         out = _bsr.bsr_spmm_cuda(
-            a, bp.contiguous(), bias.contiguous(), semiring_name=semiring_name,
-            fuse_bias_relu=fuse_bias_relu, block_n=block_n,
+            a, _contiguous16(bp), bias.contiguous(), semiring_name=semiring_name,
+            fuse_bias_relu=fuse_bias_relu,
         )
         _launches["bsr_spmm"] += 1
     else:

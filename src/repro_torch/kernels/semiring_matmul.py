@@ -3,16 +3,21 @@
 Counterpart of ``repro/kernels/semiring_matmul.py`` (Pallas ``_kernel``,
 launch at ``semiring_matmul.py:112``): ``C = A ⊕.⊗ B`` over any registry
 semiring, with the optional fused ``max(C + bias, 0)`` epilogue. The
-kernel source is ``repro_torch/csrc/semiring_matmul.cu``.
+kernel source is ``repro_torch/csrc/semiring_matmul.cu``; its header says
+how it is laid out.
 
-Launch geometry: grid ``(m / block_m, n / block_n)``, block
-``(block_n, block_m)``; each CTA walks ``k / block_k`` k-steps, staging
-one A and one B tile in shared memory per step.
+Launch geometry: one CTA per ``bm × bn`` output tile of the chosen
+:class:`Tile` (``wide``, or ``narrow`` for panels of at most 16
+columns), grid ``(⌈m / bm⌉, ⌈n / bn⌉)``, ``threads`` threads each
+folding a ``tm × tn`` micro-tile in registers; each CTA walks
+``⌈k / bk⌉`` k-tiles through ``stages`` cp.async stages in shared
+memory and masks its own ragged edge.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -21,25 +26,60 @@ from repro_torch.kernels import build as _build
 from repro_torch.kernels.semirings import kernel_semiring
 from repro_torch.sparse import ops as sparse_ops
 
-MAX_TILE = 16  # kMaxTile of the kernel's shared-memory tiles
-
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    # a, b, bias, out, m, n, k, block_m, block_n, block_k, fuse_bias_relu,
-    # semiring, stream
-    "semiring_matmul_f32": (_P,) * 4 + (_I,) * 8 + (_P,),
+    # a, b, bias, out, m, n, k, tile, fuse_bias_relu, semiring, stream
+    "semiring_matmul_f32": (_P,) * 4 + (_I,) * 6 + (_P,),
 }
 
 
-def launch_geometry(
-    m: int, n: int, block_m: int, block_n: int
-) -> tuple[tuple[int, int], tuple[int, int]]:
-    """(grid, block) of the launch for padded m × n, whole tiles."""
-    return (m // block_m, n // block_n), (block_n, block_m)
+@dataclasses.dataclass(frozen=True)
+class Tile:
+    """One tile shape of the kernel: the ``Tile<BM, BN, BK, TM, TN,
+    STAGES>`` instantiations of ``csrc/semiring_matmul.cu``, mirrored."""
+
+    id: int  # the tile argument of the C entry
+    bm: int
+    bn: int
+    bk: int
+    tm: int
+    tn: int
+    stages: int
+
+    @property
+    def threads(self) -> int:
+        return (self.bm // self.tm) * (self.bn // self.tn)
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of one CTA: ``stages`` A tiles with rows
+        padded to ``bk + 4`` floats and ``stages`` B tiles."""
+        return self.stages * (self.bm * (self.bk + 4) + self.bk * self.bn) * 4
+
+
+TILES = {
+    "wide": Tile(0, bm=64, bn=64, bk=32, tm=4, tn=4, stages=2),
+    "narrow": Tile(1, bm=16, bn=8, bk=32, tm=1, tn=1, stages=3),
+}
+NARROW_MAX_N = 16  # panels this narrow run the narrow tile
+
+
+def tile_for(n: int) -> Tile:
+    """The tile the launch runs for an (·, n) panel."""
+    return TILES["narrow" if n <= NARROW_MAX_N else "wide"]
+
+
+def launch_geometry(m: int, n: int) -> tuple[tuple[int, int], tuple[int]]:
+    """(grid, block) of the launch for an (m, ·) × (·, n) product."""
+    t = tile_for(n)
+    return (-(-m // t.bm), -(-n // t.bn)), (t.threads,)
 
 
 def grid_steps(m: int, n: int, k: int, block_m: int, block_n: int, block_k: int) -> int:
-    """Tile products the launch walks: every CTA takes every k-step."""
+    """The launch's bill: the ``block_m × block_n × block_k`` tile
+    products of the product at the wrapper's tiles (``dense_block_sizes``
+    in ``kernels/ops.py``), whatever tile a CTA covers — every output
+    tile takes every k-step."""
     return -(-m // block_m) * -(-n // block_n) * -(-k // block_k)
 
 
@@ -66,28 +106,26 @@ def semiring_matmul_cuda(
     *,
     semiring_name: str = "plus_times",
     fuse_bias_relu: bool,
-    block_m: int,
-    block_n: int,
-    block_k: int,
 ) -> torch.Tensor:
     """Launch the kernel on CUDA tensors: f32, ``a`` (m, k) and ``b``
-    (k, n) contiguous in whole tiles, ``bias`` (m,)."""
+    (k, n) contiguous with n and k multiples of 4 and 16-byte aligned,
+    ``bias`` (m,)."""
     m, k = a.shape
     n = b.shape[1]
     need = functools.partial(_build.require, "semiring_matmul")
     need(a.dtype == b.dtype == bias.dtype == torch.float32, "f32 operands and bias")
     _build.require_contiguous_on(b.device, "semiring_matmul", a, b, bias)
     need(b.shape[0] == k and bias.shape == (m,), f"b ({k}, n) and bias ({m},)")
-    need(max(block_m, block_n, block_k) <= MAX_TILE,
-         f"block sizes of at most {MAX_TILE}")
-    need(m % block_m == 0 and n % block_n == 0 and k % block_k == 0,
-         f"m, n, k in whole ({block_m}, {block_n}, {block_k}) tiles")
+    need(n % 4 == 0 and k % 4 == 0, "n and k multiples of 4 (16-byte rows)")
+    _build.require_aligned("semiring_matmul", a, b)
+    (_, gy), _ = launch_geometry(m, n)
+    need(gy <= 65535, "at most 65535 column tiles")
     sid = kernel_semiring(semiring_name).id
     lib = _build.load("semiring_matmul", SIGNATURES)
     out = torch.empty((m, n), dtype=torch.float32, device=b.device)
     p = _build.pointer
     err = lib.semiring_matmul_f32(
-        p(a), p(b), p(bias), p(out), m, n, k, block_m, block_n, block_k,
+        p(a), p(b), p(bias), p(out), m, n, k, tile_for(n).id,
         int(fuse_bias_relu), sid, _build.stream_handle(b.device),
     )
     _build.check(lib, err, "semiring_matmul")

@@ -1,9 +1,10 @@
 """Exact launch accounting — counterpart of ``repro/plan/cost.py``.
 
 The reference bills Pallas grid steps. The port bills the block products
-its own CUDA launches walk (a CTA visiting one stored-block slot for one
-column tile is one step), read from each kernel module's ``grid_steps``
-at the tile width the wrappers actually run (:func:`effective_block_n`):
+its CUDA launches fold, counted in ``DEFAULT_BLOCK_N``-wide column tiles
+at the tile width the wrappers run (:func:`effective_block_n`), whatever
+width a CTA covers (a wider CTA folds several such tiles and changes no
+bill). Each kernel module's ``grid_steps`` gives its bill:
 
 * ELL (``bsr_spmm``): ``nrb × max_blocks_per_row × n_tiles`` — every
   CTA visits its whole row of slots, padding included;
@@ -11,12 +12,13 @@ at the tile width the wrappers actually run (:func:`effective_block_n`):
   launch walks ``row_ptr`` ranges, so tail padding is never visited;
 * dense (``semiring_matmul``): ``(m/bm) × (n/bn) × (k/bk)`` tile
   products at the wrapper's tiles (:func:`dense_block_sizes`) — every
-  CTA takes every k-step;
+  output tile takes every k-step;
 * fused stack: the sum of its layers' ELL bills (each stripe's CTA walks
   every slot of every layer).
 
-``tests/test_torch_plan.py`` and ``tests/test_torch_mxm_plan.py`` pin
-these against the launch geometry the kernel modules expose.
+``tests/test_torch_plan.py``, ``tests/test_torch_mxm_plan.py`` and
+``tests/test_torch_tiling.py`` pin these against the launch geometry the
+kernel modules expose.
 """
 
 from __future__ import annotations

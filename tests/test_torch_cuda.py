@@ -116,7 +116,8 @@ def test_challenge_routes_match_on_the_card(cuda):
         assert res.routes == (route,)
         assert np.array_equal(res.categories, ref)
         assert all(ops.launch_counts()[k] > 0 for k in kernels)
-    assert all(build.library_path(n).exists() for n in build.SOURCES)
+    # the libraries these launches used were built from csrc (whatever ran first)
+    assert all(build.library_path(n).exists() for n in ("fused_mlp", "bsr_spmm", "bcsr_spmm"))
 
 
 def _semiring_operands(rng, device):
@@ -188,3 +189,124 @@ def test_empty_bcsr_row_writes_the_epilogue_of_init(cuda, name):
     want = torch.clamp_min(kernel_zero(name) + bias[16:32], 0)[:, None].expand(16, 37)
     assert torch.equal(got[16:32], want)
     assert torch.equal(got, bcsr_spmm_plain(c, y, bias, semiring_name=name, fuse_bias_relu=True))
+
+
+RAGGED_NS = (1, 8, 37, 200, 700)  # none a multiple of the kernels' CTA tiles
+
+
+def _ragged_operands(rng, bs, ints=True):
+    """An 80 × 48 ELL weight at block ``bs`` (block-row 1 fully masked,
+    pad slots in every other row), the same values dense, a bias, and a
+    (48, 700) panel: integers in [-3, 3], or f32 drawn as
+    ``test_spmm_kernels_match_plain`` draws them (weights U[-1, 3), panel
+    U[0, 1), bias standard normal)."""
+    def draw(*shape, panel=False):
+        if ints:
+            return rng.integers(-3, 4, shape).astype(np.float32)
+        if panel:
+            return rng.random(shape, dtype=np.float32)
+        return rng.uniform(-1.0, 3.0, shape).astype(np.float32)
+
+    d = draw(80, 48)
+    keep = rng.random((80 // bs, 48 // bs)) < 0.6
+    keep[:, 0] = True
+    keep[1] = False
+    d *= np.kron(keep, np.ones((bs, bs), np.float32))
+    a = BlockSparseMatrix.from_dense(d, (bs, bs), pad_to=48 // bs + 1)
+    assert not a.block_mask[1].any() and not a.block_mask.all()
+    bias = draw(80) if ints else rng.standard_normal(80).astype(np.float32)
+    return a, d, bias, draw(48, max(RAGGED_NS), panel=True)
+
+
+@pytest.mark.parametrize("bs", [8, 16])
+@pytest.mark.parametrize("name", sorted(REGISTRY))
+def test_redesigned_kernels_match_plain_on_ragged_shapes(cuda, name, bs):
+    """semiring_matmul and bsr_spmm on m = 80, k = 48 and panels that fill
+    no CTA tile exactly, narrow and wide, epilogue on and off: exact on
+    integer operands, log_plus within 1e-5·(1+|x|). The masked block-row
+    holds the epilogue of the semiring's init."""
+    a, d, bias, y = _ragged_operands(np.random.default_rng(bs), bs)
+    a, d, bias = a.to(cuda), torch.from_numpy(d).to(cuda), torch.from_numpy(bias).to(cuda)
+    y = torch.from_numpy(y).to(cuda)
+    for n in RAGGED_NS:
+        panel = y[:, :n]
+        for fuse in (False, True):
+            for kern, plain, w in ((ops.semiring_matmul, semiring_matmul_plain, d),
+                                   (ops.bsr_spmm, bsr_spmm_plain, a)):
+                got = kern(w, panel, bias, semiring_name=name, fuse_bias_relu=fuse)
+                assert got.shape == (80, n)
+                _close(name, got, plain(w, panel, bias, semiring_name=name,
+                                        fuse_bias_relu=fuse))
+            init = torch.full((bs, n), kernel_zero(name), device=cuda)
+            if fuse:
+                init = torch.clamp_min(init + bias[bs:2 * bs, None], 0)
+            assert torch.equal(got[bs:2 * bs], init)
+
+
+@pytest.mark.parametrize("bs", [8, 16])
+def test_redesigned_kernels_match_plain_on_random_f32(cuda, bs):
+    a, d, bias, y = _ragged_operands(np.random.default_rng(10 + bs), bs, ints=False)
+    a, d, bias = a.to(cuda), torch.from_numpy(d).to(cuda), torch.from_numpy(bias).to(cuda)
+    y = torch.from_numpy(y).to(cuda)
+    ops.reset_launch_counts()
+    for n in RAGGED_NS:
+        for fuse in (False, True):
+            for kern, plain, w in ((ops.semiring_matmul, semiring_matmul_plain, d),
+                                   (ops.bsr_spmm, bsr_spmm_plain, a)):
+                got = kern(w, y[:, :n], bias, fuse_bias_relu=fuse)
+                torch.testing.assert_close(
+                    got, plain(w, y[:, :n], bias, fuse_bias_relu=fuse), **SPMM_TOL)
+    counts = ops.launch_counts()
+    assert counts["semiring_matmul"] == counts["bsr_spmm"] == 2 * len(RAGGED_NS)
+
+
+@pytest.mark.parametrize("bs", [8, 16])
+@pytest.mark.parametrize("name", sorted(REGISTRY))
+def test_ell_pad_slots_are_never_folded(cuda, name, bs):
+    """Pad slots point at block-column 0 (rows 0..bs_c-1 of the panel),
+    which here hold NaN while no stored block reads them: a folded pad
+    would put NaN in every row of its block-row."""
+    rng = np.random.default_rng(20 + bs)
+    d = rng.integers(-3, 4, (80, 48)).astype(np.float32)
+    keep = rng.random((80 // bs, 48 // bs)) < 0.5
+    keep[:, 0] = False
+    keep[0, 1:] = True
+    keep[1] = False
+    d *= np.kron(keep, np.ones((bs, bs), np.float32))
+    a = BlockSparseMatrix.from_dense(d, (bs, bs), pad_to=48 // bs).to(cuda)
+    assert int(a.col_idx[~a.block_mask].max()) == 0 and not a.block_mask.all()
+    clean = torch.from_numpy(rng.integers(-3, 4, (48, 200)).astype(np.float32)).to(cuda)
+    y = clean.clone()
+    y[:bs] = float("nan")
+    for n in (8, 200):
+        got = ops.bsr_spmm(a, y[:, :n], semiring_name=name)
+        assert not torch.isnan(got).any()
+        # the plain version multiplies a plus_times pad's zero block by the
+        # rows it gathers (0 · NaN = NaN), so it is held on the clean panel
+        _close(name, got, bsr_spmm_plain(a, clean[:, :n], semiring_name=name))
+
+
+def test_log_plus_fold_keeps_the_special_values(cuda):
+    """The redesigned kernels fold log_plus as a running log-sum-exp; it
+    keeps jnp.logaddexp's answers for -inf (the semiring zero), +inf, +inf
+    meeting +inf, and NaN, on narrow and wide panels."""
+    inf, nan = float("inf"), float("nan")
+    rng = np.random.default_rng(30)
+    a = rng.integers(-3, 4, (32, 32)).astype(np.float32)
+    a[rng.random(a.shape) < 0.3] = -inf
+    a[5] = -inf  # every product of row 5 is -inf
+    a[6, 3] = inf
+    y = rng.integers(-3, 4, (32, 70)).astype(np.float32)
+    y[rng.random(y.shape) < 0.3] = -inf
+    y[:, 7] = -inf
+    y[3, 9] = inf  # +inf + +inf at (6, 9); -inf + +inf = NaN where a[:, 3] is -inf
+    y[4, 11] = nan
+    ell = BlockSparseMatrix.from_dense(a, (16, 16)).to(cuda)
+    d, y = torch.from_numpy(a).to(cuda), torch.from_numpy(y).to(cuda)
+    for n in (16, 70):
+        for kern, plain, w in ((ops.semiring_matmul, semiring_matmul_plain, d),
+                               (ops.bsr_spmm, bsr_spmm_plain, ell)):
+            got = kern(w, y[:, :n], semiring_name="log_plus")
+            want = plain(w, y[:, :n], semiring_name="log_plus")
+            assert torch.isinf(want).any() and torch.isnan(want).any()
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5, equal_nan=True)

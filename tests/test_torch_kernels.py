@@ -151,11 +151,11 @@ def test_cuda_launchers_validate_inputs_before_building():
     y = torch.ones(32, 32)
     bias = torch.zeros(32)
     with pytest.raises(ValueError, match="contiguous"):
-        bsr_spmm_cuda(a, y[:, ::2], bias, fuse_bias_relu=True, block_n=16)
+        bsr_spmm_cuda(a, y[:, ::2], bias, fuse_bias_relu=True)
     with pytest.raises(ValueError, match="f32"):
-        bsr_spmm_cuda(a, y.double(), bias, fuse_bias_relu=True, block_n=16)
-    with pytest.raises(ValueError, match="n % 16"):
-        bsr_spmm_cuda(a, y[:, :24].contiguous(), bias, fuse_bias_relu=True, block_n=16)
+        bsr_spmm_cuda(a, y.double(), bias, fuse_bias_relu=True)
+    with pytest.raises(ValueError, match="n % 4"):
+        bsr_spmm_cuda(a, y[:, :22].contiguous(), bias, fuse_bias_relu=True)
     *_, sw, sb, y0 = _stacks(64, 2)
     with pytest.raises(ValueError, match=r"y0 \(64, n\)"):
         fused_mlp_cuda(sw, sb, torch.ones(128, 16), tiled=True, block_n=16)

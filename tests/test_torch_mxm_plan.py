@@ -84,14 +84,18 @@ def test_mxv_bills_one_eight_wide_stripe():
 
 def test_dense_bill_is_the_launch_grid():
     """kernel-dense bills (m/bm)·(n/bn)·(k/bk) at the wrapper's clamped
-    tiles — the CTAs its launch starts, times the k-steps each walks."""
+    tiles — the output tiles the launch's CTAs cover, times the k-steps
+    each walks, whatever tile a CTA owns."""
     for m, k, n in ((1024, 1024, 512), (40, 21, 13), (8, 8, 1)):
         w = torch.zeros(m, k)
         bm, bn, bk = dense_block_sizes(m, n, k)
         pad = lambda x, b: -(-x // b) * b  # noqa: E731
-        (gx, gy), (tx, ty) = ksmm.launch_geometry(pad(m, bm), pad(n, bn), bm, bn)
-        assert (tx, ty) == (bn, bm) and tx * ty <= 256
-        assert cost.layer_grid_steps(w, n) == gx * gy * pad(k, bk) // bk
+        (gx, gy), (threads,) = ksmm.launch_geometry(pad(m, bm), pad(n, bn))
+        tile = ksmm.tile_for(pad(n, bn))
+        assert threads == tile.threads <= 256
+        assert gx == -(-pad(m, bm) // tile.bm) and gy == -(-pad(n, bn) // tile.bn)
+        assert cost.layer_grid_steps(w, n) == (pad(m, bm) // bm) * (pad(n, bn) // bn) * (
+            pad(k, bk) // bk)
     # the reference tiles m and k at its 128-lane width, the port at 16
     assert cost.layer_grid_steps(torch.zeros(1024, 1024), 512) == 64 * 32 * 64
 

@@ -88,9 +88,12 @@ def test_cost_bills_the_launch_geometry(n):
     ell, csr = ws[1], BlockCSRMatrix.from_bsr(ws[0])
     bn = effective_block_n(n)
     n_pad = -(-n // bn) * bn
-    (gx, gy), (bx, by) = kbsr.launch_geometry(ell, n_pad, bn)
-    assert (bx, by) == (bn, 16) and bx * by <= 1024
-    assert P.layer_grid_steps(ell, n) == gx * gy * ell.max_blocks_per_row
+    (gx, gy), (threads,) = kbsr.launch_geometry(ell, n_pad)
+    tile = kbsr.tile_for(n_pad)
+    assert threads == -(-16 // tile.tm) * (tile.cn // tile.tn) and threads <= 1024
+    assert (gy - 1) * tile.cn < n_pad <= gy * tile.cn
+    # each CTA folds every slot of its block-row for the bn-wide tiles it covers
+    assert P.layer_grid_steps(ell, n) == gx * ell.max_blocks_per_row * (n_pad // bn)
     (gx, gy), _ = kbcsr.launch_geometry(csr, n_pad, bn)
     row_slots = (csr.row_ptr[1:] - csr.row_ptr[:-1]).tolist()
     assert gx == len(row_slots)

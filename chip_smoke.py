@@ -8,8 +8,8 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
 1. device    — a CUDA card must be present; print its name and power
    limit, build the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
    per source, all at once) and print nvcc's register/spill report; the
-   register-tiled kernels (``semiring_matmul``, ``bsr_spmm``) must spill
-   nothing.
+   register-tiled kernels (``semiring_matmul``, ``bsr_spmm`` and the two
+   fused kernels) must spill nothing.
 2. kernels   — each of the five kernels against its plain PyTorch
    version at the serving shapes (RadiX-net 1024 neurons, block 16,
    panel 512; 16384 neurons for the tiled kernel; the dense kernel on a
@@ -18,7 +18,9 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    PyTorch call computes the same function, the stored work folded per
    second (``tflops``) and the time over the library's (``vs_library``);
    the two register-tiled kernels also on an 8-column panel
-   (``narrow``). Then ``semirings``: the
+   (``narrow``); the two fused kernels with their launch (``cluster``,
+   ``ctas``, what the card holds at once) and a 2048-column ``wide``
+   probe with its time over the 512-column time. Then ``semirings``: the
    three semiring kernels in all eight semirings on integer-valued
    operands with an empty block-row, ELL pad slots and block-CSR tail
    slots — exact, ``log_plus`` within 1e-5 — with their times.
@@ -88,7 +90,8 @@ WIDE = 2048  # columns of the fused kernels' occupancy probe
 LOG_PLUS_TOL = 1e-5  # the reference's TOL: its reductions chain in another order
 GNN_TOL = 1e-5  # gnn_arm's scale-normalised conv agreement
 
-REDESIGNED = ("semiring_matmul", "bsr_spmm")  # register-tiled, cp.async-staged
+# register-tiled, cp.async-staged
+REDESIGNED = ("semiring_matmul", "bsr_spmm", "fused_mlp_forward", "fused_mlp_tiled_forward")
 NARROW_N = 8  # the narrow-panel timing of the redesigned kernels (an mxv's width)
 KERNEL_SOURCES = {
     "semiring_matmul": ("src/repro_torch/csrc/semiring_matmul.cu",
@@ -272,9 +275,9 @@ def phase_device() -> dict:
                if "registers" in ln or "spill" in ln or "smem" in ln]
         for name, log in logs.items()
     }
-    for name in REDESIGNED:
-        spills = [int(v) for ln in report[name] for v in re.findall(r"(\d+) bytes spill", ln)]
-        check(spills and not any(spills), (name, "spills registers", spills))
+    for source in sorted({os.path.basename(KERNEL_SOURCES[k][0])[:-3] for k in REDESIGNED}):
+        spills = [int(v) for ln in report[source] for v in re.findall(r"(\d+) bytes spill", ln)]
+        check(spills and not any(spills), (source, "spills registers", spills))
     info = {
         "phase": "device",
         "name": torch.cuda.get_device_name(0),
@@ -295,10 +298,10 @@ def phase_kernels() -> dict:
 
     from repro_torch.core.dnn import stack_bsr
     from repro_torch.data import radixnet as rx
-    from repro_torch.kernels import DEFAULT_BLOCK_N, ops
+    from repro_torch.kernels import ops
     from repro_torch.kernels.bcsr_spmm import bcsr_spmm_plain
     from repro_torch.kernels.bsr_spmm import bsr_spmm_plain
-    from repro_torch.kernels.fused_mlp import fused_mlp_plain
+    from repro_torch.kernels.fused_mlp import card_geometry, fused_mlp_plain
     from repro_torch.kernels.semiring_matmul import semiring_matmul_plain
     from repro_torch.plan.layout import preferred_layout
     from repro_torch.sparse.bcsr import BlockCSRMatrix
@@ -417,6 +420,10 @@ def phase_kernels() -> dict:
         bms, by = bound(nbytes, flops)
         reps = 3
         ms = gpu_time_ms(lambda: kern(*args), per_rep=1, reps=reps)
+        tiled = name == "fused_mlp_tiled_forward"
+        geo, at_once = card_geometry(args[0], n, tiled=tiled, device=dev)
+        wide_geo, _ = card_geometry(args[0], WIDE, tiled=tiled, device=dev)
+        wide_ms = gpu_time_ms(lambda: kern(args[0], args[1], wide), per_rep=1, reps=reps)
         out[name] = {
             **err,
             "categories": int(len(cats_want)),
@@ -429,11 +436,13 @@ def phase_kernels() -> dict:
             "stored_blocks": args[0].nnz_blocks(),
             "nonzero_weights": nonzero_weights(args[0]),
             "weight_bytes_per_stripe": args[0].nnz_blocks() * 4 * args[0].block_shape[0] ** 2,
-            "ctas": n // DEFAULT_BLOCK_N,
-            # occupancy probe: the same stack on a 4x wider panel (4x the CTAs)
-            "wide": {"columns": WIDE, "ctas": WIDE // DEFAULT_BLOCK_N,
-                     "ms": gpu_time_ms(lambda: kern(args[0], args[1], wide),
-                                       per_rep=1, reps=reps)},
+            "cluster": geo.cluster, "ctas": geo.ctas, "smem_bytes": geo.smem_bytes,
+            # resident: clusters of this size the card holds at once; tiled: CTAs an SM holds
+            ("clusters_at_once" if not tiled else "ctas_per_sm"): at_once,
+            # occupancy probe: the same stack on a 4x wider panel (4x the work); a
+            # ratio near 4 says the 512-column launch already fills the card
+            "wide": {"columns": WIDE, "cluster": wide_geo.cluster, "ctas": wide_geo.ctas,
+                     "ms": wide_ms, "ratio_to_512": wide_ms / ms},
         }
     emit({"phase": "kernels", **out})
     return out

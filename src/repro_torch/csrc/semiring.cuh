@@ -21,6 +21,7 @@
 // The ids match repro_torch/kernels/semirings.py SEMIRING_IDS; every C
 // entry point switches on them through dispatch().
 #pragma once
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -106,9 +107,11 @@ __device__ __forceinline__ float bias_relu(float acc, float bias) {
 // each thread then folds a TM x TN micro-tile of outputs held in
 // registers.
 
-// One 16-byte asynchronous copy global -> shared. `.cg` caches in L2
-// only: the CTA reuses the data from shared memory, not from L1.
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+// One 16-byte asynchronous copy global -> shared (4 floats or 8 bf16).
+// `.cg` caches in L2 only: the CTA reuses the data from shared memory,
+// not from L1.
+template <class T>
+__device__ __forceinline__ void cp_async16(T* smem, const T* gmem) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
 }
@@ -142,6 +145,26 @@ __device__ __forceinline__ void load_row(const float* p, float (&v)[TN]) {
   } else {
 #pragma unroll
     for (int j = 0; j < TN; ++j) v[j] = p[j];
+  }
+}
+
+// TN consecutive bf16 values of a panel row, widened to f32 (exactly).
+template <int TN>
+__device__ __forceinline__ void load_row(const __nv_bfloat16* p, float (&v)[TN]) {
+  if constexpr (TN % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < TN; j += 4) {
+      const uint2 q = *reinterpret_cast<const uint2*>(p + j);
+      const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
+      const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
+      v[j] = lo.x, v[j + 1] = lo.y, v[j + 2] = hi.x, v[j + 3] = hi.y;
+    }
+  } else if constexpr (TN == 2) {
+    const float2 q = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+    v[0] = q.x, v[1] = q.y;
+  } else {
+#pragma unroll
+    for (int j = 0; j < TN; ++j) v[j] = __bfloat162float(p[j]);
   }
 }
 
@@ -186,10 +209,11 @@ struct Fold<LogPlus> {
 // with the four k values contiguous (one float4 per row: cp.async copies
 // rows as they lie in global memory and cannot transpose them); its
 // rows lie `a_stride` floats apart. `b` points at the thread's first
-// column in the first of four B rows, which lie `ldb` floats apart.
-template <class S, int TM, int TN>
+// column in the first of four B rows, which lie `ldb` elements apart; B
+// is f32, or bf16 (a fused kernel's panel) widened on load.
+template <class S, int TM, int TN, class B = float>
 __device__ __forceinline__ void fold4(Fold<S> (&acc)[TM][TN], const float* a, int a_stride,
-                                      const float* b, int ldb) {
+                                      const B* b, int ldb) {
   float4 av[TM];
 #pragma unroll
   for (int i = 0; i < TM; ++i) av[i] = *reinterpret_cast<const float4*>(a + i * a_stride);
@@ -214,9 +238,9 @@ __device__ __forceinline__ void fold4(Fold<S> (&acc)[TM][TN], const float* a, in
 
 // Folds k (a multiple of 4) k-steps: fold4 over staged rows, unrolled in
 // full where k is known at compile time, except for compact folds.
-template <class S, int TM, int TN>
+template <class S, int TM, int TN, class B = float>
 __device__ __forceinline__ void fold(Fold<S> (&acc)[TM][TN], const float* a, int a_stride,
-                                     const float* b, int ldb, int k) {
+                                     const B* b, int ldb, int k) {
   if constexpr (Fold<S>::kCompact) {
 #pragma unroll 1
     for (int kk = 0; kk < k; kk += 4) fold4<S, TM, TN>(acc, a + kk, a_stride, b + kk * ldb, ldb);

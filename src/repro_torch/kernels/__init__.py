@@ -20,14 +20,12 @@ for CPU tensors; for CUDA tensors they launch the kernel or raise.
 """
 
 # The column-tile width every kernel defaults to. The reference's 128 is
-# the TPU lane width (repro/kernels/__init__.py:27). Here one CTA owns a
-# stripe of DEFAULT_BLOCK_N columns: 16 keeps the fused kernel's f32
-# ping-pong panel of a 1024-neuron stack at 2·1024·16·4 B = 128 KB, inside
-# the 227 KB of shared memory a Hopper block can hold, and gives the
-# block-CSR kernel 16×16 = 256-thread CTAs at block size 16. It is also
-# the unit of the launch bills (``plan/cost.py``): the dense and ELL
-# kernels cover wider tiles a CTA and are billed in 16-wide tiles all
-# the same.
+# the TPU lane width (repro/kernels/__init__.py:27). Here 16 gives the
+# block-CSR kernel 16×16 = 256-thread CTAs at block size 16, and the
+# wrappers pad panels to it (to 8 below 16 columns). It is also the unit
+# of the launch bills (``plan/cost.py``): the dense, ELL and fused
+# kernels cover other tiles a CTA or warp and are billed in 16-wide
+# tiles all the same.
 DEFAULT_BLOCK_N = 16
 
 __all__ = ["DEFAULT_BLOCK_N"]

@@ -13,8 +13,8 @@ bill). Each kernel module's ``grid_steps`` gives its bill:
 * dense (``semiring_matmul``): ``(m/bm) × (n/bn) × (k/bk)`` tile
   products at the wrapper's tiles (:func:`dense_block_sizes`) — every
   output tile takes every k-step;
-* fused stack: the sum of its layers' ELL bills (each stripe's CTA walks
-  every slot of every layer).
+* fused stack: the sum of its layers' ELL bills (every column tile is
+  folded over every slot of every layer).
 
 ``tests/test_torch_plan.py``, ``tests/test_torch_mxm_plan.py`` and
 ``tests/test_torch_tiling.py`` pin these against the launch geometry the

@@ -66,8 +66,8 @@ def fused_route(
     """Which single-launch fused route (if any) fits this stack.
 
     The boundary is exact: the last resident m is the largest with
-    ``fused_mlp_smem_bytes(m, block_n, panel_dtype) <= SMEM_LIMIT_BYTES``,
-    and bf16 panels halve the bill. At the defaults (block_n 16, f32
+    ``fused_mlp_smem_bytes(m, panel_dtype, block_size) <= SMEM_LIMIT_BYTES``,
+    and bf16 panels halve the panel's bill. At the defaults (block_n 16, f32
     panels) the 1024-neuron challenge stack is resident and the 4096-,
     16384- and 65536-neuron stacks take fused-tiled.
     """

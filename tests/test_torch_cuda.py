@@ -21,7 +21,7 @@ import torch
 from repro_torch.core.dnn import stack_bsr
 from repro_torch.core.semiring import REGISTRY
 from repro_torch.data import radixnet as rx
-from repro_torch.kernels import build, ops
+from repro_torch.kernels import build, fused_mlp, ops
 from repro_torch.kernels.bcsr_spmm import bcsr_spmm_plain
 from repro_torch.kernels.bsr_spmm import bsr_spmm_plain
 from repro_torch.kernels.fused_mlp import fused_mlp_plain
@@ -71,30 +71,56 @@ def test_spmm_kernels_match_plain(cuda, bs):
     assert counts["bsr_spmm"] == 2 and counts["bcsr_spmm"] == 2
 
 
+FUSED = (ops.fused_mlp_forward, ops.fused_mlp_tiled_forward)
+
+
+def _fused_close(got, want, panel_dtype):
+    if panel_dtype is None:
+        torch.testing.assert_close(got, want, **STACK_TOL)
+    else:
+        assert float((got - want).abs().max()) <= 4 * 2.0 ** -8 * float(want.abs().max())
+    assert np.array_equal(rx.reference_categories(got.cpu().numpy()),
+                          rx.reference_categories(want.cpu().numpy()))
+
+
 @pytest.mark.parametrize("panel_dtype", [None, "bfloat16"])
-def test_fused_kernels_match_plain(cuda, panel_dtype):
-    spec = rx.RadixNetSpec(256, 7)
+@pytest.mark.parametrize("neurons, layers, n", [
+    (256, 7, 40),  # padded to 48 columns: six 8-column stripes
+    (256, 7, 16),  # two stripes, fewer than the cluster's CTAs
+    (64, 3, 16),  # four block-rows for clusters of up to 8 CTAs
+    (1024, 4, 96),  # masked slots: the stride-1 phase stores 2 of 32
+])
+def test_fused_kernels_match_plain(cuda, panel_dtype, neurons, layers, n):
+    spec = rx.RadixNetSpec(neurons, layers)
     w, b = rx.radixnet_weights(spec, device=cuda)
     sw, sb = stack_bsr(w), torch.stack(b)
-    y0 = torch.from_numpy(rx.radixnet_input_panel(256, 40, density=0.3, seed=11)).to(cuda)
+    y0 = torch.from_numpy(rx.radixnet_input_panel(neurons, n, density=0.3, seed=11)).to(cuda)
     want = fused_mlp_plain(sw, sb, y0, panel_dtype=panel_dtype)
-    for fn in (ops.fused_mlp_forward, ops.fused_mlp_tiled_forward):
-        got = fn(sw, sb, y0, panel_dtype=panel_dtype)
-        if panel_dtype is None:
-            torch.testing.assert_close(got, want, **STACK_TOL)
-        else:
-            assert float((got - want).abs().max()) <= 4 * 2.0 ** -8 * float(want.abs().max())
-        assert np.array_equal(rx.reference_categories(got.cpu().numpy()),
-                              rx.reference_categories(want.cpu().numpy()))
+    ops.reset_launch_counts()
+    for fn in FUSED:
+        _fused_close(fn(sw, sb, y0, panel_dtype=panel_dtype), want, panel_dtype)
+    assert all(ops.launch_counts()[fn.__name__] == 1 for fn in FUSED)
 
 
-def test_nan_columns_stay_nan_through_the_kernels(cuda):
+@pytest.mark.parametrize("panel_dtype", [None, "bfloat16"])
+def test_tiled_kernel_on_a_4096_stack(cuda, panel_dtype):
+    """Past the shared-memory budget; 40 columns leave the last 32-column
+    tile of every block-row part empty."""
+    w, b = rx.radixnet_weights(rx.RadixNetSpec(4096, 6), device=cuda)
+    sw, sb = stack_bsr(w), torch.stack(b)
+    y0 = torch.from_numpy(rx.radixnet_input_panel(4096, 40, density=0.35, seed=3)).to(cuda)
+    got = ops.fused_mlp_tiled_forward(sw, sb, y0, panel_dtype=panel_dtype)
+    _fused_close(got, fused_mlp_plain(sw, sb, y0, panel_dtype=panel_dtype), panel_dtype)
+
+
+@pytest.mark.parametrize("fn", FUSED, ids=lambda f: f.__name__)
+def test_nan_columns_stay_nan_through_the_kernels(cuda, fn):
     """The epilogue keeps NaN (like jnp.maximum), which the engine's
     per-column quarantine relies on."""
     w, b = rx.radixnet_weights(rx.RadixNetSpec(64, 3), device=cuda)
     y0 = torch.ones(64, 8, device=cuda)
     y0[5, 3] = float("nan")
-    out = ops.fused_mlp_forward(stack_bsr(w), torch.stack(b), y0)
+    out = fn(stack_bsr(w), torch.stack(b), y0)
     col_ok = torch.isfinite(out).all(dim=0).tolist()
     assert col_ok == [True, True, True, False, True, True, True, True]
 
@@ -103,6 +129,34 @@ def test_oversized_resident_panel_is_refused(cuda):
     w, b = rx.radixnet_weights(rx.RadixNetSpec(4096, 1), device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
         ops.fused_mlp_forward(stack_bsr(w), torch.stack(b), torch.ones(4096, 16, device=cuda))
+
+
+@pytest.mark.parametrize("tiled", [False, True])
+def test_oversized_cluster_or_grid_launch_raises(cuda, tiled):
+    """The C entries refuse a cluster of 16 CTAs (past the portable 8) and
+    a cooperative grid past what the card holds at once, with no
+    fallback; the refusal leaves no error behind for the next launch."""
+    w, b = rx.radixnet_weights(rx.RadixNetSpec(256, 2), device=cuda)
+    sw, sb = stack_bsr(w), torch.stack(b)
+    y0 = torch.ones(256, 16, device=cuda)
+    n_layers, nrb, mbpr = sw.col_idx.shape
+    geo, _ = fused_mlp.card_geometry(sw, 16, tiled=tiled, device=cuda)
+    lib = build.load("fused_mlp", fused_mlp.SIGNATURES)
+    p = build.pointer
+    out = torch.empty_like(y0)
+    head = (p(sw.blocks), p(sw.col_idx), p(sw.block_mask), p(y0), p(sb), p(out))
+    shape = (n_layers, nrb, mbpr, 16, 16, 0)
+    stream = build.stream_handle(y0.device)
+    if tiled:
+        scratch = torch.empty((2, 256, 16), device=cuda)
+        err = lib.fused_mlp_tiled(*head, p(scratch), *shape, 64 * geo.ctas, stream)
+    else:
+        err = lib.fused_mlp_resident(*head, *shape, 16, stream)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        build.check(lib, err, "fused MLP")
+    torch.cuda.synchronize()
+    fn = ops.fused_mlp_tiled_forward if tiled else ops.fused_mlp_forward
+    _fused_close(fn(sw, sb, y0), fused_mlp_plain(sw, sb, y0), None)
 
 
 def test_challenge_routes_match_on_the_card(cuda):

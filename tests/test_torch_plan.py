@@ -47,13 +47,21 @@ def test_challenge_sizes_route_at_the_shared_memory_budget(neurons, route):
 def test_resident_boundary_is_exact():
     limit = kfused.SMEM_LIMIT_BYTES
     assert limit == 227 * 1024
-    last = (limit // (2 * DEFAULT_BLOCK_N * 4)) // 16 * 16  # last resident m, f32
+    # a CTA holds the (2, m, 8) panel pair and 16 warps x 2 tiles' rings of
+    # 3 padded 16 x 20 blocks, whatever the column tile the wrappers pad to
+    rings = 16 * 2 * 3 * 16 * 20 * 4  # 120 KB
+    last = ((limit - rings) // (2 * 8 * 4)) // 16 * 16  # last resident m, f32
+    assert last == 1712
     assert kfused.fused_mlp_smem_bytes(last) <= limit < kfused.fused_mlp_smem_bytes(last + 16)
     assert P.fused_route(_square_stack(last)) == P.ROUTE_FUSED
     assert P.fused_route(_square_stack(last + 16)) == P.ROUTE_FUSED_TILED
-    # bf16 panels halve the bill and move the boundary
-    assert P.fused_route(_square_stack(2 * last), panel_dtype="bfloat16") == P.ROUTE_FUSED
-    assert kfused.fused_mlp_smem_bytes(1024) == 2 * 1024 * 16 * 4  # 128 KB
+    # bf16 panels halve the panel's bill and move the boundary
+    last16 = ((limit - rings) // (2 * 8 * 2)) // 16 * 16
+    assert last16 == 3424
+    assert P.fused_route(_square_stack(last16), panel_dtype="bfloat16") == P.ROUTE_FUSED
+    assert P.fused_route(_square_stack(last16 + 16), panel_dtype="bfloat16") == (
+        P.ROUTE_FUSED_TILED)
+    assert kfused.fused_mlp_smem_bytes(1024) == 2 * 1024 * 8 * 4 + rings  # 184 KB
     # non-square or heterogeneous stacks have no fused route
     rect = BlockSparseMatrix(torch.zeros(2, 1, 16, 16), torch.zeros(2, 1, dtype=torch.int32),
                              torch.ones(2, 1, dtype=torch.bool), (32, 48), (16, 16))
@@ -98,9 +106,15 @@ def test_cost_bills_the_launch_geometry(n):
     row_slots = (csr.row_ptr[1:] - csr.row_ptr[:-1]).tolist()
     assert gx == len(row_slots)
     assert P.layer_grid_steps(csr, n) == sum(row_slots) * gy
+    # the fused launches: every bn-wide column tile folds every slot of
+    # every layer, whichever stripes, clusters or grid CTAs fold it
     stacked = stack_bsr(ws)
-    (g,), _ = kfused.launch_geometry(n_pad, bn)
-    assert kfused.grid_steps(stacked, n, bn) == g * 2 * 64 * 32 == P.stack_grid_steps(ws, n)
+    geo = kfused.launch_geometry(stacked, n_pad, tiled=False)
+    assert geo.ctas % geo.cluster == 0 and geo.threads <= 1024
+    stripes = geo.ctas // geo.cluster
+    assert stripes * kfused.STRIPE == n_pad
+    assert kfused.grid_steps(stacked, n, bn) == (n_pad // bn) * 2 * 64 * 32 == (
+        P.stack_grid_steps(ws, n))
     # the ELL and (unpadded) CSR bills equal the reference's at the same tile
     jws, _ = jrx.radixnet_weights(jrx.RadixNetSpec(1024, 2))
     jcsr = JP.to_preferred_layout(jws[0])

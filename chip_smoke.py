@@ -8,8 +8,7 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
 1. device    — a CUDA card must be present; print its name and power
    limit, build the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
    per source, all at once) and print nvcc's register/spill report; the
-   register-tiled kernels (``semiring_matmul``, ``bsr_spmm`` and the two
-   fused kernels) must spill nothing.
+   register-tiled kernels (all five) must spill nothing.
 2. kernels   — each of the five kernels against its plain PyTorch
    version at the serving shapes (RadiX-net 1024 neurons, block 16,
    panel 512; 16384 neurons for the tiled kernel; the dense kernel on a
@@ -17,10 +16,14 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    the plain version's time, the bound and a library yardstick where one
    PyTorch call computes the same function, the stored work folded per
    second (``tflops``) and the time over the library's (``vs_library``);
-   the two register-tiled kernels also on an 8-column panel
-   (``narrow``); the two fused kernels with their launch (``cluster``,
-   ``ctas``, what the card holds at once) and a 2048-column ``wide``
-   probe with its time over the 512-column time. Then ``semirings``: the
+   the three semiring kernels also on an 8-column panel (``narrow``);
+   ``bcsr_spmm`` also where its work is: RadiX-net's stride-32 layer as
+   block-CSR (``stride32``, the same 2048 stored blocks as ``bsr_spmm``'s
+   row) and the graphblas phase's skewed 8192 × 8192 adjacency at 256
+   and 8 columns (``skewed``, with its piece count and cut rows), each
+   beside the ``addmm`` of its dense form; the two fused kernels with
+   their launch (``cluster``, ``ctas``, what the card holds at once) and
+   a 2048-column ``wide`` probe with its time over the 512-column time. Then ``semirings``: the
    three semiring kernels in all eight semirings on integer-valued
    operands with an empty block-row, ELL pad slots and block-CSR tail
    slots — exact, ``log_plus`` within 1e-5 — with their times.
@@ -44,7 +47,8 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    the ``use_kernel=False`` oracle, ``min_plus`` Bellman-Ford through
    ``gb.mxv`` against numpy bit for bit, one ``lor_land`` BFS step
    through ``gb.vxm``, and the paper's three-call ``dnn_forward(
-   fused=False)`` on RadiX-net 1024 × 120 with 2 048 inputs.
+   fused=False)`` on RadiX-net 1024 × 120 with 2 048 inputs; it prints
+   the adjacency's longest and median block-row.
 
 Launch counts are reset to 0 right before each of phases 3-7 and read
 right after. The ``kernels`` line, the ``nvidia-smi`` line and, last,
@@ -90,9 +94,9 @@ WIDE = 2048  # columns of the fused kernels' occupancy probe
 LOG_PLUS_TOL = 1e-5  # the reference's TOL: its reductions chain in another order
 GNN_TOL = 1e-5  # gnn_arm's scale-normalised conv agreement
 
-# register-tiled, cp.async-staged
-REDESIGNED = ("semiring_matmul", "bsr_spmm", "fused_mlp_forward", "fused_mlp_tiled_forward")
 NARROW_N = 8  # the narrow-panel timing of the redesigned kernels (an mxv's width)
+# the graphblas phase's adjacency: random_skewed(SKEWED_SEED, (m, m), (16, 16), blocks, skew)
+SKEWED_M, SKEWED_BLOCKS, SKEWED_SKEW, SKEWED_SEED = 8192, 8192, 0.8, 5
 KERNEL_SOURCES = {
     "semiring_matmul": ("src/repro_torch/csrc/semiring_matmul.cu",
                         "src/repro/kernels/semiring_matmul.py:112"),
@@ -275,7 +279,8 @@ def phase_device() -> dict:
                if "registers" in ln or "spill" in ln or "smem" in ln]
         for name, log in logs.items()
     }
-    for source in sorted({os.path.basename(KERNEL_SOURCES[k][0])[:-3] for k in REDESIGNED}):
+    # every kernel is register-tiled over cp.async stages: none may spill
+    for source in sorted({os.path.basename(src)[:-3] for src, _ in KERNEL_SOURCES.values()}):
         spills = [int(v) for ln in report[source] for v in re.findall(r"(\d+) bytes spill", ln)]
         check(spills and not any(spills), (source, "spills registers", spills))
     info = {
@@ -299,7 +304,7 @@ def phase_kernels() -> dict:
     from repro_torch.core.dnn import stack_bsr
     from repro_torch.data import radixnet as rx
     from repro_torch.kernels import ops
-    from repro_torch.kernels.bcsr_spmm import bcsr_spmm_plain
+    from repro_torch.kernels.bcsr_spmm import bcsr_spmm_plain, piece_table
     from repro_torch.kernels.bsr_spmm import bsr_spmm_plain
     from repro_torch.kernels.fused_mlp import card_geometry, fused_mlp_plain
     from repro_torch.kernels.semiring_matmul import semiring_matmul_plain
@@ -346,10 +351,32 @@ def phase_kernels() -> dict:
             "bound_ms": bms, "bound_by": by, "shape": [1024, 1024, n],
             "stored_blocks": a.nnz_blocks(), "nonzero_weights": nonzero_weights(a),
         }
-        if name in REDESIGNED:
-            out[name]["narrow"] = narrow_timing(kern, plain, a, dense, y_narrow, b,
-                                                stored_work(a, NARROW_N),
-                                                spmm_work(a, NARROW_N))
+        out[name]["narrow"] = panel_timing(kern, plain, a, dense, y_narrow, b,
+                                           stored_work(a, NARROW_N), spmm_work(a, NARROW_N))
+
+    # bcsr_spmm where its work is: the stride-32 layer as block-CSR, and the
+    # graphblas phase's skewed adjacency (long block-rows cut into pieces)
+    stride32 = BlockCSRMatrix.from_bsr(ell)
+    out["bcsr_spmm"]["stride32"] = {
+        "stored_blocks": stride32.nnz_blocks(), "pieces": piece_table(stride32).n_pieces,
+        "n512": panel_timing(ops.bcsr_spmm, bcsr_spmm_plain, stride32, ell.to_dense(), y, b,
+                             stored_work(stride32, n), spmm_work(stride32, n))}
+    skewed = BlockCSRMatrix.random_skewed(SKEWED_SEED, (SKEWED_M, SKEWED_M), (16, 16),
+                                          SKEWED_BLOCKS, skew=SKEWED_SKEW, device=dev)
+    table = piece_table(skewed)
+    g = torch.Generator(device=dev).manual_seed(SKEWED_SEED)
+    skew_y = torch.rand((SKEWED_M, 256), generator=g, device=dev)
+    skew_b = torch.randn((SKEWED_M,), generator=g, device=dev)
+    skew_dense = skewed.to_dense()
+    out["bcsr_spmm"]["skewed"] = {
+        "shape": [SKEWED_M, SKEWED_M], "stored_blocks": skewed.nnz_blocks(),
+        "pieces": table.n_pieces, "cut_rows": table.n_cut_rows,
+        "cut_pieces": table.n_cut_pieces,
+        **{f"n{w}": panel_timing(ops.bcsr_spmm, bcsr_spmm_plain, skewed, skew_dense,
+                                 skew_y[:, :w].contiguous(), skew_b, stored_work(skewed, w),
+                                 spmm_work(skewed, w))
+           for w in (256, NARROW_N)}}
+    del skew_dense
 
     # dense: a densified stride-32 layer, as the dense phase runs it
     w_dense = ell.to_dense()
@@ -369,9 +396,9 @@ def phase_kernels() -> dict:
                                 per_rep=10, reps=5),
         "library_ms": library_ms, **rates(ms, dense_work(1024, 1024, n)[1], library_ms),
         "bound_ms": bms, "bound_by": by, "shape": [1024, 1024, n],
-        "narrow": narrow_timing(ops.semiring_matmul, semiring_matmul_plain, w_dense, w_dense,
-                                y_narrow, b, dense_work(1024, 1024, NARROW_N)[1],
-                                dense_work(1024, 1024, NARROW_N)),
+        "narrow": panel_timing(ops.semiring_matmul, semiring_matmul_plain, w_dense, w_dense,
+                               y_narrow, b, dense_work(1024, 1024, NARROW_N)[1],
+                               dense_work(1024, 1024, NARROW_N)),
     }
     out["semirings"] = semiring_checks(weights[1], dev, n)
 
@@ -448,10 +475,10 @@ def phase_kernels() -> dict:
     return out
 
 
-def narrow_timing(kern, plain, a, dense, y, b, work: float, bytes_ops) -> dict:
-    """A redesigned kernel on a narrow (8-column) panel, which runs its
-    narrow tile: checked against the plain version, timed beside it and
-    beside one ``torch.addmm`` of the same product."""
+def panel_timing(kern, plain, a, dense, y, b, work: float, bytes_ops) -> dict:
+    """A kernel on one more panel (an 8-column one runs the narrow tile):
+    checked against the plain version, timed beside it and beside one
+    ``torch.addmm`` of the same product on ``dense``, ``a``'s dense form."""
     import torch
 
     got = kern(a, y, b, fuse_bias_relu=True)
@@ -654,8 +681,8 @@ def bf_relax_numpy(lengths, row_id, col_idx, d):
     return out.reshape(-1)
 
 
-def phase_graphblas(spec, panel, ref_cats, *, m=8192, block=16, total_blocks=8192,
-                    skew=0.8, seed=5, feat=256, rounds=2, bf_cap=64) -> dict:
+def phase_graphblas(spec, panel, ref_cats, *, m=SKEWED_M, block=16, total_blocks=SKEWED_BLOCKS,
+                    skew=SKEWED_SKEW, seed=SKEWED_SEED, feat=256, rounds=2, bf_cap=64) -> dict:
     """gnn_arm at card scale, one BFS step, and the three-call DNN."""
     import torch
 
@@ -719,7 +746,7 @@ def phase_graphblas(spec, panel, ref_cats, *, m=8192, block=16, total_blocks=819
     check(bf_stats["hits"] - conv_stats["hits"] >= 1, ("bf plan hits", bf_stats))
 
     # one BFS step from the block-row with the fewest (but some) stored blocks
-    counts_np = np.diff(csr.row_ptr.cpu().numpy())
+    counts_np = np.diff(csr.row_ptr.cpu().numpy())  # stored blocks a block-row
     src = int(np.flatnonzero(counts_np == counts_np[counts_np > 0].min())[0])
     frontier = torch.zeros((m,), device=dev)
     frontier[src * block:(src + 1) * block] = 1.0
@@ -750,6 +777,8 @@ def phase_graphblas(spec, panel, ref_cats, *, m=8192, block=16, total_blocks=819
         "m": m, "block": block, "total_blocks": total_blocks, "skew": skew, "seed": seed,
         "feat_dim": feat, "rounds": rounds, "bf_iters_cap": bf_cap,
         "build_seconds": t_build,
+        "block_row_blocks": {"longest": int(counts_np.max()),
+                             "median": float(np.median(counts_np))},
         "source_layout": plan.source_layout, "exec_layout": plan.layout,
         "kernel_grid_steps": plan.grid_steps, "xla_equiv_grid_steps": plan.xla_equiv_grid_steps,
         "mxv_grid_steps": mxv_grid_steps(plan.weight),

@@ -15,28 +15,14 @@
 // per product) and re-reads every weight block once per narrow column
 // tile; the design below removes both.
 //
-// Design: register-tiled semiring folds over staged slots.
+// Design: register-tiled semiring folds over staged slots, the body this
+// kernel shares with bcsr_spmm.cu (semiring.cuh: SpmmTile, spmm_fold).
 //  - One CTA per (block-row i, CN columns); the TPU's sequential t grid
-//    axis becomes a loop over the block-row's stored slots. Masked (pad)
-//    slots are skipped before any copy is issued: a pad slot holds
-//    col_idx 0 and a zero block, and 0 is not the annihilator of seven of
-//    the eight semirings. A block-row with no stored slot writes the
-//    epilogue of init.
-//  - For each stored slot, cp.async brings the bs_r x bs_c block and the
-//    bs_c gathered B rows x CN columns into one of STAGES shared-memory
-//    stages; the copies of the next stored slots are in flight while the
-//    current one is folded. Each weight block is read once per CTA.
-//  - Each thread keeps a TM x TN micro-tile of accumulators in registers
-//    (block rows ty + i*RT, columns tx*TN + j, RT = ceil(bs_r / TM)),
-//    starting at the semiring's init (semiring.cuh's Fold; log_plus as a
-//    running log-sum-exp). In the wide tile a warp shares one ty, so its
-//    block reads are broadcasts and its panel reads contiguous float4s.
-//    Block rows are staged row-major, padded by 4 floats against bank
-//    conflicts; rows from bs_r up to RT*TM hold no data and are not
-//    stored.
-//  - Every stored entry is folded, zeros included, as the TPU kernel
-//    folds them: under plus_times 0 * inf = NaN, which the engine's NaN
-//    quarantine relies on.
+//    axis becomes spmm_fold's loop over the block-row's slots, kept by
+//    the mask. Masked (pad) slots are skipped before any copy is issued:
+//    a pad slot holds col_idx 0 and a zero block, and 0 is not the
+//    annihilator of seven of the eight semirings. A block-row with no
+//    stored slot writes the epilogue of init.
 //  - Two column widths: `Wide` (CN = 128) and `Narrow` (CN = 8) for
 //    panels of at most 16 columns. The block size stays a runtime
 //    parameter (bs_c a multiple of 4 for the 16-byte copies).
@@ -54,21 +40,8 @@ namespace {
 
 constexpr int kMaxThreads = 512;
 
-template <int CN_, int TM_, int TN_, int STAGES_>
-struct Tile {
-  static constexpr int CN = CN_, TM = TM_, TN = TN_, STAGES = STAGES_;
-  static constexpr int THREADS_N = CN / TN;
-  static_assert(CN % TN == 0 && CN % 4 == 0, "tile");
-  __host__ __device__ static int rows(int bs_r) { return (bs_r + TM - 1) / TM; }  // RT
-  __host__ __device__ static int w_stage(int bs_r, int bs_c) {
-    return rows(bs_r) * TM * (bs_c + 4);
-  }
-  __host__ __device__ static int b_stage(int bs_c) { return bs_c * CN; }
-  static int smem_bytes(int bs_r, int bs_c) {
-    return STAGES * (w_stage(bs_r, bs_c) + b_stage(bs_c)) * 4;
-  }
-};
-
+template <int CN, int TM, int TN, int STAGES>
+using Tile = semiring::SpmmTile<CN, TM, TN, STAGES>;
 using Wide = Tile<128, 4, 4, 3>;  // tile id 0
 using Narrow = Tile<8, 1, 1, 4>;  // tile id 1: n <= 16
 
@@ -79,82 +52,12 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
                     const float* __restrict__ bias, float* __restrict__ out, int mbpr, int bs_r,
                     int bs_c, int n, int fuse_bias_relu) {
   extern __shared__ __align__(16) float smem[];
-  const int rt = T::rows(bs_r), w_ld = bs_c + 4;
-  const int w_stage = T::w_stage(bs_r, bs_c), b_stage = T::b_stage(bs_c);
-  float* const w_s = smem;                      // [STAGES][RT*TM][bs_c + 4]
-  float* const b_s = smem + T::STAGES * w_stage;  // [STAGES][bs_c][CN]
-  const int tid = threadIdx.x, threads = blockDim.x;
-  const int ty = tid / T::THREADS_N, tx = tid % T::THREADS_N;
-  const int i = blockIdx.x;
-  const int col0 = blockIdx.y * T::CN;
-  const long slot0 = (long)i * mbpr;
-  const float zero = S::init();
-
-  // The first stored slot at or after t (mbpr when none is left).
-  auto next_stored = [&](int t) {
-    while (t < mbpr && !mask[slot0 + t]) ++t;
-    return t;
-  };
-  auto stage_in = [&](int stage, int t) {
-    const long slot = slot0 + t;
-    const float* w = blocks + slot * bs_r * bs_c;
-    float* ws = w_s + stage * w_stage;
-    const int w_chunks = bs_c / 4;
-    for (int e = tid; e < bs_r * w_chunks; e += threads) {
-      const int r = e / w_chunks, c = (e - r * w_chunks) * 4;
-      semiring::cp_async16(ws + r * w_ld + c, w + r * bs_c + c);
-    }
-    const float* y = b + (long)col_idx[slot] * bs_c * n + col0;
-    float* bs = b_s + stage * b_stage;
-    for (int e = tid; e < bs_c * (T::CN / 4); e += threads) {
-      const int r = e / (T::CN / 4), c = e % (T::CN / 4) * 4;
-      if (col0 + c < n)
-        semiring::cp_async16(bs + r * T::CN + c, y + (long)r * n + c);
-      else
-        semiring::fill4(bs + r * T::CN + c, zero);
-    }
-  };
-
+  const int i = blockIdx.x, col0 = blockIdx.y * T::CN;
+  const long slot0 = (long)i * mbpr;  // the block-row's first slot
   semiring::Fold<S> acc[T::TM][T::TN];
-#pragma unroll
-  for (int r = 0; r < T::TM; ++r)
-#pragma unroll
-    for (int j = 0; j < T::TN; ++j) acc[r][j].init();
-
-  int t_in = next_stored(0);  // the next stored slot to stage
-#pragma unroll
-  for (int s = 0; s < T::STAGES - 1; ++s) {
-    if (t_in < mbpr) {
-      stage_in(s, t_in);
-      t_in = next_stored(t_in + 1);
-    }
-    semiring::cp_async_commit();
-  }
-  int stage = 0;
-  for (int t = next_stored(0); t < mbpr; t = next_stored(t + 1)) {
-    semiring::cp_async_wait<T::STAGES - 2>();  // slot t has landed
-    __syncthreads();  // ... for every thread; and the previous stage is folded
-    if (t_in < mbpr) {
-      stage_in((stage + T::STAGES - 1) % T::STAGES, t_in);
-      t_in = next_stored(t_in + 1);
-    }
-    semiring::cp_async_commit();
-    const float* ws = w_s + stage * w_stage + ty * w_ld;
-    const float* bs = b_s + stage * b_stage + tx * T::TN;
-    semiring::fold<S, T::TM, T::TN>(acc, ws, rt * w_ld, bs, T::CN, bs_c);
-    stage = (stage + 1) % T::STAGES;
-  }
-  semiring::cp_async_wait<0>();
-
-#pragma unroll
-  for (int r = 0; r < T::TM; ++r) {
-    const int br = ty + r * rt;
-    if (br < bs_r) {
-      const long row = (long)i * bs_r + br;
-      semiring::store_row<S, T::TN>(out + row * n, col0 + tx * T::TN, n, acc[r],
-                                 fuse_bias_relu != 0, fuse_bias_relu ? bias[row] : 0.f);
-    }
-  }
+  semiring::spmm_fold<S, T>(acc, smem, blocks, col_idx, mask, slot0, 0, mbpr, b, n, col0, bs_r,
+                            bs_c);
+  semiring::spmm_store<S, T>(acc, out, i, bs_r, n, col0, fuse_bias_relu != 0, bias);
 }
 
 template <class T, class S>

@@ -20,12 +20,13 @@ for CPU tensors; for CUDA tensors they launch the kernel or raise.
 """
 
 # The column-tile width every kernel defaults to. The reference's 128 is
-# the TPU lane width (repro/kernels/__init__.py:27). Here 16 gives the
-# block-CSR kernel 16×16 = 256-thread CTAs at block size 16, and the
-# wrappers pad panels to it (to 8 below 16 columns). It is also the unit
-# of the launch bills (``plan/cost.py``): the dense, ELL and fused
-# kernels cover other tiles a CTA or warp and are billed in 16-wide
-# tiles all the same.
+# the TPU lane width (repro/kernels/__init__.py:27). Here 16 is the width
+# the wrappers pad panels to (8 below 16 columns) and the unit of the
+# launch bills (``plan/cost.py``). No kernel runs 16-wide CTAs: a dense
+# CTA covers 64 × 64 outputs (16 × 8 on narrow panels), an ELL or
+# block-CSR CTA a block-row (or a piece of one) × 128 columns (× 8), a
+# fused warp 8 or 32 columns; all are billed in 16-wide tiles all the
+# same.
 DEFAULT_BLOCK_N = 16
 
 __all__ = ["DEFAULT_BLOCK_N"]

@@ -172,7 +172,7 @@ def bcsr_spmm(
     Block-rows with no stored block come out as the epilogue of the
     semiring zero (``max(zero + bias, 0)`` when fused, else the zero) —
     the kernel writes them itself, the plain version gets them from its
-    segment-⊕.
+    segment-⊕. One launch a call, long block-rows cut into pieces or not.
     """
     n = b.shape[1]
     block_n = effective_block_n(n, block_n)
@@ -180,8 +180,8 @@ def bcsr_spmm(
     bp = _pad_to(b, 1, block_n)
     if bp.is_cuda:
         out = _bcsr.bcsr_spmm_cuda(
-            a, bp.contiguous(), bias.contiguous(), semiring_name=semiring_name,
-            fuse_bias_relu=fuse_bias_relu, block_n=block_n,
+            a, _contiguous16(bp), bias.contiguous(), semiring_name=semiring_name,
+            fuse_bias_relu=fuse_bias_relu,
         )
         _launches["bcsr_spmm"] += 1
     else:

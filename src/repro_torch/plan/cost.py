@@ -8,8 +8,10 @@ bill). Each kernel module's ``grid_steps`` gives its bill:
 
 * ELL (``bsr_spmm``): ``nrb × max_blocks_per_row × n_tiles`` — every
   CTA visits its whole row of slots, padding included;
-* block-CSR (``bcsr_spmm``): ``valid_blocks × n_tiles`` — the row-split
-  launch walks ``row_ptr`` ranges, so tail padding is never visited;
+* block-CSR (``bcsr_spmm``): ``valid_blocks × n_tiles`` — the launch
+  walks a piece table that cuts ``row_ptr`` ranges into pieces (long
+  rows into several), each valid block in exactly one piece, so tail
+  padding is never visited;
 * dense (``semiring_matmul``): ``(m/bm) × (n/bn) × (k/bk)`` tile
   products at the wrapper's tiles (:func:`dense_block_sizes`) — every
   output tile takes every k-step;

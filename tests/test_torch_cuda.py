@@ -21,6 +21,7 @@ import torch
 from repro_torch.core.dnn import stack_bsr
 from repro_torch.core.semiring import REGISTRY
 from repro_torch.data import radixnet as rx
+from repro_torch.kernels import bcsr_spmm as kbcsr
 from repro_torch.kernels import build, fused_mlp, ops
 from repro_torch.kernels.bcsr_spmm import bcsr_spmm_plain
 from repro_torch.kernels.bsr_spmm import bsr_spmm_plain
@@ -275,18 +276,20 @@ def _ragged_operands(rng, bs, ints=True):
 @pytest.mark.parametrize("bs", [8, 16])
 @pytest.mark.parametrize("name", sorted(REGISTRY))
 def test_redesigned_kernels_match_plain_on_ragged_shapes(cuda, name, bs):
-    """semiring_matmul and bsr_spmm on m = 80, k = 48 and panels that fill
+    """The three semiring kernels on m = 80, k = 48 and panels that fill
     no CTA tile exactly, narrow and wide, epilogue on and off: exact on
     integer operands, log_plus within 1e-5·(1+|x|). The masked block-row
     holds the epilogue of the semiring's init."""
     a, d, bias, y = _ragged_operands(np.random.default_rng(bs), bs)
     a, d, bias = a.to(cuda), torch.from_numpy(d).to(cuda), torch.from_numpy(bias).to(cuda)
+    c = BlockCSRMatrix.from_bsr(a, pad_to=a.nnz_blocks() + 2)
     y = torch.from_numpy(y).to(cuda)
     for n in RAGGED_NS:
         panel = y[:, :n]
         for fuse in (False, True):
             for kern, plain, w in ((ops.semiring_matmul, semiring_matmul_plain, d),
-                                   (ops.bsr_spmm, bsr_spmm_plain, a)):
+                                   (ops.bsr_spmm, bsr_spmm_plain, a),
+                                   (ops.bcsr_spmm, bcsr_spmm_plain, c)):
                 got = kern(w, panel, bias, semiring_name=name, fuse_bias_relu=fuse)
                 assert got.shape == (80, n)
                 _close(name, got, plain(w, panel, bias, semiring_name=name,
@@ -301,17 +304,20 @@ def test_redesigned_kernels_match_plain_on_ragged_shapes(cuda, name, bs):
 def test_redesigned_kernels_match_plain_on_random_f32(cuda, bs):
     a, d, bias, y = _ragged_operands(np.random.default_rng(10 + bs), bs, ints=False)
     a, d, bias = a.to(cuda), torch.from_numpy(d).to(cuda), torch.from_numpy(bias).to(cuda)
+    c = BlockCSRMatrix.from_bsr(a, pad_to=a.nnz_blocks() + 2)
     y = torch.from_numpy(y).to(cuda)
     ops.reset_launch_counts()
     for n in RAGGED_NS:
         for fuse in (False, True):
             for kern, plain, w in ((ops.semiring_matmul, semiring_matmul_plain, d),
-                                   (ops.bsr_spmm, bsr_spmm_plain, a)):
+                                   (ops.bsr_spmm, bsr_spmm_plain, a),
+                                   (ops.bcsr_spmm, bcsr_spmm_plain, c)):
                 got = kern(w, y[:, :n], bias, fuse_bias_relu=fuse)
                 torch.testing.assert_close(
                     got, plain(w, y[:, :n], bias, fuse_bias_relu=fuse), **SPMM_TOL)
     counts = ops.launch_counts()
-    assert counts["semiring_matmul"] == counts["bsr_spmm"] == 2 * len(RAGGED_NS)
+    assert counts["semiring_matmul"] == counts["bsr_spmm"] == counts["bcsr_spmm"] == (
+        2 * len(RAGGED_NS))
 
 
 @pytest.mark.parametrize("bs", [8, 16])
@@ -364,3 +370,106 @@ def test_log_plus_fold_keeps_the_special_values(cuda):
             want = plain(w, y[:, :n], semiring_name="log_plus")
             assert torch.isinf(want).any() and torch.isnan(want).any()
             torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5, equal_nan=True)
+
+
+def _cut_operands(rng, device, ints=True, bs=16):
+    """Block-CSR with rows the piece table cuts into 2 and 5 pieces
+    (``S + 7`` and ``4·S + 9`` stored blocks, S = PIECE_SLOTS), short rows,
+    an empty block-row 1 and two tail slots; values integers in [-3, 3]
+    (every stored block with a nonzero) or U[-1, 3); a panel drawn alike
+    (U[0, 1) for f32) and a bias."""
+    s = kbcsr.PIECE_SLOTS
+    lengths = [3, 0, s + 7, 1, 4 * s + 9, 17]
+    ncb = max(lengths) + 3
+    d = np.zeros((len(lengths) * bs, ncb * bs), np.float32)
+    for i, n_blocks in enumerate(lengths):
+        for col in np.sort(rng.choice(ncb, n_blocks, replace=False)):
+            if ints:
+                blk = rng.integers(-3, 4, (bs, bs)).astype(np.float32)
+                blk[0, 0] = 1.0
+            else:
+                blk = rng.uniform(-1.0, 3.0, (bs, bs)).astype(np.float32)
+            d[i * bs:(i + 1) * bs, col * bs:(col + 1) * bs] = blk
+    c = BlockCSRMatrix.from_dense(d, (bs, bs), pad_to=sum(lengths) + 2, device=device)
+    table = kbcsr.piece_table(c)
+    assert sorted(count for _, count in table.cuts.tolist()) == [2, 5]
+    k, m = ncb * bs, len(lengths) * bs
+    if ints:
+        y = rng.integers(-3, 4, (k, 256)).astype(np.float32)
+        bias = rng.integers(-3, 4, m).astype(np.float32)
+    else:
+        y = rng.random((k, 256), dtype=np.float32)
+        bias = rng.standard_normal(m).astype(np.float32)
+    return c, torch.from_numpy(y).to(device), torch.from_numpy(bias).to(device)
+
+
+@pytest.mark.parametrize("name", sorted(REGISTRY))
+def test_bcsr_cut_rows_match_plain(cuda, name):
+    """Rows cut into pieces, both tiles, epilogue on and off: exact on
+    integer operands (log_plus within 1e-5); the empty block-row holds
+    the epilogue of init, and the tail slots are never folded."""
+    c, y, bias = _cut_operands(np.random.default_rng(50), cuda)
+    ops.reset_launch_counts()
+    for n in (8, 37, 256):
+        for fuse in (False, True):
+            got = ops.bcsr_spmm(c, y[:, :n], bias, semiring_name=name, fuse_bias_relu=fuse)
+            _close(name, got, bcsr_spmm_plain(c, y[:, :n], bias, semiring_name=name,
+                                              fuse_bias_relu=fuse))
+            init = torch.full((16, n), kernel_zero(name), device=cuda)
+            if fuse:
+                init = torch.clamp_min(init + bias[16:32, None], 0)
+            assert torch.equal(got[16:32], init)
+    assert ops.launch_counts()["bcsr_spmm"] == 6
+
+
+def test_nan_passes_through_a_cut_row(cuda):
+    """A zero weight inside one piece of a cut row meets an inf panel
+    entry: 0 · inf = NaN in that row and column, as the plain version
+    (and the reference) gives it, and the fix-up carries it out."""
+    c, y, bias = _cut_operands(np.random.default_rng(51), cuda)
+    table = kbcsr.piece_table(c)
+    first, count = max(table.cuts.tolist(), key=lambda fc: fc[1])
+    row, lo, hi, _ = table.pieces[first + 2].tolist()  # the third of five pieces
+    t = (lo + hi) // 2
+    values = c.values.clone()
+    values[t, 5, 3] = 0.0
+    c = BlockCSRMatrix(values, c.row_ptr, c.row_id, c.col_idx, c.valid, c.shape, c.block_shape)
+    y = y.clone()
+    y[int(c.col_idx[t]) * 16 + 3, 11] = float("inf")
+    got = ops.bcsr_spmm(c, y, bias, fuse_bias_relu=True)
+    want = bcsr_spmm_plain(c, y, bias, fuse_bias_relu=True)
+    assert bool(torch.isnan(got[row * 16 + 5, 11]))
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.nan_to_num(nan=0.0, posinf=float("inf"), neginf=float("-inf")),
+                       want.nan_to_num(nan=0.0, posinf=float("inf"), neginf=float("-inf")))
+
+
+@pytest.mark.parametrize("name", ["plus_times", "log_plus"])
+def test_cut_rows_fold_the_same_way_every_call(cuda, name):
+    """The fix-up folds partials in piece order, not in the order the
+    pieces finish: two calls on f32 operands are bit-equal, and within
+    the f32 tolerance of the plain version."""
+    c, y, bias = _cut_operands(np.random.default_rng(52), cuda, ints=False)
+    for n in (8, 256):
+        first = ops.bcsr_spmm(c, y[:, :n], bias, semiring_name=name)
+        for _ in range(3):
+            assert torch.equal(ops.bcsr_spmm(c, y[:, :n], bias, semiring_name=name), first)
+        torch.testing.assert_close(first, bcsr_spmm_plain(c, y[:, :n], bias, semiring_name=name),
+                                   **SPMM_TOL)
+
+
+def test_radixnet_layer_is_one_launch_without_workspace(cuda):
+    """No RadiX-net row is cut: a layer's call is the output allocation and
+    one launch, with no workspace and no zeroed counters."""
+    w, b = rx.radixnet_weights(rx.RadixNetSpec(1024, 1), device=cuda)
+    c = BlockCSRMatrix.from_bsr(w[0])
+    assert kbcsr.piece_table(c).n_cut_rows == 0
+    y = torch.rand((1024, 512), device=cuda)
+    ops.bcsr_spmm(c, y, b[0], fuse_bias_relu=True)  # builds and caches the piece table
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    got = ops.bcsr_spmm(c, y, b[0], fuse_bias_relu=True)
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] - before == 1  # the output
+    assert ops.launch_counts()["bcsr_spmm"] == 1
+    torch.testing.assert_close(got, bcsr_spmm_plain(c, y, b[0], fuse_bias_relu=True), **SPMM_TOL)

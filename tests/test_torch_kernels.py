@@ -22,8 +22,12 @@ from repro.kernels import ops as jops
 from repro.sparse.bcsr import BlockCSRMatrix as JBCSR
 from repro.sparse.bsr import BlockSparseMatrix as JBSR
 from repro_torch import convert
+from repro_torch.core.semiring import REGISTRY
 from repro_torch.data import radixnet as rx
+from repro_torch.kernels import bcsr_spmm as kbcsr
 from repro_torch.kernels import ops
+from repro_torch.kernels.semirings import kernel_semiring
+from repro_torch.sparse import BlockCSRMatrix
 
 SPMM_TOL = dict(rtol=1e-5, atol=1e-6)
 STACK_TOL = dict(rtol=1e-4, atol=1e-6)
@@ -73,6 +77,71 @@ def test_bcsr_spmm_matches_reference_with_empty_row_and_tail(bs, fuse):
     # the empty block-row is the epilogue of the semiring zero
     fill = np.maximum(bias[bs:2 * bs], 0) if fuse else np.zeros(bs, np.float32)
     np.testing.assert_array_equal(got.numpy()[bs:2 * bs], np.repeat(fill[:, None], 13, 1))
+
+
+def _skewed_csr_reference(rng, bs=8):
+    """A numpy-built skewed block-CSR matrix with integer values in
+    [-3, 3]: an empty block-row, two invalid tail slots, and rows of
+    ``S + 7`` and ``4·S + 9`` stored blocks, which the piece table cuts
+    into 2 and 5 pieces (S = PIECE_SLOTS)."""
+    s = kbcsr.PIECE_SLOTS
+    lengths = [3, 0, s + 7, 1, 4 * s + 9, 17]
+    ncb = max(lengths) + 3
+    d = np.zeros((len(lengths) * bs, ncb * bs), np.float32)
+    for i, n_blocks in enumerate(lengths):
+        for c in np.sort(rng.choice(ncb, n_blocks, replace=False)):
+            blk = rng.integers(-3, 4, (bs, bs)).astype(np.float32)
+            blk[0, 0] = 1.0  # a stored block has a nonzero
+            d[i * bs:(i + 1) * bs, c * bs:(c + 1) * bs] = blk
+    return JBCSR.from_bsr(JBSR.from_dense(d, (bs, bs)), pad_to=sum(lengths) + 2)
+
+
+def _pieces_emulated(a, b, bias, name, fuse):
+    """The CUDA kernel's piece walk in plain PyTorch: each piece's slots
+    through the plain version, a cut row's partials folded with the
+    semiring's binary ⊕ in piece order, then the epilogue."""
+    sr = kernel_semiring(name)
+    bs_r = a.block_shape[0]
+    table = kbcsr.piece_table(a)
+    out = torch.empty((a.shape[0], b.shape[1]))
+    partial = {}
+    for p, (row, lo, hi, cut) in enumerate(table.pieces.tolist()):
+        one_row = BlockCSRMatrix(a.values[lo:hi], torch.tensor([0, hi - lo], dtype=torch.int32),
+                                 torch.zeros(hi - lo, dtype=torch.int32), a.col_idx[lo:hi],
+                                 a.valid[lo:hi], (bs_r, a.shape[1]), a.block_shape)
+        partial[p] = kbcsr.bcsr_spmm_plain(one_row, b, semiring_name=name)
+        if cut < 0:
+            out[row * bs_r:(row + 1) * bs_r] = partial[p]
+    for first, count in table.cuts.tolist():
+        acc = partial[first]
+        for p in range(first + 1, first + count):
+            acc = sr.add(acc, partial[p])
+        row = int(table.pieces[first, 0])
+        out[row * bs_r:(row + 1) * bs_r] = acc
+    return torch.clamp_min(out + bias[:, None], 0) if fuse else out
+
+
+@pytest.mark.parametrize("fuse", [True, False], ids=["fused", "plain"])
+@pytest.mark.parametrize("name", sorted(REGISTRY))
+def test_bcsr_piece_walk_matches_reference(name, fuse):
+    """Cut rows fold their pieces' partials with ⊕ in piece order: on
+    integer operands that is the reference's answer exactly (``log_plus``
+    within 1e-5), the empty row included."""
+    rng = np.random.default_rng(41)
+    ref_a = _skewed_csr_reference(rng)
+    a = convert.layout(ref_a)
+    table = kbcsr.piece_table(a)
+    assert sorted(count for _, count in table.cuts.tolist()) == [2, 5]
+    assert not bool(a.valid.all()) and int(a.valid.sum()) == a.total_blocks - 2
+    y = rng.integers(-3, 4, (a.shape[1], 8)).astype(np.float32)
+    bias = rng.integers(-3, 4, a.shape[0]).astype(np.float32)
+    want = np.asarray(jops.bcsr_spmm(ref_a, jnp.asarray(y), jnp.asarray(bias),
+                                     semiring_name=name, fuse_bias_relu=fuse))
+    got = _pieces_emulated(a, torch.from_numpy(y), torch.from_numpy(bias), name, fuse).numpy()
+    if name == "log_plus":
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        np.testing.assert_array_equal(got, want)
 
 
 def test_spmm_wrappers_reject_other_semirings_and_missing_bias():

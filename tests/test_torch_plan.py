@@ -102,10 +102,16 @@ def test_cost_bills_the_launch_geometry(n):
     assert (gy - 1) * tile.cn < n_pad <= gy * tile.cn
     # each CTA folds every slot of its block-row for the bn-wide tiles it covers
     assert P.layer_grid_steps(ell, n) == gx * ell.max_blocks_per_row * (n_pad // bn)
-    (gx, gy), _ = kbcsr.launch_geometry(csr, n_pad, bn)
+    (gx, gy), _ = kbcsr.launch_geometry(csr, n_pad)
     row_slots = (csr.row_ptr[1:] - csr.row_ptr[:-1]).tolist()
-    assert gx == len(row_slots)
-    assert P.layer_grid_steps(csr, n) == sum(row_slots) * gy
+    pieces = kbcsr.piece_table(csr).pieces
+    assert gx == pieces.shape[0] == len(row_slots)  # no RadiX-net row is cut
+    tile = kbcsr.tile_for(n_pad)
+    assert (gy - 1) * tile.cn < n_pad <= gy * tile.cn
+    # each piece folds its slots for the bn-wide tiles its CTAs cover
+    piece_slots = int((pieces[:, 2] - pieces[:, 1]).sum())
+    assert piece_slots == sum(row_slots)
+    assert P.layer_grid_steps(csr, n) == piece_slots * (n_pad // bn)
     # the fused launches: every bn-wide column tile folds every slot of
     # every layer, whichever stripes, clusters or grid CTAs fold it
     stacked = stack_bsr(ws)

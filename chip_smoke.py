@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's GraphChallenge and GraphBLAS paths on one GPU.
+"""Drive the PyTorch/CUDA port's GraphChallenge, GraphBLAS and training paths on one GPU.
 
     python3 chip_smoke.py        # from the repository root, on a CUDA host
 
@@ -20,8 +20,11 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    ``bcsr_spmm`` also where its work is: RadiX-net's stride-32 layer as
    block-CSR (``stride32``, the same 2048 stored blocks as ``bsr_spmm``'s
    row) and the graphblas phase's skewed 8192 × 8192 adjacency at 256
-   and 8 columns (``skewed``, with its piece count and cut rows), each
-   beside the ``addmm`` of its dense form; the two fused kernels with
+   and 8 columns (``skewed``, with its piece count and cut rows); both
+   SpMMs on the paper's 128 × 128 blocks (``block128``: an 8192 × 8192
+   layer, 8 of 64 blocks a row, 64 columns), which the wrappers launch
+   re-tiled, with the sub-block they launched; each beside the ``addmm``
+   of its dense form; the two fused kernels with
    their launch (``cluster``, ``ctas``, what the card holds at once) and
    a 2048-column ``wide`` probe with its time over the 512-column time. Then ``semirings``: the
    three semiring kernels in all eight semirings on integer-valued
@@ -49,9 +52,28 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    through ``gb.vxm``, and the paper's three-call ``dnn_forward(
    fused=False)`` on RadiX-net 1024 × 120 with 2 048 inputs; it prints
    the adjacency's longest and median block-row.
+8. train-radixnet — the training path at full width: RadiX-net 1024 ×
+   120's stored blocks (the stride-1 phase as block-CSR) with seeded
+   He-scale values, a 512-column Philox panel, a differentiable
+   ``StackPlan``, the first step's gradients against the plain versions
+   on the card (``GRAD_RTOL``), then 3 SGD steps of
+   ``make_sparse_train_step``: the loss must fall, the gradients stay in
+   the stored pattern, no transpose is sorted after the plan's build,
+   and the launches per step split into forward (one per sparse layer)
+   and backward (``bcsr_spmm`` on the cached transpose of every
+   block-CSR layer whose input needs a gradient); forward, backward and
+   step times on the synchronised host clock.
+9. train-paper — the paper's MLP at a Fig. 5 grid point
+   (``graphblas_mlp.make_config(m=8192, num_layers=8,
+   inverse_sparsity=8, block=128)``, batch 64): seeded dense weights
+   ``block_prune``'d to 8 of 64 blocks a row, every other layer as
+   block-CSR; a no-grad forward through a layered plan against the plain
+   version (the 128 × 128 blocks reach the kernels as 64 × 64
+   sub-blocks, the wrappers' re-tiling), then 2 AdamW steps checked as in
+   phase 8, with the block shapes each wrapper launched.
 
-Launch counts are reset to 0 right before each of phases 3-7 and read
-right after. The ``kernels`` line, the ``nvidia-smi`` line and, last,
+Launch counts are reset to 0 right before each of phases 3-9 and read
+right after (for 8 and 9, around the train steps). The ``kernels`` line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}`` close the run. Numbers are this run's
 own; the bound of a kernel is max(bytes / 3.35 TB/s, ops / 67 TFLOP/s)
 (H100 SXM HBM3 rate and f32 CUDA-core peak at 700 W), counting the
@@ -95,6 +117,18 @@ LOG_PLUS_TOL = 1e-5  # the reference's TOL: its reductions chain in another orde
 GNN_TOL = 1e-5  # gnn_arm's scale-normalised conv agreement
 
 NARROW_N = 8  # the narrow-panel timing of the redesigned kernels (an mxv's width)
+# the training phases: the first step's gradients, kernels against the plain
+# versions on the card with each layer's ReLU mask taken from the kernels'
+# forward, per layer tensor ||kernel - plain|| <= GRAD_RTOL ||plain|| (f32
+# products summed in another order through the forward and back). With its
+# own masks the plain forward puts a few of RadiX-net's 6e7 pre-activations
+# within rounding of 0 on the other side (a gradient of a ReLU stack jumps
+# there): those flips are counted and their gradient error printed, not held
+# to the bound.
+GRAD_RTOL = 1e-4
+TRAIN_SEED = 7
+RADIX_TRAIN = dict(neurons=1024, layers=120, columns=512, steps=3, lr=0.02)
+PAPER_TRAIN = dict(m=8192, layers=8, inverse_sparsity=8, block=128, batch=64, steps=2, lr=1e-3)
 # the graphblas phase's adjacency: random_skewed(SKEWED_SEED, (m, m), (16, 16), blocks, skew)
 SKEWED_M, SKEWED_BLOCKS, SKEWED_SKEW, SKEWED_SEED = 8192, 8192, 0.8, 5
 KERNEL_SOURCES = {
@@ -377,6 +411,28 @@ def phase_kernels() -> dict:
                                  spmm_work(skewed, w))
            for w in (256, NARROW_N)}}
     del skew_dense
+
+    # the paper's 128 x 128 blocks (a train-paper layer's shape), which the
+    # wrappers launch re-tiled (kernels.retile): 64 x 64 sub-blocks here
+    from repro_torch.kernels import retile
+    from repro_torch.kernels.bsr_spmm import tile_for
+
+    m, bs, bpr, n_paper = PAPER_TRAIN["m"], PAPER_TRAIN["block"], 8, PAPER_TRAIN["batch"]
+    gp = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+    paper = block_ell(gp, m, bs, bpr, dev)
+    paper_y = torch.rand((m, n_paper), generator=gp, device=dev)
+    paper_b = torch.rand((m,), generator=gp, device=dev)
+    paper_dense = paper.to_dense()
+    for name, kern, plain, a in (
+        ("bsr_spmm", ops.bsr_spmm, bsr_spmm_plain, paper),
+        ("bcsr_spmm", ops.bcsr_spmm, bcsr_spmm_plain, BlockCSRMatrix.from_bsr(paper)),
+    ):
+        out[name]["block128"] = {
+            "shape": [m, m, n_paper], "block": [bs, bs], "stored_blocks": a.nnz_blocks(),
+            "launched_block": list(retile.launch_block_shape(tile_for(n_paper), bs, bs)[:2]),
+            **panel_timing(kern, plain, a, paper_dense, paper_y, paper_b,
+                           stored_work(a, n_paper), spmm_work(a, n_paper))}
+    del paper_dense
 
     # dense: a densified stride-32 layer, as the dense phase runs it
     w_dense = ell.to_dense()
@@ -794,6 +850,302 @@ def phase_graphblas(spec, panel, ref_cats, *, m=SKEWED_M, block=16, total_blocks
     }
 
 
+def block_ell(gen, m: int, bs: int, bpr: int, dev):
+    """An m x m ELL matrix of bs x bs blocks, ``bpr`` random block-columns a
+    block-row, values U[0, 1) / (bpr · bs) (positive: no cancellation)."""
+    import torch
+
+    from repro_torch.sparse.bsr import BlockSparseMatrix
+
+    nrb = m // bs
+    cols = torch.rand((nrb, nrb), generator=gen, device=dev).argsort(dim=1)[:, :bpr]
+    blocks = torch.rand((nrb, bpr, bs, bs), generator=gen, device=dev) / (bpr * bs)
+    return BlockSparseMatrix(blocks, cols.sort(dim=1).values.int().contiguous(),
+                             torch.ones((nrb, bpr), dtype=torch.bool, device=dev), (m, m),
+                             (bs, bs))
+
+
+def he_values(w, gen, fan_in: int):
+    """``w`` with each nonzero stored weight redrawn U(-a, a), a = sqrt(6 /
+    fan_in) (He scale: ReLU stacks keep their activations' scale)."""
+    import torch
+
+    from repro_torch.core.dnn import values_of, with_values
+
+    v = values_of(w)
+    a = (6.0 / fan_in) ** 0.5
+    u = torch.rand(v.shape, generator=gen, device=v.device)
+    return with_values(w, (v != 0) * (u * 2 - 1) * a)
+
+
+def rel_norm_err(got, want) -> float:
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def relu_masks(weights, biases, y0, transpose_plans, *, use_kernel: bool) -> list:
+    """Each layer's ReLU mask (``out > 0``) in the kernels' or the plain forward."""
+    import torch
+
+    from repro_torch.core import dnn
+
+    masks, y = [], y0
+    with torch.no_grad():
+        for w, b, tp in zip(weights, biases, transpose_plans):
+            y = (dnn.dnn_layer_trainable(w, y, b, transpose_plan=tp) if use_kernel
+                 else dnn.dnn_layer(w, y, b))
+            masks.append(y > 0)
+    return masks
+
+
+def grads_on_masks(weights, biases, y0, targets, masks):
+    """Loss and gradients (values, then biases) of the plain forward with
+    each layer's ReLU mask fixed to ``masks``: the same piecewise-linear
+    function as the forward that made the masks, at the same point."""
+    import torch
+
+    from repro_torch.core import dnn
+    from repro_torch.sparse import ops as sparse_ops
+    from repro_torch.sparse.bcsr import BlockCSRMatrix
+    from repro_torch.sparse.bsr import BlockSparseMatrix
+
+    leaves = [dnn.values_of(w).detach().requires_grad_() for w in weights]
+    bleaves = [b.detach().requires_grad_() for b in biases]
+    y = y0
+    for w, v, b, m in zip(weights, leaves, bleaves, masks):
+        w = dnn.with_values(w, v)
+        z = (sparse_ops.bcsr_matmul(w, y) if isinstance(w, BlockCSRMatrix)
+             else sparse_ops.bsr_matmul(w, y) if isinstance(w, BlockSparseMatrix) else w @ y)
+        y = torch.where(m, z + b[:, None], torch.zeros((), device=y.device))
+    loss = 0.5 * torch.mean((y - targets) ** 2)
+    return loss.detach(), torch.autograd.grad(loss, leaves + bleaves)
+
+
+def train_cell(weights, biases, y0, targets, opt, steps: int) -> dict:
+    """A differentiable plan, the first step's gradients against the plain
+    versions, then ``steps`` steps of ``make_sparse_train_step`` (launches
+    counted over them), forward and backward timed apart."""
+    import torch
+
+    from repro_torch.core import dnn
+    from repro_torch.kernels import ops
+    from repro_torch.plan import build_plan
+    from repro_torch.sparse.bcsr import (
+        BlockCSRMatrix,
+        reset_transpose_sort_count,
+        transpose_sort_count,
+    )
+    from repro_torch.sparse.bsr import BlockSparseMatrix
+    from repro_torch.train import (
+        grad_sparsity_preserved,
+        init_sparse_mlp_state,
+        make_sparse_train_step,
+    )
+
+    check(torch.get_float32_matmul_precision() == "highest"
+          and not torch.backends.cuda.matmul.allow_tf32, "no TF32 in the backward products")
+    n = y0.shape[1]
+    n_ell = sum(isinstance(w, BlockSparseMatrix) for w in weights)
+    n_csr = sum(isinstance(w, BlockCSRMatrix) for w in weights)
+    reset_transpose_sort_count()
+    t0 = time.perf_counter()
+    plan = build_plan(weights, biases, n, differentiable=True)
+    plan_seconds = time.perf_counter() - t0
+    sorts = transpose_sort_count()
+    check(sorts == len({id(w) for w in weights if isinstance(w, BlockCSRMatrix)}),
+          ("one sort per block-CSR matrix at plan build", sorts))
+    check(plan.route in ("layered", "xla") and not plan.is_fused_route, plan.route)
+
+    # the first step's gradients against the plain versions on the card:
+    # on the kernels' ReLU masks (checked), and on the plain forward's own
+    # (printed, with the mask entries the two forwards disagree on)
+    loss_k, (dw_k, db_k) = dnn.dnn_value_and_grad(weights, biases, y0, targets, plan=plan)
+    got = [dnn.values_of(g) for g in dw_k] + list(db_k)
+    masks = relu_masks(weights, biases, y0, plan.transpose_plans, use_kernel=True)
+    loss_m, want = grads_on_masks(weights, biases, y0, targets, masks)
+    own = relu_masks(weights, biases, y0, plan.transpose_plans, use_kernel=False)
+    flips = [int((a != b).sum()) for a, b in zip(masks, own)]
+    del masks, own
+    loss_p, (dw_p, db_p) = dnn.dnn_value_and_grad(weights, biases, y0, targets, use_kernel=False)
+    torch.cuda.synchronize()
+    plain = [dnn.values_of(g) for g in dw_p] + list(db_p)
+    grad_err = max(rel_norm_err(a, b) for a, b in zip(got, want))
+    grad_max_err = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                       for a, b in zip(got, want))
+    own_err = max(rel_norm_err(a, b) for a, b in zip(got, plain))
+    loss_err = abs(float(loss_k) - float(loss_m)) / abs(float(loss_m))
+    check(all(bool(torch.isfinite(a).all()) for a in got), "finite gradients")
+    check(grad_err <= GRAD_RTOL, ("gradients vs plain on the kernels' masks", grad_err))
+    check(loss_err <= GRAD_RTOL, ("loss vs plain", loss_err))
+    sparsity = grad_sparsity_preserved(weights, dw_k)
+    check(sparsity, "gradients outside the stored pattern")
+    del dw_p, db_p, got, want, plain
+
+    # forward alone (the graph built), then forward + backward, timed
+    def leaves():
+        ws = [dnn.with_values(w, dnn.values_of(w).detach().requires_grad_()) for w in weights]
+        return ws, [b.detach().requires_grad_() for b in biases]
+
+    def forward():
+        ws, bs = leaves()
+        out = dnn.dnn_forward_trainable(ws, bs, y0, plan=plan)
+        return 0.5 * torch.mean((out - targets) ** 2)
+
+    ops.reset_launch_counts()
+    forward()
+    torch.cuda.synchronize()
+    fwd_counts = ops.launch_counts()
+    fwd_times, vag_times = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        loss = forward()
+        torch.cuda.synchronize()
+        fwd_times.append(time.perf_counter() - t0)
+        del loss
+        t0 = time.perf_counter()
+        dnn.dnn_value_and_grad(weights, biases, y0, targets, plan=plan)
+        torch.cuda.synchronize()
+        vag_times.append(time.perf_counter() - t0)
+
+    # the main path: steps of the sparse train step, counted
+    state = init_sparse_mlp_state(weights, biases, opt)
+    step = make_sparse_train_step(opt, plan=plan)
+    batch = {"y0": y0, "targets": targets}
+    losses, step_times = [], []
+    ops.reset_launch_counts()
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        step_times.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+    counts = ops.launch_counts()
+    shapes = ops.launched_block_shapes()
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], ("loss falls", losses))
+    check(transpose_sort_count() == sorts, ("no sort after the plan's build", sorts,
+                                            transpose_sort_count()))
+    # dX launches for the block-CSR layers whose input needs a gradient:
+    # all but a first layer (the input panel is data)
+    n_csr_bwd = n_csr - int(isinstance(weights[0], BlockCSRMatrix))
+    fwd = {k: fwd_counts[k] for k in ("bsr_spmm", "bcsr_spmm")}
+    per_step = {k: counts[k] / steps for k in ("bsr_spmm", "bcsr_spmm")}
+    bwd = {k: per_step[k] - fwd[k] for k in fwd}
+    check(fwd == {"bsr_spmm": n_ell, "bcsr_spmm": n_csr}, ("forward launches", fwd))
+    check(bwd == {"bsr_spmm": 0, "bcsr_spmm": n_csr_bwd}, ("backward launches", bwd))
+    check(all(v == 0 for k, v in counts.items() if k not in fwd), counts)
+    return {
+        "layers": len(weights), "ell_layers": n_ell, "bcsr_layers": n_csr,
+        "route": plan.route, "paths": sorted({lp.path for lp in plan.layers}),
+        "columns": n, "plan_seconds": plan_seconds,
+        "losses": losses, "first_step_loss_rel_err": loss_err,
+        "grad_rel_err": grad_err, "grad_check": f"per layer tensor ||kernel - plain|| <= "
+                                                f"{GRAD_RTOL} ||plain||, the kernels' ReLU masks",
+        "grad_max_rel_err": grad_max_err,
+        "own_masks": {"grad_rel_err": own_err, "relu_mask_flips": sum(flips),
+                      "layers_with_flips": [i for i, f in enumerate(flips) if f],
+                      "loss_rel_err": abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))},
+        "grad_sparsity_preserved": sparsity,
+        "transpose_sorts": {"after_plan_build": sorts, "after_steps": transpose_sort_count()},
+        "launches": counts, "launches_per_step": {"forward": fwd, "backward": bwd},
+        "launched_block_shapes": {k: [list(s) for s in v] for k, v in shapes.items()},
+        "forward_ms": 1e3 * statistics.median(fwd_times),
+        "forward_backward_ms": 1e3 * statistics.median(vag_times),
+        "backward_ms": 1e3 * (statistics.median(vag_times) - statistics.median(fwd_times)),
+        "step_ms": 1e3 * statistics.median(step_times[1:]),
+        "step_ms_all": [1e3 * x for x in step_times],
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+
+
+def phase_train_radixnet(neurons: int, layers: int, columns: int, steps: int, lr: float) -> dict:
+    """The challenge topology at full width, trained: RadiX-net's stored
+    blocks with seeded He-scale values (the challenge's own 1/16 weights
+    double a live column every layer, past f32's range for a squared
+    loss), the stride-1 phase as block-CSR, a Philox input panel."""
+    import torch
+
+    from repro_torch.data import radixnet as rx
+    from repro_torch.plan.layout import to_preferred_layout
+    from repro_torch.train import sgd
+
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    spec = rx.RadixNetSpec(neurons, layers)
+    phases, _ = rx.radixnet_weights(spec, device=dev)
+    relaid = {}
+    gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+    weights = []
+    for w in phases:
+        if id(w) not in relaid:
+            relaid[id(w)] = to_preferred_layout(w)
+        weights.append(he_values(relaid[id(w)], gen, fan_in=32))
+    biases = [torch.zeros(neurons, device=dev) for _ in weights]
+    y0 = torch.from_numpy(rx.radixnet_input_panel(neurons, columns, density=0.3, seed=0)).to(dev)
+    targets = torch.rand((neurons, columns), generator=gen, device=dev)
+    info = train_cell(weights, biases, y0, targets, sgd(lr), steps)
+    return {"spec": [neurons, layers], "optimizer": f"sgd(lr={lr}, momentum=0.9)", **info}
+
+
+def phase_train_paper(m: int, layers: int, inverse_sparsity: int, block: int, batch: int,
+                      steps: int, lr: float) -> dict:
+    """The paper's MLP at a Fig. 5 grid point (graphblas_mlp.make_config(m,
+    layers, inverse_sparsity, block)): seeded dense weights block-pruned to
+    ELL, every other layer re-laid as block-CSR; a served forward through a
+    layered plan (128 x 128 blocks, re-tiled by the wrappers) against the
+    plain version; then AdamW steps."""
+    import torch
+
+    from repro_torch.core import dnn, pruning
+    from repro_torch.kernels import ops
+    from repro_torch.plan import build_plan
+    from repro_torch.sparse.bcsr import BlockCSRMatrix
+
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    bpr = max(1, round((m // block) / inverse_sparsity))
+    gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+    t0 = time.perf_counter()
+    weights = []
+    for i in range(layers):
+        dense = torch.randn((m, m), generator=gen, device=dev) * (2.0 / (bpr * block)) ** 0.5
+        w = pruning.block_prune(dense, (block, block), bpr)
+        del dense
+        weights.append(BlockCSRMatrix.from_bsr(w) if i % 2 else w)
+    biases = [torch.full((m,), 0.01, device=dev) for _ in weights]
+    build_seconds = time.perf_counter() - t0
+    y0 = torch.rand((m, batch), generator=gen, device=dev)
+    targets = torch.rand((m, batch), generator=gen, device=dev)
+
+    # serving: the 128 x 128 stack through a layered plan, no grad
+    plan = build_plan(weights, biases, batch)
+    check(plan.route == "layered", plan.route)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        got = plan.forward(y0)
+    torch.cuda.synchronize()
+    serve_counts, serve_shapes = ops.launch_counts(), ops.launched_block_shapes()
+    want = dnn.dnn_forward(weights, biases, y0)
+    serve_err = errors(got, want)
+    check(columns_within(got, want, STACK_RTOL, STACK_ATOL), ("served forward", serve_err))
+    check(serve_counts["bsr_spmm"] + serve_counts["bcsr_spmm"] == layers, serve_counts)
+    check(all(tuple(s) != (block, block) for v in serve_shapes.values() for s in v), serve_shapes)
+
+    from repro_torch.train import adamw
+
+    info = train_cell(weights, biases, y0, targets, adamw(lr), steps)
+    check(all(tuple(s) != (block, block) for v in info["launched_block_shapes"].values()
+              for s in v), info["launched_block_shapes"])
+    return {
+        "config": {"m": m, "num_layers": layers, "inverse_sparsity": inverse_sparsity,
+                   "block": block, "blocks_per_row": bpr, "batch": batch},
+        "values_mb_per_layer": m // block * bpr * block * block * 4 / 2 ** 20,
+        "build_seconds": build_seconds, "optimizer": f"adamw(lr={lr})",
+        "serve": {**serve_err, "launches": serve_counts,
+                  "launched_block_shapes": {k: [list(s) for s in v]
+                                            for k, v in serve_shapes.items()}},
+        **info,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -828,11 +1180,17 @@ def main() -> int:
     emit({"phase": "dense", **dense})
     graph = phase_graphblas(spec, panel, ref_cats)
     emit({"phase": "graphblas", **graph})
+    train_radix = phase_train_radixnet(**RADIX_TRAIN)
+    emit({"phase": "train-radixnet", **train_radix})
+    train_paper = phase_train_paper(**PAPER_TRAIN)
+    emit({"phase": "train-paper", **train_paper})
 
     by_phase = {"serve": serve["launches"], "layered": layered["launches"],
                 "tiled": tiled["launches"], "dense": dense["launches"],
                 "graphblas": graph["launches"],
-                "three_call": graph["three_call"]["launches"]}
+                "three_call": graph["three_call"]["launches"],
+                "train-radixnet": train_radix["launches"],
+                "train-paper": train_paper["launches"]}
     checks = {name: "max|kernel - plain| <= 1e-5 |plain| + 1e-6 (f32 order)"
               for name in ("semiring_matmul", "bsr_spmm", "bcsr_spmm")}
     checks.update({name: "stack: <= 1e-4 max|plain|, each entry within 2x the f32 bound, "

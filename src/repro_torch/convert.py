@@ -12,10 +12,16 @@ returns the port's tensors on ``device``:
 * :func:`bcsr` — ``BlockCSRMatrix``;
 * :func:`bias` — bias vectors (or a stacked (L, m) bias);
 * :func:`layout` — either matrix class, read off an object with the
-  reference's attribute names.
+  reference's attribute names;
+* :func:`weight` — a layer weight of either class, or a dense array;
+* :func:`cotangent` — a reference gradient of a weight in the port's
+  class: its value leaf, with the topology of the port's primal (the
+  reference's topology leaves are ``float0`` and carry nothing).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -68,3 +74,22 @@ def layout(obj, *, device="cpu"):
                     obj.shape, obj.block_shape, device=device)
     return bsr(obj.blocks, obj.col_idx, obj.block_mask, obj.shape, obj.block_shape,
                device=device)
+
+
+def weight(obj, *, device="cpu"):
+    """A layer weight: a sparse matrix through :func:`layout`, anything
+    else as a dense float32 tensor."""
+    if hasattr(obj, "block_shape"):
+        return layout(obj, device=device)
+    return _t(obj, np.float32, device)
+
+
+def cotangent(obj, like, *, device="cpu"):
+    """The reference's gradient ``obj`` of a weight, as the port's class of
+    ``like`` (the port's primal): the value leaf converted, ``like``'s
+    topology tensors shared; a dense gradient as a tensor."""
+    if hasattr(like, "row_ptr"):
+        return dataclasses.replace(like, values=_t(obj.values, np.float32, device))
+    if hasattr(like, "block_mask"):
+        return dataclasses.replace(like, blocks=_t(obj.blocks, np.float32, device))
+    return _t(obj, np.float32, device)

@@ -16,10 +16,17 @@
 
 Weights are dense tensors, ELL-padded :class:`BlockSparseMatrix` or
 :class:`BlockCSRMatrix`.
+
+Training: :func:`dnn_forward_trainable` runs each sparse layer through the
+differentiable SpMM wrappers (``repro_torch.kernels.autodiff``: the
+kernels forward, dW at stored blocks and dX by the transpose product
+backward) and :func:`dnn_value_and_grad` returns the loss and the
+gradients, sparse ones in the weight's own layout.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Sequence, Union
 
 import torch
@@ -96,3 +103,113 @@ def stack_bsr(mats: Sequence[BlockSparseMatrix]) -> BlockSparseMatrix:
         first.shape,
         first.block_shape,
     )
+
+
+def dnn_layer_trainable(
+    w: Weight, y: torch.Tensor, b: torch.Tensor, *, transpose_plan=None
+) -> torch.Tensor:
+    """One differentiable layer max(W·Y + b⊗1ᵀ, 0) through the kernel
+    wrappers (a dense weight takes the plain fused form, which autograd
+    differentiates). ``transpose_plan`` (block-CSR weights) is the cached
+    backward transpose of a differentiable ``repro_torch.plan`` StackPlan;
+    without it every backward re-sorts the frozen topology."""
+    from repro_torch.kernels import ops as kernel_ops
+
+    if isinstance(w, BlockCSRMatrix):
+        return kernel_ops.bcsr_spmm(w, y, b, transpose_plan, fuse_bias_relu=True)
+    if isinstance(w, BlockSparseMatrix):
+        return kernel_ops.bsr_spmm(w, y, b, fuse_bias_relu=True)
+    return sparse_ops.dense_matmul_fused_relu(w, y, b)
+
+
+def _layer_transpose_plans(weights: Sequence[Weight], plan) -> tuple:
+    """Per-layer cached transposes of a differentiable StackPlan, or
+    ``None`` for each layer without a plan."""
+    if plan is None:
+        return (None,) * len(weights)
+    if not plan.differentiable:
+        raise ValueError(
+            "the supplied plan is not differentiable; build it with "
+            "differentiable=True (PlanCache.get(..., differentiable=True))"
+        )
+    if plan.n_layers != len(weights):
+        raise ValueError(f"plan has {plan.n_layers} layers but the stack has {len(weights)}")
+    return plan.transpose_plans
+
+
+def dnn_forward_trainable(
+    weights: Sequence[Weight],
+    biases: Sequence[torch.Tensor],
+    y0: torch.Tensor,
+    *,
+    use_kernel: bool = True,
+    plan=None,
+) -> torch.Tensor:
+    """L-layer forward that autograd can differentiate.
+
+    ``use_kernel=True`` runs every sparse layer through the SpMM kernels
+    (their autograd Functions: dW at stored blocks, dX by the transpose
+    product); ``use_kernel=False`` the plain fused forms (the same math,
+    autograd through plain PyTorch). ``plan``: a differentiable StackPlan
+    for this topology, whose cached block-CSR transposes make the
+    backward sort-free. The fused whole-stack kernels are not
+    differentiable and never run here.
+    """
+    tps = _layer_transpose_plans(weights, plan)
+    y = y0
+    for w, b, tp in zip(weights, biases, tps):
+        if use_kernel:
+            y = dnn_layer_trainable(w, y, b, transpose_plan=tp)
+        else:
+            y = dnn_layer(w, y, b, fused=True)
+    return y
+
+
+def _values_name(w: Weight) -> str | None:
+    if isinstance(w, BlockCSRMatrix):
+        return "values"
+    if isinstance(w, BlockSparseMatrix):
+        return "blocks"
+    return None
+
+
+def with_values(w: Weight, values: torch.Tensor) -> Weight:
+    """``w`` with its stored values (the dense tensor itself for a dense
+    weight) replaced by ``values``; topology tensors are shared."""
+    name = _values_name(w)
+    return values if name is None else dataclasses.replace(w, **{name: values})
+
+
+def values_of(w: Weight) -> torch.Tensor:
+    """The tensor that holds ``w``'s trainable values."""
+    name = _values_name(w)
+    return w if name is None else getattr(w, name)
+
+
+def dnn_value_and_grad(
+    weights: Sequence[Weight],
+    biases: Sequence[torch.Tensor],
+    y0: torch.Tensor,
+    targets: torch.Tensor,
+    *,
+    use_kernel: bool = True,
+    plan=None,
+):
+    """Mean-squared loss ``0.5·mean((forward - targets)²)`` and its
+    gradients with respect to every layer's weight values and bias:
+    ``(loss, (dweights, dbiases))``. A sparse weight's gradient is a
+    matrix of the same class holding the value gradient and the primal's
+    own topology tensors (stored blocks only; pad and tail slots 0).
+    Layers that share one weight object get one gradient each, as the
+    reference's list of leaves does. ``plan`` as in
+    :func:`dnn_forward_trainable`."""
+    leaves = [values_of(w).detach().requires_grad_() for w in weights]
+    bleaves = [b.detach().requires_grad_() for b in biases]
+    ws = [with_values(w, v) for w, v in zip(weights, leaves)]
+    with torch.enable_grad():
+        out = dnn_forward_trainable(ws, bleaves, y0, use_kernel=use_kernel, plan=plan)
+        loss = 0.5 * torch.mean((out - targets) ** 2)
+        grads = torch.autograd.grad(loss, leaves + bleaves)
+    n = len(leaves)
+    dweights = [with_values(w, g) for w, g in zip(weights, grads[:n])]
+    return loss.detach(), (dweights, list(grads[n:]))

@@ -5,7 +5,9 @@ One wrapper per kernel: ``semiring_matmul`` (dense), ``bsr_spmm`` (ELL),
 memory) and ``fused_mlp_tiled_forward`` (panel in global scratch). The
 first three take any registry semiring by name. Each pads the panel's
 columns to the tile width the launch runs at (:func:`effective_block_n`;
-the dense wrapper also pads m and, with the semiring zero, k), then:
+the dense wrapper also pads m and, with the semiring zero, k; the SpMM
+wrappers re-tile a block shape their kernel cannot take,
+``kernels.retile``), then:
 
 * on CUDA tensors launches its CUDA kernel — there is no fallback: a
   kernel that cannot build or launch raises;
@@ -13,8 +15,10 @@ the dense wrapper also pads m and, with the semiring zero, k), then:
 
 Each CUDA launch adds one to the wrapper's count in :func:`launch_counts`
 (and nothing else does), so a run can show which kernels it went
-through. The fused wrappers refuse autograd: their activations never
-exist outside the kernel, so there is nothing to differentiate.
+through. The two SpMM wrappers are differentiable in ``plus_times``
+(``kernels.autodiff``); the fused wrappers refuse autograd: their
+activations never exist outside the kernel, so there is nothing to
+differentiate.
 """
 
 from __future__ import annotations
@@ -26,14 +30,16 @@ from repro_torch.kernels import DEFAULT_BLOCK_N
 from repro_torch.kernels import bcsr_spmm as _bcsr
 from repro_torch.kernels import bsr_spmm as _bsr
 from repro_torch.kernels import fused_mlp as _fmlp
+from repro_torch.kernels import retile as _retile
 from repro_torch.kernels import semiring_matmul as _smm
 from repro_torch.kernels.semirings import kernel_zero
-from repro_torch.sparse.bcsr import BlockCSRMatrix
+from repro_torch.sparse.bcsr import BcsrTransposePlan, BlockCSRMatrix
 from repro_torch.sparse.bsr import BlockSparseMatrix
 
 KERNELS = ("semiring_matmul", "bsr_spmm", "bcsr_spmm", "fused_mlp_forward",
            "fused_mlp_tiled_forward")
 _launches = dict.fromkeys(KERNELS, 0)
+_launch_shapes: dict[str, set] = {name: set() for name in KERNELS}
 
 
 def launch_counts() -> dict[str, int]:
@@ -41,9 +47,16 @@ def launch_counts() -> dict[str, int]:
     return dict(_launches)
 
 
+def launched_block_shapes() -> dict[str, list[tuple[int, int]]]:
+    """The block shapes each SpMM wrapper's CUDA launches took since the
+    last reset (after re-tiling, ``kernels.retile``)."""
+    return {name: sorted(shapes) for name, shapes in _launch_shapes.items() if shapes}
+
+
 def reset_launch_counts() -> None:
     for name in _launches:
         _launches[name] = 0
+        _launch_shapes[name].clear()
 
 
 def _ceil_mult(size: int, base: int = 8) -> int:
@@ -132,6 +145,39 @@ def semiring_matmul(
     return out[:m, :n]
 
 
+def _spmm(name, launch, plain, tile_for, a, b, bias, semiring_name, fuse_bias_relu, block_n):
+    """One SpMM wrapper's forward: pad the panel's columns, re-tile a block
+    shape the kernel cannot take (``kernels.retile``), then launch (CUDA)
+    or run the plain version (CPU)."""
+    n = b.shape[1]
+    block_n = effective_block_n(n, block_n)
+    bias = _bias_or_zeros(bias, a.shape[0], b, fuse_bias_relu)
+    bp = _pad_to(b, 1, block_n)
+    a, bp = _retile.for_launch(a, bp, tile_for(bp.shape[1]), semiring_name)
+    if bp.is_cuda:
+        out = launch(a, _contiguous16(bp), bias.contiguous(), semiring_name=semiring_name,
+                     fuse_bias_relu=fuse_bias_relu)
+        _launches[name] += 1
+        _launch_shapes[name].add(a.block_shape)
+    else:
+        out = plain(a, bp, bias, semiring_name=semiring_name, fuse_bias_relu=fuse_bias_relu)
+    return out[:, :n]
+
+
+def _wants_grad(values: torch.Tensor, b: torch.Tensor, bias: torch.Tensor | None) -> bool:
+    # spelled out: this runs on every serving call
+    return torch.is_grad_enabled() and (
+        values.requires_grad or b.requires_grad or (bias is not None and bias.requires_grad))
+
+
+def _require_plus_times(name: str, semiring_name: str) -> None:
+    if semiring_name != "plus_times":
+        raise NotImplementedError(
+            f"{name} is differentiable only in plus_times, not {semiring_name}: the "
+            "other semirings keep the forward-only kernel path"
+        )
+
+
 def bsr_spmm(
     a: BlockSparseMatrix,
     b: torch.Tensor,
@@ -141,27 +187,27 @@ def bsr_spmm(
     fuse_bias_relu: bool = False,
     block_n: int = DEFAULT_BLOCK_N,
 ) -> torch.Tensor:
-    """Padded ELL-BSR ``C = A ⊕.⊗ B`` (+ fused ``max(C + bias, 0)``)."""
-    n = b.shape[1]
-    block_n = effective_block_n(n, block_n)
-    bias = _bias_or_zeros(bias, a.shape[0], b, fuse_bias_relu)
-    bp = _pad_to(b, 1, block_n)
-    if bp.is_cuda:
-        out = _bsr.bsr_spmm_cuda(
-            a, _contiguous16(bp), bias.contiguous(), semiring_name=semiring_name,
-            fuse_bias_relu=fuse_bias_relu,
-        )
-        _launches["bsr_spmm"] += 1
-    else:
-        out = _bsr.bsr_spmm_plain(a, bp, bias, semiring_name=semiring_name,
-                                  fuse_bias_relu=fuse_bias_relu)
-    return out[:, :n]
+    """Padded ELL-BSR ``C = A ⊕.⊗ B`` (+ fused ``max(C + bias, 0)``).
+
+    Differentiable in ``plus_times``: when grad is enabled and
+    ``a.blocks``, ``b`` or ``bias`` requires it, the call goes through
+    ``kernels.autodiff`` (dW at stored slots, dX by the transpose
+    product); without grad it launches exactly as a serving call."""
+    if _wants_grad(a.blocks, b, bias):
+        from repro_torch.kernels import autodiff
+
+        _require_plus_times("bsr_spmm", semiring_name)
+        return autodiff.bsr_spmm_diff(a, b, _bias_or_zeros(bias, a.shape[0], b, fuse_bias_relu),
+                                      fuse_bias_relu=fuse_bias_relu, block_n=block_n)
+    return _spmm("bsr_spmm", _bsr.bsr_spmm_cuda, _bsr.bsr_spmm_plain, _bsr.tile_for,
+                 a, b, bias, semiring_name, fuse_bias_relu, block_n)
 
 
 def bcsr_spmm(
     a: BlockCSRMatrix,
     b: torch.Tensor,
     bias: torch.Tensor | None = None,
+    transpose_plan: BcsrTransposePlan | None = None,
     *,
     semiring_name: str = "plus_times",
     fuse_bias_relu: bool = False,
@@ -173,21 +219,21 @@ def bcsr_spmm(
     semiring zero (``max(zero + bias, 0)`` when fused, else the zero) —
     the kernel writes them itself, the plain version gets them from its
     segment-⊕. One launch a call, long block-rows cut into pieces or not.
+
+    Differentiable in ``plus_times`` like :func:`bsr_spmm`; its dX
+    launches this wrapper again on the transpose, which
+    ``transpose_plan`` (``a.transpose_plan()``, or a differentiable
+    ``StackPlan``'s) supplies without a sort. Only the backward reads it.
     """
-    n = b.shape[1]
-    block_n = effective_block_n(n, block_n)
-    bias = _bias_or_zeros(bias, a.shape[0], b, fuse_bias_relu)
-    bp = _pad_to(b, 1, block_n)
-    if bp.is_cuda:
-        out = _bcsr.bcsr_spmm_cuda(
-            a, _contiguous16(bp), bias.contiguous(), semiring_name=semiring_name,
-            fuse_bias_relu=fuse_bias_relu,
-        )
-        _launches["bcsr_spmm"] += 1
-    else:
-        out = _bcsr.bcsr_spmm_plain(a, bp, bias, semiring_name=semiring_name,
-                                    fuse_bias_relu=fuse_bias_relu)
-    return out[:, :n]
+    if _wants_grad(a.values, b, bias):
+        from repro_torch.kernels import autodiff
+
+        _require_plus_times("bcsr_spmm", semiring_name)
+        return autodiff.bcsr_spmm_diff(a, b, _bias_or_zeros(bias, a.shape[0], b, fuse_bias_relu),
+                                       transpose_plan, fuse_bias_relu=fuse_bias_relu,
+                                       block_n=block_n)
+    return _spmm("bcsr_spmm", _bcsr.bcsr_spmm_cuda, _bcsr.bcsr_spmm_plain, _bcsr.tile_for,
+                 a, b, bias, semiring_name, fuse_bias_relu, block_n)
 
 
 def _refuse_autograd(name: str, where: str, *tensors: torch.Tensor) -> None:
@@ -196,8 +242,9 @@ def _refuse_autograd(name: str, where: str, *tensors: torch.Tensor) -> None:
             f"{name} has no backward: the {where} kernel never "
             "materializes per-layer activations, so there is nothing to "
             "checkpoint for the backward pass. Differentiate the layered "
-            "kernel path instead (the trainable layered forward arrives "
-            "with the training slice, ROADMAP Queue 1 item 7)."
+            "kernel path instead (repro_torch.core.dnn.dnn_forward_trainable, "
+            "or SparseDNNEngine(differentiable=True), which routes around "
+            "the fused kernels)."
         )
 
 

@@ -35,6 +35,7 @@ from repro_torch.plan.routes import (  # noqa: F401
     ROUTE_FUSED,
     ROUTE_FUSED_TILED,
     ROUTE_LAYERED,
+    ROUTE_XLA,
     fused_route,
     layer_path,
     resident_eligible,
@@ -57,6 +58,7 @@ __all__ = [
     "ROUTE_FUSED",
     "ROUTE_FUSED_TILED",
     "ROUTE_LAYERED",
+    "ROUTE_XLA",
     "DegradationLadder",
     "LayerPlan",
     "MxmPlan",

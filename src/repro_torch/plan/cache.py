@@ -54,14 +54,16 @@ class PlanCache:
         *,
         use_resident: bool | None = None,
         fingerprint: str | None = None,
+        differentiable: bool = False,
     ) -> StackPlan:
-        """The plan for this (stack, width, residency) — cached. ``fingerprint`` skips the host-side topology hash when
-        the caller already knows it."""
+        """The plan for this (stack, width, residency, differentiable?) —
+        cached. ``fingerprint`` skips the host-side topology hash when the
+        caller already knows it."""
         weights = tuple(weights)
         biases = tuple(biases)
         if fingerprint is None:
             fingerprint = topology_fingerprint(weights)
-        key = PlanKey(fingerprint, width, use_resident)
+        key = PlanKey(fingerprint, width, use_resident, differentiable=differentiable)
         self.lookups += 1
         plan = self._entries.get(key)
         if (
@@ -74,7 +76,8 @@ class PlanCache:
             return plan
         self.misses += 1
         # A plan for the same stack at ANOTHER width class donates its
-        # width-independent pieces (relayouted weights, fused stack).
+        # width-independent pieces (relayouted weights, fused stack,
+        # cached transposes: a topology is sorted once for every width).
         donor = None
         for cand in reversed(self._entries.values()):
             if (
@@ -91,6 +94,7 @@ class PlanCache:
             use_resident=use_resident,
             fingerprint=fingerprint,
             donor=donor,
+            differentiable=differentiable,
         )
         self.builds += 1
         self._entries[plan.key] = plan

@@ -36,16 +36,18 @@ class DegradationLadder:
     def preferred_level(self) -> str:
         return LEVEL_RESIDENT if self.use_resident else LEVEL_LAYERED
 
-    def get_plan(self, weights, biases, width: int, *, fingerprint=None):
-        """(plan, level, cache_hit) at the best level that builds."""
-        if self.use_resident and self.demotion is None:
+    def get_plan(self, weights, biases, width: int, *, fingerprint=None,
+                 differentiable: bool = False):
+        """(plan, level, cache_hit) at the best level that builds.
+        ``differentiable`` plans have no resident level to try."""
+        if self.use_resident and self.demotion is None and not differentiable:
             try:
-                return self._get(weights, biases, width, fingerprint, LEVEL_RESIDENT)
+                return self._get(weights, biases, width, fingerprint, LEVEL_RESIDENT, False)
             except Exception as e:  # noqa: BLE001 — any plan-build failure
                 self.demotion = f"{type(e).__name__}: {e}"
-        return self._get(weights, biases, width, fingerprint, LEVEL_LAYERED)
+        return self._get(weights, biases, width, fingerprint, LEVEL_LAYERED, differentiable)
 
-    def _get(self, weights, biases, width, fingerprint, level):
+    def _get(self, weights, biases, width, fingerprint, level, differentiable):
         before = self.cache.hits
         plan = self.cache.get(
             weights,
@@ -53,5 +55,6 @@ class DegradationLadder:
             width,
             use_resident=level == LEVEL_RESIDENT,
             fingerprint=fingerprint,
+            differentiable=differentiable,
         )
         return plan, level, self.cache.hits > before

@@ -1,16 +1,19 @@
 """The route decision tree — counterpart of ``repro/plan/routes.py``.
 
-    homogeneous square BSR stack, fused allowed?
+    homogeneous square BSR stack, not differentiable, fused allowed?
       └─ panel pair fits shared memory → **fused**: ONE launch of the
                resident kernel for the whole stack
       └─ panel past ``SMEM_LIMIT_BYTES`` → **fused-tiled**: ONE launch,
                the ping-pong panel in global scratch
       └─ no  → **layered**, per layer by execution layout:
                block-CSR → kernel-bcsr, ELL-BSR → kernel-ell,
-               dense → kernel-dense (``semiring_matmul``)
+               dense → kernel-dense (``semiring_matmul``), or
+               **xla-dense** (the plain fused form, which autograd
+               differentiates) when the plan is differentiable
+    all layers xla-dense → the stack route reads **xla**.
 
-The reference's ``xla-dense``/``xla`` routes serve its differentiable
-plans, which the port does not build yet.
+The route strings are the reference's (public names); ``xla`` names the
+plain PyTorch path here.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from repro_torch.sparse.bsr import BlockSparseMatrix
 ROUTE_FUSED = "fused"
 ROUTE_FUSED_TILED = "fused-tiled"
 ROUTE_LAYERED = "layered"
+ROUTE_XLA = "xla"
 
 
 def _homogeneous_bsr_stack(weights: Sequence[Weight]) -> bool:
@@ -81,11 +85,11 @@ def fused_route(
     return ROUTE_FUSED_TILED
 
 
-def layer_path(w: Weight) -> str:
+def layer_path(w: Weight, *, differentiable: bool = False) -> str:
     """The per-layer execution path of the layered route."""
     layout = layer_layout(w)
     if layout == "bcsr":
         return "kernel-bcsr"
     if layout == "ell":
         return "kernel-ell"
-    return "kernel-dense"
+    return "xla-dense" if differentiable else "kernel-dense"

@@ -2,14 +2,17 @@
 
 Counterpart of ``repro/plan/stack_plan.py``. A :class:`StackPlan` does
 the per-topology analysis ONCE per ``(topology fingerprint, panel-width
-class, residency request)`` key and carries:
+class, residency request, differentiable?)`` key and carries:
 
 * the chosen execution layout per layer (the ELL-pad waste heuristic of
   ``repro_torch.plan.layout``, applied at build time);
 * the route — fused / fused-tiled / layered (``repro_torch.plan.routes``);
 * the exact launch bill for the plan's panel width (``plan.cost``);
 * the bound weights: the relayouted layers, or the stacked weight and
-  bias tensors of the fused routes.
+  bias tensors of the fused routes;
+* for a differentiable plan, each block-CSR layer's cached transpose
+  (:class:`~repro_torch.sparse.bcsr.BcsrTransposePlan`), so no backward
+  sorts the frozen topology again.
 
 The reference jits one executable per plan; PyTorch runs eagerly, so a
 plan's forward calls the kernel wrappers directly (capturing it as a
@@ -30,7 +33,8 @@ from repro_torch.kernels import ops as kernel_ops
 from repro_torch.plan import cost as _cost
 from repro_torch.plan import layout as _layout
 from repro_torch.plan import routes as _routes
-from repro_torch.sparse.bcsr import BlockCSRMatrix
+from repro_torch.sparse import ops as sparse_ops
+from repro_torch.sparse.bcsr import BcsrTransposePlan, BlockCSRMatrix
 from repro_torch.sparse.bsr import BlockSparseMatrix
 
 # Panel-width classes serving quantizes to by default.
@@ -87,7 +91,8 @@ def topology_fingerprint(weights: Sequence[Weight]) -> str:
 
 class PlanKey(NamedTuple):
     """What a plan is keyed on: same topology + width class + residency
-    request + semiring → the same plan, hence a cache hit.
+    request + semiring + differentiability → the same plan, hence a
+    cache hit.
 
     ``semiring`` is the ⊕.⊗ algebra the plan computes: DNN stack plans
     are ``plus_times``; the GraphBLAS ``mxm``/``mxv`` plans
@@ -98,6 +103,7 @@ class PlanKey(NamedTuple):
     width: int
     resident: bool | None  # the use_resident tri-state the caller asked
     semiring: str = "plus_times"  # the plan's ⊕.⊗ algebra
+    differentiable: bool = False  # autograd-compatible routes only
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,6 +113,7 @@ class LayerPlan:
     layout: str  # execution layout after the waste heuristic
     path: str  # routes.layer_path value, or "fused"/"fused-tiled"
     grid_steps: int  # exact bill at the plan's width
+    transpose_plan: BcsrTransposePlan | None = None  # cached backward transpose
 
 
 @dataclasses.dataclass
@@ -129,6 +136,12 @@ class StackPlan:
         return len(self.layers)
 
     @property
+    def differentiable(self) -> bool:
+        """Built for autograd: no fused route, dense layers ``xla-dense``,
+        cached transposes on the block-CSR layers."""
+        return self.key.differentiable
+
+    @property
     def is_fused_route(self) -> bool:
         """Single-launch whole-stack route (resident or tiled)."""
         return self.route in (_routes.ROUTE_FUSED, _routes.ROUTE_FUSED_TILED)
@@ -136,11 +149,17 @@ class StackPlan:
     @property
     def kernel_launches(self) -> int:
         """Kernel launches one forward of this plan performs."""
-        return 1 if self.is_fused_route else self.n_layers
+        if self.is_fused_route:
+            return 1
+        return sum(1 for lp in self.layers if lp.path != "xla-dense")
 
     @property
     def layouts(self) -> tuple[str, ...]:
         return tuple(lp.layout for lp in self.layers)
+
+    @property
+    def transpose_plans(self) -> tuple[BcsrTransposePlan | None, ...]:
+        return tuple(lp.transpose_plan for lp in self.layers)
 
     def forward(self, y0: torch.Tensor) -> torch.Tensor:
         """One forward pass of the bound stack over an (m, k) panel,
@@ -159,12 +178,34 @@ class StackPlan:
         else:
             for lp, w, b in zip(self.layers, self.weights, self.biases):
                 if lp.path == "kernel-bcsr":
-                    y = kernel_ops.bcsr_spmm(w, y, b, fuse_bias_relu=True)
+                    y = kernel_ops.bcsr_spmm(w, y, b, lp.transpose_plan, fuse_bias_relu=True)
                 elif lp.path == "kernel-ell":
                     y = kernel_ops.bsr_spmm(w, y, b, fuse_bias_relu=True)
-                else:
+                elif lp.path == "kernel-dense":
                     y = kernel_ops.semiring_matmul(w, y, b, fuse_bias_relu=True)
+                else:  # xla-dense: the plain fused form autograd differentiates
+                    y = sparse_ops.dense_matmul_fused_relu(w, y, b)
         return y[:, :k]
+
+    def forward_trainable(
+        self,
+        weights: Sequence[Weight],
+        biases: Sequence[torch.Tensor],
+        y0: torch.Tensor,
+        *,
+        use_kernel: bool = True,
+    ) -> torch.Tensor:
+        """Differentiable forward with the caller's (fresh) values: the
+        plan lends only its frozen-topology pieces, the cached block-CSR
+        transposes, so a train step built on it never sorts again."""
+        from repro_torch.core import dnn as _dnn
+
+        if not self.differentiable:
+            raise ValueError(
+                "forward_trainable needs a differentiable plan; rebuild with "
+                "differentiable=True"
+            )
+        return _dnn.dnn_forward_trainable(weights, biases, y0, use_kernel=use_kernel, plan=self)
 
 
 def build_plan(
@@ -175,6 +216,7 @@ def build_plan(
     use_resident: bool | None = None,
     fingerprint: str | None = None,
     donor: "StackPlan | None" = None,
+    differentiable: bool = False,
 ) -> StackPlan:
     """Build one :class:`StackPlan` (all the per-topology analysis).
 
@@ -183,6 +225,11 @@ def build_plan(
     forces the layered route — the ``SparseDNNEngine`` tri-state.
     Layered plans apply the ELL→CSR waste heuristic to their bound
     weights.
+
+    ``differentiable``: only routes autograd can go through — never a
+    fused one, dense layers ``xla-dense`` — with the caller's layouts
+    kept (no relayout, so gradients line up with the caller's weights)
+    and each distinct block-CSR layer's transpose sorted here, once.
 
     ``donor``: a plan for the SAME stack and key at another width class;
     its width-independent pieces (relayouted weights, the fused weight
@@ -196,13 +243,15 @@ def build_plan(
         raise ValueError(f"width must be >= 1, got {width}")
     if fingerprint is None:
         fingerprint = topology_fingerprint(weights)
-    key = PlanKey(fingerprint, width, use_resident)
+    key = PlanKey(fingerprint, width, use_resident, differentiable=differentiable)
 
-    fused_ok = _routes.fused_route(weights)
+    fused_ok = None if differentiable else _routes.fused_route(weights)
     if use_resident and fused_ok is None:
         raise ValueError(
             "use_resident=True but the stack is not eligible for the fused "
-            "whole-stack kernels (needs a homogeneous square BSR stack)"
+            "whole-stack kernels "
+            + ("(differentiable plans route around them: they have no backward)"
+               if differentiable else "(needs a homogeneous square BSR stack)")
         )
     if use_resident is None or use_resident:
         route = fused_ok or _routes.ROUTE_LAYERED
@@ -221,23 +270,33 @@ def build_plan(
         ]
     else:
         relaid: dict[int, Weight] = {}  # one relayout per distinct layer object
+        transposes: dict[int, BcsrTransposePlan] = {}  # one sort per distinct layer object
         exec_weights, layer_plans = [], []
         for w in weights:
             ew = w
-            if not fused_family:
+            if not fused_family and not differentiable:
                 if id(w) not in relaid:
                     relaid[id(w)] = _layout.to_preferred_layout(w)
                 ew = relaid[id(w)]
+            tp = None
+            if differentiable and isinstance(ew, BlockCSRMatrix):
+                if id(ew) not in transposes:
+                    transposes[id(ew)] = ew.transpose_plan()
+                tp = transposes[id(ew)]
             exec_weights.append(ew)
             layer_plans.append(
                 LayerPlan(
                     layout=_layout.layer_layout(ew),
-                    path=route if fused_family else _routes.layer_path(ew),
+                    path=(route if fused_family
+                          else _routes.layer_path(ew, differentiable=differentiable)),
                     grid_steps=_cost.layer_grid_steps(ew, width),
+                    transpose_plan=tp,
                 )
             )
         if fused_family:
             stacked = (stack_bsr(list(exec_weights)), torch.stack(list(biases)))
+        elif all(lp.path == "xla-dense" for lp in layer_plans):
+            route = _routes.ROUTE_XLA
 
     return StackPlan(
         key=key,

@@ -11,9 +11,11 @@ runs it, and reports exact launch accounting. Output columns that are
 not finite fail only their own request ids (NaN quarantine), and the
 weights' layout invariants are validated once, at construction.
 
-The reference engine's ``mesh=``, ``fault_injector=``, ``tuning_table=``,
-``panel_dtype=`` and ``differentiable=`` arrive with their own slices
-(ROADMAP Queue 1 items 7, 9 and 10); this engine does not take them.
+``differentiable=True`` serves a forward that autograd can go through:
+the plans route around the fused kernels (they have no backward), dense
+layers take the plain fused form, and block-CSR layers carry their
+cached transposes. The reference engine's ``mesh=``, ``fault_injector=``,
+``tuning_table=`` and ``panel_dtype=`` are not taken.
 """
 
 from __future__ import annotations
@@ -41,7 +43,8 @@ class SparseDNNEngine:
     ``batch_align`` columns so a few width classes serve every request.
     ``use_resident``: None serves the fused whole-stack kernels when the
     stack is eligible, True demands them, False forces the layered
-    kernels.
+    kernels. ``differentiable``: serve only routes autograd can go
+    through (never the fused kernels; ``use_resident=True`` is refused).
     """
 
     weights: Sequence[Weight]
@@ -49,12 +52,20 @@ class SparseDNNEngine:
     batch_align: int = 64
     use_resident: bool | None = None  # None = auto-detect eligibility
     device: Any = None
+    differentiable: bool = False
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
         self.n_layers = len(self.weights)
         if len(self.biases) != self.n_layers:
             raise ValueError("weights/biases length mismatch")
+        if self.differentiable and self.use_resident:
+            raise ValueError(
+                "use_resident=True is incompatible with differentiable=True: the "
+                "fused whole-stack kernels have no backward (no VJP). Use "
+                "use_resident=None/False to route through the layered kernels, "
+                "whose autograd Functions support torch.autograd."
+            )
         # Layers that share one matrix object (RadiX-net phases) stay
         # shared: moved, validated and fingerprinted once each.
         moved: dict[int, Any] = {}
@@ -69,7 +80,8 @@ class SparseDNNEngine:
                 seen.add(id(w))
                 w.validate(name=f"SparseDNNEngine layer {i} weight")
         self._fingerprint = topology_fingerprint(self.weights)
-        resident_ok = _routes.fused_route(self.weights) is not None
+        resident_ok = (not self.differentiable
+                       and _routes.fused_route(self.weights) is not None)
         if self.use_resident and not resident_ok:
             raise ValueError(
                 "use_resident=True but the stack is not eligible for the "
@@ -122,6 +134,7 @@ class SparseDNNEngine:
             "grid_steps": 0,
             "request_ids": [],
             "resident": self._resident,
+            "differentiable": self.differentiable,
             "kernel_launches": 0,
             "served_total": self._served,
             "engine_steps": self._steps,
@@ -165,7 +178,8 @@ class SparseDNNEngine:
             width = max(width, pad_to + (-pad_to) % self.batch_align)
         yp = take[0][1] if len(take) == 1 else torch.cat([a for _, a in take], dim=1)
         plan, level, cache_hit = self._ladder.get_plan(
-            self.weights, self.biases, width, fingerprint=self._fingerprint
+            self.weights, self.biases, width, fingerprint=self._fingerprint,
+            differentiable=self.differentiable,
         )
         res = plan.forward(yp)[:, :batch]
         self._served += batch
@@ -181,6 +195,7 @@ class SparseDNNEngine:
             "grid_steps": plan.grid_steps,
             "request_ids": ids,
             "resident": self._resident,
+            "differentiable": self.differentiable,
             "kernel_launches": plan.kernel_launches,
             "served_total": self._served,
             "engine_steps": self._steps,

@@ -68,8 +68,11 @@ class BcsrTransposePlan:
         the cached permutation; only ``a.values`` is read."""
         values_t = a.values[self.order].transpose(-1, -2)
         return BlockCSRMatrix(
+            # contiguous: ``where`` keeps the transposed strides, and the
+            # kernels read row-major blocks
             torch.where(self.valid[:, None, None], values_t,
-                        torch.zeros((), dtype=values_t.dtype, device=values_t.device)),
+                        torch.zeros((), dtype=values_t.dtype, device=values_t.device)
+                        ).contiguous(),
             self.row_ptr, self.row_id, self.col_idx, self.valid,
             self.shape, self.block_shape,
         )

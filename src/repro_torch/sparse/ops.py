@@ -5,7 +5,12 @@ registry (``repro_torch.core.semiring``):
 
 * ``bsr_matmul`` — ``C = A ⊕.⊗ B`` for an ELL-padded BSR ``A``;
 * ``bcsr_matmul`` — the same for the occupancy-exact block-CSR layout:
-  one product per stored block, then a segment-⊕ over the row map.
+  one product per stored block, then a segment-⊕ over the row map;
+* the backward helpers of the training path (``plus_times``):
+  ``bsr_transpose_matmul``/``bcsr_transpose_matmul`` (Aᵀ·Y) and
+  ``bsr_weight_cotangent``/``bcsr_weight_cotangent`` (dW at the stored
+  blocks only), batched products and ``index_add_`` over the stored
+  blocks — no weight is ever densified.
 
 The ``semiring`` argument is a registry :class:`Semiring` (boolean
 algebras then give bool outputs, as in the reference) or its f32 kernel
@@ -26,8 +31,9 @@ from repro_torch.sparse.bsr import BlockSparseMatrix
 
 def relu(x: torch.Tensor) -> torch.Tensor:
     """max(x, 0) that keeps NaN, like ``jnp.maximum`` (the engine's
-    per-column NaN quarantine depends on NaN reaching the output)."""
-    return torch.where(x < 0, torch.zeros_like(x), x)
+    per-column NaN quarantine depends on NaN reaching the output). Its
+    gradient is the kernels' backward mask ``out > 0``: 0 at x = 0."""
+    return torch.relu(x)
 
 
 def _panels(a, b: torch.Tensor) -> torch.Tensor:
@@ -126,3 +132,66 @@ def dense_matmul_fused_relu(
 ) -> torch.Tensor:
     """Dense fused baseline: max(W·Y + b, 0)."""
     return relu(torch.matmul(w, y) + bias[:, None])
+
+
+def bsr_transpose_matmul(a: BlockSparseMatrix, y: torch.Tensor) -> torch.Tensor:
+    """``Aᵀ (k, m) @ Y (m, n)`` without forming the transpose: each stored
+    block (r, c, W) adds ``Wᵀ @ Y_row(r)`` to output row-block c (the
+    dX = Wᵀ·dZ of the ELL layer's backward). Pad slots are masked."""
+    m, k = a.shape
+    if y.shape[0] != m:
+        raise ValueError(f"shape mismatch: Aᵀ {(k, m)} @ Y {tuple(y.shape)}")
+    n = y.shape[1]
+    nrb, mbpr = a.col_idx.shape
+    bs_r, bs_c = a.block_shape
+    safe = torch.where(a.block_mask[:, :, None, None], a.blocks,
+                       torch.zeros((), dtype=a.dtype, device=a.device))
+    # prod[r, s] = W[r, s]ᵀ @ Y_row(r): (nrb, mbpr, bs_c, n)
+    prod = torch.matmul(safe.transpose(-1, -2), y.reshape(nrb, 1, bs_r, n))
+    out = torch.zeros((a.n_col_blocks, bs_c, n), dtype=prod.dtype, device=y.device)
+    out.index_add_(0, a.col_idx.reshape(-1).long(), prod.reshape(nrb * mbpr, bs_c, n))
+    return out.reshape(k, n)
+
+
+def bsr_weight_cotangent(a: BlockSparseMatrix, dz: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Cotangent of ``a.blocks`` for ``Z = A @ B``: the sampled products
+    ``dW[r, s] = dZ_row(r) @ B_col(col_idx[r, s])ᵀ`` at the stored slots;
+    pad slots come back exactly 0."""
+    nrb, mbpr = a.col_idx.shape
+    bs_r, bs_c = a.block_shape
+    n = dz.shape[1]
+    b_panels = b.reshape(a.n_col_blocks, bs_c, n)[a.col_idx.long()]  # (nrb, mbpr, bs_c, n)
+    d = torch.matmul(dz.reshape(nrb, 1, bs_r, n), b_panels.transpose(-1, -2))
+    return torch.where(a.block_mask[:, :, None, None], d,
+                       torch.zeros((), dtype=d.dtype, device=d.device))
+
+
+def bcsr_transpose_matmul(c: BlockCSRMatrix, y: torch.Tensor) -> torch.Tensor:
+    """``Aᵀ (k, m) @ Y (m, n)`` for the block-CSR layout: per stored block
+    ``Wᵀ @ Y_row(row_id)``, summed into block-row ``col_idx`` — the plain
+    mirror of the ``bcsr_spmm`` launch on ``c``'s transpose. Invalid tail
+    slots are masked by ``valid`` (they ride on the last real row)."""
+    m, k = c.shape
+    if y.shape[0] != m:
+        raise ValueError(f"shape mismatch: Aᵀ {(k, m)} @ Y {tuple(y.shape)}")
+    n = y.shape[1]
+    bs_r, bs_c = c.block_shape
+    y_rows = y.reshape(c.n_row_blocks, bs_r, n)[c.row_id.long()]  # (T, bs_r, n)
+    safe = torch.where(c.valid[:, None, None], c.values,
+                       torch.zeros((), dtype=c.dtype, device=c.device))
+    prod = torch.bmm(safe.transpose(1, 2), y_rows)  # (T, bs_c, n)
+    out = torch.zeros((c.n_col_blocks, bs_c, n), dtype=prod.dtype, device=y.device)
+    out.index_add_(0, c.col_idx.long(), prod)
+    return out.reshape(k, n)
+
+
+def bcsr_weight_cotangent(c: BlockCSRMatrix, dz: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Cotangent of ``c.values`` for ``Z = A @ B``: ``dW[t] =
+    dZ_row(row_id[t]) @ B_col(col_idx[t])ᵀ`` at the stored blocks; invalid
+    tail slots come back exactly 0."""
+    bs_r, bs_c = c.block_shape
+    n = dz.shape[1]
+    dz_rows = dz.reshape(c.n_row_blocks, bs_r, n)[c.row_id.long()]  # (T, bs_r, n)
+    b_cols = b.reshape(c.n_col_blocks, bs_c, n)[c.col_idx.long()]  # (T, bs_c, n)
+    d = torch.bmm(dz_rows, b_cols.transpose(1, 2))
+    return torch.where(c.valid[:, None, None], d, torch.zeros((), dtype=d.dtype, device=d.device))

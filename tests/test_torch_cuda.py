@@ -14,6 +14,8 @@ semirings: exact, except ``log_plus`` within 1e-5 (its reductions run in
 another order).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -473,3 +475,112 @@ def test_radixnet_layer_is_one_launch_without_workspace(cuda):
     assert torch.cuda.memory_stats()["allocation.all.allocated"] - before == 1  # the output
     assert ops.launch_counts()["bcsr_spmm"] == 1
     torch.testing.assert_close(got, bcsr_spmm_plain(c, y, b[0], fuse_bias_relu=True), **SPMM_TOL)
+
+
+# --- block shapes the kernels refuse, re-tiled by the wrappers -------------
+
+
+def _big_block_stack(rng, device, layers=3, m=512, bs=128, bpr=2):
+    """A square stack of 128 x 128 blocks (the paper's grid), ELL, and its
+    block-CSR form."""
+    ws = []
+    for _ in range(layers):
+        keep = np.zeros((m // bs, m // bs), bool)
+        for i in range(m // bs):
+            keep[i, rng.choice(m // bs, size=bpr, replace=False)] = True
+        d = (rng.uniform(-0.1, 0.1, (m, m)) * np.kron(keep, np.ones((bs, bs)))).astype(np.float32)
+        ws.append(BlockSparseMatrix.from_dense(d, (bs, bs), device=device))
+    return ws
+
+
+def test_a_128_block_stack_serves_through_split_blocks(cuda):
+    from repro_torch.serve import SparseDNNEngine
+
+    rng = np.random.default_rng(60)
+    ws = _big_block_stack(rng, cuda)
+    bs = [torch.from_numpy(rng.uniform(0, 0.1, 512).astype(np.float32)).to(cuda) for _ in ws]
+    y0 = torch.rand((512, 64), device=cuda)
+    ops.reset_launch_counts()
+    out, stats = SparseDNNEngine(ws, bs, batch_align=64, device=cuda).infer(y0)
+    assert stats["plan"]["route"] == "layered"
+    counts = ops.launch_counts()
+    assert counts["bsr_spmm"] + counts["bcsr_spmm"] == 3
+    assert {s for v in ops.launched_block_shapes().values() for s in v} == {(64, 64)}
+    want = y0
+    for w, b in zip(ws, bs):
+        want = bsr_spmm_plain(w, want, b, fuse_bias_relu=True)
+    torch.testing.assert_close(out, want, **STACK_TOL)
+
+
+def test_backward_through_a_16x128_block_csr_layer(cuda):
+    """The forward launches 16 x 128 blocks as they are; dX launches the
+    transpose's 128 x 16 blocks split to 64 x 16. The card's gradients
+    match the plain versions', and dX rows of empty rows of Aᵀ are 0."""
+    from repro_torch.core import dnn
+
+    rng = np.random.default_rng(61)
+    m, k = 256, 1024
+    keep = rng.random((m // 16, k // 128)) < 0.4
+    keep[:, 3] = False  # an empty block-column: 128 empty rows of Aᵀ
+    keep[2] = False  # an empty block-row
+    # positive values: no cancellation, so every entry holds to the f32 tolerance
+    d = (rng.random((m, k)) * np.kron(keep, np.ones((16, 128)))).astype(np.float32)
+    c = BlockCSRMatrix.from_bsr(BlockSparseMatrix.from_dense(d, (16, 128), device=cuda))
+    c = BlockCSRMatrix.from_bsr(c.to_bsr(), pad_to=c.nnz_blocks() + 3)  # tail slots
+    y = torch.rand((k, 96), device=cuda, requires_grad=True)
+    bias = torch.rand(m, device=cuda)
+    targets = torch.rand((m, 96), device=cuda)
+    ops.reset_launch_counts()
+    vals = c.values.detach().clone().requires_grad_()
+    out = ops.bcsr_spmm(dataclasses.replace(c, values=vals), y, bias, c.transpose_plan(),
+                        fuse_bias_relu=True)
+    (0.5 * ((out - targets) ** 2).mean()).backward()
+    assert ops.launch_counts()["bcsr_spmm"] == 2
+    assert ops.launched_block_shapes()["bcsr_spmm"] == [(16, 128), (64, 16)]
+    assert bool((y.grad[3 * 128:4 * 128] == 0).all()) and float(y.grad.abs().max()) > 0
+    assert float(vals.grad[~c.valid].abs().max()) == 0.0
+    y2 = y.detach().clone().requires_grad_()
+    vals2 = c.values.detach().clone().requires_grad_()
+    ref = dnn.dnn_forward_trainable([dataclasses.replace(c, values=vals2)], [bias], y2,
+                                    use_kernel=False)
+    (0.5 * ((ref - targets) ** 2).mean()).backward()
+    torch.testing.assert_close(out, ref.detach(), **SPMM_TOL)
+    torch.testing.assert_close(y.grad, y2.grad, rtol=1e-4, atol=1e-7)
+    torch.testing.assert_close(vals.grad, vals2.grad, rtol=1e-4, atol=1e-7)
+
+
+def test_sparse_train_step_on_the_card_matches_plain(cuda):
+    """Three SGD steps through the kernels in both passes against the plain
+    versions on the same card, on an ELL + block-CSR + dense stack."""
+    from repro_torch.plan import build_plan
+    from repro_torch.train import make_sparse_train_step, sgd
+    from repro_torch.train.sparse import flatten, init_sparse_mlp_state
+
+    rng = np.random.default_rng(62)
+    a = _weight(rng, 128, 128, 16, cuda)
+    ws = [a, BlockCSRMatrix.from_bsr(_weight(rng, 128, 128, 16, cuda), pad_to=40),
+          torch.from_numpy(rng.standard_normal((128, 128)).astype(np.float32) * 0.05).to(cuda)]
+    ws[0] = BlockSparseMatrix(a.blocks * 0.05, a.col_idx, a.block_mask, a.shape, a.block_shape)
+    ws[1] = dataclasses.replace(ws[1], values=ws[1].values * 0.05)
+    bs = [torch.full((128,), 0.01, device=cuda) for _ in ws]
+    batch = {"y0": torch.rand((128, 64), device=cuda),
+             "targets": torch.rand((128, 64), device=cuda)}
+    plan = build_plan(ws, bs, 64, differentiable=True)
+    states = {}
+    for use_kernel in (True, False):
+        opt = sgd(0.5)
+        step = make_sparse_train_step(opt, use_kernel=use_kernel, plan=plan)
+        state = init_sparse_mlp_state(ws, bs, opt)
+        ops.reset_launch_counts()
+        for _ in range(3):
+            state, _ = step(state, batch)
+        states[use_kernel] = (state, ops.launch_counts())
+    (kstate, kcounts), (pstate, pcounts) = states[True], states[False]
+    assert kcounts["bsr_spmm"] == 3 and kcounts["bcsr_spmm"] == 6
+    assert pcounts["bsr_spmm"] == pcounts["bcsr_spmm"] == 0
+    for got, want in zip(flatten(kstate.weights, kstate.biases),
+                         flatten(pstate.weights, pstate.biases)):
+        if got.dtype.is_floating_point:
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
+        else:
+            assert torch.equal(got, want)

@@ -101,15 +101,14 @@ def test_random_skewed_is_bit_identical_to_reference():
         BlockCSRMatrix.random_skewed(5, (256, 256), (16, 16), 257, device="cpu")
 
 
-@pytest.mark.parametrize("name", ["plus_times", "min_plus", "max_min", "lor_land"])
-@pytest.mark.parametrize("layout", ["dense", "ell", "bcsr"])
-def test_mxm_mxv_vxm_match_reference(layout, name):
-    d, jb, jc, pb, pc = _sparse(2)
-    ja, pa = {"dense": (jnp.asarray(d), t(d)), "ell": (jb, pb), "bcsr": (jc, pc)}[layout]
+LOG_PLUS_TOL = 1e-5  # the reference's TOL: log_plus reductions chain in another order
+
+
+def _check_products(ja, pa, layout, name, m, k):
     rng = np.random.default_rng(3)
-    y = rng.integers(-3, 4, (48, 7)).astype(np.float32)
-    v = rng.integers(-3, 4, 48).astype(np.float32)
-    u = rng.integers(-3, 4, 32).astype(np.float32)
+    y = rng.integers(-3, 4, (k, 7)).astype(np.float32)
+    v = rng.integers(-3, 4, k).astype(np.float32)
+    u = rng.integers(-3, 4, m).astype(np.float32)
     js, ps = jsr.get_semiring(name), sr.get_semiring(name)
     kw = {} if layout == "dense" else {"use_kernel": False}
     cases = [
@@ -123,7 +122,38 @@ def test_mxm_mxv_vxm_match_reference(layout, name):
         want = np.asarray(want)
         if layout != "dense":
             assert got.dtype == torch.float32  # sparse products: f32 encoding
-        np.testing.assert_array_equal(got.float().numpy(), want.astype(np.float32))
+        if name == "log_plus":
+            np.testing.assert_allclose(got.numpy(), want, rtol=LOG_PLUS_TOL, atol=LOG_PLUS_TOL)
+        else:
+            np.testing.assert_array_equal(got.float().numpy(), want.astype(np.float32))
+
+
+@pytest.mark.parametrize("name", sorted(sr.REGISTRY))
+@pytest.mark.parametrize("layout", ["dense", "ell", "bcsr"])
+def test_mxm_mxv_vxm_match_reference(layout, name):
+    """Every semiring of the registry: exact on integer operands,
+    ``log_plus`` within LOG_PLUS_TOL."""
+    d, jb, jc, pb, pc = _sparse(2)
+    ja, pa = {"dense": (jnp.asarray(d), t(d)), "ell": (jb, pb), "bcsr": (jc, pc)}[layout]
+    _check_products(ja, pa, layout, name, 32, 48)
+
+
+@pytest.mark.parametrize("name", sorted(sr.REGISTRY))
+@pytest.mark.parametrize("layout", ["ell", "bcsr"])
+@pytest.mark.parametrize("block", [(8, 16), (16, 8), (4, 8)], ids=lambda b: f"{b[0]}x{b[1]}")
+def test_mxm_mxv_vxm_match_reference_on_rectangular_blocks(block, layout, name):
+    """The same products on rectangular blocks, with pad slots, an empty
+    block-row and tail padding."""
+    rng = np.random.default_rng(9)
+    m, k = 32, 48
+    d = rng.integers(-3, 4, (m, k)).astype(np.float32)
+    keep = rng.random((m // block[0], k // block[1])) < 0.5
+    keep[0, :2] = True
+    keep[1] = False
+    d *= np.kron(keep, np.ones(block, np.float32))
+    jb = JBSR.from_dense(d, block, pad_to=k // block[1])
+    ja = jb if layout == "ell" else JBCSR.from_bsr(jb, pad_to=int(keep.sum()) + 2)
+    _check_products(ja, convert.layout(ja), layout, name, m, k)
 
 
 def test_masks_accumulators_reductions_and_indexing_match_reference():

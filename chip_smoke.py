@@ -71,8 +71,42 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    version (the 128 × 128 blocks reach the kernels as 64 × 64
    sub-blocks, the wrappers' re-tiling), then 2 AdamW steps checked as in
    phase 8, with the block shapes each wrapper launched.
+10. continuous — RadiX-net 1024 × 120 through a ``ContinuousBatcher``
+   (resident engine, ``batch_size`` 512, width classes 64/128/256/512,
+   ``min_fill`` 0, ``max_wait`` 4) serving a ``poissonish_trace`` of
+   6 000 single-column requests at a mean of 256 a tick (``CONTINUOUS``),
+   each a column of the Philox input panel (density 0.3, seed 0): every
+   completed request's category against the numpy oracle on its column,
+   one capture per width class used, goodput 1.0, a plan-cache miss for
+   each class used and a hit for every other dispatch (the rate is
+   printed: a few dozen dispatches hold it far under 0.99), launches =
+   replays + warm-ups; the ``ServeStats`` summary, the loop's host
+   seconds and edge·inputs/s.
+11. continuous-faults — the same batcher on the same trace with a
+   seeded injector (NaN panel, transient step, plan-compile failure)
+   and a ``VirtualClock``: the poisoned requests
+   quarantined, the others' categories exact, the transient step
+   retried, the ladder demoted to ``layered`` and restored; the ladder's
+   events.
+12. serve-bf16 — ``run_challenge`` at 1024 × 120 with
+   ``panel_dtype="bfloat16"``: a 512-column panel's output against
+   ``fused_mlp_plain(..., panel_dtype="bfloat16")`` within
+   ``STACK_RTOL``, the categories that agree with the f32 oracle
+   (printed, not held), the bf16 launch's time beside the f32 one's.
 
-Launch counts are reset to 0 right before each of phases 3-9 and read
+Every engine plan on the card captures its forward as a CUDA graph at
+its first panel (an eager warm-up, then the capture) and replays it for
+the others: each serving phase checks that its launches are the
+warm-ups' and the replays' (``plan_launches``), and for one plan of each
+route reads the kernel nodes of its captured graph through libcuda
+and holds them against what the capture recorded and what one more
+replay added to the wrappers' counts (``measured_replay``). The layered, dense and
+three-call phases also time the captured ``plan.forward`` against the
+same layer loop called eagerly through ``kernel_ops`` from this script,
+interleaved, five times each, beside the kernels' CUDA-event time
+(``host_share``).
+
+Launch counts are reset to 0 right before each of phases 3-12 and read
 right after (for 8 and 9, around the train steps). The ``kernels`` line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}`` close the run. Numbers are this run's
 own; the bound of a kernel is max(bytes / 3.35 TB/s, ops / 67 TFLOP/s)
@@ -86,6 +120,7 @@ under the other semirings, whose zero is not 0.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -129,6 +164,13 @@ GRAD_RTOL = 1e-4
 TRAIN_SEED = 7
 RADIX_TRAIN = dict(neurons=1024, layers=120, columns=512, steps=3, lr=0.02)
 PAPER_TRAIN = dict(m=8192, layers=8, inverse_sparsity=8, block=128, batch=64, steps=2, lr=1e-3)
+# the continuous phases: arrivals of poissonish_trace(n_requests, m=1024, lam=lam,
+# seed=seed) with the generator's own burst parameters, each request a column of
+# the Philox panel. A mean of 256 arrivals a tick fills half of a 512-column
+# panel, so about half the ticks' arrivals take the 512 class.
+CONTINUOUS = dict(n_requests=6000, lam=256.0, seed=0)
+WIDTH_CLASSES = (64, 128, 256, 512)
+HOST_SHARE_REPEATS = 5  # captured and eager forwards, interleaved
 # the graphblas phase's adjacency: random_skewed(SKEWED_SEED, (m, m), (16, 16), blocks, skew)
 SKEWED_M, SKEWED_BLOCKS, SKEWED_SKEW, SKEWED_SEED = 8192, 8192, 0.8, 5
 KERNEL_SOURCES = {
@@ -630,17 +672,81 @@ def semiring_checks(topology, dev, n: int) -> dict:
     return results
 
 
+def plan_launches(cache) -> dict:
+    """Per kernel, the launches the cached plans ran: each plan's captured
+    forward (its per-replay launches) times its warm-ups and replays."""
+    from repro_torch.kernels import ops
+
+    want = dict.fromkeys(ops.KERNELS, 0)
+    for plan in cache.plans():
+        for name, k in (plan.captured_launches or {}).items():
+            want[name] += k * (plan.warmups + plan.replays)
+    return want
+
+
+def plan_summaries(cache) -> list:
+    return [{k: plan.describe()[k] for k in ("width", "route", "executable", "compiles",
+                                              "warmups", "replays", "kernel_launches")}
+            for plan in cache.plans()]
+
+
+def measured_replay(plan) -> dict:
+    """One more replay of ``plan`` (a zero panel of its width): the kernel
+    nodes of its captured graph, read through libcuda
+    (``plan.graph_launches``), must be the launches the capture recorded
+    and the counts the wrappers' accounting added for the replay."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    y = torch.zeros((plan.weights[0].shape[1], plan.width), device="cuda")
+    before, replays = ops.launch_counts(), plan.replays
+    plan.forward(y)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    counted = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    in_graph = {k: v for k, v in plan.graph_launches.items() if v}
+    captured = {k: v for k, v in plan.captured_launches.items() if v}
+    check(plan.replays == replays + 1 and in_graph == captured == counted,
+          ("a replay's kernels, graph nodes / captured / counted", in_graph, captured, counted))
+    return {"route": plan.route, "width": plan.width, "graph_kernel_nodes": in_graph,
+            "counted": counted}
+
+
+def check_captured(cache, counts) -> dict:
+    """Every plan captured once, and the launches are the plans'
+    warm-ups and replays, no more and no fewer. Returns the plans'
+    summaries as served and, for one plan of each route, a replay checked
+    against its graph's kernel nodes (``measured_replay``): the replays'
+    share of the counts rests on what the graph holds."""
+    summaries = plan_summaries(cache)
+    for plan in cache.plans():
+        check(plan.describe()["executable"] == "cuda-graph" and plan.compile_count == 1
+              and plan.warmups == 1, plan.describe())
+    check(counts == plan_launches(cache), ("launches = warm-ups + replays", counts,
+                                           plan_launches(cache)))
+    by_route = {plan.route: plan for plan in cache.plans()}
+    return {"plans": summaries,
+            "replays_measured": [measured_replay(plan) for plan in by_route.values()]}
+
+
 def phase_serve(spec, *, n_inputs, use_resident, density, ref_cols, route, level,
-                kernels) -> dict:
+                kernels, panel_dtype=None):
+    """``run_challenge`` through an engine built here (so its plans can be
+    read): routes, levels, answer set, and the launches its captured plans
+    ran. Returns the phase's line, the engine and the result."""
     import torch
 
     from repro_torch.data import radixnet as rx
     from repro_torch.kernels import ops
-    from repro_torch.serve import run_challenge
+    from repro_torch.serve import SparseDNNEngine, run_challenge
 
+    dev = torch.device("cuda")
+    weights, biases = rx.radixnet_weights(spec, device=dev)
+    engine = SparseDNNEngine(weights, biases, batch_align=32, use_resident=use_resident,
+                             device=dev, panel_dtype=panel_dtype)
     ops.reset_launch_counts()
-    res = run_challenge(spec, n_inputs=n_inputs, use_resident=use_resident,
-                        density=density, device="cuda")
+    res = run_challenge(spec, n_inputs=n_inputs, density=density, engine=engine)
     counts = ops.launch_counts()
     torch.cuda.synchronize()
     check(res.routes == (route,), ("routes", res.routes))
@@ -648,21 +754,300 @@ def phase_serve(spec, *, n_inputs, use_resident, density, ref_cols, route, level
     check(res.served == n_inputs, ("served", res.served))
     for name in kernels:
         check(counts[name] > 0, (name, counts))
+    captured = check_captured(engine.plan_cache, counts)
     panel = rx.radixnet_input_panel(spec.neurons, n_inputs, density=density, seed=0)
     ref_y, ref_cats = rx.radixnet_reference(spec, np.ascontiguousarray(panel[:, :ref_cols]))
     check(np.isfinite(ref_y).all(), "finite reference activations")
     check(0 < len(ref_cats) < ref_cols, ("nondegenerate answer set", len(ref_cats)))
     got = res.categories[res.categories < ref_cols]
-    check(np.array_equal(got, ref_cats), (got, ref_cats))
+    if panel_dtype is None:
+        check(np.array_equal(got, ref_cats), (got, ref_cats))
     info = {
         "spec": [spec.neurons, spec.layers], "n_inputs": n_inputs, "density": density,
         "routes": list(res.routes), "levels": list(res.levels), "steps": res.steps,
-        "width_classes": list(res.width_classes), "launches": counts,
+        "width_classes": list(res.width_classes), "launches": counts, **captured,
         "seconds": res.seconds, "edge_inputs_per_sec": res.edge_inputs_per_sec,
         "categories": int(len(res.categories)), "reference_columns": ref_cols,
         "reference_categories": int(len(ref_cats)),
+        "reference_categories_matched": int(len(np.intersect1d(got, ref_cats))),
     }
-    return info
+    return info, engine, res
+
+
+def eager_forward(plan, y):
+    """A layered plan's layer loop, called eagerly through ``kernel_ops``
+    from this script: what the plan's captured graph replays."""
+    from repro_torch.kernels import ops
+
+    kernel = {"kernel-bcsr": ops.bcsr_spmm, "kernel-ell": ops.bsr_spmm,
+              "kernel-dense": ops.semiring_matmul}
+    for lp, w, b in zip(plan.layers, plan.weights, plan.biases):
+        y = kernel[lp.path](w, y, b, fuse_bias_relu=True)
+    return y
+
+
+def wall_ms(fn) -> float:
+    """Host milliseconds of ``fn`` from a synchronised start to its end on
+    the card."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def host_share(plan, y, *, other=None) -> dict:
+    """The captured ``plan.forward`` against the same layer loop called
+    eagerly (and ``other``, a second eager forward of the same function,
+    when given), interleaved ``HOST_SHARE_REPEATS`` times on the host
+    clock, beside the kernels' CUDA-event time. The replay must give the
+    eager loop's bits."""
+    import torch
+
+    got, want = plan.forward(y), eager_forward(plan, y)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "a replay gives the eager forward's bits")
+    arms = {"eager": lambda: eager_forward(plan, y), "captured": lambda: plan.forward(y)}
+    if other is not None:
+        arms["other"] = other
+    times = {name: [] for name in arms}
+    for _ in range(HOST_SHARE_REPEATS):
+        for name, fn in arms.items():
+            times[name].append(wall_ms(fn))
+    kernels_ms = gpu_time_ms(lambda: eager_forward(plan, y), per_rep=1, reps=3)
+    return {
+        "columns": int(y.shape[1]), "launches_per_forward": plan.kernel_launches,
+        **{f"{name}_ms": t for name, t in times.items()},
+        **{f"{name}_ms_median": statistics.median(t) for name, t in times.items()},
+        "kernels_ms": kernels_ms,
+        "replay_device_ms": gpu_time_ms(lambda: plan.forward(y), per_rep=1, reps=3),
+    }
+
+
+def _oracle_chunk(job):
+    """The numpy oracle's categories on one chunk of panel columns (run in
+    a worker process)."""
+    from repro_torch.data import radixnet as rx
+
+    neurons, layers, chunk = job
+    return rx.radixnet_reference(rx.RadixNetSpec(neurons, layers), chunk)[1]
+
+
+def oracle_categories(spec, panel, chunk: int = 512) -> np.ndarray:
+    """``radixnet_reference``'s categories on every column of ``panel``,
+    chunks of columns in parallel processes (the oracle is one numpy
+    gather a layer, single-threaded)."""
+    import concurrent.futures
+    import multiprocessing
+
+    starts = range(0, panel.shape[1], chunk)
+    jobs = [(spec.neurons, spec.layers, np.ascontiguousarray(panel[:, i:i + chunk]))
+            for i in starts]
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=min(len(jobs), os.cpu_count() or 1),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        parts = list(pool.map(_oracle_chunk, jobs))
+    return np.concatenate([cats + i for cats, i in zip(parts, starts)])
+
+
+def serve_trace(batcher, ticks, features, *, on_tick=None) -> float:
+    """Serve an arrival trace through ``batcher``: ``ticks[t]`` requests
+    arrive at tick t, the next columns of ``features`` in order; one
+    scheduler step a tick, then a drain. Returns the host seconds to the
+    last result on the card."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    k = 0
+    for count in ticks:
+        for _ in range(count):
+            batcher.submit(features[k])
+            k += 1
+        if on_tick is not None:
+            on_tick(batcher)
+        batcher.step()
+    batcher.drain()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def served_categories(batcher, n: int) -> np.ndarray:
+    """The challenge categories of the requests the batcher completed
+    (request id = panel column)."""
+    import torch
+
+    rids = sorted(batcher.stats().latencies)
+    out = torch.stack([batcher.result(r) for r in rids], dim=1)
+    active = np.zeros(n, bool)
+    active[rids] = (out > 0).any(dim=0).cpu().numpy()
+    return np.flatnonzero(active)
+
+
+def continuous_batcher(spec, **engine_kw):
+    """The continuous phases' engine (resident, RadiX-net ``spec``) and
+    batcher (512 slots, width classes, min_fill 0, max_wait 4)."""
+    import torch
+
+    from repro_torch.data import radixnet as rx
+    from repro_torch.serve import ContinuousBatcher, SparseDNNEngine
+
+    dev = torch.device("cuda")
+    weights, biases = rx.radixnet_weights(spec, device=dev)
+    engine = SparseDNNEngine(weights, biases, batch_align=32, use_resident=True, device=dev,
+                             **engine_kw)
+    batcher = ContinuousBatcher(engine, batch_size=512, min_fill=0.0, max_wait=4,
+                                width_classes=WIDTH_CLASSES,
+                                fault_injector=engine.fault_injector, clock=engine.clock)
+    return engine, batcher
+
+
+def trace_ticks(spec, n_requests: int, lam: float, seed: int) -> list[int]:
+    """Arrivals a tick of ``poissonish_trace`` (its columns are not used:
+    every request is a column of the challenge's input panel)."""
+    from repro_torch.serve import poissonish_trace
+
+    return [len(a) for a in poissonish_trace(n_requests, m=spec.neurons, lam=lam, seed=seed)]
+
+
+def phase_continuous(spec, panel, ref_cats, *, n_requests, lam, seed) -> dict:
+    """Continuous batching over captured plans, one per width class."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    engine, batcher = continuous_batcher(spec)
+    ticks = trace_ticks(spec, n_requests, lam, seed)
+    features = torch.from_numpy(panel).to("cuda").unbind(1)
+    ops.reset_launch_counts()
+    seconds = serve_trace(batcher, ticks, features)
+    counts = ops.launch_counts()
+    stats = batcher.stats()
+    check(stats.requests == n_requests and not batcher.failures, stats.summary())
+    cats = served_categories(batcher, n_requests)
+    check(np.array_equal(cats, ref_cats), ("continuous categories", len(cats), len(ref_cats)))
+    used = sorted({r.width_class for r in stats.steps})
+    check(sorted(stats.plan_recompiles_by_class) == used
+          and all(v == 1 for v in stats.plan_recompiles_by_class.values()),
+          ("one capture per width class", stats.plan_recompiles_by_class, used))
+    check(sorted(p.width for p in engine.plan_cache.plans()) == used, plan_summaries(
+        engine.plan_cache))
+    captured = check_captured(engine.plan_cache, counts)
+    # one miss per width class used, every other dispatch a hit: with a
+    # few dozen dispatches the first-panel misses hold the rate well
+    # under 1 (printed, not held to a bound)
+    dispatches = len(stats.steps)
+    check(stats.goodput == 1.0, stats.summary())
+    check(stats.plan_cache_hit_rate == (dispatches - len(used)) / dispatches, stats.summary())
+    check({r.plan_level for r in stats.steps} == {"resident"}, "resident throughout")
+    return {
+        "spec": [spec.neurons, spec.layers], "trace": {"n_requests": n_requests, "lam": lam,
+                                                        "seed": seed, "ticks": len(ticks)},
+        "batcher": {"batch_size": 512, "width_classes": list(WIDTH_CLASSES), "min_fill": 0.0,
+                    "max_wait": 4},
+        "summary": stats.summary(),
+        "steps_by_width_class": {str(w): sum(r.width_class == w for r in stats.steps)
+                                 for w in used},
+        "launches": counts, **captured,
+        "seconds": seconds, "edge_inputs_per_sec": spec.edges * n_requests / seconds,
+        "categories": int(len(cats)), "reference_categories": int(len(ref_cats)),
+    }
+
+
+def phase_continuous_faults(spec, panel, ref_cats, *, n_requests, lam, seed) -> dict:
+    """The continuous batcher under scheduled faults on a virtual clock."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serve import VirtualClock
+    from repro_torch.testing import faults
+
+    inj = faults.FaultInjector(seed=seed)
+    inj.schedule(faults.SITE_PANEL_NANS, 2, count=3)
+    inj.schedule(faults.SITE_STEP_TRANSIENT, 4, failures=1)
+    inj.schedule(faults.SITE_PLAN_COMPILE, 6)
+    clock = VirtualClock()
+    engine, batcher = continuous_batcher(spec, fault_injector=inj, clock=clock,
+                                         retry_backoff_s=0.05)
+    ticks = trace_ticks(spec, n_requests, lam, seed)
+    features = torch.from_numpy(panel).to("cuda").unbind(1)
+
+    demoted_at = []
+
+    def restore_later(b):  # an operator re-admits the resident level 8 ticks on
+        if engine.ladder.degraded:
+            demoted_at.append(b.tick)
+            if b.tick >= demoted_at[0] + 8:
+                engine.ladder.restore("resident", reason="operator restore", step=b.tick)
+
+    ops.reset_launch_counts()
+    seconds = serve_trace(batcher, ticks, features, on_tick=restore_later)
+    counts = ops.launch_counts()
+    stats = batcher.stats()
+    quarantined = sorted(r for r, why in batcher.failures.items() if "quarantined" in why)
+    poisoned = min(3, stats.steps[2].occupancy)  # dispatch 2's panel, 3 columns at most
+    check(len(quarantined) == len(batcher.failures) == poisoned
+          and set(quarantined) <= set(stats.steps[2].request_ids), batcher.failures)
+    check(stats.faults.retried_steps == 1 and stats.faults.failed == 0, stats.summary())
+    check(clock.sleeps == [0.05], ("backoff on the virtual clock", clock.sleeps))
+    check([(e.level, e.healthy) for e in engine.ladder.events]
+          == [("resident", False), ("resident", True)], engine.ladder.describe())
+    levels = [r.plan_level for r in stats.steps]
+    first_layered = levels.index("layered")
+    check(set(levels[:first_layered]) == {"resident"} and "resident" in levels[first_layered:],
+          levels)
+    cats = served_categories(batcher, n_requests)
+    want = np.setdiff1d(ref_cats[ref_cats < n_requests], quarantined)
+    check(np.array_equal(cats, want), ("served exactly", len(cats), len(want)))
+    check(stats.goodput == (n_requests - poisoned) / n_requests, stats.summary())
+    captured = check_captured(engine.plan_cache, counts)
+    return {
+        "n_requests": n_requests, "faults_fired": [dataclasses.asdict(e) for e in inj.fired],
+        "quarantined_request_ids": quarantined, "summary": stats.summary(),
+        "levels": {lvl: levels.count(lvl) for lvl in sorted(set(levels))},
+        "ladder": engine.ladder.describe(), "virtual_sleeps": clock.sleeps,
+        "launches": counts, **captured, "seconds": seconds,
+    }
+
+
+def phase_serve_bf16(spec, f32_res) -> dict:
+    """``run_challenge`` on bf16 activation panels: the output against the
+    plain version in bf16, categories against the f32 run's, and the bf16
+    launch's time beside the f32 one's."""
+    import torch
+
+    from repro_torch.data import radixnet as rx
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fused_mlp import fused_mlp_plain
+
+    info, engine, res = phase_serve(spec, n_inputs=f32_res.n_inputs, use_resident=None,
+                                    density=0.3, ref_cols=512, route="fused",
+                                    level="resident", kernels=("fused_mlp_forward",),
+                                    panel_dtype="bfloat16")
+    (plan,) = engine.plan_cache.plans()
+    check(plan.key.tuned == "panel_dtype=bfloat16", plan.key)
+    y = torch.from_numpy(np.ascontiguousarray(
+        rx.radixnet_input_panel(spec.neurons, f32_res.n_inputs, density=0.3,
+                                seed=0)[:, :plan.width])).to("cuda")
+    got = plan.forward(y)
+    want = fused_mlp_plain(*plan.stacked, y, panel_dtype="bfloat16")
+    torch.cuda.synchronize()
+    err = errors(got, want)
+    check(err["max_abs_err"] <= STACK_RTOL * float(want.abs().max()), ("bf16 stack", err))
+    agree = f32_res.n_inputs - len(np.setxor1d(res.categories, f32_res.categories))
+    sw, sb = plan.stacked
+    return {
+        **info, **err, "check": "max|kernel - plain(bf16)| <= 1e-4 max|plain(bf16)|",
+        "categories_agreeing_with_f32": int(agree),
+        "categories_f32": int(len(f32_res.categories)),
+        "kernel_ms": {"bfloat16": gpu_time_ms(lambda: ops.fused_mlp_forward(
+                          sw, sb, y, panel_dtype="bfloat16"), per_rep=1, reps=3),
+                      "float32": gpu_time_ms(lambda: ops.fused_mlp_forward(sw, sb, y),
+                                             per_rep=1, reps=3)},
+        "edge_inputs_per_sec_f32": f32_res.edge_inputs_per_sec,
+    }
 
 
 def radix_inputs(spec, n_inputs: int, density: float):
@@ -714,15 +1099,18 @@ def phase_dense(spec, panel, ref_cats, *, panel_width: int = 512) -> dict:
     check(routes == ["layered"], ("routes", routes))
     check(counts["semiring_matmul"] == spec.layers * (len(stats) + 1), counts)
     check(all(v == 0 for k, v in counts.items() if k != "semiring_matmul"), counts)
+    captured = check_captured(engine.plan_cache, counts)
     cats = np.flatnonzero(active.cpu().numpy())
     check(np.array_equal(cats, ref_cats), ("dense categories", len(cats), len(ref_cats)))
+    (plan,) = engine.plan_cache.plans()
     return {
         "spec": [spec.neurons, spec.layers], "n_inputs": n_inputs, "routes": routes,
-        "layer_paths": ["kernel-dense"], "steps": len(stats), "launches": counts,
+        "layer_paths": ["kernel-dense"], "steps": len(stats), "launches": counts, **captured,
         "seconds": seconds, "inputs_per_sec": n_inputs / seconds,
         "edge_inputs_per_sec": spec.edges * n_inputs / seconds,
         "grid_steps_per_panel": stats[0]["grid_steps"],
         "categories": int(len(cats)), "reference_categories": int(len(ref_cats)),
+        "host_share": host_share(plan, y0[:, :panel_width].contiguous()),
     }
 
 
@@ -737,9 +1125,12 @@ def bf_relax_numpy(lengths, row_id, col_idx, d):
     return out.reshape(-1)
 
 
-def phase_graphblas(spec, panel, ref_cats, *, m=SKEWED_M, block=16, total_blocks=SKEWED_BLOCKS,
-                    skew=SKEWED_SKEW, seed=SKEWED_SEED, feat=256, rounds=2, bf_cap=64) -> dict:
-    """gnn_arm at card scale, one BFS step, and the three-call DNN."""
+def phase_graphblas(spec, panel, ref_cats, layered_plan, *, m=SKEWED_M, block=16,
+                    total_blocks=SKEWED_BLOCKS, skew=SKEWED_SKEW, seed=SKEWED_SEED, feat=256,
+                    rounds=2, bf_cap=64) -> dict:
+    """gnn_arm at card scale, one BFS step, and the three-call DNN, the
+    last timed on a 512-column panel against ``layered_plan`` (the same
+    network's captured layered plan) and its eager layer loop."""
     import torch
 
     from repro_torch.core import dnn
@@ -829,6 +1220,9 @@ def phase_graphblas(spec, panel, ref_cats, *, m=SKEWED_M, block=16, total_blocks
     check(dnn_counts["bsr_spmm"] == dnn_counts["bcsr_spmm"] == spec.layers // 2, dnn_counts)
     cats = rx.reference_categories(out.cpu().numpy())
     check(np.array_equal(cats, ref_cats), ("three-call categories", len(cats), len(ref_cats)))
+    y = torch.from_numpy(np.ascontiguousarray(panel[:, :layered_plan.width])).to(dev)
+    three_call = lambda: dnn.dnn_forward(weights, biases, y, fused=False)  # noqa: E731
+    share = host_share(layered_plan, y, other=three_call)
     return {
         "m": m, "block": block, "total_blocks": total_blocks, "skew": skew, "seed": seed,
         "feat_dim": feat, "rounds": rounds, "bf_iters_cap": bf_cap,
@@ -846,7 +1240,9 @@ def phase_graphblas(spec, panel, ref_cats, *, m=SKEWED_M, block=16, total_blocks
         "launches": counts, "seconds": seconds,
         "three_call": {"spec": [spec.neurons, spec.layers], "n_inputs": panel.shape[1],
                        "launches": dnn_counts, "seconds": dnn_seconds,
-                       "categories": int(len(cats)), "matches_reference": True},
+                       "categories": int(len(cats)), "matches_reference": True,
+                       "host_share": {**share, "three_call_ms": share.pop("other_ms"),
+                                      "three_call_ms_median": share.pop("other_ms_median")}},
     }
 
 
@@ -1152,45 +1548,67 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device available", file=sys.stderr)
         return 1
+    from repro_torch.data import radixnet as rx
     from repro_torch.data.radixnet import RadixNetSpec
 
     dev = phase_device()
     kern = phase_kernels()
 
-    serve = phase_serve(RadixNetSpec(1024, 120), n_inputs=60000, use_resident=None,
-                        density=0.3, ref_cols=512, route="fused", level="resident",
-                        kernels=("fused_mlp_forward",))
-    # one launch per step plus the warmup panel, and nothing else
-    check(serve["launches"]["fused_mlp_forward"] == serve["steps"] + 1, serve)
+    spec = RadixNetSpec(1024, 120)
+    serve, _, serve_res = phase_serve(spec, n_inputs=60000, use_resident=None, density=0.3,
+                                      ref_cols=512, route="fused", level="resident",
+                                      kernels=("fused_mlp_forward",))
+    # the warm-up panel builds and captures the one plan, every timed step
+    # replays it: launches = warm-up + replays = steps + 1, and nothing else
+    (plan,) = serve["plans"]
+    check(plan["warmups"] == 1 and plan["replays"] == serve["steps"]
+          and serve["launches"]["fused_mlp_forward"] == serve["steps"] + 1, serve)
     emit({"phase": "serve", **serve})
 
-    layered = phase_serve(RadixNetSpec(1024, 120), n_inputs=2048, use_resident=False,
-                          density=0.3, ref_cols=512, route="layered", level="layered",
-                          kernels=("bsr_spmm", "bcsr_spmm"))
+    layered, layered_engine, _ = phase_serve(spec, n_inputs=2048, use_resident=False,
+                                             density=0.3, ref_cols=512, route="layered",
+                                             level="layered", kernels=("bsr_spmm", "bcsr_spmm"))
+    (layered_plan,) = layered_engine.plan_cache.plans()
+    panel, ref_cats = radix_inputs(spec, 2048, 0.3)
+    layered["host_share"] = host_share(layered_plan, torch.from_numpy(
+        np.ascontiguousarray(panel[:, :layered_plan.width])).to("cuda"))
     emit({"phase": "layered", **layered})
 
-    tiled = phase_serve(RadixNetSpec(16384, 120), n_inputs=1024, use_resident=None,
-                        density=0.4, ref_cols=64, route="fused-tiled", level="resident",
-                        kernels=("fused_mlp_tiled_forward",))
+    tiled, _, _ = phase_serve(RadixNetSpec(16384, 120), n_inputs=1024, use_resident=None,
+                              density=0.4, ref_cols=64, route="fused-tiled", level="resident",
+                              kernels=("fused_mlp_tiled_forward",))
     emit({"phase": "tiled", **tiled})
 
-    spec = RadixNetSpec(1024, 120)
-    panel, ref_cats = radix_inputs(spec, 2048, 0.3)
     dense = phase_dense(spec, panel, ref_cats)
     emit({"phase": "dense", **dense})
-    graph = phase_graphblas(spec, panel, ref_cats)
+    graph = phase_graphblas(spec, panel, ref_cats, layered_plan)
     emit({"phase": "graphblas", **graph})
     train_radix = phase_train_radixnet(**RADIX_TRAIN)
     emit({"phase": "train-radixnet", **train_radix})
     train_paper = phase_train_paper(**PAPER_TRAIN)
     emit({"phase": "train-paper", **train_paper})
 
+    n = CONTINUOUS["n_requests"]
+    cont_panel = np.ascontiguousarray(rx.radixnet_input_panel(spec.neurons, n, density=0.3,
+                                                              seed=CONTINUOUS["seed"]))
+    t0 = time.perf_counter()
+    cont_cats = oracle_categories(spec, cont_panel)
+    oracle_seconds = time.perf_counter() - t0
+    cont = phase_continuous(spec, cont_panel, cont_cats, **CONTINUOUS)
+    emit({"phase": "continuous", "oracle_seconds": oracle_seconds, **cont})
+    faulted = phase_continuous_faults(spec, cont_panel, cont_cats, **CONTINUOUS)
+    emit({"phase": "continuous-faults", **faulted})
+    bf16 = phase_serve_bf16(spec, serve_res)
+    emit({"phase": "serve-bf16", **bf16})
+
     by_phase = {"serve": serve["launches"], "layered": layered["launches"],
                 "tiled": tiled["launches"], "dense": dense["launches"],
                 "graphblas": graph["launches"],
                 "three_call": graph["three_call"]["launches"],
                 "train-radixnet": train_radix["launches"],
-                "train-paper": train_paper["launches"]}
+                "train-paper": train_paper["launches"],
+                "continuous": cont["launches"], "continuous-faults": faulted["launches"],
+                "serve-bf16": bf16["launches"]}
     checks = {name: "max|kernel - plain| <= 1e-5 |plain| + 1e-6 (f32 order)"
               for name in ("semiring_matmul", "bsr_spmm", "bcsr_spmm")}
     checks.update({name: "stack: <= 1e-4 max|plain|, each entry within 2x the f32 bound, "

@@ -15,7 +15,8 @@
   ``MxmPlan`` (``repro_torch.core.graphblas``).
 
 Weights are dense tensors, ELL-padded :class:`BlockSparseMatrix` or
-:class:`BlockCSRMatrix`.
+:class:`BlockCSRMatrix`. :func:`dnn_forward_resident` runs a whole stack
+as one fused kernel launch through the shared plan cache.
 
 Training: :func:`dnn_forward_trainable` runs each sparse layer through the
 differentiable SpMM wrappers (``repro_torch.kernels.autodiff``: the
@@ -33,6 +34,7 @@ import torch
 
 from repro_torch.core import graphblas as gb
 from repro_torch.core.semiring import MAX_PLUS, PLUS_TIMES
+from repro_torch.kernels import DEFAULT_BLOCK_N
 from repro_torch.sparse import ops as sparse_ops
 from repro_torch.sparse.bcsr import BlockCSRMatrix
 from repro_torch.sparse.bsr import BlockSparseMatrix
@@ -103,6 +105,42 @@ def stack_bsr(mats: Sequence[BlockSparseMatrix]) -> BlockSparseMatrix:
         first.shape,
         first.block_shape,
     )
+
+
+def dnn_forward_resident(
+    weights: Sequence[Weight],
+    biases: Sequence[torch.Tensor],
+    y0: torch.Tensor,
+    *,
+    block_n: int = DEFAULT_BLOCK_N,
+    panel_dtype=None,
+    tuned=None,
+) -> torch.Tensor:
+    """L-layer forward as ONE launch of a fused whole-stack kernel: the
+    panel resident in shared memory, or in global scratch for stacks past
+    that budget (``fused-tiled``).
+
+    The route, layouts and executable come from the shared plan cache
+    (:func:`repro_torch.plan.default_cache`), so repeated calls on one
+    topology and panel width reuse one plan (on the card, replay its CUDA
+    graph); a stack no fused route takes runs that plan's layered
+    kernels. A ``tuned`` config (:class:`repro_torch.tune.TunedConfig`)
+    rides into the cache key, and an explicit ``panel_dtype`` overrides
+    its own. The plans run at ``block_n=DEFAULT_BLOCK_N`` only: another
+    ``block_n`` is refused (the reference's direct path for it, and its
+    plain fallback, are not ported).
+    """
+    if block_n != DEFAULT_BLOCK_N:
+        raise ValueError(
+            f"block_n={block_n}: the port's plans run at block_n={DEFAULT_BLOCK_N} only")
+    if panel_dtype is not None:
+        from repro_torch.tune import TunedConfig
+
+        tuned = TunedConfig(panel_dtype=panel_dtype)
+    from repro_torch.plan.cache import default_cache
+
+    plan = default_cache().get(weights, biases, max(y0.shape[1], 1), tuned=tuned)
+    return plan.forward(y0)
 
 
 def dnn_layer_trainable(

@@ -258,6 +258,9 @@ def _occupancy(lib, tiled: bool, nrb: int, bs: int, bf16: bool, cluster: int) ->
     return result.value
 
 
+_geometries: dict[tuple, tuple[Geometry, int]] = {}
+
+
 def card_geometry(
     stacked_w: BlockSparseMatrix,
     n: int,
@@ -270,10 +273,21 @@ def card_geometry(
     from the device's SMs and the CTAs one SM holds; the resident
     clusters sized from the SMs and the clusters of each size the card
     holds at once, and that number for the chosen size (0 refuses the
-    launch: there is no smaller fallback cluster)."""
+    launch: there is no smaller fallback cluster). The card is asked once
+    per (stack shape, width, kernel, panel type, device), so a launch
+    that a CUDA graph captures after a first eager call asks it nothing."""
     _, nrb, _ = stacked_w.col_idx.shape
     bs = stacked_w.block_shape[0]
     bf16 = panel_torch_dtype(panel_dtype) == torch.bfloat16
+    dev = torch.device("cuda" if device is None else device)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    key = (nrb, bs, n, tiled, bf16, index)
+    if key not in _geometries:
+        _geometries[key] = _ask_card(stacked_w, n, tiled, panel_dtype, nrb, bs, bf16, device)
+    return _geometries[key]
+
+
+def _ask_card(stacked_w, n, tiled, panel_dtype, nrb, bs, bf16, device):
     lib = _build.load("fused_mlp", SIGNATURES)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     if tiled:

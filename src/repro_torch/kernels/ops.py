@@ -15,13 +15,20 @@ wrappers re-tile a block shape their kernel cannot take,
 
 Each CUDA launch adds one to the wrapper's count in :func:`launch_counts`
 (and nothing else does), so a run can show which kernels it went
-through. The two SpMM wrappers are differentiable in ``plus_times``
-(``kernels.autodiff``); the fused wrappers refuse autograd: their
-activations never exist outside the kernel, so there is nothing to
-differentiate.
+through. A launch made while a CUDA graph is being captured does not
+run then: it goes into the capture's :class:`LaunchRecord`
+(:func:`recording_launches`), and each replay of the graph adds that
+record to the counts (:func:`add_replayed`). The two SpMM wrappers are
+differentiable in ``plus_times`` (``kernels.autodiff``); the fused
+wrappers refuse autograd: their activations never exist outside the
+kernel, so there is nothing to differentiate.
 """
 
 from __future__ import annotations
+
+import contextlib
+import dataclasses
+import re
 
 import torch
 import torch.nn.functional as F
@@ -38,12 +45,71 @@ from repro_torch.sparse.bsr import BlockSparseMatrix
 
 KERNELS = ("semiring_matmul", "bsr_spmm", "bcsr_spmm", "fused_mlp_forward",
            "fused_mlp_tiled_forward")
+# the wrapper of each ``__global__`` function in ``csrc/``
+_KERNEL_SYMBOLS = {"semiring_matmul_kernel": "semiring_matmul", "bsr_spmm_kernel": "bsr_spmm",
+                   "bcsr_spmm_kernel": "bcsr_spmm", "fused_resident_kernel": "fused_mlp_forward",
+                   "fused_tiled_kernel": "fused_mlp_tiled_forward"}
 _launches = dict.fromkeys(KERNELS, 0)
 _launch_shapes: dict[str, set] = {name: set() for name in KERNELS}
 
 
+@dataclasses.dataclass
+class LaunchRecord:
+    """The launches one CUDA graph capture recorded: per wrapper, how
+    many, and the block shapes the SpMM launches took."""
+
+    counts: dict[str, int] = dataclasses.field(default_factory=lambda: dict.fromkeys(KERNELS, 0))
+    shapes: dict[str, set] = dataclasses.field(
+        default_factory=lambda: {name: set() for name in KERNELS})
+
+
+_recording: LaunchRecord | None = None
+
+
+def _count(name: str, block_shape=None) -> None:
+    """One launch of ``name``: counted, or recorded when a capture is on."""
+    counts, shapes = ((_launches, _launch_shapes) if _recording is None
+                      else (_recording.counts, _recording.shapes))
+    counts[name] += 1
+    if block_shape is not None:
+        shapes[name].add(block_shape)
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Record, and do not count, the wrappers' launches in this block: a
+    CUDA graph capture, whose kernels run only when the graph replays.
+    Yields the :class:`LaunchRecord`."""
+    global _recording
+    if _recording is not None:
+        raise RuntimeError("a launch record is already open (captures do not nest)")
+    _recording = LaunchRecord()
+    try:
+        yield _recording
+    finally:
+        _recording = None
+
+
+def add_replayed(record: LaunchRecord) -> None:
+    """Count one replay of a captured graph: the launches it recorded."""
+    for name, k in record.counts.items():
+        _launches[name] += k
+        _launch_shapes[name].update(record.shapes[name])
+
+
+def wrapper_of(kernel_name: str) -> str | None:
+    """The wrapper whose kernel a device function name (mangled, as
+    libcuda gives it, or demangled) belongs to; None for another kernel."""
+    for sym, wrapper in _KERNEL_SYMBOLS.items():
+        # Itanium mangling writes an identifier as <length><name>
+        if f"{len(sym)}{sym}" in kernel_name or re.search(rf"\b{sym}\b", kernel_name):
+            return wrapper
+    return None
+
+
 def launch_counts() -> dict[str, int]:
-    """CUDA launches per wrapper since the last reset."""
+    """CUDA launches per wrapper since the last reset (a graph replay
+    counts the launches its capture recorded)."""
     return dict(_launches)
 
 
@@ -138,7 +204,7 @@ def semiring_matmul(
             _contiguous16(ap), _contiguous16(bp), biasp.contiguous(),
             semiring_name=semiring_name, fuse_bias_relu=fuse_bias_relu,
         )
-        _launches["semiring_matmul"] += 1
+        _count("semiring_matmul")
     else:
         out = _smm.semiring_matmul_plain(ap, bp, biasp, semiring_name=semiring_name,
                                          fuse_bias_relu=fuse_bias_relu)
@@ -157,8 +223,7 @@ def _spmm(name, launch, plain, tile_for, a, b, bias, semiring_name, fuse_bias_re
     if bp.is_cuda:
         out = launch(a, _contiguous16(bp), bias.contiguous(), semiring_name=semiring_name,
                      fuse_bias_relu=fuse_bias_relu)
-        _launches[name] += 1
-        _launch_shapes[name].add(a.block_shape)
+        _count(name, a.block_shape)
     else:
         out = plain(a, bp, bias, semiring_name=semiring_name, fuse_bias_relu=fuse_bias_relu)
     return out[:, :n]
@@ -257,7 +322,7 @@ def _fused(name, tiled, stacked_w, stacked_b, y0, block_n, panel_dtype):
             stacked_w, stacked_b.contiguous(), yp.contiguous(),
             tiled=tiled, block_n=block_n, panel_dtype=panel_dtype,
         )
-        _launches[name] += 1
+        _count(name)
     else:
         out = _fmlp.fused_mlp_plain(stacked_w, stacked_b, yp, panel_dtype=panel_dtype)
     return out[:, :n]

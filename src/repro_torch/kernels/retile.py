@@ -30,8 +30,6 @@ does every step.
 from __future__ import annotations
 
 import functools
-import weakref
-from typing import Callable
 
 import torch
 import torch.nn.functional as F
@@ -41,6 +39,7 @@ from repro_torch.kernels.fused_mlp import SMEM_LIMIT_BYTES
 from repro_torch.kernels.semirings import kernel_zero
 from repro_torch.sparse.bcsr import BlockCSRMatrix
 from repro_torch.sparse.bsr import BlockSparseMatrix
+from repro_torch.tensor_cache import cached_on
 
 
 def fits(tile: Tile, bs_r: int, bs_c: int) -> bool:
@@ -72,30 +71,6 @@ def launch_block_shape(tile: Tile, bs_r: int, bs_c: int) -> tuple[int, int, int]
     if best is None:  # a 4-wide column of one row always fits
         raise ValueError(f"no launchable sub-block of {bs_r} x {bs_c}")
     return best[1][0], best[1][1], pad_c
-
-
-# --- caches keyed weakly on tensors and their in-place versions ----------
-
-_cache: dict[tuple, tuple[tuple, tuple, object]] = {}
-
-
-def _cached(tensors: tuple[torch.Tensor, ...], extra: tuple, build: Callable[[], object]):
-    """``build()``, cached on the identity and ``_version`` of ``tensors``
-    plus ``extra``; dropped when any of the tensors is freed."""
-    key = tuple(id(t) for t in tensors) + extra
-    hit = _cache.get(key)
-    versions = tuple(t._version for t in tensors)
-    if hit is not None and all(r() is t for r, t in zip(hit[0], tensors)) and hit[1] == versions:
-        return hit[2]
-    value = build()
-
-    def forget(ref, key=key):
-        entry = _cache.get(key)
-        if entry is not None and any(r is ref for r in entry[0]):
-            del _cache[key]
-
-    _cache[key] = (tuple(weakref.ref(t, forget) for t in tensors), versions, value)
-    return value
 
 
 def _split_values(values: torch.Tensor, sub_r: int, sub_c: int, pad_c: int,
@@ -138,14 +113,14 @@ def retile_bsr(a: BlockSparseMatrix, sub_r: int, sub_c: int, pad_c: int,
     r is block-row ``r·fr + i``, sub-column j of slot s is slot
     ``s·fc + j``, so the columns stay ascending and the mask a prefix."""
     bs_r, bs_c = a.block_shape
-    col_idx, mask = _cached((a.col_idx, a.block_mask), ("ell", sub_r, sub_c, pad_c),
+    col_idx, mask = cached_on((a.col_idx, a.block_mask), ("ell", sub_r, sub_c, pad_c),
                             lambda: _ell_topology(a, sub_r, sub_c, pad_c))
 
     def values():
         v = _split_values(a.blocks, sub_r, sub_c, pad_c, fill)  # (nrb, mbpr, fr, fc, sr, sc)
         return v.transpose(1, 2).reshape(*col_idx.shape, sub_r, sub_c).contiguous()
 
-    blocks = _cached((a.blocks,), ("ell", sub_r, sub_c, pad_c, fill), values)
+    blocks = cached_on((a.blocks,), ("ell", sub_r, sub_c, pad_c, fill), values)
     return BlockSparseMatrix(blocks, col_idx, mask, (a.shape[0], a.n_col_blocks * pad_c),
                              (sub_r, sub_c))
 
@@ -189,14 +164,14 @@ def retile_bcsr(a: BlockCSRMatrix, sub_r: int, sub_c: int, pad_c: int,
     each split into its ``fc`` sub-columns in order; invalid tail slots
     stay invalid at the end, riding on the last valid row."""
     keys = (a.row_ptr, a.row_id, a.col_idx, a.valid)
-    perm, row_ptr, row_id, col_idx, valid = _cached(
+    perm, row_ptr, row_id, col_idx, valid = cached_on(
         keys, ("bcsr", sub_r, sub_c, pad_c), lambda: _bcsr_topology(a, sub_r, sub_c, pad_c))
 
     def values():
         v = _split_values(a.values, sub_r, sub_c, pad_c, fill)  # (T, fr, fc, sr, sc)
         return v.reshape(-1, sub_r, sub_c)[perm]
 
-    vals = _cached((a.values, *keys), ("bcsr", sub_r, sub_c, pad_c, fill), values)
+    vals = cached_on((a.values, *keys), ("bcsr", sub_r, sub_c, pad_c, fill), values)
     return BlockCSRMatrix(vals, row_ptr, row_id, col_idx, valid,
                           (a.shape[0], a.n_col_blocks * pad_c), (sub_r, sub_c))
 

@@ -2,13 +2,18 @@
 
 A sparse stack's layout choices, route (fused / fused-tiled / layered),
 exact launch bill and bound weights are analysed once per (topology
-fingerprint, width class) into a :class:`StackPlan`, cached in a
-:class:`PlanCache` and served through a :class:`DegradationLadder`.
+fingerprint, width class) into a :class:`StackPlan`, whose executable on
+the card is a CUDA graph captured at its first forward; plans are cached
+in a :class:`PlanCache` and served through a :class:`DegradationLadder`.
 GraphBLAS products on one sparse operand get an :class:`MxmPlan` per
 (topology, width, semiring) from :func:`mxm_plan`.
 """
 
-from repro_torch.plan.cache import PlanCache  # noqa: F401
+from repro_torch.plan.cache import (  # noqa: F401
+    PlanCache,
+    default_cache,
+    reset_default_cache,
+)
 from repro_torch.plan.cost import (  # noqa: F401
     layer_grid_steps,
     mxv_grid_steps,
@@ -18,6 +23,7 @@ from repro_torch.plan.degrade import (  # noqa: F401
     LEVEL_LAYERED,
     LEVEL_RESIDENT,
     DegradationLadder,
+    DegradeEvent,
 )
 from repro_torch.plan.layout import (  # noqa: F401
     ELL_WASTE_THRESHOLD,
@@ -43,6 +49,7 @@ from repro_torch.plan.routes import (  # noqa: F401
 from repro_torch.plan.stack_plan import (  # noqa: F401
     DEFAULT_WIDTH_CLASSES,
     LayerPlan,
+    PlanCaptureError,
     PlanKey,
     StackPlan,
     build_plan,
@@ -60,12 +67,15 @@ __all__ = [
     "ROUTE_LAYERED",
     "ROUTE_XLA",
     "DegradationLadder",
+    "DegradeEvent",
     "LayerPlan",
     "MxmPlan",
     "PlanCache",
+    "PlanCaptureError",
     "PlanKey",
     "StackPlan",
     "build_plan",
+    "default_cache",
     "fused_route",
     "layer_grid_steps",
     "layer_layout",
@@ -75,6 +85,7 @@ __all__ = [
     "mxv_grid_steps",
     "preferred_layout",
     "quantize_width",
+    "reset_default_cache",
     "reset_mxm_cache",
     "resident_eligible",
     "stack_grid_steps",

@@ -1,9 +1,11 @@
 """LRU cache of :class:`~repro_torch.plan.StackPlan` objects.
 
 Counterpart of ``repro/plan/cache.py`` without the mesh branch (sharded
-plans arrive with the scale-out slice, ROADMAP Queue 1 item 10).
+plans arrive with the scale-out slice, ROADMAP Queue 1 item 5).
 Serving looks a plan up per dispatched panel; after the first panel of
-each width class every lookup is a hit.
+each width class every lookup is a hit, and on the card a hit replays
+the plan's captured CUDA graph. Plans of one stack at other width
+classes share one graph memory pool (``build_plan``'s donor).
 
 Because plans bind weight/bias tensors (serving weights are frozen), a
 hit additionally requires the cached plan's bound tensors to be the
@@ -46,6 +48,29 @@ class PlanCache:
     def __len__(self) -> int:
         return len(self._entries)
 
+    def __contains__(self, key: PlanKey) -> bool:
+        return key in self._entries
+
+    @property
+    def hit_rate(self) -> float:
+        return self.hits / self.lookups if self.lookups else 0.0
+
+    def stats(self) -> dict:
+        return {
+            "size": len(self._entries),
+            "max_size": self.max_size,
+            "lookups": self.lookups,
+            "hits": self.hits,
+            "misses": self.misses,
+            "builds": self.builds,
+            "evictions": self.evictions,
+            "hit_rate": self.hit_rate,
+        }
+
+    def plans(self) -> list[StackPlan]:
+        """The cached plans, least recently used first."""
+        return list(self._entries.values())
+
     def get(
         self,
         weights: Sequence[Weight],
@@ -55,15 +80,19 @@ class PlanCache:
         use_resident: bool | None = None,
         fingerprint: str | None = None,
         differentiable: bool = False,
+        tuned=None,
     ) -> StackPlan:
-        """The plan for this (stack, width, residency, differentiable?) —
-        cached. ``fingerprint`` skips the host-side topology hash when the
-        caller already knows it."""
+        """The plan for this (stack, width, residency, differentiable?,
+        tuned config) — cached. ``fingerprint`` skips the topology hash
+        when the caller already knows it; ``tuned`` (a
+        :class:`repro_torch.tune.TunedConfig`) keys the entry by its
+        ``token()``."""
         weights = tuple(weights)
         biases = tuple(biases)
         if fingerprint is None:
             fingerprint = topology_fingerprint(weights)
-        key = PlanKey(fingerprint, width, use_resident, differentiable=differentiable)
+        key = PlanKey(fingerprint, width, use_resident, differentiable=differentiable,
+                      tuned=None if tuned is None else tuned.token())
         self.lookups += 1
         plan = self._entries.get(key)
         if (
@@ -77,7 +106,7 @@ class PlanCache:
         self.misses += 1
         # A plan for the same stack at ANOTHER width class donates its
         # width-independent pieces (relayouted weights, fused stack,
-        # cached transposes: a topology is sorted once for every width).
+        # cached transposes, graph memory pool).
         donor = None
         for cand in reversed(self._entries.values()):
             if (
@@ -95,6 +124,7 @@ class PlanCache:
             fingerprint=fingerprint,
             donor=donor,
             differentiable=differentiable,
+            tuned=tuned,
         )
         self.builds += 1
         self._entries[plan.key] = plan
@@ -103,3 +133,32 @@ class PlanCache:
             self._entries.popitem(last=False)
             self.evictions += 1
         return plan
+
+    def compiled_widths(self, fingerprint: str) -> set[int]:
+        """Width classes this cache holds a plan for, for one topology
+        fingerprint (no building, no LRU touch)."""
+        return {key.width for key in self._entries if key.fingerprint == fingerprint}
+
+    def clear(self) -> None:
+        self._entries.clear()
+
+
+# Shared cache behind the module-level convenience wrappers
+# (repro_torch.core.dnn.dnn_forward_resident). Engines own their own
+# caches; this one serves ad-hoc functional callers. Plans hold strong
+# references to the weight stacks they bind (and, on the card, their
+# captured graphs), so it is kept SMALL.
+_DEFAULT_CACHE: PlanCache | None = None
+
+
+def default_cache() -> PlanCache:
+    global _DEFAULT_CACHE
+    if _DEFAULT_CACHE is None:
+        _DEFAULT_CACHE = PlanCache(max_size=4)
+    return _DEFAULT_CACHE
+
+
+def reset_default_cache() -> None:
+    """Drop the shared default cache (entries AND stats)."""
+    global _DEFAULT_CACHE
+    _DEFAULT_CACHE = None

@@ -14,9 +14,25 @@ class, residency request, differentiable?)`` key and carries:
   (:class:`~repro_torch.sparse.bcsr.BcsrTransposePlan`), so no backward
   sorts the frozen topology again.
 
-The reference jits one executable per plan; PyTorch runs eagerly, so a
-plan's forward calls the kernel wrappers directly (capturing it as a
-CUDA graph is later work, ROADMAP Queue 1 item 5).
+The reference jits one executable per plan and counts its traces; the
+port's executable is a CUDA graph. On a CUDA device a plan's first
+``forward`` runs eagerly — the warm-up that builds the kernel libraries,
+piece tables, re-tiled blocks and launch geometries, none of which may
+be built inside a capture — and then captures the whole forward into a
+``torch.cuda.CUDAGraph`` over a static input panel of the plan's width;
+every later ``forward`` copies its panel in, replays, and returns a
+fresh copy of the graph's output (the next replay overwrites the static
+one, and callers keep views of what they were given). ``compile_count``
+counts captures. A bound tensor changed in place is seen at the next
+``forward``, which warms up and captures again (one more compile).
+
+Plans that stay eager, and say so in :meth:`StackPlan.describe`:
+
+* on the CPU, where the executable is the wrapper loop itself, built
+  once (its one compile);
+* differentiable plans: autograd records no nodes inside a replayed
+  graph, so ``forward`` and :meth:`StackPlan.forward_trainable` run the
+  differentiable wrappers eagerly.
 """
 
 from __future__ import annotations
@@ -36,6 +52,7 @@ from repro_torch.plan import routes as _routes
 from repro_torch.sparse import ops as sparse_ops
 from repro_torch.sparse.bcsr import BcsrTransposePlan, BlockCSRMatrix
 from repro_torch.sparse.bsr import BlockSparseMatrix
+from repro_torch.tensor_cache import cached_on
 
 # Panel-width classes serving quantizes to by default.
 DEFAULT_WIDTH_CLASSES = (8, 16, 32, 64, 128, 256, 512)
@@ -56,30 +73,34 @@ def quantize_width(n: int, classes: Sequence[int] | None = None) -> int:
     return -(-n // top) * top
 
 
-def _layer_digest(w: Weight) -> bytes:
-    h = hashlib.sha1()
-    if isinstance(w, BlockCSRMatrix):
-        h.update(b"bcsr")
-        h.update(repr((w.shape, w.block_shape, w.total_blocks)).encode())
-        arrays = (w.row_ptr, w.row_id, w.col_idx, w.valid)
-    elif isinstance(w, BlockSparseMatrix):
-        h.update(b"ell")
-        h.update(repr((w.shape, w.block_shape, w.max_blocks_per_row)).encode())
-        arrays = (w.col_idx, w.block_mask)
-    else:
-        h.update(b"dense")
-        h.update(repr(tuple(w.shape)).encode())
-        arrays = ()
+def _hash_arrays(header: bytes, arrays: tuple[torch.Tensor, ...]) -> bytes:
+    """SHA-1 of ``header`` and the arrays' bytes: one host copy each."""
+    h = hashlib.sha1(header)
     for arr in arrays:
         h.update(arr.cpu().numpy().tobytes())
     return h.digest()
 
 
+def _layer_digest(w: Weight) -> bytes:
+    """One layer's topology digest. It is cached on the index tensors (and
+    their in-place versions), so a matrix that the layered loops or
+    ``mxm`` meet again costs a dictionary lookup, not a host copy."""
+    if isinstance(w, BlockCSRMatrix):
+        header = b"bcsr" + repr((w.shape, w.block_shape, w.total_blocks)).encode()
+        arrays = (w.row_ptr, w.row_id, w.col_idx, w.valid)
+    elif isinstance(w, BlockSparseMatrix):
+        header = b"ell" + repr((w.shape, w.block_shape, w.max_blocks_per_row)).encode()
+        arrays = (w.col_idx, w.block_mask)
+    else:
+        return hashlib.sha1(b"dense" + repr(tuple(w.shape)).encode()).digest()
+    return cached_on(arrays, ("digest", header), lambda: _hash_arrays(header, arrays))
+
+
 def topology_fingerprint(weights: Sequence[Weight]) -> str:
     """Hash of the stack's *topology*: per-layer layout class, shapes and
-    index/mask arrays — NOT the stored values. Host-side; each distinct
-    layer object is copied to the host and hashed once, so a stack that
-    repeats a few phase matrices over many layers costs a few copies."""
+    index/mask arrays — NOT the stored values. Host-side: the index
+    arrays of a layer are copied to the host once, the first time they
+    are fingerprinted (:func:`_layer_digest`)."""
     digests: dict[int, bytes] = {}
     h = hashlib.sha1()
     for w in weights:
@@ -91,8 +112,8 @@ def topology_fingerprint(weights: Sequence[Weight]) -> str:
 
 class PlanKey(NamedTuple):
     """What a plan is keyed on: same topology + width class + residency
-    request + semiring + differentiability → the same plan, hence a
-    cache hit.
+    request + semiring + differentiability + tuned config → the same
+    plan, hence a cache hit.
 
     ``semiring`` is the ⊕.⊗ algebra the plan computes: DNN stack plans
     are ``plus_times``; the GraphBLAS ``mxm``/``mxv`` plans
@@ -104,6 +125,7 @@ class PlanKey(NamedTuple):
     resident: bool | None  # the use_resident tri-state the caller asked
     semiring: str = "plus_times"  # the plan's ⊕.⊗ algebra
     differentiable: bool = False  # autograd-compatible routes only
+    tuned: str | None = None  # TunedConfig.token(), None = default constants
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,6 +136,75 @@ class LayerPlan:
     path: str  # routes.layer_path value, or "fused"/"fused-tiled"
     grid_steps: int  # exact bill at the plan's width
     transpose_plan: BcsrTransposePlan | None = None  # cached backward transpose
+
+
+def graph_kernel_names(graph: "torch.cuda.CUDAGraph") -> list[str]:
+    """The device function names of a captured graph's kernel nodes, read
+    from the graph through libcuda's graph API: the kernels each replay
+    launches, known apart from the wrappers' launch accounting. The graph
+    must have been made with ``keep_graph=True``."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def call(fn: str, *args) -> None:
+        err = getattr(cu, fn)(*args)
+        if err != 0:
+            raise RuntimeError(f"{fn} failed with CUresult {err}")
+
+    class KernelNodeParams(ctypes.Structure):  # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = [("func", ctypes.c_void_p),
+                    *[(f, ctypes.c_uint) for f in ("grid_x", "grid_y", "grid_z", "block_x",
+                                                   "block_y", "block_z", "shared_bytes")],
+                    ("params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                    ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+    g = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    call("cuGraphGetNodes", g, None, ctypes.byref(count))
+    nodes = (ctypes.c_void_p * count.value)()
+    call("cuGraphGetNodes", g, nodes, ctypes.byref(count))
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int()
+        call("cuGraphNodeGetType", ctypes.c_void_p(node), ctypes.byref(kind))
+        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        params = KernelNodeParams()
+        call("cuGraphKernelNodeGetParams_v2", ctypes.c_void_p(node), ctypes.byref(params))
+        name = ctypes.c_char_p()
+        if params.func:
+            call("cuFuncGetName", ctypes.byref(name), ctypes.c_void_p(params.func))
+        else:  # a context-independent kernel handle (lazy module loading)
+            call("cuKernelGetName", ctypes.byref(name), ctypes.c_void_p(params.kern))
+        names.append(name.value.decode())
+    return names
+
+
+class PlanCaptureError(RuntimeError):
+    """A plan's forward could not be captured as a CUDA graph: a plan
+    compile failure, which the serving ladder records as one."""
+
+
+def _tensors_of(w) -> tuple[torch.Tensor, ...]:
+    """The tensors a captured forward reads of one bound weight."""
+    if isinstance(w, BlockCSRMatrix):
+        return (w.values, w.row_ptr, w.row_id, w.col_idx, w.valid)
+    if isinstance(w, BlockSparseMatrix):
+        return (w.blocks, w.col_idx, w.block_mask)
+    return (w,)
+
+
+@dataclasses.dataclass
+class _Captured:
+    """A plan's forward as a CUDA graph over static panels, the launches its
+    capture recorded, and the versions of the bound tensors it read."""
+
+    graph: "torch.cuda.CUDAGraph"
+    static_in: torch.Tensor
+    static_out: torch.Tensor
+    launches: kernel_ops.LaunchRecord
+    versions: tuple[int, ...]
 
 
 @dataclasses.dataclass
@@ -130,6 +221,16 @@ class StackPlan:
     biases: tuple
     source_weights: tuple  # caller's objects — cache identity check
     stacked: tuple | None = None  # (stacked_w, stacked_b) for fused
+    tuned: object | None = None  # the TunedConfig the plan was built under
+    calls: int = 0  # forwards run
+    replays: int = 0  # forwards served by replaying the captured graph
+    warmups: int = 0  # eager forwards run before a capture
+    # the CUDA graph memory pool of a plan that captures, shared with the
+    # plans of this stack at other width classes (build_plan's donor)
+    pool: tuple | None = dataclasses.field(default=None, repr=False)
+    _compiles: int = 0
+    _captured: _Captured | None = dataclasses.field(default=None, repr=False)
+    _bound: tuple | None = dataclasses.field(default=None, repr=False)
 
     @property
     def n_layers(self) -> int:
@@ -142,16 +243,56 @@ class StackPlan:
         return self.key.differentiable
 
     @property
+    def device(self) -> torch.device:
+        return self.biases[0].device
+
+    @property
     def is_fused_route(self) -> bool:
         """Single-launch whole-stack route (resident or tiled)."""
         return self.route in (_routes.ROUTE_FUSED, _routes.ROUTE_FUSED_TILED)
 
     @property
     def kernel_launches(self) -> int:
-        """Kernel launches one forward of this plan performs."""
+        """Kernel launches one forward of this plan performs (the
+        reference's ``pallas_calls``)."""
         if self.is_fused_route:
             return 1
         return sum(1 for lp in self.layers if lp.path != "xla-dense")
+
+    @property
+    def compile_count(self) -> int:
+        """Executables built so far: CUDA graph captures on the card; on
+        the CPU or for a differentiable plan, the one eager executable."""
+        return self._compiles
+
+    @property
+    def eager_because(self) -> str | None:
+        """Why this plan runs eagerly, or None when it captures a graph."""
+        if self.differentiable:
+            return ("differentiable: autograd records no nodes inside a replayed "
+                    "CUDA graph")
+        if self.device.type != "cuda":
+            return f"no CUDA graphs on {self.device.type}: the wrapper loop runs as it is"
+        return None
+
+    @property
+    def captured_launches(self) -> dict[str, int] | None:
+        """Per-kernel launches one replay runs (what the capture recorded)."""
+        return None if self._captured is None else dict(self._captured.launches.counts)
+
+    @property
+    def graph_launches(self) -> dict[str, int] | None:
+        """Per wrapper, the port's kernels among the captured graph's kernel
+        nodes (:func:`graph_kernel_names`): what one replay launches, read
+        from the graph itself."""
+        if self._captured is None:
+            return None
+        counts = dict.fromkeys(kernel_ops.KERNELS, 0)
+        for name in graph_kernel_names(self._captured.graph):
+            wrapper = kernel_ops.wrapper_of(name)
+            if wrapper is not None:
+                counts[wrapper] += 1
+        return counts
 
     @property
     def layouts(self) -> tuple[str, ...]:
@@ -161,31 +302,120 @@ class StackPlan:
     def transpose_plans(self) -> tuple[BcsrTransposePlan | None, ...]:
         return tuple(lp.transpose_plan for lp in self.layers)
 
+    def describe(self) -> dict:
+        """JSON-ready summary: the reference's keys (``kernel_launches`` in
+        place of ``pallas_calls``) and the executable's kind."""
+        return {
+            "fingerprint": self.key.fingerprint[:12],
+            "width": self.width,
+            "differentiable": self.differentiable,
+            "route": self.route,
+            "layouts": list(self.layouts),
+            "paths": [lp.path for lp in self.layers],
+            "grid_steps": self.grid_steps,
+            "kernel_launches": self.kernel_launches,
+            "cached_transposes": sum(1 for lp in self.layers if lp.transpose_plan is not None),
+            "compiles": self.compile_count,
+            "calls": self.calls,
+            "tuned": self.key.tuned,
+            "executable": "eager" if self.eager_because else "cuda-graph",
+            "eager_because": self.eager_because,
+            "replays": self.replays,
+            "warmups": self.warmups,
+        }
+
+    # ------------------------------------------------------------------
+    # execution
+    # ------------------------------------------------------------------
+
+    def _run(self, y: torch.Tensor) -> torch.Tensor:
+        """The wrapper loop over a width-wide panel: what a capture records."""
+        panel_dtype = None if self.tuned is None else self.tuned.panel_dtype
+        if self.route == _routes.ROUTE_FUSED:
+            return kernel_ops.fused_mlp_forward(*self.stacked, y, panel_dtype=panel_dtype)
+        if self.route == _routes.ROUTE_FUSED_TILED:
+            return kernel_ops.fused_mlp_tiled_forward(*self.stacked, y, panel_dtype=panel_dtype)
+        for lp, w, b in zip(self.layers, self.weights, self.biases):
+            if lp.path == "kernel-bcsr":
+                y = kernel_ops.bcsr_spmm(w, y, b, lp.transpose_plan, fuse_bias_relu=True)
+            elif lp.path == "kernel-ell":
+                y = kernel_ops.bsr_spmm(w, y, b, fuse_bias_relu=True)
+            elif lp.path == "kernel-dense":
+                y = kernel_ops.semiring_matmul(w, y, b, fuse_bias_relu=True)
+            else:  # xla-dense: the plain fused form autograd differentiates
+                y = sparse_ops.dense_matmul_fused_relu(w, y, b)
+        return y
+
+    def _eager(self, y0: torch.Tensor) -> torch.Tensor:
+        k = y0.shape[1]
+        y = F.pad(y0, (0, self.width - k)) if k < self.width else y0
+        return self._run(y)[:, :k]
+
+    def _bound_versions(self) -> tuple[int, ...]:
+        """The in-place versions of every tensor a captured forward reads."""
+        if self._bound is None:
+            objs = {id(o): o for o in (self.stacked or (*self.weights, *self.biases))}
+            self._bound = tuple({id(t): t for o in objs.values() for t in _tensors_of(o)}.values())
+        return tuple(t._version for t in self._bound)
+
+    def _capture(self, versions: tuple[int, ...]) -> _Captured:
+        """Record :meth:`_run` into a CUDA graph (no kernel runs now)."""
+        m = self.weights[0].shape[1]
+        static_in = torch.zeros((m, self.width), dtype=torch.float32, device=self.device)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)  # kept for graph_launches
+        try:
+            with kernel_ops.recording_launches() as launches:
+                with torch.cuda.graph(graph, pool=self.pool):
+                    static_out = self._run(static_in)
+            graph.instantiate()
+        except Exception as e:  # noqa: BLE001 — any capture failure is a compile failure
+            raise PlanCaptureError(
+                f"capturing the {self.route} plan at width {self.width} as a CUDA graph "
+                f"failed: {type(e).__name__}: {e}") from e
+        return _Captured(graph, static_in, static_out, launches, versions)
+
     def forward(self, y0: torch.Tensor) -> torch.Tensor:
         """One forward pass of the bound stack over an (m, k) panel,
-        k ≤ the plan's width; the panel is padded to the width class."""
+        k ≤ the plan's width; the panel is padded to the width class.
+
+        On a CUDA device (not differentiable) the first call, and the
+        first after a bound tensor changed in place, runs eagerly and
+        captures; the others replay. A call that autograd must record
+        (grad enabled, and the panel or a bound tensor requires it) runs
+        the wrappers eagerly: a replayed graph records no autograd nodes.
+        The result is the caller's own tensor either way: a replay returns
+        a copy of the graph's output, which the next replay overwrites."""
         m, k = y0.shape
         if k > self.width:
             raise ValueError(
                 f"panel width {k} exceeds this plan's width class "
                 f"{self.width}; fetch a plan for the wider class"
             )
-        y = F.pad(y0, (0, self.width - k)) if k < self.width else y0
-        if self.route == _routes.ROUTE_FUSED:
-            y = kernel_ops.fused_mlp_forward(*self.stacked, y)
-        elif self.route == _routes.ROUTE_FUSED_TILED:
-            y = kernel_ops.fused_mlp_tiled_forward(*self.stacked, y)
-        else:
-            for lp, w, b in zip(self.layers, self.weights, self.biases):
-                if lp.path == "kernel-bcsr":
-                    y = kernel_ops.bcsr_spmm(w, y, b, lp.transpose_plan, fuse_bias_relu=True)
-                elif lp.path == "kernel-ell":
-                    y = kernel_ops.bsr_spmm(w, y, b, fuse_bias_relu=True)
-                elif lp.path == "kernel-dense":
-                    y = kernel_ops.semiring_matmul(w, y, b, fuse_bias_relu=True)
-                else:  # xla-dense: the plain fused form autograd differentiates
-                    y = sparse_ops.dense_matmul_fused_relu(w, y, b)
-        return y[:, :k]
+        self.calls += 1
+        if self.eager_because is not None:
+            self._compiles = max(self._compiles, 1)  # the eager executable, built once
+            return self._eager(y0)
+        versions = self._bound_versions()
+        if torch.is_grad_enabled() and (y0.requires_grad
+                                        or any(t.requires_grad for t in self._bound)):
+            return self._eager(y0)
+        cap = self._captured
+        if cap is None or cap.versions != versions:
+            # the warm-up: builds what a capture must find built, and is
+            # this call's answer
+            self._captured = None
+            self.warmups += 1
+            out = self._eager(y0)
+            self._captured = self._capture(versions)
+            self._compiles += 1
+            return out
+        cap.static_in[:, :k].copy_(y0)
+        if k < self.width:
+            cap.static_in[:, k:].zero_()
+        cap.graph.replay()
+        self.replays += 1
+        kernel_ops.add_replayed(cap.launches)
+        return cap.static_out[:, :k].clone()
 
     def forward_trainable(
         self,
@@ -197,7 +427,8 @@ class StackPlan:
     ) -> torch.Tensor:
         """Differentiable forward with the caller's (fresh) values: the
         plan lends only its frozen-topology pieces, the cached block-CSR
-        transposes, so a train step built on it never sorts again."""
+        transposes, so a train step built on it never sorts again. Runs
+        eagerly: autograd records no nodes inside a replayed graph."""
         from repro_torch.core import dnn as _dnn
 
         if not self.differentiable:
@@ -217,6 +448,7 @@ def build_plan(
     fingerprint: str | None = None,
     donor: "StackPlan | None" = None,
     differentiable: bool = False,
+    tuned=None,
 ) -> StackPlan:
     """Build one :class:`StackPlan` (all the per-topology analysis).
 
@@ -233,7 +465,12 @@ def build_plan(
 
     ``donor``: a plan for the SAME stack and key at another width class;
     its width-independent pieces (relayouted weights, the fused weight
-    stack) are shared by reference, only the bill is rebuilt.
+    stack, the CUDA graph memory pool) are shared by reference, only
+    the bill is rebuilt.
+
+    ``tuned``: a :class:`repro_torch.tune.TunedConfig` whose
+    ``panel_dtype`` the fused routes pass to the kernels (bf16 panels
+    also move the resident↔tiled boundary); its token keys the plan.
     """
     weights = tuple(weights)
     biases = tuple(biases)
@@ -243,9 +480,12 @@ def build_plan(
         raise ValueError(f"width must be >= 1, got {width}")
     if fingerprint is None:
         fingerprint = topology_fingerprint(weights)
-    key = PlanKey(fingerprint, width, use_resident, differentiable=differentiable)
+    key = PlanKey(fingerprint, width, use_resident, differentiable=differentiable,
+                  tuned=None if tuned is None else tuned.token())
+    panel_dtype = None if tuned is None else tuned.panel_dtype
 
-    fused_ok = None if differentiable else _routes.fused_route(weights)
+    fused_ok = (None if differentiable
+                else _routes.fused_route(weights, panel_dtype=panel_dtype))
     if use_resident and fused_ok is None:
         raise ValueError(
             "use_resident=True but the stack is not eligible for the fused "
@@ -264,11 +504,14 @@ def build_plan(
         if donor.key._replace(width=width) != key or donor.n_layers != len(weights):
             raise ValueError("donor plan does not match this stack's plan key")
         route, exec_weights, stacked = donor.route, list(donor.weights), donor.stacked
+        pool = donor.pool
         layer_plans = [
             dataclasses.replace(lp, grid_steps=_cost.layer_grid_steps(ew, width))
             for lp, ew in zip(donor.layers, exec_weights)
         ]
     else:
+        pool = (torch.cuda.graph_pool_handle()
+                if biases[0].device.type == "cuda" and not differentiable else None)
         relaid: dict[int, Weight] = {}  # one relayout per distinct layer object
         transposes: dict[int, BcsrTransposePlan] = {}  # one sort per distinct layer object
         exec_weights, layer_plans = [], []
@@ -308,4 +551,6 @@ def build_plan(
         biases=biases,
         source_weights=weights,
         stacked=stacked,
+        tuned=tuned,
+        pool=pool,
     )

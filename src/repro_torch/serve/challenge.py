@@ -70,30 +70,43 @@ def run_challenge(
     density: float = 0.3,
     seed: int = 0,
     use_resident: bool | None = None,
+    engine: SparseDNNEngine | None = None,
+    warmup: bool = True,
+    block_size: int = 16,
+    panel_dtype=None,
     device: Any = None,
 ) -> ChallengeResult:
     """Stream ``n_inputs`` seeded inputs through the engine, panelwise.
 
-    It builds the engine from ``radixnet_weights`` on ``device``
-    (default: the GPU, raising if there is none) and first runs one
-    untimed panel of the serving width, so the metric bills steady-state
-    serving, not kernel builds and plan construction.
+    ``engine``: a prebuilt engine (with a fault injector, a shared plan
+    cache, ...) that serves the spec's topology; it brings its own
+    device. By default ``run_challenge`` builds one from ``radixnet_weights``
+    (``block_size``) on ``device`` (default: the GPU, raising if there is
+    none) with ``use_resident`` and ``panel_dtype`` (``"bfloat16"``
+    panels for the fused routes). ``warmup`` first runs one untimed
+    panel of the serving width, so the metric bills steady-state serving
+    (on the card: replays), not kernel builds, plan construction and
+    the CUDA graph capture.
     """
-    device = resolve_device(device)
-    weights, biases = rx.radixnet_weights(spec, device=device)
-    engine = SparseDNNEngine(
-        weights,
-        biases,
-        batch_align=batch_align,
-        use_resident=use_resident,
-        device=device,
-    )
+    if engine is None:
+        device = resolve_device(device)
+        weights, biases = rx.radixnet_weights(spec, block_size=block_size, device=device)
+        engine = SparseDNNEngine(
+            weights,
+            biases,
+            batch_align=batch_align,
+            use_resident=use_resident,
+            device=device,
+            panel_dtype=panel_dtype,
+        )
+    device = engine.device
     panel = torch.from_numpy(
         rx.radixnet_input_panel(spec.neurons, n_inputs, density=density, seed=seed)
     ).to(device)
-    engine.submit(panel[:, : min(panel_width, n_inputs)])
-    engine.step(pad_to=panel_width)
-    _sync(device)
+    if warmup:
+        engine.submit(panel[:, : min(panel_width, n_inputs)])
+        engine.step(pad_to=panel_width)
+        _sync(device)
 
     active = torch.zeros((n_inputs,), dtype=torch.bool, device=device)
     step_stats: list[dict] = []
@@ -102,6 +115,11 @@ def run_challenge(
         chunk = panel[:, start : start + panel_width]
         engine.submit(chunk)
         out, stats = engine.step(pad_to=panel_width)
+        if out is None or stats["failed"]:
+            raise RuntimeError(
+                f"challenge panel at column {start} failed: "
+                f"{stats.get('error', 'no output')}"
+            )
         active[start : start + chunk.shape[1]] = (out > 0).any(dim=0)
         step_stats.append(stats)
     _sync(device)

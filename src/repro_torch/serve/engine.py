@@ -4,18 +4,31 @@ in ``repro/serve/engine.py``.
 Requests are feature columns. ``submit(cols)`` stages columns,
 ``step(limit=..., pad_to=...)`` dispatches one right-padded panel over
 what is staged, ``drain()`` steps until the stage is empty and
-``infer(y0)`` is the one-shot form. Every step fetches a
-:class:`~repro_torch.plan.StackPlan` for its padded width from the
-engine's plan cache through the degradation ladder (resident → layered),
-runs it, and reports exact launch accounting. Output columns that are
-not finite fail only their own request ids (NaN quarantine), and the
-weights' layout invariants are validated once, at construction.
+``infer(y0)`` is the one-shot form; the step API is what
+``repro_torch.serve.scheduler.ContinuousBatcher`` drives. Every step
+fetches a :class:`~repro_torch.plan.StackPlan` for its padded width from
+the engine's plan cache through the degradation ladder (resident →
+layered) and runs it: on the card the plan's first panel captures a
+CUDA graph and later panels of that width class replay it. Step stats
+report exact launch accounting.
 
-``differentiable=True`` serves a forward that autograd can go through:
-the plans route around the fused kernels (they have no backward), dense
-layers take the plain fused form, and block-CSR layers carry their
-cached transposes. The reference engine's ``mesh=``, ``fault_injector=``,
-``tuning_table=`` and ``panel_dtype=`` are not taken.
+Fault handling, as the reference's: a ``fault_injector`` is polled at
+the engine's sites (panel-nans, step-transient, plan-compile,
+cache-eviction), keyed by the dispatch ordinal; transient step failures
+are retried up to ``max_step_retries`` times with exponential backoff on
+``clock``; an exhausted panel fails gracefully (``step`` returns
+``(None, stats)`` naming the lost request ids); output columns that are
+not finite fail only their own request ids (``quarantine_nonfinite``);
+a plan whose build or CUDA graph capture fails demotes its ladder level
+and the panel is served one level down. ``validate`` checks the weights'
+layout invariants once, at construction.
+
+``panel_dtype="bfloat16"`` serves the fused routes on bf16 activation
+panels (a :class:`~repro_torch.tune.TunedConfig`, which also moves the
+resident↔tiled boundary). ``differentiable=True`` serves a forward that
+autograd can go through: the plans route around the fused kernels (they
+have no backward) and run eagerly. The reference engine's ``mesh=`` and
+``tuning_table=`` are not taken (ROADMAP Queue 1 items 4 and 5).
 """
 
 from __future__ import annotations
@@ -29,8 +42,11 @@ from repro_torch.core.dnn import Weight
 from repro_torch.device import resolve_device
 from repro_torch.plan import routes as _routes
 from repro_torch.plan.cache import PlanCache
-from repro_torch.plan.degrade import DegradationLadder
-from repro_torch.plan.stack_plan import topology_fingerprint
+from repro_torch.plan.degrade import LEVEL_LAYERED, DegradationLadder
+from repro_torch.plan.stack_plan import PlanCaptureError, topology_fingerprint
+from repro_torch.serve.clock import WALL_CLOCK
+from repro_torch.testing import faults as _faults
+from repro_torch.tune.table import TunedConfig
 
 
 @dataclasses.dataclass
@@ -45,6 +61,9 @@ class SparseDNNEngine:
     stack is eligible, True demands them, False forces the layered
     kernels. ``differentiable``: serve only routes autograd can go
     through (never the fused kernels; ``use_resident=True`` is refused).
+    ``plan_cache``: the engine's own :class:`PlanCache` (max 16) unless
+    one is shared. The fault-handling arguments are the reference's, with
+    its defaults (module docstring).
     """
 
     weights: Sequence[Weight]
@@ -53,6 +72,14 @@ class SparseDNNEngine:
     use_resident: bool | None = None  # None = auto-detect eligibility
     device: Any = None
     differentiable: bool = False
+    plan_cache: PlanCache | None = None
+    fault_injector: Any = None
+    max_step_retries: int = 2
+    retry_backoff_s: float = 0.0
+    quarantine_nonfinite: bool = True
+    validate: bool = True
+    clock: Any = None
+    panel_dtype: Any = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -74,14 +101,11 @@ class SparseDNNEngine:
                 moved[id(obj)] = obj.to(self.device)
         self.weights = tuple(moved[id(w)] for w in self.weights)
         self.biases = tuple(moved[id(b)] for b in self.biases)
-        seen = set()
-        for i, w in enumerate(self.weights):
-            if id(w) not in seen and hasattr(w, "validate"):
-                seen.add(id(w))
-                w.validate(name=f"SparseDNNEngine layer {i} weight")
         self._fingerprint = topology_fingerprint(self.weights)
-        resident_ok = (not self.differentiable
-                       and _routes.fused_route(self.weights) is not None)
+        self._tuned = None if self.panel_dtype is None else TunedConfig(
+            panel_dtype=self.panel_dtype)
+        resident_ok = not self.differentiable and _routes.fused_route(
+            self.weights, panel_dtype=self._tuned and self._tuned.panel_dtype) is not None
         if self.use_resident and not resident_ok:
             raise ValueError(
                 "use_resident=True but the stack is not eligible for the "
@@ -91,16 +115,35 @@ class SparseDNNEngine:
         self._resident = (
             resident_ok if self.use_resident is None else self.use_resident
         )
+        if self.validate:
+            seen = set()
+            for i, w in enumerate(self.weights):
+                if id(w) not in seen and hasattr(w, "validate"):
+                    seen.add(id(w))
+                    w.validate(name=f"SparseDNNEngine layer {i} weight")
+        if self.plan_cache is None:
+            self.plan_cache = PlanCache(max_size=16)
         self._ladder = DegradationLadder(
-            PlanCache(max_size=16), use_resident=self._resident
+            self.plan_cache, use_resident=self._resident, tuned=self._tuned
         )
         self._served = 0
         self._steps = 0
+        self._dispatches = 0  # fault sites key on this ordinal
         self._next_rid = 0
         # Staged work as contiguous (request_ids, panel) chunks — a chunk
         # is split only when a step's limit lands inside it.
         self._staged: list[tuple[list, torch.Tensor]] = []
         self._staged_count = 0
+
+    @property
+    def ladder(self) -> DegradationLadder:
+        """The engine's degradation ladder (health marks, events)."""
+        return self._ladder
+
+    @property
+    def tuned(self) -> TunedConfig | None:
+        """The tuned config this engine serves with (None = defaults)."""
+        return self._tuned
 
     # ------------------------------------------------------------------
     # step-level API
@@ -110,6 +153,10 @@ class SparseDNNEngine:
     def staged(self) -> int:
         """Feature columns submitted but not yet dispatched."""
         return self._staged_count
+
+    @property
+    def staged_request_ids(self) -> list:
+        return [rid for rids, _ in self._staged for rid in rids]
 
     def submit(self, cols, request_ids: Sequence[Any] | None = None) -> list:
         """Stage (m, k) feature columns for the next ``step``; returns the
@@ -139,17 +186,27 @@ class SparseDNNEngine:
             "served_total": self._served,
             "engine_steps": self._steps,
             "plan": None,
+            "failed": False,
+            "retries": 0,
             "quarantined_request_ids": [],
         }
+
+    def _plan_for_width(self, width: int, *, step: int = -1, compile_hook=None):
+        """(plan, level, cache_hit) serving a ``width``-wide panel at the
+        best healthy ladder level."""
+        return self._ladder.get_plan(
+            self.weights, self.biases, width, differentiable=self.differentiable,
+            fingerprint=self._fingerprint, step=step, compile_hook=compile_hook,
+        )
 
     def step(
         self, limit: int | None = None, *, pad_to: int | None = None
     ) -> tuple[torch.Tensor | None, dict]:
         """Dispatch ONE padded forward pass over up to ``limit`` staged
         columns (FIFO). Returns ``(Y[L] (m, batch), stats)``, or
-        ``(None, stats)`` when nothing is staged. ``pad_to`` pads the
-        panel further (aligned to ``batch_align``) so panels share one
-        width class."""
+        ``(None, stats)`` when nothing is staged or the panel failed
+        (``stats["failed"]``). ``pad_to`` pads the panel further (aligned
+        to ``batch_align``) so panels share one width class."""
         if limit is not None and limit < 1:
             raise ValueError(f"step limit must be >= 1, got {limit}")
         if pad_to is not None and pad_to < 1:
@@ -177,17 +234,75 @@ class SparseDNNEngine:
         if pad_to is not None:
             width = max(width, pad_to + (-pad_to) % self.batch_align)
         yp = take[0][1] if len(take) == 1 else torch.cat([a for _, a in take], dim=1)
-        plan, level, cache_hit = self._ladder.get_plan(
-            self.weights, self.biases, width, fingerprint=self._fingerprint,
-            differentiable=self.differentiable,
-        )
-        res = plan.forward(yp)[:, :batch]
+
+        # ---- fault sites, keyed by the dispatch ordinal
+        ordinal = self._dispatches
+        self._dispatches += 1
+        inj = self.fault_injector
+        compile_spec = transient_spec = None
+        if inj is not None:
+            if inj.fires(_faults.SITE_CACHE_EVICTION, ordinal) is not None:
+                self.plan_cache.clear()  # eviction storm: every width builds again
+            spec = inj.fires(_faults.SITE_PANEL_NANS, ordinal)
+            if spec is not None:  # poison only real request columns, not the pad
+                yp, _ = _faults.poison_panel(yp, limit=batch, rng=inj.rng, **spec)
+            compile_spec = inj.fires(_faults.SITE_PLAN_COMPILE, ordinal)
+            transient_spec = inj.fires(_faults.SITE_STEP_TRANSIENT, ordinal)
+        failures_left = int(transient_spec.get("failures", 1)) if transient_spec else 0
+
+        def compile_hook(level: str) -> None:
+            nonlocal compile_spec
+            if compile_spec is not None:
+                compile_spec = None  # fires once, at the preferred level
+                raise _faults.InjectedFault(
+                    f"injected plan-compile failure at level {level!r}")
+
+        out = None
+        retries = 0
+        last_err: Exception | None = None
+        plan = level = cache_hit = None
+        for attempt in range(self.max_step_retries + 1):
+            try:
+                plan, level, cache_hit = self._plan_for_width(
+                    width, step=ordinal, compile_hook=compile_hook)
+                if failures_left > 0:
+                    failures_left -= 1
+                    raise _faults.TransientFault("injected transient step failure")
+                while out is None:
+                    try:
+                        out = plan.forward(yp)
+                    except PlanCaptureError as e:  # a compile failure: one level down
+                        if level == LEVEL_LAYERED:
+                            raise
+                        self._ladder.mark_unhealthy(
+                            level, reason=f"{type(e).__name__}: {e}", step=ordinal)
+                        plan, level, cache_hit = self._plan_for_width(width, step=ordinal)
+                break
+            except _faults.TransientFault as e:
+                last_err = e
+                if attempt >= self.max_step_retries:
+                    break
+                retries += 1
+                if self.retry_backoff_s:
+                    (self.clock or WALL_CLOCK).sleep(self.retry_backoff_s * 2**attempt)
+            except Exception as e:  # noqa: BLE001 — not retryable
+                last_err = e
+                break
+        if out is None:
+            # Graceful panel failure: the batch's requests are lost, the
+            # engine (and the requests behind it) live on.
+            stats = self._idle_stats()
+            stats.update(batch=batch, request_ids=ids, failed=True, retries=retries,
+                         error=f"{type(last_err).__name__}: {last_err}")
+            return None, stats
+        res = out[:, :batch]
         self._served += batch
         self._steps += 1
         quarantined: list = []
-        col_ok = torch.isfinite(res).all(dim=0)
-        if not bool(col_ok.all()):
-            quarantined = [ids[j] for j in torch.nonzero(~col_ok).flatten().tolist()]
+        if self.quarantine_nonfinite:
+            col_ok = torch.isfinite(res).all(dim=0)
+            if not bool(col_ok.all()):
+                quarantined = [ids[j] for j in torch.nonzero(~col_ok).flatten().tolist()]
         stats = {
             "batch": batch,
             "padded_batch": width,
@@ -203,9 +318,13 @@ class SparseDNNEngine:
                 "width_class": width,
                 "cache_hit": cache_hit,
                 "route": plan.route,
+                "compiles": plan.compile_count,
                 "level": level,
                 "degraded": level != self._ladder.preferred_level,
+                "tuned": plan.key.tuned,
             },
+            "failed": False,
+            "retries": retries,
             "quarantined_request_ids": quarantined,
         }
         return res, stats

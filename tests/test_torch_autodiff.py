@@ -450,5 +450,5 @@ def test_plan_cache_and_ladder_key_differentiability_like_reference():
     ladder = DegradationLadder(PlanCache(), use_resident=True)
     plan, level, _ = ladder.get_plan(ws, pbs, 8, differentiable=True)
     assert (plan.route, level) == (jplan.route, jlevel) == ("layered", "layered")
-    assert ladder.demotion is None  # the resident level stays for serving
+    assert ladder.is_healthy("resident") and not ladder.events  # it stays for serving
     assert ladder.get_plan(ws, pbs, 8)[0].route == "fused"

@@ -584,3 +584,183 @@ def test_sparse_train_step_on_the_card_matches_plain(cuda):
             torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
         else:
             assert torch.equal(got, want)
+
+
+# --- plans captured as CUDA graphs ---------------------------------------
+
+
+def _route_plan(route, device):
+    """A plan of the given route on RadiX-net weights: fused 1024 x 12,
+    fused-tiled 4096 x 4, layered 1024 x 12 (ELL and block-CSR layers),
+    dense 1024 x 4 (every layer densified)."""
+    from repro_torch.plan import build_plan
+
+    neurons, layers = {"fused-tiled": (4096, 4), "dense": (1024, 4)}.get(route, (1024, 12))
+    w, b = rx.radixnet_weights(rx.RadixNetSpec(neurons, layers), device=device)
+    if route == "dense":
+        dense = {id(x): x.to_dense() for x in w}
+        w = [dense[id(x)] for x in w]
+    plan = build_plan(w, b, 64, use_resident=False if route in ("layered", "dense") else None)
+    assert plan.route == ("layered" if route == "dense" else route)
+    return plan
+
+
+def _panels(neurons, device, count, n=64):
+    panel = rx.radixnet_input_panel(neurons, count * n, density=0.35, seed=9)
+    return [torch.from_numpy(np.ascontiguousarray(panel[:, i * n:(i + 1) * n])).to(device)
+            for i in range(count)]
+
+
+@pytest.mark.parametrize("route", ["fused", "fused-tiled", "layered", "dense"])
+def test_replay_is_bit_identical_to_the_eager_forward(cuda, route):
+    plan = _route_plan(route, cuda)
+    panels = _panels(plan.weights[0].shape[1], cuda, 3)
+    assert plan.describe()["executable"] == "cuda-graph"
+    first = plan.forward(panels[0])  # the warm-up, then the capture
+    assert plan.compile_count == 1 and plan.warmups == 1 and plan.replays == 0
+    for y in panels:
+        got = plan.forward(y)
+        want = plan._run(y)  # the same wrappers, called eagerly
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert torch.equal(first, plan._run(panels[0]))
+    assert plan.compile_count == 1 and plan.replays == 3
+
+
+@pytest.mark.parametrize("route", ["fused", "layered"])
+def test_launch_counts_are_the_launches_that_ran(cuda, route):
+    plan = _route_plan(route, cuda)
+    y = _panels(1024, cuda, 1)[0]
+    ops.reset_launch_counts()
+    for _ in range(5):
+        plan.forward(y)
+    per_replay = plan.captured_launches
+    assert sum(per_replay.values()) == plan.kernel_launches
+    counts = ops.launch_counts()
+    assert counts == {k: (1 + 4) * v for k, v in per_replay.items()}  # a warm-up, 4 replays
+    if route == "layered":
+        assert ops.launched_block_shapes() == {"bsr_spmm": [(16, 16)], "bcsr_spmm": [(16, 16)]}
+
+
+def test_a_held_result_is_unchanged_by_the_next_replay(cuda):
+    plan = _route_plan("fused", cuda)
+    a, b = _panels(1024, cuda, 2)
+    plan.forward(a)  # warm-up
+    held = plan.forward(a)  # a replay
+    kept = held.clone()
+    col = held[:, 3]  # a view, as the batcher keeps per request
+    plan.forward(b)
+    torch.cuda.synchronize()
+    assert torch.equal(held, kept) and torch.equal(col, kept[:, 3])
+    assert not torch.equal(plan.forward(b), kept)
+
+
+@pytest.mark.parametrize("route", ["fused", "layered"])
+def test_an_in_place_change_captures_again_with_the_new_values(cuda, route):
+    plan = _route_plan(route, cuda)
+    y = _panels(1024, cuda, 1)[0]
+    plan.forward(y)
+    before = plan.forward(y)
+    bias = plan.stacked[1] if route == "fused" else plan.biases[0]
+    bias.add_(0.25)
+    got = plan.forward(y)  # warm-up on the new values, then a second capture
+    assert plan.compile_count == 2 and plan.warmups == 2
+    again = plan.forward(y)
+    want = plan._run(y)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(again, want)
+    assert not torch.equal(got, before)
+
+
+def test_a_differentiable_plan_stays_eager_and_its_gradients_match(cuda):
+    from repro_torch.core import dnn
+    from repro_torch.plan import build_plan
+
+    w, b = rx.radixnet_weights(rx.RadixNetSpec(256, 4), device=cuda)
+    w = [BlockCSRMatrix.from_bsr(x) if i % 2 else x for i, x in enumerate(w)]
+    w = [dnn.with_values(x, dnn.values_of(x) * 0.5) for x in w]
+    plan = build_plan(w, b, 32, differentiable=True)
+    y0 = torch.from_numpy(rx.radixnet_input_panel(256, 32, density=0.3, seed=4)).to(cuda)
+    targets = torch.rand((256, 32), device=cuda)
+    assert plan.describe()["executable"] == "eager"
+    assert "autograd" in plan.describe()["eager_because"]
+    ops.reset_launch_counts()
+    plan.forward(y0)
+    plan.forward(y0)
+    assert plan.compile_count == 1 and plan.replays == 0
+    assert ops.launch_counts()["bsr_spmm"] == 4 and ops.launch_counts()["bcsr_spmm"] == 4
+    loss_k, (dw_k, db_k) = dnn.dnn_value_and_grad(w, b, y0, targets, plan=plan)
+    loss_p, (dw_p, db_p) = dnn.dnn_value_and_grad(w, b, y0, targets, use_kernel=False)
+    torch.testing.assert_close(loss_k, loss_p, rtol=1e-5, atol=1e-7)
+    for got, want in zip([dnn.values_of(g) for g in dw_k] + list(db_k),
+                         [dnn.values_of(g) for g in dw_p] + list(db_p)):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
+
+
+def test_a_call_that_autograd_records_runs_eagerly(cuda):
+    plan = _route_plan("layered", cuda)
+    y = _panels(1024, cuda, 1)[0]
+    plan.forward(y)
+    want = plan.forward(y)  # a replay
+    replays = plan.replays
+    yg = y.clone().requires_grad_()
+    out = plan.forward(yg)  # autograd records the wrappers: no replay
+    out.sum().backward()
+    assert plan.replays == replays and plan.compile_count == 1
+    assert yg.grad is not None and bool(torch.isfinite(yg.grad).all())
+    assert torch.equal(out.detach(), want)
+
+
+def test_the_plans_of_one_stack_share_one_graph_pool(cuda):
+    from repro_torch.plan import PlanCache
+
+    w, b = rx.radixnet_weights(rx.RadixNetSpec(1024, 4), device=cuda)
+    cache = PlanCache()
+    p64, p128 = cache.get(w, b, 64), cache.get(w, b, 128)
+    assert p64.pool is not None and p128.pool is p64.pool
+    assert cache.get(w, b, 64, differentiable=True).pool is None  # stays eager
+    other = cache.get(w, b, 64, use_resident=False)  # another key: another pool
+    assert other.pool is not None and other.pool != p64.pool
+    for plan in (p64, p128, other):
+        plan.forward(_panels(1024, cuda, 1)[0])
+        plan.forward(_panels(1024, cuda, 1)[0])
+        assert plan.compile_count == 1 and plan.replays == 1
+
+
+@pytest.mark.parametrize("panel_dtype", ["float32", "bfloat16"])
+def test_dnn_forward_resident_runs_a_stack_no_fused_route_takes_on_the_spmm_kernels(
+        cuda, panel_dtype):
+    from repro_torch.core import dnn
+    from repro_torch.plan import default_cache, reset_default_cache
+
+    w, b = rx.radixnet_weights(rx.RadixNetSpec(1024, 4), device=cuda)
+    mixed = [BlockCSRMatrix.from_bsr(x) if i % 2 else x for i, x in enumerate(w)]
+    y = _panels(1024, cuda, 1)[0]
+    reset_default_cache()
+    ops.reset_launch_counts()
+    got = dnn.dnn_forward_resident(mixed, b, y, panel_dtype=panel_dtype)
+    counts = ops.launch_counts()
+    (plan,) = default_cache().plans()
+    paths = [lp.path for lp in plan.layers]
+    assert plan.route == "layered" and plan.key.tuned == f"panel_dtype={panel_dtype}"
+    assert counts["bsr_spmm"] == paths.count("kernel-ell")
+    assert counts["bcsr_spmm"] == paths.count("kernel-bcsr")
+    assert counts["bsr_spmm"] + counts["bcsr_spmm"] == 4  # every layer on a kernel
+    assert counts["fused_mlp_forward"] == counts["fused_mlp_tiled_forward"] == 0
+    want = dnn.dnn_forward(mixed, b, y, fused=True)
+    torch.testing.assert_close(got, want, **STACK_TOL)
+    reset_default_cache()
+
+
+@pytest.mark.parametrize("route", ["fused", "fused-tiled", "layered", "dense"])
+def test_a_replay_runs_the_kernels_its_capture_recorded(cuda, route):
+    plan = _route_plan(route, cuda)
+    y = _panels(plan.weights[0].shape[1], cuda, 1)[0]
+    plan.forward(y)  # warm-up and capture
+    ops.reset_launch_counts()
+    plan.forward(y)
+    assert plan.replays == 1
+    nonzero = lambda counts: {k: v for k, v in counts.items() if v}  # noqa: E731
+    in_graph = nonzero(plan.graph_launches)  # the graph's kernel nodes, read by libcuda
+    assert in_graph == nonzero(plan.captured_launches) == nonzero(ops.launch_counts())
+    assert sum(in_graph.values()) == plan.kernel_launches

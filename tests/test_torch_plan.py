@@ -171,10 +171,12 @@ def test_ladder_demotes_a_failing_resident_level():
     ws, bs = rx.radixnet_weights(rx.RadixNetSpec(64, 2), device="cpu")
     hetero = [BlockCSRMatrix.from_bsr(ws[0]), ws[1]]  # no fused route
     ladder = P.DegradationLadder(P.PlanCache(), use_resident=True)
-    assert ladder.preferred_level == P.LEVEL_RESIDENT and ladder.demotion is None
+    assert ladder.preferred_level == P.LEVEL_RESIDENT and not ladder.events
     plan, level, hit = ladder.get_plan(hetero, bs, 16)
     assert level == P.LEVEL_LAYERED and plan.route == P.ROUTE_LAYERED and not hit
-    assert "ValueError" in ladder.demotion
+    assert not ladder.is_healthy(P.LEVEL_RESIDENT)
+    assert [(e.level, e.healthy) for e in ladder.events] == [(P.LEVEL_RESIDENT, False)]
+    assert "ValueError" in ladder.events[0].reason
     # the demotion sticks: an eligible stack is served layered from now on
     plan, level, hit = ladder.get_plan(ws, bs, 16)
     assert level == P.LEVEL_LAYERED and plan.route == P.ROUTE_LAYERED

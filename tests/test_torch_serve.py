@@ -12,7 +12,9 @@ import torch
 
 from repro.data import radixnet as jrx
 from repro.serve import run_challenge as j_run_challenge
+from repro_torch.core.dnn import stack_bsr
 from repro_torch.data import radixnet as rx
+from repro_torch.kernels.fused_mlp import fused_mlp_plain
 from repro_torch.serve import SparseDNNEngine, run_challenge
 from repro_torch.sparse import BlockCSRMatrix
 
@@ -107,5 +109,74 @@ def test_engine_validates_weights_at_construction():
     bad = ws[0].to("cpu")
     bad.blocks = bad.blocks.clone()
     bad.blocks[0, 0, 0, 0] = float("inf")
+    with pytest.raises(ValueError, match="non-finite"):
+        SparseDNNEngine([bad], bs, device="cpu")
+
+
+@pytest.mark.parametrize("case", ["engine", "no-warmup", "block8", "bf16"])
+def test_run_challenge_takes_the_references_arguments(case):
+    """``engine=``, ``warmup=``, ``block_size=`` and ``panel_dtype=`` as the
+    reference takes them: the same answer set, routes, levels, steps, width
+    classes, columns served (bills: at each package's own tile)."""
+    spec, jspec = rx.RadixNetSpec(256, 6), jrx.RadixNetSpec(256, 6)
+    kw = dict(n_inputs=40, panel_width=16, batch_align=8, seed=5)
+    jkw, tkw = dict(kw), dict(kw, device="cpu")
+    if case == "engine":
+        from repro.serve import SparseDNNEngine as JEngine
+
+        jkw["engine"] = JEngine(*jrx.radixnet_weights(jspec), batch_align=8,
+                                use_resident=False)
+        tkw["engine"] = SparseDNNEngine(*rx.radixnet_weights(spec, device="cpu"),
+                                        batch_align=8, use_resident=False, device="cpu")
+        del tkw["device"]
+    elif case == "no-warmup":
+        jkw["warmup"] = tkw["warmup"] = False
+    elif case == "block8":
+        jkw["block_size"] = tkw["block_size"] = 8
+    else:
+        jkw["panel_dtype"] = tkw["panel_dtype"] = "bfloat16"
+    want = j_run_challenge(jspec, **jkw)
+    got = run_challenge(spec, **tkw)
+    for field in ("routes", "levels", "steps", "width_classes", "served", "n_inputs"):
+        assert getattr(got, field) == getattr(want, field), field
+    assert np.array_equal(got.categories, want.categories)
+    assert got.routes == (("layered",) if case == "engine" else ("fused",))
+    if case == "engine":
+        assert tkw["engine"].plan_cache.stats()["builds"] == 1  # the warm-up built it
+    if case == "bf16":
+        ws, bs = rx.radixnet_weights(spec, device="cpu")
+        panel = torch.from_numpy(rx.radixnet_input_panel(256, 40, density=0.3, seed=5))
+        plain = fused_mlp_plain(stack_bsr(ws), torch.stack(bs), panel, panel_dtype="bfloat16")
+        assert np.array_equal(got.categories, rx.reference_categories(plain.numpy()))
+
+
+def test_engine_step_stats_carry_the_references_fields():
+    from repro.serve import SparseDNNEngine as JEngine
+
+    jeng = JEngine(*jrx.radixnet_weights(jrx.RadixNetSpec(64, 3)), batch_align=8)
+    eng = _engine()
+    cols = rx.radixnet_input_panel(64, 10, density=0.3, seed=2)
+    for e, c in ((jeng, cols), (eng, torch.from_numpy(cols))):
+        e.submit(c[:, :6])
+        e.submit(c[:, 6:], request_ids=["a", "b", "c", "d"])
+        assert e.staged_request_ids == [0, 1, 2, 3, 4, 5, "a", "b", "c", "d"]
+    (_, jst), (_, st) = jeng.step(limit=7), eng.step(limit=7)
+    assert st.pop("kernel_launches") == jst.pop("pallas_calls")
+    assert st.pop("grid_steps") == jst.pop("grid_steps")  # 8 wide: one tile in both
+    assert st == jst and st["plan"]["compiles"] == 1 and st["plan"]["tuned"] is None
+    assert eng.staged_request_ids == ["b", "c", "d"] and eng.tuned is None
+    assert eng.ladder.describe()["current"] == "resident"
+
+
+def test_engine_quarantine_and_validation_switches():
+    ws, bs = rx.radixnet_weights(rx.RadixNetSpec(64, 1), device="cpu")
+    cols = torch.from_numpy(rx.radixnet_input_panel(64, 4, density=0.5, seed=4))
+    cols[3, 1] = float("nan")
+    out, st = _engine(quarantine_nonfinite=False).infer(cols)
+    assert st["quarantined_request_ids"] == [] and not bool(torch.isfinite(out[:, 1]).all())
+    bad = ws[0].to("cpu")
+    bad.blocks = bad.blocks.clone()
+    bad.blocks[0, 0, 0, 0] = float("inf")
+    SparseDNNEngine([bad], bs, device="cpu", validate=False)  # trusted: no check
     with pytest.raises(ValueError, match="non-finite"):
         SparseDNNEngine([bad], bs, device="cpu")

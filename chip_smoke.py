@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's GraphChallenge, GraphBLAS and training paths on one GPU.
+"""Drive the PyTorch/CUDA port's GraphChallenge, GraphBLAS, training and tuning paths on one GPU.
 
     python3 chip_smoke.py        # from the repository root, on a CUDA host
 
@@ -60,8 +60,8 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    ``make_sparse_train_step``: the loss must fall, the gradients stay in
    the stored pattern, no transpose is sorted after the plan's build,
    and the launches per step split into forward (one per sparse layer)
-   and backward (``bcsr_spmm`` on the cached transpose of every
-   block-CSR layer whose input needs a gradient); forward, backward and
+   and backward (``bcsr_spmm`` on the cached transpose of every sparse
+   layer whose input needs a gradient); forward, backward and
    step times on the synchronised host clock.
 9. train-paper — the paper's MLP at a Fig. 5 grid point
    (``graphblas_mlp.make_config(m=8192, num_layers=8,
@@ -93,6 +93,32 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    ``fused_mlp_plain(..., panel_dtype="bfloat16")`` within
    ``STACK_RTOL``, the categories that agree with the f32 oracle
    (printed, not held), the bf16 launch's time beside the f32 one's.
+13. tune — the autotuner (``repro_torch.tune``): the reference tune
+   arm's skewed stack (``TUNE_SKEWED``: three rectangular layers, skew
+   0.3, width 64), where ``layout=bcsr`` must win with fewer tile
+   products and less block work than the default and give the default
+   plan's output within 1e-6 of it; then RadiX-net 1024 × 120 and
+   4096 × 120 (``TUNE_RADIX``; input density 0.3 and 0.35) at 512
+   columns of the challenge's {0, 1} panel over block_n (default, 8) × panel dtype × layout × shared-memory
+   budget (default, and one byte under the f32 resident panel or the
+   card's limit): every candidate's route, bill, shared-memory bytes,
+   time, error and selection, and whether the selection is the fastest
+   measured (evidence only: the cost model selects). No candidate may
+   fail to build. The winners go into one ``TuningTable``, saved and
+   loaded back.
+14. serve-tuned — ``run_challenge(spec, tuning_table=table)`` on all
+   60 000 inputs at both sizes and their densities: route, launches (warm-up + replays),
+   edge·inputs/s; categories against the numpy oracle on 512 columns
+   (held for f32 panels; for bf16 panels a panel is held bit for bit to
+   ``fused_mlp_plain`` and the disagreements printed); then an engine
+   built with the same table, its plan's tuned token and captured
+   launches checked as in the serving phases.
+15. train-resilient — ``run_resilient_training`` on train-radixnet's
+   network (``RESILIENT``: 12 SGD steps, checkpoints every 4, a batch per
+   step): a clean run, a run with a NaN loss at step 6 (one restart,
+   step 6 skipped) and a run stopped at step 8 and resumed; both must
+   give the clean run's losses bit for bit. The checkpoint's bytes and
+   its save, restore and (on the card) validation times.
 
 Every engine plan on the card captures its forward as a CUDA graph at
 its first panel (an eager warm-up, then the capture) and replays it for
@@ -106,7 +132,7 @@ same layer loop called eagerly through ``kernel_ops`` from this script,
 interleaved, five times each, beside the kernels' CUDA-event time
 (``host_share``).
 
-Launch counts are reset to 0 right before each of phases 3-12 and read
+Launch counts are reset to 0 right before each of phases 3-15 and read
 right after (for 8 and 9, around the train steps). The ``kernels`` line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}`` close the run. Numbers are this run's
 own; the bound of a kernel is max(bytes / 3.35 TB/s, ops / 67 TFLOP/s)
@@ -169,6 +195,16 @@ PAPER_TRAIN = dict(m=8192, layers=8, inverse_sparsity=8, block=128, batch=64, st
 # the Philox panel. A mean of 256 arrivals a tick fills half of a 512-column
 # panel, so about half the ticks' arrivals take the 512 class.
 CONTINUOUS = dict(n_requests=6000, lam=256.0, seed=0)
+# the tune phase: the reference tune arm's skewed stack
+# (benchmarks/kernel_bench.py tune_arm) and RadiX-net at two challenge sizes
+TUNE_SKEWED = dict(specs=(((128, 256), 100), ((128, 128), 55), ((64, 128), 28)), skew=0.3,
+                   block=16, width=64, reps=3)
+# (neurons, input density): at 4096 × 120 every input of a 0.3-density
+# panel dies before the last layer (no category on 512 columns, in the
+# oracle as in the port), so that size takes 0.35, which keeps about half
+TUNE_RADIX = dict(sizes=((1024, 0.3), (4096, 0.35)), layers=120, block=16, width=512, reps=3)
+RESILIENT = dict(neurons=1024, layers=120, columns=512, lr=0.02, steps=12, ckpt_interval=4,
+                 nan_step=6, kill_step=8)
 WIDTH_CLASSES = (64, 128, 256, 512)
 HOST_SHARE_REPEATS = 5  # captured and eager forwards, interleaved
 # the graphblas phase's adjacency: random_skewed(SKEWED_SEED, (m, m), (16, 16), blocks, skew)
@@ -1347,8 +1383,9 @@ def train_cell(weights, biases, y0, targets, opt, steps: int) -> dict:
     plan = build_plan(weights, biases, n, differentiable=True)
     plan_seconds = time.perf_counter() - t0
     sorts = transpose_sort_count()
-    check(sorts == len({id(w) for w in weights if isinstance(w, BlockCSRMatrix)}),
-          ("one sort per block-CSR matrix at plan build", sorts))
+    sparse = (BlockCSRMatrix, BlockSparseMatrix)
+    check(sorts == len({id(w) for w in weights if isinstance(w, sparse)}),
+          ("one sort per sparse matrix at plan build", sorts))
     check(plan.route in ("layered", "xla") and not plan.is_fused_route, plan.route)
 
     # the first step's gradients against the plain versions on the card:
@@ -1419,14 +1456,15 @@ def train_cell(weights, biases, y0, targets, opt, steps: int) -> dict:
     check(all(np.isfinite(losses)) and losses[-1] < losses[0], ("loss falls", losses))
     check(transpose_sort_count() == sorts, ("no sort after the plan's build", sorts,
                                             transpose_sort_count()))
-    # dX launches for the block-CSR layers whose input needs a gradient:
-    # all but a first layer (the input panel is data)
-    n_csr_bwd = n_csr - int(isinstance(weights[0], BlockCSRMatrix))
+    # dX launches, a bcsr_spmm on the cached transpose of every sparse layer
+    # whose input needs a gradient: all but a first layer (the input panel
+    # is data)
+    n_bwd = n_ell + n_csr - int(isinstance(weights[0], sparse))
     fwd = {k: fwd_counts[k] for k in ("bsr_spmm", "bcsr_spmm")}
     per_step = {k: counts[k] / steps for k in ("bsr_spmm", "bcsr_spmm")}
     bwd = {k: per_step[k] - fwd[k] for k in fwd}
     check(fwd == {"bsr_spmm": n_ell, "bcsr_spmm": n_csr}, ("forward launches", fwd))
-    check(bwd == {"bsr_spmm": 0, "bcsr_spmm": n_csr_bwd}, ("backward launches", bwd))
+    check(bwd == {"bsr_spmm": 0, "bcsr_spmm": n_bwd}, ("backward launches", bwd))
     check(all(v == 0 for k, v in counts.items() if k not in fwd), counts)
     return {
         "layers": len(weights), "ell_layers": n_ell, "bcsr_layers": n_csr,
@@ -1542,6 +1580,301 @@ def phase_train_paper(m: int, layers: int, inverse_sparsity: int, block: int, ba
     }
 
 
+def _skewed_stack(specs, skew: float, block: int, dev):
+    """The reference tune arm's skewed stack (benchmarks/kernel_bench.py
+    ``tune_arm``): ``random_skewed`` block-CSR topologies handed over as ELL."""
+    import torch
+
+    from repro_torch.sparse.bcsr import BlockCSRMatrix
+
+    ws = [BlockCSRMatrix.random_skewed(i, shape, (block, block), total, skew=skew,
+                                       device=dev).to_bsr()
+          for i, (shape, total) in enumerate(specs)]
+    return ws, [torch.zeros(w.shape[0], device=dev) for w in ws]
+
+
+def sweep_record(rec: dict) -> dict:
+    keys = ("token", "route", "grid_steps", "block_work", "vmem_bytes", "wall_s",
+            "max_abs_err", "ok", "selected", "error")
+    out = {k: rec[k] for k in keys if k in rec}
+    if "vmem_bytes" in out:
+        out["smem_bytes"] = out.pop("vmem_bytes")
+    return out
+
+
+def phase_tune(skewed, radix) -> tuple[dict, object]:
+    """The autotuner on the card: the reference tune arm's skewed stack
+    (``layout=bcsr`` must win, as in the reference) and RadiX-net at the
+    challenge sizes on the {0, 1} panel. Every candidate's bill and time
+    is printed; the winners go into one ``TuningTable``, saved and loaded
+    back. Returns the line and the table."""
+    import tempfile
+
+    import torch
+
+    from repro_torch import plan as P
+    from repro_torch.data import radixnet as rx
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fused_mlp import SMEM_LIMIT_BYTES, fused_mlp_smem_bytes
+    from repro_torch.tune import (
+        TunedConfig,
+        TuningTable,
+        default_candidates,
+        sweep_stack,
+        tune_stack,
+    )
+
+    dev = torch.device("cuda")
+    table = TuningTable()
+    ops.reset_launch_counts()
+
+    ws, bs = _skewed_stack(skewed["specs"], skewed["skew"], skewed["block"], dev)
+    width = skewed["width"]
+    winner, records = sweep_stack(ws, bs, width, reps=skewed["reps"])
+    by_token = {r["token"]: r for r in records}
+    win, default = by_token[winner.token()], by_token["default"]
+    check(winner.token() == "layout=bcsr", ("skewed winner", winner.token()))
+    check(win["grid_steps"] < default["grid_steps"]
+          and win["block_work"] < default["block_work"], (win, default))
+    check(not any("error" in r for r in records), records)
+    probe = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (ws[0].shape[1], width)).astype(np.float32)).to(dev)
+    want = P.build_plan(ws, bs, width).forward(probe)
+    got = P.build_plan(ws, bs, width, tuned=winner).forward(probe)
+    torch.cuda.synchronize()
+    rel = float(((got - want).abs() / want.abs().clamp_min(1e-30))[want != 0].max())
+    check(bool(((got - want).abs() <= 1e-6 * want.abs()).all()), ("tuned vs default", rel))
+    tune_stack(ws, bs, width, table=table, sweep=(winner, records))
+    skewed_line = {"specs": [[list(sh), t] for sh, t in skewed["specs"]], "skew": skewed["skew"],
+                   "width": width, "winner": winner.token(),
+                   "tuned_vs_default_max_rel_err": rel, "check": "|tuned - default| <= 1e-6 |default|",
+                   "candidates": [sweep_record(r) for r in records]}
+
+    radix_lines = []
+    for neurons, density in radix["sizes"]:
+        spec = rx.RadixNetSpec(neurons, radix["layers"])
+        weights, biases = rx.radixnet_weights(spec, block_size=radix["block"], device=dev)
+        n = radix["width"]
+        probe = torch.from_numpy(np.ascontiguousarray(rx.radixnet_input_panel(
+            neurons, n, density=density, seed=0))).to(dev)
+        f32_bytes = fused_mlp_smem_bytes(neurons, None, radix["block"])
+        budget = min(f32_bytes - 1, SMEM_LIMIT_BYTES)
+        cands = default_candidates(block_ns=(None, 8), vmem_limits=(None, budget))
+        t0 = time.perf_counter()
+        winner, records = sweep_stack(weights, biases, n, candidates=cands, reps=radix["reps"],
+                                      probe=probe)
+        sweep_seconds = time.perf_counter() - t0
+        # no candidate here is one the port refuses by design
+        check(not any("error" in r for r in records), [r for r in records if "error" in r])
+        timed = [r for r in records if r["ok"]]
+        fastest = min(timed, key=lambda r: r["wall_s"])
+        tune_stack(weights, biases, n, table=table, sweep=(winner, records))
+        radix_lines.append({
+            "spec": [neurons, radix["layers"]], "width": n, "density": density,
+            "f32_resident_smem_bytes": f32_bytes,
+            "budget_candidate": budget, "winner": winner.token(),
+            "winner_route": next(r for r in records if r["selected"])["route"],
+            "fastest_measured": fastest["token"],
+            "selected_is_fastest": fastest["selected"],
+            "sweep_seconds": sweep_seconds,
+            "candidates": [sweep_record(r) for r in records]})
+        del weights, biases
+    counts = ops.launch_counts()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "table.json")
+        table.save(path)
+        loaded = TuningTable.load(path)
+        table_bytes = os.path.getsize(path)
+    check(loaded.entries == table.entries and len(loaded) == 1 + len(radix["sizes"]),
+          "the tuning table round-trips")
+    check(all(loaded.lookup(k.split(":")[0], backend="cuda") is not None for k in loaded.entries),
+          list(loaded.entries))
+    check(isinstance(loaded.lookup(next(iter(loaded.entries)).split(":")[0], backend="cuda"),
+                     TunedConfig), "lookup")
+    return {"skewed": skewed_line, "radix": radix_lines, "table_entries": len(loaded),
+            "table_bytes": table_bytes, "launches": counts}, loaded
+
+
+def phase_serve_tuned(sizes, layers: int, table, *, n_inputs: int, ref_cols: int) -> dict:
+    """``run_challenge(spec, tuning_table=table)`` on all ``n_inputs``
+    inputs at each size: the route and launches of the table's winner, its
+    answer set (f32 panels: equal to the numpy oracle on ``ref_cols``
+    columns; bf16 panels: a panel bit-identical to ``fused_mlp_plain`` at
+    the same config, the disagreeing categories printed); then a short run
+    through an engine built with the same table, whose captured plans are
+    held to their launches as the serving phases hold theirs."""
+    import torch
+
+    from repro_torch.data import radixnet as rx
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fused_mlp import fused_mlp_plain
+    from repro_torch.plan import topology_fingerprint
+    from repro_torch.serve import SparseDNNEngine, run_challenge
+
+    dev = torch.device("cuda")
+    lines = []
+    for neurons, density in sizes:
+        spec = rx.RadixNetSpec(neurons, layers)
+        weights, biases = rx.radixnet_weights(spec, device=dev)
+        tuned = table.lookup(topology_fingerprint(weights), backend="cuda")
+        check(tuned is not None, ("a table hit", spec))
+        record = table.record(topology_fingerprint(weights), backend="cuda")
+        kernel = {"fused": "fused_mlp_forward", "fused-tiled": "fused_mlp_tiled_forward"}[
+            record["route"]]
+        ops.reset_launch_counts()
+        res = run_challenge(spec, n_inputs=n_inputs, density=density, tuning_table=table)
+        counts = ops.launch_counts()
+        torch.cuda.synchronize()
+        check(res.routes == (record["route"],) and res.levels == ("resident",), res.routes)
+        check(res.served == n_inputs, res.served)
+        # the warm-up captures the one plan, every timed panel replays it
+        check(counts[kernel] == res.steps + 1
+              and sum(counts.values()) == counts[kernel], counts)
+
+        panel = rx.radixnet_input_panel(spec.neurons, n_inputs, density=density, seed=0)
+        ref_panel = np.ascontiguousarray(panel[:, :ref_cols])
+        ref_cats = oracle_categories(spec, ref_panel, chunk=64)
+        check(0 < len(ref_cats) < ref_cols, ("nondegenerate answer set", len(ref_cats)))
+        got_cats = res.categories[res.categories < ref_cols]
+        engine = SparseDNNEngine(weights, biases, batch_align=32, tuning_table=table, device=dev)
+        check(engine.tuned == tuned, (engine.tuned, tuned))
+        ops.reset_launch_counts()
+        run_challenge(spec, n_inputs=4 * 512, density=density, engine=engine)
+        short_counts = ops.launch_counts()
+        torch.cuda.synchronize()
+        captured = check_captured(engine.plan_cache, short_counts)
+        (plan,) = engine.plan_cache.plans()
+        check(plan.key.tuned == tuned.token() and plan.route == record["route"], plan.describe())
+        line = {"spec": [spec.neurons, spec.layers], "density": density, "tuned": tuned.token(),
+                "route": record["route"], "n_inputs": n_inputs, "steps": res.steps,
+                "launches": counts, "seconds": res.seconds,
+                "edge_inputs_per_sec": res.edge_inputs_per_sec,
+                "categories": int(len(res.categories)), "reference_columns": ref_cols,
+                "reference_categories": int(len(ref_cats)),
+                "reference_categories_matched": int(len(np.intersect1d(got_cats, ref_cats))),
+                "engine_run": {"launches": short_counts, **captured}}
+        if tuned.panel_dtype == "bfloat16":
+            # RadiX-net's sums of bf16 panel values times 1/16 are exact in
+            # f32, so the kernel and the plain version agree to the bit
+            y = torch.from_numpy(np.ascontiguousarray(panel[:, :plan.width])).to(dev)
+            out = plan.forward(y)
+            want = fused_mlp_plain(*plan.stacked, y, panel_dtype="bfloat16")
+            torch.cuda.synchronize()
+            check(torch.equal(out, want), ("bf16 panel vs plain", errors(out, want)))
+            line["bf16_panel_max_abs_err"] = float((out - want).abs().max())
+            line["categories_disagreeing_with_oracle"] = int(
+                len(np.setxor1d(got_cats, ref_cats)))
+        else:
+            check(np.array_equal(got_cats, ref_cats), ("categories", got_cats, ref_cats))
+        lines.append(line)
+        del weights, biases, engine
+    return {"runs": lines,
+            "launches": {k: sum(ln["launches"][k] + ln["engine_run"]["launches"][k]
+                                for ln in lines) for k in lines[0]["launches"]}}
+
+
+def phase_train_resilient(neurons: int, layers: int, columns: int, lr: float, steps: int,
+                          ckpt_interval: int, nan_step: int, kill_step: int) -> dict:
+    """Resilient training at full width: RADIX_TRAIN's network (RadiX-net's
+    stored blocks, He-scale values, a differentiable plan), a clean run,
+    a run with a NaN loss at ``nan_step`` and a run stopped at
+    ``kill_step`` and resumed; both must give the clean run's losses bit
+    for bit. Checkpoints go to a temporary directory."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.core.dnn import values_of
+    from repro_torch.data import radixnet as rx
+    from repro_torch.kernels import ops
+    from repro_torch.plan import build_plan
+    from repro_torch.plan.layout import to_preferred_layout
+    from repro_torch.testing import SITE_TRAIN_NAN_LOSS, FaultInjector
+    from repro_torch.train import (
+        checkpoint,
+        init_sparse_mlp_state,
+        run_resilient_training,
+        sgd,
+        validate_sparse_state,
+    )
+
+    dev = torch.device("cuda")
+    spec = rx.RadixNetSpec(neurons, layers)
+    phases, _ = rx.radixnet_weights(spec, device=dev)
+    relaid, weights = {}, []
+    gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+    for w in phases:
+        if id(w) not in relaid:
+            relaid[id(w)] = to_preferred_layout(w)
+        weights.append(he_values(relaid[id(w)], gen, fan_in=32))
+    biases = [torch.zeros(neurons, device=dev) for _ in weights]
+    panel = torch.from_numpy(rx.radixnet_input_panel(neurons, columns * steps, density=0.3,
+                                                     seed=0)).to(dev)
+
+    def batch_fn(step):
+        g = torch.Generator(device=dev).manual_seed(TRAIN_SEED + 1 + step)
+        return {"y0": panel[:, step * columns:(step + 1) * columns],
+                "targets": torch.rand((neurons, columns), generator=g, device=dev)}
+
+    plan = build_plan(weights, biases, columns, differentiable=True)
+    state = init_sparse_mlp_state(weights, biases, sgd(lr))
+    kw = dict(ckpt_interval=ckpt_interval, plan=plan, device=dev)
+    ops.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        _, clean = run_resilient_training(state, batch_fn, sgd(lr), steps,
+                                          os.path.join(d, "clean"), **kw)
+        clean_seconds = time.perf_counter() - t0
+        inj = FaultInjector()
+        inj.schedule(SITE_TRAIN_NAN_LOSS, nan_step)
+        t0 = time.perf_counter()
+        _, faulted = run_resilient_training(state, batch_fn, sgd(lr), steps,
+                                            os.path.join(d, "nan"), fault_injector=inj, **kw)
+        faulted_seconds = time.perf_counter() - t0
+        kill_dir = os.path.join(d, "kill")
+        _, part = run_resilient_training(state, batch_fn, sgd(lr), kill_step, kill_dir, **kw)
+        final, rest = run_resilient_training(state, batch_fn, sgd(lr), steps, kill_dir, **kw)
+        counts = ops.launch_counts()
+        torch.cuda.synchronize()
+        losses = [clean["losses"][i] for i in range(steps)]
+        check(all(np.isfinite(losses)), ("finite losses", losses))
+        check(faulted["skipped"] == [nan_step] and len(faulted["restarts"]) == 1, faulted)
+        check(faulted["losses"] == clean["losses"], ("NaN fault replay", faulted["losses"]))
+        check(rest["start_step"] == kill_step
+              and {**part["losses"], **rest["losses"]} == clean["losses"],
+              ("kill and resume", part["losses"], rest["losses"]))
+        check(counts["bsr_spmm"] > 0 and counts["bcsr_spmm"] > 0, counts)
+        # the checkpoint itself: bytes, save and restore times, and a
+        # restored state validated on the card
+        ckpt = os.path.join(d, "timing")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = checkpoint.save(ckpt, steps, final)
+        save_seconds = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored, _ = checkpoint.restore(ckpt, final)
+        torch.cuda.synchronize()
+        restore_seconds = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        validate_sparse_state(restored)
+        validate_seconds = time.perf_counter() - t0
+        check(all(values_of(w).device.type == "cuda" and torch.equal(values_of(w), values_of(v))
+                  for w, v in zip(restored.weights, final.weights)),
+              "restored on the card, bit for bit")
+        ckpt_bytes = os.path.getsize(os.path.join(path, "arrays.npz"))
+    return {
+        "spec": [neurons, layers], "columns": columns, "steps": steps,
+        "optimizer": f"sgd(lr={lr}, momentum=0.9)", "ckpt_interval": ckpt_interval,
+        "losses": losses, "nan_step": nan_step, "skipped": faulted["skipped"],
+        "restarts": faulted["restarts"], "kill_step": kill_step,
+        "replays_bit_identical": {"nan_fault": True, "kill_and_resume": True},
+        "clean_seconds": clean_seconds, "faulted_seconds": faulted_seconds,
+        "checkpoint_bytes": ckpt_bytes, "save_seconds": save_seconds,
+        "restore_seconds": restore_seconds, "validate_seconds": validate_seconds,
+        "launches": counts,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -1600,6 +1933,13 @@ def main() -> int:
     emit({"phase": "continuous-faults", **faulted})
     bf16 = phase_serve_bf16(spec, serve_res)
     emit({"phase": "serve-bf16", **bf16})
+    tune, table = phase_tune(TUNE_SKEWED, TUNE_RADIX)
+    emit({"phase": "tune", **tune})
+    served = phase_serve_tuned(TUNE_RADIX["sizes"], TUNE_RADIX["layers"], table,
+                               n_inputs=60000, ref_cols=512)
+    emit({"phase": "serve-tuned", **served})
+    resilient = phase_train_resilient(**RESILIENT)
+    emit({"phase": "train-resilient", **resilient})
 
     by_phase = {"serve": serve["launches"], "layered": layered["launches"],
                 "tiled": tiled["launches"], "dense": dense["launches"],
@@ -1608,7 +1948,8 @@ def main() -> int:
                 "train-radixnet": train_radix["launches"],
                 "train-paper": train_paper["launches"],
                 "continuous": cont["launches"], "continuous-faults": faulted["launches"],
-                "serve-bf16": bf16["launches"]}
+                "serve-bf16": bf16["launches"], "tune": tune["launches"],
+                "serve-tuned": served["launches"], "train-resilient": resilient["launches"]}
     checks = {name: "max|kernel - plain| <= 1e-5 |plain| + 1e-6 (f32 order)"
               for name in ("semiring_matmul", "bsr_spmm", "bcsr_spmm")}
     checks.update({name: "stack: <= 1e-4 max|plain|, each entry within 2x the f32 bound, "

@@ -125,20 +125,21 @@ def dnn_forward_resident(
     topology and panel width reuse one plan (on the card, replay its CUDA
     graph); a stack no fused route takes runs that plan's layered
     kernels. A ``tuned`` config (:class:`repro_torch.tune.TunedConfig`)
-    rides into the cache key, and an explicit ``panel_dtype`` overrides
-    its own. The plans run at ``block_n=DEFAULT_BLOCK_N`` only: another
-    ``block_n`` is refused (the reference's direct path for it, and its
-    plain fallback, are not ported).
+    rides into the cache key; an explicit ``panel_dtype``, and a
+    ``block_n`` other than ``DEFAULT_BLOCK_N``, override its own (the
+    fused kernels take ``block_n`` 8 or 16: a fused route at another is
+    refused with a ValueError).
     """
-    if block_n != DEFAULT_BLOCK_N:
-        raise ValueError(
-            f"block_n={block_n}: the port's plans run at block_n={DEFAULT_BLOCK_N} only")
-    if panel_dtype is not None:
-        from repro_torch.tune import TunedConfig
-
-        tuned = TunedConfig(panel_dtype=panel_dtype)
     from repro_torch.plan.cache import default_cache
+    from repro_torch.tune import TunedConfig
 
+    override = {}
+    if panel_dtype is not None:
+        override["panel_dtype"] = panel_dtype
+    if block_n != DEFAULT_BLOCK_N:
+        override["block_n"] = block_n
+    if override:
+        tuned = dataclasses.replace(tuned or TunedConfig(), **override)
     plan = default_cache().get(weights, biases, max(y0.shape[1], 1), tuned=tuned)
     return plan.forward(y0)
 
@@ -148,7 +149,7 @@ def dnn_layer_trainable(
 ) -> torch.Tensor:
     """One differentiable layer max(W·Y + b⊗1ᵀ, 0) through the kernel
     wrappers (a dense weight takes the plain fused form, which autograd
-    differentiates). ``transpose_plan`` (block-CSR weights) is the cached
+    differentiates). ``transpose_plan`` (sparse weights) is the cached
     backward transpose of a differentiable ``repro_torch.plan`` StackPlan;
     without it every backward re-sorts the frozen topology."""
     from repro_torch.kernels import ops as kernel_ops
@@ -156,7 +157,7 @@ def dnn_layer_trainable(
     if isinstance(w, BlockCSRMatrix):
         return kernel_ops.bcsr_spmm(w, y, b, transpose_plan, fuse_bias_relu=True)
     if isinstance(w, BlockSparseMatrix):
-        return kernel_ops.bsr_spmm(w, y, b, fuse_bias_relu=True)
+        return kernel_ops.bsr_spmm(w, y, b, transpose_plan, fuse_bias_relu=True)
     return sparse_ops.dense_matmul_fused_relu(w, y, b)
 
 
@@ -189,8 +190,8 @@ def dnn_forward_trainable(
     (their autograd Functions: dW at stored blocks, dX by the transpose
     product); ``use_kernel=False`` the plain fused forms (the same math,
     autograd through plain PyTorch). ``plan``: a differentiable StackPlan
-    for this topology, whose cached block-CSR transposes make the
-    backward sort-free. The fused whole-stack kernels are not
+    for this topology, whose cached transposes make the backward
+    sort-free. The fused whole-stack kernels are not
     differentiable and never run here.
     """
     tps = _layer_transpose_plans(weights, plan)

@@ -1,4 +1,4 @@
-"""Device resolution shared by the port's entry points."""
+"""Device resolution and placement shared by the port's entry points."""
 
 from __future__ import annotations
 
@@ -20,3 +20,20 @@ def resolve_device(device=None) -> torch.device:
             "PyTorch versions on the CPU"
         )
     return torch.device("cuda")
+
+
+def to_device(objs, device) -> tuple:
+    """``objs`` (tensors or sparse matrices) moved to ``device``; objects
+    that appear more than once (RadiX-net layers sharing one phase's
+    matrix) are moved once and stay shared."""
+    moved: dict[int, object] = {}
+    for obj in objs:
+        if id(obj) not in moved:
+            moved[id(obj)] = obj.to(device)
+    return tuple(moved[id(obj)] for obj in objs)
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for ``device``'s queued work (a no-op off the card)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

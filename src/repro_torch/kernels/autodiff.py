@@ -11,16 +11,23 @@ fused ``max(Z + b·1ᵀ, 0)`` epilogue, in place of the reference's
               pad (ELL) and tail (block-CSR) slots exactly 0
   db (bias)   = Σₙ dZ, dZ masked by ``out > 0`` when the epilogue is fused
 
-dB for ELL is the plain scatter-sum ``sparse.ops.bsr_transpose_matmul``
-(the reference's XLA form). dB for block-CSR launches the ``bcsr_spmm``
-kernel itself, through its wrapper, on the transpose: from a cached
+dB for both layouts launches the ``bcsr_spmm`` kernel, through its
+wrapper, on the block-CSR transpose: from a cached
 :class:`~repro_torch.sparse.bcsr.BcsrTransposePlan` (a gather, no sort)
-or from ``a.transpose()``. The transpose's block shape is
-``(bs_c, bs_r)``; the wrapper re-tiles it if the kernel cannot take it,
-and column skew in A becomes row skew in Aᵀ, which its piece table cuts.
-Rows of Aᵀ with no stored block (empty columns of A) come out of that
-launch as the semiring zero, 0, so their dB rows are exactly 0 with no
-mask (the reference masks them because its kernel leaves them unwritten).
+or from a transpose sorted for this call (``a.transpose_plan()``, or
+``ell_transpose_plan(a)`` over an ELL matrix's stored slots). The
+reference's ELL dB is an XLA scatter-sum; the port's plain mirror of
+that, ``sparse.ops.bsr_transpose_matmul``, is an ``index_add_``, which
+on CUDA adds a block-column's products in the order they arrive, so two
+identical backward passes differed in the low bits on the card. The
+``bcsr_spmm`` launch folds each row of Aᵀ in one fixed order: a
+restored or resumed training run replays its losses bit for bit. The
+transpose's block shape is ``(bs_c, bs_r)``; the wrapper re-tiles it if
+the kernel cannot take it, and column skew in A becomes row skew in Aᵀ,
+which its piece table cuts. Rows of Aᵀ with no stored block (empty
+columns of A) come out of that launch as the semiring zero, 0, so their
+dB rows are exactly 0 with no mask (the reference masks them because its
+kernel leaves them unwritten).
 
 The value tensor (``a.blocks`` / ``a.values``), the panel and the bias
 are the Functions' direct inputs, so gradients reach them; the
@@ -36,7 +43,7 @@ import torch
 from repro_torch.kernels import DEFAULT_BLOCK_N
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.sparse import ops as sparse_ops
-from repro_torch.sparse.bcsr import BcsrTransposePlan, BlockCSRMatrix
+from repro_torch.sparse.bcsr import BcsrTransposePlan, BlockCSRMatrix, ell_transpose_plan
 from repro_torch.sparse.bsr import BlockSparseMatrix
 
 
@@ -50,14 +57,23 @@ def _relu_mask_and_bias_grad(fuse_bias_relu: bool, out: torch.Tensor, g: torch.T
     return dz, dz.sum(dim=1)
 
 
+def _transpose_product(a, transpose_plan, dz, block_n):
+    """dB = Aᵀ·dZ: one ``bcsr_spmm`` launch on A's block-CSR transpose."""
+    if transpose_plan is None:
+        transpose_plan = (ell_transpose_plan(a) if isinstance(a, BlockSparseMatrix)
+                          else a.transpose_plan())
+    return kernel_ops.bcsr_spmm(transpose_plan.apply(a), dz, block_n=block_n)
+
+
 class _BsrSpmm(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, blocks, b, bias, a, fuse_bias_relu, block_n):
+    def forward(ctx, blocks, b, bias, a, transpose_plan, fuse_bias_relu, block_n):
         out = kernel_ops.bsr_spmm(dataclasses.replace(a, blocks=blocks), b, bias,
                                   fuse_bias_relu=fuse_bias_relu, block_n=block_n)
         ctx.save_for_backward(blocks, b, out)
         ctx.a = dataclasses.replace(a, blocks=None)  # topology only
-        ctx.fuse_bias_relu = fuse_bias_relu
+        ctx.transpose_plan = transpose_plan
+        ctx.fuse_bias_relu, ctx.block_n = fuse_bias_relu, block_n
         return out
 
     @staticmethod
@@ -65,10 +81,11 @@ class _BsrSpmm(torch.autograd.Function):
         blocks, b, out = ctx.saved_tensors
         a = dataclasses.replace(ctx.a, blocks=blocks)
         dz, dbias = _relu_mask_and_bias_grad(ctx.fuse_bias_relu, out, g)
-        db = sparse_ops.bsr_transpose_matmul(a, dz) if ctx.needs_input_grad[1] else None
+        db = (_transpose_product(a, ctx.transpose_plan, dz, ctx.block_n)
+              if ctx.needs_input_grad[1] else None)
         dblocks = (sparse_ops.bsr_weight_cotangent(a, dz, b)
                    if ctx.needs_input_grad[0] else None)
-        return dblocks, db, dbias, None, None, None
+        return dblocks, db, dbias, None, None, None, None
 
 
 class _BcsrSpmm(torch.autograd.Function):
@@ -87,11 +104,8 @@ class _BcsrSpmm(torch.autograd.Function):
         values, b, out = ctx.saved_tensors
         a = dataclasses.replace(ctx.a, values=values)
         dz, dbias = _relu_mask_and_bias_grad(ctx.fuse_bias_relu, out, g)
-        db = None
-        if ctx.needs_input_grad[1]:
-            tp = ctx.transpose_plan
-            at = a.transpose() if tp is None else tp.apply(a)
-            db = kernel_ops.bcsr_spmm(at, dz, block_n=ctx.block_n)
+        db = (_transpose_product(a, ctx.transpose_plan, dz, ctx.block_n)
+              if ctx.needs_input_grad[1] else None)
         dvalues = (sparse_ops.bcsr_weight_cotangent(a, dz, b)
                    if ctx.needs_input_grad[0] else None)
         return dvalues, db, dbias, None, None, None, None
@@ -101,13 +115,16 @@ def bsr_spmm_diff(
     a: BlockSparseMatrix,
     b: torch.Tensor,
     bias: torch.Tensor,
+    transpose_plan: BcsrTransposePlan | None = None,
     *,
     fuse_bias_relu: bool,
     block_n: int = DEFAULT_BLOCK_N,
 ) -> torch.Tensor:
     """Differentiable ``bsr_spmm`` in ``plus_times``: gradients reach
-    ``a.blocks``, ``b`` and ``bias``."""
-    return _BsrSpmm.apply(a.blocks, b, bias, a, fuse_bias_relu, block_n)
+    ``a.blocks``, ``b`` and ``bias``. ``transpose_plan``
+    (``ell_transpose_plan(a)``) only feeds the backward, as in
+    :func:`bcsr_spmm_diff`."""
+    return _BsrSpmm.apply(a.blocks, b, bias, a, transpose_plan, fuse_bias_relu, block_n)
 
 
 def bcsr_spmm_diff(

@@ -150,13 +150,22 @@ def fused_mlp_eligible(
     block_n: int = DEFAULT_BLOCK_N,
     *,
     panel_dtype=None,
+    smem_limit: int | None = None,
 ) -> bool:
     """A stack the resident kernel takes: its CTA's panel pair and rings
-    fit one block's shared memory, and the wrappers pad to a ``block_n``
-    the kernels take."""
+    fit the shared-memory budget, and the wrappers pad to a ``block_n``
+    the kernels take. ``smem_limit`` (the counterpart of the reference's
+    ``vmem_limit``) lowers the budget from :data:`SMEM_LIMIT_BYTES`; a
+    budget above it is refused, since no launch could hold it."""
+    if smem_limit is None:
+        smem_limit = SMEM_LIMIT_BYTES
+    elif smem_limit > SMEM_LIMIT_BYTES:
+        raise ValueError(
+            f"shared-memory budget {smem_limit} B exceeds the {SMEM_LIMIT_BYTES} B "
+            "one Hopper thread block can hold")
     return (_kernel_shape(w) and block_n in BLOCK_NS
             and fused_mlp_smem_bytes(w.shape[0], panel_dtype,
-                                     w.block_shape[0]) <= SMEM_LIMIT_BYTES)
+                                     w.block_shape[0]) <= smem_limit)
 
 
 def fused_mlp_tiled_eligible(w: BlockSparseMatrix) -> bool:

@@ -247,6 +247,7 @@ def bsr_spmm(
     a: BlockSparseMatrix,
     b: torch.Tensor,
     bias: torch.Tensor | None = None,
+    transpose_plan: BcsrTransposePlan | None = None,
     *,
     semiring_name: str = "plus_times",
     fuse_bias_relu: bool = False,
@@ -256,14 +257,17 @@ def bsr_spmm(
 
     Differentiable in ``plus_times``: when grad is enabled and
     ``a.blocks``, ``b`` or ``bias`` requires it, the call goes through
-    ``kernels.autodiff`` (dW at stored slots, dX by the transpose
-    product); without grad it launches exactly as a serving call."""
+    ``kernels.autodiff`` (dW at stored slots, dX a ``bcsr_spmm`` launch on
+    the block-CSR transpose of the stored slots, which ``transpose_plan``,
+    ``sparse.bcsr.ell_transpose_plan(a)``, supplies without a sort);
+    without grad it launches exactly as a serving call."""
     if _wants_grad(a.blocks, b, bias):
         from repro_torch.kernels import autodiff
 
         _require_plus_times("bsr_spmm", semiring_name)
         return autodiff.bsr_spmm_diff(a, b, _bias_or_zeros(bias, a.shape[0], b, fuse_bias_relu),
-                                      fuse_bias_relu=fuse_bias_relu, block_n=block_n)
+                                      transpose_plan, fuse_bias_relu=fuse_bias_relu,
+                                      block_n=block_n)
     return _spmm("bsr_spmm", _bsr.bsr_spmm_cuda, _bsr.bsr_spmm_plain, _bsr.tile_for,
                  a, b, bias, semiring_name, fuse_bias_relu, block_n)
 

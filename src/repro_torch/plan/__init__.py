@@ -15,8 +15,10 @@ from repro_torch.plan.cache import (  # noqa: F401
     reset_default_cache,
 )
 from repro_torch.plan.cost import (  # noqa: F401
+    layer_block_area,
     layer_grid_steps,
     mxv_grid_steps,
+    stack_block_work,
     stack_grid_steps,
 )
 from repro_torch.plan.degrade import (  # noqa: F401
@@ -77,6 +79,7 @@ __all__ = [
     "build_plan",
     "default_cache",
     "fused_route",
+    "layer_block_area",
     "layer_grid_steps",
     "layer_layout",
     "layer_path",
@@ -88,6 +91,7 @@ __all__ = [
     "reset_default_cache",
     "reset_mxm_cache",
     "resident_eligible",
+    "stack_block_work",
     "stack_grid_steps",
     "to_preferred_layout",
     "topology_fingerprint",

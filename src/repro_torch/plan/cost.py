@@ -18,6 +18,10 @@ bill). Each kernel module's ``grid_steps`` gives its bill:
 * fused stack: the sum of its layers' ELL bills (every column tile is
   folded over every slot of every layer).
 
+:func:`stack_block_work` weighs each layer's bill by the area of what one
+block product folds (:func:`layer_block_area`): the autotuner's score,
+which a re-blocked candidate cannot lower by coarsening the grid.
+
 ``tests/test_torch_plan.py``, ``tests/test_torch_mxm_plan.py`` and
 ``tests/test_torch_tiling.py`` pin these against the launch geometry the
 kernel modules expose.
@@ -61,3 +65,27 @@ def stack_grid_steps(
     """Total block products of the L-layer stack on an (m, n) panel —
     the same for the layered and (ELL stacks) the fused launches."""
     return sum(layer_grid_steps(w, n, block_n=block_n) for w in weights)
+
+
+def layer_block_area(w: Weight) -> int:
+    """Weights one block product of this layer folds: the stored block's
+    area (``bs_r × bs_c``), or the dense tile's at the port's own tiles
+    (:func:`~repro_torch.kernels.ops.dense_block_sizes`: 16 × 16, where
+    the reference bills 128 × 128). Bills at different block sizes are
+    comparable only after this weighting: a 32 × 32 product folds 4× the
+    weights of a 16 × 16 one."""
+    if isinstance(w, (BlockCSRMatrix, BlockSparseMatrix)):
+        bs_r, bs_c = w.block_shape
+        return bs_r * bs_c
+    m, k = w.shape
+    bm, _, bk = dense_block_sizes(m, DEFAULT_BLOCK_N, k)
+    return bm * bk
+
+
+def stack_block_work(
+    weights: Sequence[Weight], n: int, *, block_n: int = DEFAULT_BLOCK_N
+) -> int:
+    """Σ layer bill × block area: the block-size-invariant cost the
+    autotuner ranks candidates by (``stack_grid_steps × bs²`` for a
+    homogeneous stack of square blocks)."""
+    return sum(layer_grid_steps(w, n, block_n=block_n) * layer_block_area(w) for w in weights)

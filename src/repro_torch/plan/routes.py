@@ -54,11 +54,14 @@ def resident_eligible(
     *,
     block_n: int = DEFAULT_BLOCK_N,
     panel_dtype=None,
+    smem_limit: int | None = None,
 ) -> bool:
-    """Can this stack run through the shared-memory-resident kernel?"""
+    """Can this stack run through the shared-memory-resident kernel (within
+    ``smem_limit`` bytes of shared memory, default ``SMEM_LIMIT_BYTES``)?"""
     if not _homogeneous_bsr_stack(weights):
         return False
-    return _fmlp.fused_mlp_eligible(weights[0], block_n, panel_dtype=panel_dtype)
+    return _fmlp.fused_mlp_eligible(weights[0], block_n, panel_dtype=panel_dtype,
+                                    smem_limit=smem_limit)
 
 
 def fused_route(
@@ -66,21 +69,31 @@ def fused_route(
     *,
     block_n: int = DEFAULT_BLOCK_N,
     panel_dtype=None,
+    smem_limit: int | None = None,
 ) -> str | None:
     """Which single-launch fused route (if any) fits this stack.
 
     The boundary is exact: the last resident m is the largest with
-    ``fused_mlp_smem_bytes(m, panel_dtype, block_size) <= SMEM_LIMIT_BYTES``,
-    and bf16 panels halve the panel's bill. At the defaults (block_n 16, f32
-    panels) the 1024-neuron challenge stack is resident and the 4096-,
-    16384- and 65536-neuron stacks take fused-tiled.
+    ``fused_mlp_smem_bytes(m, panel_dtype, block_size) <= smem_limit``
+    (default ``SMEM_LIMIT_BYTES``), and bf16 panels halve the panel's
+    bill. At the defaults (block_n 16, f32 panels) the 1024-neuron
+    challenge stack is resident and the 4096-, 16384- and 65536-neuron
+    stacks take fused-tiled. The autotuner moves the boundary through
+    ``panel_dtype`` and ``smem_limit`` (a budget above the card's is
+    refused). Both fused kernels take ``block_n`` 8 or 16 only: a stack
+    either would take at another ``block_n`` is refused with a
+    ValueError, not handed a launch that fails.
     """
     if not _homogeneous_bsr_stack(weights):
         return None
     first = weights[0]
     if not _fmlp.fused_mlp_tiled_eligible(first):  # square check
         return None
-    if _fmlp.fused_mlp_eligible(first, block_n, panel_dtype=panel_dtype):
+    if block_n not in _fmlp.BLOCK_NS:
+        raise ValueError(
+            f"block_n={block_n}: the fused kernels take block_n in {_fmlp.BLOCK_NS}")
+    if _fmlp.fused_mlp_eligible(first, block_n, panel_dtype=panel_dtype,
+                                smem_limit=smem_limit):
         return ROUTE_FUSED
     return ROUTE_FUSED_TILED
 

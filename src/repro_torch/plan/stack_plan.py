@@ -10,9 +10,10 @@ class, residency request, differentiable?)`` key and carries:
 * the exact launch bill for the plan's panel width (``plan.cost``);
 * the bound weights: the relayouted layers, or the stacked weight and
   bias tensors of the fused routes;
-* for a differentiable plan, each block-CSR layer's cached transpose
-  (:class:`~repro_torch.sparse.bcsr.BcsrTransposePlan`), so no backward
-  sorts the frozen topology again.
+* for a differentiable plan, each sparse layer's cached block-CSR
+  transpose (:class:`~repro_torch.sparse.bcsr.BcsrTransposePlan`; for an
+  ELL layer, of its stored slots), so no backward sorts the frozen
+  topology again.
 
 The reference jits one executable per plan and counts its traces; the
 port's executable is a CUDA graph. On a CUDA device a plan's first
@@ -45,12 +46,14 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.dnn import Weight, stack_bsr
+from repro_torch.kernels import DEFAULT_BLOCK_N
+from repro_torch.kernels.fused_mlp import BLOCK_NS
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.plan import cost as _cost
 from repro_torch.plan import layout as _layout
 from repro_torch.plan import routes as _routes
 from repro_torch.sparse import ops as sparse_ops
-from repro_torch.sparse.bcsr import BcsrTransposePlan, BlockCSRMatrix
+from repro_torch.sparse.bcsr import BcsrTransposePlan, BlockCSRMatrix, ell_transpose_plan
 from repro_torch.sparse.bsr import BlockSparseMatrix
 from repro_torch.tensor_cache import cached_on
 
@@ -328,20 +331,28 @@ class StackPlan:
     # execution
     # ------------------------------------------------------------------
 
+    @property
+    def block_n(self) -> int:
+        """The column tile every wrapper call pads to and the bill counts in."""
+        return _tuned_attr(self.tuned, "block_n") or DEFAULT_BLOCK_N
+
     def _run(self, y: torch.Tensor) -> torch.Tensor:
         """The wrapper loop over a width-wide panel: what a capture records."""
-        panel_dtype = None if self.tuned is None else self.tuned.panel_dtype
-        if self.route == _routes.ROUTE_FUSED:
-            return kernel_ops.fused_mlp_forward(*self.stacked, y, panel_dtype=panel_dtype)
-        if self.route == _routes.ROUTE_FUSED_TILED:
-            return kernel_ops.fused_mlp_tiled_forward(*self.stacked, y, panel_dtype=panel_dtype)
+        bn = self.block_n
+        if self.is_fused_route:
+            fused = (kernel_ops.fused_mlp_forward if self.route == _routes.ROUTE_FUSED
+                     else kernel_ops.fused_mlp_tiled_forward)
+            return fused(*self.stacked, y, block_n=bn,
+                         panel_dtype=_tuned_attr(self.tuned, "panel_dtype"))
         for lp, w, b in zip(self.layers, self.weights, self.biases):
             if lp.path == "kernel-bcsr":
-                y = kernel_ops.bcsr_spmm(w, y, b, lp.transpose_plan, fuse_bias_relu=True)
+                y = kernel_ops.bcsr_spmm(w, y, b, lp.transpose_plan, fuse_bias_relu=True,
+                                         block_n=bn)
             elif lp.path == "kernel-ell":
-                y = kernel_ops.bsr_spmm(w, y, b, fuse_bias_relu=True)
+                y = kernel_ops.bsr_spmm(w, y, b, lp.transpose_plan, fuse_bias_relu=True,
+                                        block_n=bn)
             elif lp.path == "kernel-dense":
-                y = kernel_ops.semiring_matmul(w, y, b, fuse_bias_relu=True)
+                y = kernel_ops.semiring_matmul(w, y, b, fuse_bias_relu=True, block_n=bn)
             else:  # xla-dense: the plain fused form autograd differentiates
                 y = sparse_ops.dense_matmul_fused_relu(w, y, b)
         return y
@@ -439,12 +450,45 @@ class StackPlan:
         return _dnn.dnn_forward_trainable(weights, biases, y0, use_kernel=use_kernel, plan=self)
 
 
+def _tuned_attr(tuned, name: str):
+    """One knob of a TunedConfig-shaped object (None when untuned)."""
+    return None if tuned is None else getattr(tuned, name, None)
+
+
+def _reblock(w: Weight, block_size: int) -> Weight:
+    """Re-block a sparse execution weight through its dense form, in its
+    own layout family (plan-build time only)."""
+    if isinstance(w, (BlockCSRMatrix, BlockSparseMatrix)):
+        return type(w).from_dense(w.to_dense(), (block_size, block_size))
+    return w
+
+
+def _force_layout(w: Weight, layout: str) -> Weight:
+    """The tuner's override of the ELL-waste heuristic: this sparse
+    weight's execution layout forced (a dense weight is kept)."""
+    if layout == "bcsr" and isinstance(w, BlockSparseMatrix):
+        return BlockCSRMatrix.from_bsr(w)
+    if layout == "ell" and isinstance(w, BlockCSRMatrix):
+        return w.to_bsr()
+    return w
+
+
+def _transpose_plan(w: Weight) -> BcsrTransposePlan | None:
+    """A sparse layer's backward transpose, sorted once (None for dense)."""
+    if isinstance(w, BlockCSRMatrix):
+        return w.transpose_plan()
+    if isinstance(w, BlockSparseMatrix):
+        return ell_transpose_plan(w)
+    return None
+
+
 def build_plan(
     weights: Sequence[Weight],
     biases: Sequence[torch.Tensor],
     width: int,
     *,
     use_resident: bool | None = None,
+    relayout: bool | None = None,
     fingerprint: str | None = None,
     donor: "StackPlan | None" = None,
     differentiable: bool = False,
@@ -455,22 +499,29 @@ def build_plan(
     ``use_resident``: None picks a fused route when the stack is
     eligible, True demands one (ValueError when ineligible), False
     forces the layered route — the ``SparseDNNEngine`` tri-state.
-    Layered plans apply the ELL→CSR waste heuristic to their bound
-    weights.
+    ``relayout`` applies the ELL→CSR waste heuristic (or the tuned
+    layout and block size) to the bound weights of a layered plan:
+    default on for inference plans, off for differentiable ones, which
+    refuse it (their gradients must line up with the caller's weights).
 
     ``differentiable``: only routes autograd can go through — never a
-    fused one, dense layers ``xla-dense`` — with the caller's layouts
-    kept (no relayout, so gradients line up with the caller's weights)
-    and each distinct block-CSR layer's transpose sorted here, once.
+    fused one, dense layers ``xla-dense`` — and each distinct sparse
+    layer's backward transpose sorted here, once.
 
     ``donor``: a plan for the SAME stack and key at another width class;
     its width-independent pieces (relayouted weights, the fused weight
-    stack, the CUDA graph memory pool) are shared by reference, only
-    the bill is rebuilt.
+    stack, cached transposes, the CUDA graph memory pool) are shared by
+    reference, only the bill is rebuilt.
 
-    ``tuned``: a :class:`repro_torch.tune.TunedConfig` whose
-    ``panel_dtype`` the fused routes pass to the kernels (bf16 panels
-    also move the resident↔tiled boundary); its token keys the plan.
+    ``tuned``: a :class:`repro_torch.tune.TunedConfig` read before the
+    defaults: ``block_n`` feeds every wrapper call and the bill (the
+    column tile the wrappers pad to: 8 or 16, another is refused),
+    ``panel_dtype`` and ``vmem_limit_bytes`` (the resident kernel's
+    shared-memory budget, at most ``SMEM_LIMIT_BYTES``) move the
+    resident↔tiled boundary, ``layout`` overrides the ELL-waste
+    heuristic and ``block_size`` re-blocks the layered execution
+    weights (shapes the kernels refuse are re-tiled at launch, as any
+    other). Its token keys the plan.
     """
     weights = tuple(weights)
     biases = tuple(biases)
@@ -478,14 +529,29 @@ def build_plan(
         raise ValueError("weights/biases length mismatch")
     if width < 1:
         raise ValueError(f"width must be >= 1, got {width}")
+    if relayout is None:
+        relayout = not differentiable
+    if differentiable and relayout:
+        raise ValueError(
+            "relayout converts bound weights; a differentiable plan must keep the "
+            "caller's layouts so gradients line up"
+        )
     if fingerprint is None:
         fingerprint = topology_fingerprint(weights)
     key = PlanKey(fingerprint, width, use_resident, differentiable=differentiable,
                   tuned=None if tuned is None else tuned.token())
-    panel_dtype = None if tuned is None else tuned.panel_dtype
+    block_n = _tuned_attr(tuned, "block_n") or DEFAULT_BLOCK_N
+    if block_n not in BLOCK_NS:
+        raise ValueError(
+            f"block_n={block_n}: the port's wrappers pad panels to column tiles of "
+            f"{BLOCK_NS} and bill in them; no launch takes another")
+    t_layout = _tuned_attr(tuned, "layout")
+    t_block_size = _tuned_attr(tuned, "block_size")
 
-    fused_ok = (None if differentiable
-                else _routes.fused_route(weights, panel_dtype=panel_dtype))
+    fused_ok = (None if differentiable or use_resident is False
+                else _routes.fused_route(weights, block_n=block_n,
+                                         panel_dtype=_tuned_attr(tuned, "panel_dtype"),
+                                         smem_limit=_tuned_attr(tuned, "vmem_limit_bytes")))
     if use_resident and fused_ok is None:
         raise ValueError(
             "use_resident=True but the stack is not eligible for the fused "
@@ -493,38 +559,43 @@ def build_plan(
             + ("(differentiable plans route around them: they have no backward)"
                if differentiable else "(needs a homogeneous square BSR stack)")
         )
-    if use_resident is None or use_resident:
-        route = fused_ok or _routes.ROUTE_LAYERED
-    else:
-        route = _routes.ROUTE_LAYERED
+    route = fused_ok or _routes.ROUTE_LAYERED
     fused_family = route != _routes.ROUTE_LAYERED
 
     stacked = None
     if donor is not None:
         if donor.key._replace(width=width) != key or donor.n_layers != len(weights):
-            raise ValueError("donor plan does not match this stack's plan key")
+            raise ValueError(
+                "donor plan does not match this stack's plan key "
+                "(fingerprint / residency / differentiable / tuned / layers)")
         route, exec_weights, stacked = donor.route, list(donor.weights), donor.stacked
         pool = donor.pool
         layer_plans = [
-            dataclasses.replace(lp, grid_steps=_cost.layer_grid_steps(ew, width))
+            dataclasses.replace(lp, grid_steps=_cost.layer_grid_steps(ew, width,
+                                                                      block_n=block_n))
             for lp, ew in zip(donor.layers, exec_weights)
         ]
     else:
         pool = (torch.cuda.graph_pool_handle()
                 if biases[0].device.type == "cuda" and not differentiable else None)
         relaid: dict[int, Weight] = {}  # one relayout per distinct layer object
-        transposes: dict[int, BcsrTransposePlan] = {}  # one sort per distinct layer object
+        transposes: dict[int, BcsrTransposePlan | None] = {}  # one sort per distinct layer
         exec_weights, layer_plans = [], []
         for w in weights:
             ew = w
-            if not fused_family and not differentiable:
+            if not fused_family and relayout:
                 if id(w) not in relaid:
-                    relaid[id(w)] = _layout.to_preferred_layout(w)
+                    rw = (_force_layout(w, t_layout) if t_layout is not None
+                          else _layout.to_preferred_layout(w))
+                    if t_block_size is not None and getattr(rw, "block_shape", (
+                            t_block_size,))[0] != t_block_size:
+                        rw = _reblock(rw, t_block_size)
+                    relaid[id(w)] = rw
                 ew = relaid[id(w)]
             tp = None
-            if differentiable and isinstance(ew, BlockCSRMatrix):
+            if differentiable:
                 if id(ew) not in transposes:
-                    transposes[id(ew)] = ew.transpose_plan()
+                    transposes[id(ew)] = _transpose_plan(ew)
                 tp = transposes[id(ew)]
             exec_weights.append(ew)
             layer_plans.append(
@@ -532,7 +603,7 @@ def build_plan(
                     layout=_layout.layer_layout(ew),
                     path=(route if fused_family
                           else _routes.layer_path(ew, differentiable=differentiable)),
-                    grid_steps=_cost.layer_grid_steps(ew, width),
+                    grid_steps=_cost.layer_grid_steps(ew, width, block_n=block_n),
                     transpose_plan=tp,
                 )
             )

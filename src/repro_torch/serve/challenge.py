@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.data import radixnet as rx
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, synchronize
 from repro_torch.serve.engine import SparseDNNEngine
 
 
@@ -56,11 +56,6 @@ def _ordered_unique(values) -> tuple:
     return tuple(seen)
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def run_challenge(
     spec: rx.RadixNetSpec,
     *,
@@ -73,6 +68,7 @@ def run_challenge(
     engine: SparseDNNEngine | None = None,
     warmup: bool = True,
     block_size: int = 16,
+    tuning_table: Any = None,
     panel_dtype=None,
     device: Any = None,
 ) -> ChallengeResult:
@@ -82,8 +78,10 @@ def run_challenge(
     cache, ...) that serves the spec's topology; it brings its own
     device. By default ``run_challenge`` builds one from ``radixnet_weights``
     (``block_size``) on ``device`` (default: the GPU, raising if there is
-    none) with ``use_resident`` and ``panel_dtype`` (``"bfloat16"``
-    panels for the fused routes). ``warmup`` first runs one untimed
+    none) with ``use_resident``, ``tuning_table`` (a hit on this spec's
+    fingerprint retunes every panel's plan) and ``panel_dtype``
+    (``"bfloat16"`` panels for the fused routes, over any hit's).
+    ``warmup`` first runs one untimed
     panel of the serving width, so the metric bills steady-state serving
     (on the card: replays), not kernel builds, plan construction and
     the CUDA graph capture.
@@ -97,6 +95,7 @@ def run_challenge(
             batch_align=batch_align,
             use_resident=use_resident,
             device=device,
+            tuning_table=tuning_table,
             panel_dtype=panel_dtype,
         )
     device = engine.device
@@ -106,7 +105,7 @@ def run_challenge(
     if warmup:
         engine.submit(panel[:, : min(panel_width, n_inputs)])
         engine.step(pad_to=panel_width)
-        _sync(device)
+        synchronize(device)
 
     active = torch.zeros((n_inputs,), dtype=torch.bool, device=device)
     step_stats: list[dict] = []
@@ -122,7 +121,7 @@ def run_challenge(
             )
         active[start : start + chunk.shape[1]] = (out > 0).any(dim=0)
         step_stats.append(stats)
-    _sync(device)
+    synchronize(device)
     seconds = time.perf_counter() - t0
 
     return ChallengeResult(

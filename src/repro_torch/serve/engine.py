@@ -23,12 +23,18 @@ a plan whose build or CUDA graph capture fails demotes its ladder level
 and the panel is served one level down. ``validate`` checks the weights'
 layout invariants once, at construction.
 
-``panel_dtype="bfloat16"`` serves the fused routes on bf16 activation
-panels (a :class:`~repro_torch.tune.TunedConfig`, which also moves the
-resident↔tiled boundary). ``differentiable=True`` serves a forward that
-autograd can go through: the plans route around the fused kernels (they
-have no backward) and run eagerly. The reference engine's ``mesh=`` and
-``tuning_table=`` are not taken (ROADMAP Queue 1 items 4 and 5).
+``tuning_table`` (a :class:`~repro_torch.tune.TuningTable`) is
+consulted once, at construction, by the stack's topology fingerprint, the
+engine's device type as backend and the weights' dtype: a hit threads
+the tuned config (``block_n``, forced layout, re-blocking, bf16 panels,
+shared-memory budget) into every plan the engine builds and into its
+fused-route check; a miss serves the defaults. ``panel_dtype="bfloat16"``
+serves the fused routes on bf16 activation panels, on top of any hit
+(bf16 panels also move the resident↔tiled boundary).
+``differentiable=True`` serves a forward that autograd can go through:
+the plans route around the fused kernels (they have no backward) and run
+eagerly. The reference engine's ``mesh=`` is not taken (ROADMAP Queue 1
+item 5).
 """
 
 from __future__ import annotations
@@ -39,14 +45,15 @@ from typing import Any, Sequence
 import torch
 
 from repro_torch.core.dnn import Weight
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, to_device
+from repro_torch.kernels import DEFAULT_BLOCK_N
 from repro_torch.plan import routes as _routes
 from repro_torch.plan.cache import PlanCache
 from repro_torch.plan.degrade import LEVEL_LAYERED, DegradationLadder
 from repro_torch.plan.stack_plan import PlanCaptureError, topology_fingerprint
 from repro_torch.serve.clock import WALL_CLOCK
 from repro_torch.testing import faults as _faults
-from repro_torch.tune.table import TunedConfig
+from repro_torch.tune.table import TunedConfig, default_backend, panel_dtype_name
 
 
 @dataclasses.dataclass
@@ -62,8 +69,8 @@ class SparseDNNEngine:
     kernels. ``differentiable``: serve only routes autograd can go
     through (never the fused kernels; ``use_resident=True`` is refused).
     ``plan_cache``: the engine's own :class:`PlanCache` (max 16) unless
-    one is shared. The fault-handling arguments are the reference's, with
-    its defaults (module docstring).
+    one is shared. The fault-handling and tuning arguments are the
+    reference's, with its defaults (module docstring).
     """
 
     weights: Sequence[Weight]
@@ -79,6 +86,7 @@ class SparseDNNEngine:
     quarantine_nonfinite: bool = True
     validate: bool = True
     clock: Any = None
+    tuning_table: Any = None
     panel_dtype: Any = None
 
     def __post_init__(self):
@@ -95,17 +103,27 @@ class SparseDNNEngine:
             )
         # Layers that share one matrix object (RadiX-net phases) stay
         # shared: moved, validated and fingerprinted once each.
-        moved: dict[int, Any] = {}
-        for obj in (*self.weights, *self.biases):
-            if id(obj) not in moved:
-                moved[id(obj)] = obj.to(self.device)
-        self.weights = tuple(moved[id(w)] for w in self.weights)
-        self.biases = tuple(moved[id(b)] for b in self.biases)
+        moved = to_device((*self.weights, *self.biases), self.device)
+        self.weights, self.biases = moved[:self.n_layers], moved[self.n_layers:]
         self._fingerprint = topology_fingerprint(self.weights)
-        self._tuned = None if self.panel_dtype is None else TunedConfig(
-            panel_dtype=self.panel_dtype)
-        resident_ok = not self.differentiable and _routes.fused_route(
-            self.weights, panel_dtype=self._tuned and self._tuned.panel_dtype) is not None
+        self._tuned = None
+        if self.tuning_table is not None:
+            dtype = str(getattr(self.weights[0], "dtype", torch.float32)).removeprefix("torch.")
+            self._tuned = self.tuning_table.lookup(
+                self._fingerprint, backend=default_backend(self.device), dtype=dtype)
+        if self.panel_dtype is not None:
+            pdt = panel_dtype_name(self.panel_dtype)
+            self._tuned = (TunedConfig(panel_dtype=pdt) if self._tuned is None
+                           else dataclasses.replace(self._tuned, panel_dtype=pdt))
+        # tuned knobs move the fused boundary: bf16 panels halve the
+        # panel's bill, a lower budget tips a stack to fused-tiled
+        fused_kw = {}
+        if self._tuned is not None:
+            fused_kw = {"block_n": self._tuned.block_n or DEFAULT_BLOCK_N,
+                        "panel_dtype": self._tuned.panel_dtype,
+                        "smem_limit": self._tuned.vmem_limit_bytes}
+        resident_ok = (not self.differentiable
+                       and _routes.fused_route(self.weights, **fused_kw) is not None)
         if self.use_resident and not resident_ok:
             raise ValueError(
                 "use_resident=True but the stack is not eligible for the "

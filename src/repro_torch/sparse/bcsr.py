@@ -45,6 +45,45 @@ def reset_transpose_sort_count() -> None:
     _transpose_sort_count = 0
 
 
+def _sorted_transpose(row_id, col_idx, valid, shape, block_shape) -> "BcsrTransposePlan":
+    """The transposed CSR order of stored blocks ``(row_id, col_idx)``
+    (``valid`` False for slots that hold no block): one stable sort."""
+    global _transpose_sort_count
+    _transpose_sort_count += 1
+    ncb = shape[1] // block_shape[1]
+    cols = col_idx.long()
+    # stable: old rows (the new columns) stay ascending in each new row
+    order = torch.argsort(torch.where(valid, cols, ncb), stable=True)
+    new_row = col_idx[order]
+    new_col = row_id[order]
+    new_valid = valid[order]
+    counts = torch.bincount(cols[valid], minlength=ncb)
+    row_ptr = torch.zeros((ncb + 1,), dtype=torch.int32, device=col_idx.device)
+    row_ptr[1:] = torch.cumsum(counts, 0)
+    nnz = int(row_ptr[-1])
+    last_row = new_row[max(nnz - 1, 0)]
+    return BcsrTransposePlan(
+        order,
+        row_ptr,
+        torch.where(new_valid, new_row, last_row),
+        torch.where(new_valid, new_col, torch.zeros_like(new_col)),
+        new_valid,
+        (shape[1], shape[0]),
+        (block_shape[1], block_shape[0]),
+    )
+
+
+def ell_transpose_plan(a: BlockSparseMatrix) -> "BcsrTransposePlan":
+    """The block-CSR transpose of an ELL matrix's stored slots (pad slots
+    dropped), as a reusable :class:`BcsrTransposePlan` whose ``apply``
+    reads ``a.blocks``: the ELL backward's dX is a ``bcsr_spmm`` launch on
+    it. One sort, counted like :meth:`BlockCSRMatrix.transpose_plan`."""
+    nrb, mbpr = a.col_idx.shape
+    row_id = torch.arange(nrb, dtype=torch.int32, device=a.device).repeat_interleave(mbpr)
+    return _sorted_transpose(row_id, a.col_idx.reshape(-1), a.block_mask.reshape(-1),
+                             a.shape, a.block_shape)
+
+
 @dataclasses.dataclass
 class BcsrTransposePlan:
     """The sorted layout and permutation of a block-CSR transpose.
@@ -63,10 +102,13 @@ class BcsrTransposePlan:
     shape: Tuple[int, int]  # shape of the TRANSPOSED matrix
     block_shape: Tuple[int, int]
 
-    def apply(self, a: "BlockCSRMatrix") -> "BlockCSRMatrix":
-        """Transpose ``a`` (the topology the plan was built from) through
-        the cached permutation; only ``a.values`` is read."""
-        values_t = a.values[self.order].transpose(-1, -2)
+    def apply(self, a: "BlockCSRMatrix | BlockSparseMatrix") -> "BlockCSRMatrix":
+        """Transpose ``a`` (the topology the plan was built from: a
+        block-CSR matrix, or an ELL one for :func:`ell_transpose_plan`)
+        through the cached permutation; only the stored values are read."""
+        values = (a.blocks.reshape(-1, *a.block_shape) if isinstance(a, BlockSparseMatrix)
+                  else a.values)
+        values_t = values[self.order].transpose(-1, -2)
         return BlockCSRMatrix(
             # contiguous: ``where`` keeps the transposed strides, and the
             # kernels read row-major blocks
@@ -369,35 +411,15 @@ class BlockCSRMatrix:
 
     def transpose_plan(self) -> BcsrTransposePlan:
         """Sort the topology into transposed CSR order once and return the
-        reusable :class:`BcsrTransposePlan` (no values). The only place the
-        transpose sorts; :func:`transpose_sort_count` counts the calls.
+        reusable :class:`BcsrTransposePlan` (no values). With
+        :func:`ell_transpose_plan`, the only place the transpose sorts;
+        :func:`transpose_sort_count` counts the calls.
 
         Invalid tail slots sort to the end and carry the last valid
         transposed row, the tail rule of the layout.
         """
-        global _transpose_sort_count
-        _transpose_sort_count += 1
-        ncb = self.n_col_blocks
-        cols = self.col_idx.long()
-        # stable: old rows (the new columns) stay ascending in each new row
-        order = torch.argsort(torch.where(self.valid, cols, ncb), stable=True)
-        new_row = self.col_idx[order]
-        new_col = self.row_id[order]
-        new_valid = self.valid[order]
-        counts = torch.bincount(cols[self.valid], minlength=ncb)
-        row_ptr = torch.zeros((ncb + 1,), dtype=torch.int32, device=self.device)
-        row_ptr[1:] = torch.cumsum(counts, 0)
-        nnz = int(row_ptr[-1])
-        last_row = new_row[max(nnz - 1, 0)]
-        return BcsrTransposePlan(
-            order,
-            row_ptr,
-            torch.where(new_valid, new_row, last_row),
-            torch.where(new_valid, new_col, torch.zeros_like(new_col)),
-            new_valid,
-            (self.shape[1], self.shape[0]),
-            (self.block_shape[1], self.block_shape[0]),
-        )
+        return _sorted_transpose(self.row_id, self.col_idx, self.valid, self.shape,
+                                 self.block_shape)
 
     def transpose(self) -> "BlockCSRMatrix":
         """The transpose, re-sorted into CSR order (no dense matrix). Sorts

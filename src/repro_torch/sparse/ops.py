@@ -137,7 +137,10 @@ def dense_matmul_fused_relu(
 def bsr_transpose_matmul(a: BlockSparseMatrix, y: torch.Tensor) -> torch.Tensor:
     """``Aᵀ (k, m) @ Y (m, n)`` without forming the transpose: each stored
     block (r, c, W) adds ``Wᵀ @ Y_row(r)`` to output row-block c (the
-    dX = Wᵀ·dZ of the ELL layer's backward). Pad slots are masked."""
+    reference's form of the ELL layer's dX = Wᵀ·dZ). Pad slots are masked.
+    The kernels' backward does not use it: on CUDA ``index_add_`` adds a
+    block-column's products in the order they arrive, so it launches
+    ``bcsr_spmm`` on the transpose instead (``kernels.autodiff``)."""
     m, k = a.shape
     if y.shape[0] != m:
         raise ValueError(f"shape mismatch: Aᵀ {(k, m)} @ Y {tuple(y.shape)}")

@@ -1,6 +1,6 @@
 """Robustness harnesses that ship with the library (counterpart of
-``repro.testing``): the deterministic fault injector the serving engine
-and the continuous batcher poll at named sites."""
+``repro.testing``): the deterministic fault injector the serving engine,
+the continuous batcher and resilient training poll at named sites."""
 
 from repro_torch.testing.faults import (  # noqa: F401
     ALL_SITES,

@@ -1,4 +1,4 @@
-"""Deterministic fault injection for the serving stack — counterpart of
+"""Deterministic fault injection for serving and training — counterpart of
 ``repro/testing/faults.py``.
 
 Faults are **scheduled**, never sampled: a :class:`FaultInjector` holds a
@@ -15,14 +15,14 @@ site                       ``when`` counter (owner)
 ``SITE_CACHE_EVICTION``    engine dispatch ordinal
 ``SITE_STRAGGLER``         scheduler tick (``ContinuousBatcher``)
 ``SITE_SHARD_FAILURE``     (no consumer yet: sharded serving)
-``SITE_TRAIN_NAN_LOSS``    (no consumer yet: resilient training)
+``SITE_TRAIN_NAN_LOSS``    train step (``run_resilient_training``)
 ``SITE_REPLICA_LOSS``      (no consumer yet: the serving fleet)
 ``SITE_REPLICA_SLOW``      (no consumer yet: the serving fleet)
 =========================  ============================================
 
-The last four are names only until the slices that consume them are
-ported (ROADMAP Queue 1 items 4 and 5); they are kept so one schedule
-names the same sites in both packages.
+The shard and replica sites are names only until the scale-out slice
+that consumes them is ported (ROADMAP Queue 1 item 5); they are kept so
+one schedule names the same sites in both packages.
 
 A fired fault is consumed (popped) and logged in :attr:`FaultInjector.
 fired`, so one ``schedule`` call produces exactly one fault — same

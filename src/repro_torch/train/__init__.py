@@ -1,7 +1,15 @@
 """Training of the sparse MLP (counterpart of ``repro.train``): the
-optimizers and the sparse train step."""
+optimizers, the sparse train step, checkpoints, the restart supervisor
+and resilient training."""
 
+from repro_torch.train import checkpoint  # noqa: F401
+from repro_torch.train.fault_tolerance import StragglerPolicy, Supervisor  # noqa: F401
 from repro_torch.train.optimizer import adamw, sgd  # noqa: F401
+from repro_torch.train.resilience import (  # noqa: F401
+    NonFiniteLossError,
+    run_resilient_training,
+    validate_sparse_state,
+)
 from repro_torch.train.sparse import (  # noqa: F401
     SparseMLPState,
     grad_sparsity_preserved,

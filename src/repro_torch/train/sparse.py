@@ -34,7 +34,7 @@ class SparseMLPState(NamedTuple):
     opt: OptState
 
 
-_FIELDS = {
+LEAF_FIELDS = {  # a sparse matrix's tensors, in the reference's leaf order
     BlockSparseMatrix: ("blocks", "col_idx", "block_mask"),
     BlockCSRMatrix: ("values", "row_ptr", "row_id", "col_idx", "valid"),
 }
@@ -45,7 +45,7 @@ def flatten(weights: Sequence[dnn.Weight], biases: Sequence[torch.Tensor]) -> li
     reference's ``jax.tree.leaves((weights, biases))``)."""
     flat = []
     for w in weights:
-        fields = _FIELDS.get(type(w))
+        fields = LEAF_FIELDS.get(type(w))
         flat.extend([w] if fields is None else [getattr(w, f) for f in fields])
     return flat + list(biases)
 
@@ -54,7 +54,7 @@ def unflatten(like: Sequence[dnn.Weight], flat: Sequence[torch.Tensor]) -> tuple
     """Inverse of :func:`flatten`, with ``like``'s classes and shapes."""
     weights, i = [], 0
     for w in like:
-        fields = _FIELDS.get(type(w))
+        fields = LEAF_FIELDS.get(type(w))
         if fields is None:
             weights.append(flat[i])
             i += 1
@@ -62,6 +62,30 @@ def unflatten(like: Sequence[dnn.Weight], flat: Sequence[torch.Tensor]) -> tuple
             weights.append(dataclasses.replace(w, **dict(zip(fields, flat[i:i + len(fields)]))))
             i += len(fields)
     return tuple(weights), tuple(flat[i:])
+
+
+def state_tree(state: SparseMLPState) -> SparseMLPState:
+    """``state`` as the reference's tree of the same state: the optimizer's
+    moments (flat lists here) shaped like the ``(weights, biases)`` they
+    follow, as the reference's ``OptState`` holds them; a scalar moment
+    (SGD's unused ``nu``) stays as it is. What a checkpoint keys by."""
+
+    def shaped(moments):
+        return moments if isinstance(moments, torch.Tensor) else unflatten(state.weights, moments)
+
+    opt = state.opt
+    return SparseMLPState(state.weights, state.biases,
+                          opt._replace(mu=shaped(opt.mu), nu=shaped(opt.nu)))
+
+
+def state_from_tree(tree: SparseMLPState) -> SparseMLPState:
+    """Inverse of :func:`state_tree`."""
+
+    def flat(moments):
+        return moments if isinstance(moments, torch.Tensor) else flatten(*moments)
+
+    opt = tree.opt
+    return SparseMLPState(tree.weights, tree.biases, opt._replace(mu=flat(opt.mu), nu=flat(opt.nu)))
 
 
 def init_sparse_mlp_state(

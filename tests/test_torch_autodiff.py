@@ -363,8 +363,11 @@ def test_differentiable_plans_route_like_reference(kind):
     assert plan.route == jplan.route
     assert [lp.path for lp in plan.layers] == [lp.path for lp in jplan.layers]
     assert plan.layouts == jplan.layouts  # the caller's layouts, never relayouted
+    # the reference caches the block-CSR layers' transposes; the port also
+    # each ELL layer's, whose dX it launches on it (ROADMAP Queue 3)
     assert [tp is not None for tp in plan.transpose_plans] == [
-        tp is not None for tp in jplan.transpose_plans]
+        tp is not None or isinstance(w, BlockSparseMatrix)
+        for tp, w in zip(jplan.transpose_plans, pws)]
     assert transpose_sort_count() == sum(tp is not None for tp in plan.transpose_plans)
     assert plan.differentiable and plan.key.differentiable
     assert not build_plan(pws, [t(b) for b in biases], 8).differentiable
@@ -374,9 +377,10 @@ def test_differentiable_plans_route_like_reference(kind):
     loss, (dws, _) = dnn.dnn_value_and_grad(pws, bl, t(y0), t(targets), plan=plan)
     assert transpose_sort_count() == built
     loss2, (dws2, _) = dnn.dnn_value_and_grad(pws, bl, t(y0), t(targets))
-    # without a plan each block-CSR layer past the first (whose dX the loss
+    # without a plan each sparse layer past the first (whose dX the loss
     # does not need) sorts its topology again
-    assert transpose_sort_count() == built + sum(isinstance(w, BlockCSRMatrix) for w in pws[1:])
+    assert transpose_sort_count() == built + sum(
+        isinstance(w, (BlockCSRMatrix, BlockSparseMatrix)) for w in pws[1:])
     torch.testing.assert_close(loss, loss2)
     for g, g2 in zip(dws, dws2):
         torch.testing.assert_close(_values(g), _values(g2))

@@ -549,6 +549,36 @@ def test_backward_through_a_16x128_block_csr_layer(cuda):
     torch.testing.assert_close(vals.grad, vals2.grad, rtol=1e-4, atol=1e-7)
 
 
+@pytest.mark.parametrize("layout", ["ell", "bcsr"])
+def test_backward_gives_the_same_bits_on_every_call(cuda, layout):
+    """dX, dW and db of one SpMM layer, computed again from the same
+    inputs, are bit-identical: a restored or resumed training run replays
+    the unfailed run's losses only if they are. Every block-column holds
+    many stored blocks, so a scatter that adds them in arrival order shows."""
+    rng = np.random.default_rng(63)
+    a = _weight(rng, 1024, 1024, 16, cuda)
+    w = a if layout == "ell" else BlockCSRMatrix.from_bsr(a)
+    tp = None if layout == "ell" else w.transpose_plan()
+    values = w.blocks if layout == "ell" else w.values
+    field = "blocks" if layout == "ell" else "values"
+    y = torch.rand((1024, 512), device=cuda)
+    bias = torch.rand(1024, device=cuda) - 0.5
+    targets = torch.rand((1024, 512), device=cuda)
+
+    def grads():
+        v = values.detach().clone().requires_grad_()
+        yy, bb = y.clone().requires_grad_(), bias.clone().requires_grad_()
+        wv = dataclasses.replace(w, **{field: v})
+        out = (ops.bsr_spmm(wv, yy, bb, fuse_bias_relu=True) if layout == "ell"
+               else ops.bcsr_spmm(wv, yy, bb, tp, fuse_bias_relu=True))
+        return torch.autograd.grad(0.5 * ((out - targets) ** 2).mean(), (yy, v, bb))
+
+    first = grads()
+    for _ in range(3):
+        for got, want in zip(grads(), first):
+            assert torch.equal(got, want)
+
+
 def test_sparse_train_step_on_the_card_matches_plain(cuda):
     """Three SGD steps through the kernels in both passes against the plain
     versions on the same card, on an ELL + block-CSR + dense stack."""
@@ -764,3 +794,81 @@ def test_a_replay_runs_the_kernels_its_capture_recorded(cuda, route):
     in_graph = nonzero(plan.graph_launches)  # the graph's kernel nodes, read by libcuda
     assert in_graph == nonzero(plan.captured_launches) == nonzero(ops.launch_counts())
     assert sum(in_graph.values()) == plan.kernel_launches
+
+
+# --- tuned plans and resilient training ----------------------------------
+
+
+def _skewed_stack(device):
+    """The reference tune tests' skewed rectangular stack (layered route)."""
+    specs = [((128, 256), 100), ((128, 128), 55), ((64, 128), 28)]
+    ws = [BlockCSRMatrix.random_skewed(i, shape, (16, 16), tb, skew=0.3, device=device).to_bsr()
+          for i, (shape, tb) in enumerate(specs)]
+    return ws, [torch.zeros(s[0], device=device) for s, _ in specs]
+
+
+@pytest.mark.parametrize("knob, tol", [({"layout": "bcsr"}, dict(rtol=1e-6, atol=0.0)),
+                                       ({"block_size": 32}, dict(rtol=1e-4, atol=1e-4))])
+def test_tuned_plans_match_the_default_plan(cuda, knob, tol):
+    """A tuned plan on the card against the default plan, at the reference
+    tune tests' tolerances; the tuned layouts and blocks are launched."""
+    from repro_torch.plan import build_plan
+    from repro_torch.tune import TunedConfig
+
+    ws, bs = _skewed_stack(cuda)
+    x = torch.from_numpy(np.random.default_rng(64).standard_normal((256, 32)).astype(
+        np.float32)).to(cuda)
+    p0 = build_plan(ws, bs, 32)
+    p1 = build_plan(ws, bs, 32, tuned=TunedConfig(**knob))
+    want = p0.forward(x)
+    ops.reset_launch_counts()
+    got = p1.forward(x)
+    counts, shapes = ops.launch_counts(), ops.launched_block_shapes()
+    if "layout" in knob:
+        assert p1.layouts == ("bcsr",) * 3 and counts["bcsr_spmm"] == 3
+    else:
+        assert all(w.block_shape == (32, 32) for w in p1.weights)
+        assert all(s == (32, 32) for v in shapes.values() for s in v)
+    torch.testing.assert_close(got, want, **tol)
+
+
+def _resilient_setup(device):
+    """An ELL, a block-CSR and an ELL layer whose block-columns hold many
+    stored blocks, a differentiable plan, and seeded batches."""
+    from repro_torch.plan import build_plan
+    from repro_torch.train import init_sparse_mlp_state, sgd
+
+    rng = np.random.default_rng(65)
+    ws = [_weight(rng, 512, 512, 16, device) for _ in range(3)]
+    ws = [dataclasses.replace(w, blocks=w.blocks * 0.02) for w in ws]
+    ws[1] = BlockCSRMatrix.from_bsr(ws[1])
+    bs = [torch.full((512,), 0.01, device=device) for _ in ws]
+    plan = build_plan(ws, bs, 64, differentiable=True)
+    batches = [{"y0": torch.from_numpy(rng.random((512, 64), dtype=np.float32)),
+                "targets": torch.from_numpy(rng.random((512, 64), dtype=np.float32))}
+               for _ in range(8)]
+    return (lambda: init_sparse_mlp_state(ws, bs, sgd(0.05))), plan, batches.__getitem__
+
+
+def test_resilient_training_replays_the_clean_losses_after_a_nan_fault(cuda, tmp_path):
+    """A NaN loss at step 3 is restored from the step-2 checkpoint and
+    replayed; a run killed at step 5 resumes. Both give the clean run's
+    losses bit for bit: every kernel of the step adds in a fixed order."""
+    from repro_torch.testing import SITE_TRAIN_NAN_LOSS, FaultInjector
+    from repro_torch.train import run_resilient_training, sgd
+
+    state, plan, batch = _resilient_setup(cuda)
+    kw = dict(ckpt_interval=2, plan=plan, device=cuda)
+    ops.reset_launch_counts()
+    _, clean = run_resilient_training(state(), batch, sgd(0.05), 8, str(tmp_path / "clean"), **kw)
+    assert ops.launch_counts()["bcsr_spmm"] > 0 and ops.launch_counts()["bsr_spmm"] > 0
+    inj = FaultInjector()
+    inj.schedule(SITE_TRAIN_NAN_LOSS, 3)
+    _, faulted = run_resilient_training(state(), batch, sgd(0.05), 8, str(tmp_path / "nan"),
+                                        fault_injector=inj, **kw)
+    assert faulted["skipped"] == [3] and len(faulted["restarts"]) == 1
+    assert faulted["losses"] == clean["losses"]
+    _, part = run_resilient_training(state(), batch, sgd(0.05), 5, str(tmp_path / "kill"), **kw)
+    _, rest = run_resilient_training(state(), batch, sgd(0.05), 8, str(tmp_path / "kill"), **kw)
+    assert rest["start_step"] == 5
+    assert {**part["losses"], **rest["losses"]} == clean["losses"]

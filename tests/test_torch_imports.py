@@ -21,8 +21,12 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
 assert "triton" not in sys.modules
-print(len(names), "modules")
+print(len(names), "modules", *names)
 """
+# modules each slice added, which the walk above must reach
+SLICE_MODULES = ("repro_torch.tune.table", "repro_torch.tune.sweep",
+                 "repro_torch.train.checkpoint", "repro_torch.train.fault_tolerance",
+                 "repro_torch.train.resilience")
 
 
 def test_every_module_imports_without_jax():
@@ -31,6 +35,7 @@ def test_every_module_imports_without_jax():
                        text=True, env=env, cwd=ROOT, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     assert int(r.stdout.split()[0]) >= 20, r.stdout
+    assert set(SLICE_MODULES) <= set(r.stdout.split()[2:]), r.stdout
 
 
 def test_sources_never_import_jax_or_the_reference():

@@ -7,12 +7,14 @@ counts; outputs within ``rtol=1e-5, atol=1e-5``. Then the port's own
 pieces: the cached topology digest (a second fingerprint of the same
 index tensors copies nothing to the host; an in-place change of an index
 tensor changes the fingerprint; the strings are the ones the port always
-made), ``describe()``, ``TunedConfig`` and its ``panel_dtype`` (bf16
-panels held to the plain version exactly on the CPU and to the reference
-within its ``tune`` gate, 2% of the output's scale), and
-``dnn_forward_resident`` over the default cache.
+made), ``describe()``, ``TunedConfig`` and its five knobs (bf16 panels
+held to the plain version exactly on the CPU and to the reference within
+its ``tune`` gate, 2% of the output's scale; the other knobs' plans as
+the reference builds them), and ``dnn_forward_resident`` over the
+default cache.
 """
 
+import dataclasses
 import hashlib
 
 import jax
@@ -122,8 +124,8 @@ def test_cache_shares_topology_artifacts_across_width_classes():
     reset_transpose_sort_count()
     p8 = cache.get(mixed, bs, 8, differentiable=True)
     p16 = cache.get(mixed, bs, 16, differentiable=True)
-    assert transpose_sort_count() == 1
-    assert p16.layers[0].transpose_plan is p8.layers[0].transpose_plan
+    assert transpose_sort_count() == 2  # the block-CSR and the ELL layer, once each
+    assert all(p16.layers[i].transpose_plan is p8.layers[i].transpose_plan for i in (0, 1))
     jmixed = [JBCSR.from_bsr(jws[0]), jws[1]]
     assert p16.grid_steps == jdnn.dnn_grid_steps(jmixed, 16, block_n=16)
     f8, f16 = cache.get(ws, bs, 8), cache.get(ws, bs, 16)
@@ -327,16 +329,48 @@ def test_tuned_config_matches_reference_tokens():
         TunedConfig(panel_dtype="float16")
 
 
-@pytest.mark.parametrize("knob", [{"block_n": 64}, {"block_size": 32}, {"layout": "bcsr"},
-                                  {"vmem_limit_bytes": 1 << 20}])
+@pytest.mark.parametrize("knob", [{"block_n": 8}, {"block_size": 32}, {"layout": "bcsr"},
+                                  {"vmem_limit_bytes": "f32 panel - 1"}])
 def test_tuned_knobs_other_than_panel_dtype_are_refused(knob):
-    """The reference's other four knobs are not fields of the port's config
-    (ROADMAP Queue 1 item 4), so a config that sets one cannot be built."""
-    JTuned(**knob)  # a config the reference takes
-    with pytest.raises(TypeError, match=next(iter(knob))):
-        TunedConfig(**knob)
-    with pytest.raises(TypeError, match=next(iter(knob))):
-        TunedConfig(panel_dtype="bfloat16", **knob)
+    """The reference's other four knobs, which the port's config refused
+    until ROADMAP Queue 1 item 4, are honoured now: the reference's token,
+    and plans built as the reference builds them, with its outputs. A
+    layered stack: ``block_n`` 8 bills and pads in 8-wide tiles,
+    ``block_size`` re-blocks the layered weights, ``layout`` forces
+    block-CSR. A square stack: a shared-memory budget one byte under the
+    f32 resident panel tips it to ``fused-tiled``, bf16 panels keep it
+    resident. (What the port still refuses is in ``test_torch_tune.py``.)"""
+    from repro.kernels.fused_mlp import fused_mlp_vmem_bytes
+    from repro_torch.kernels.fused_mlp import fused_mlp_smem_bytes
+
+    (name, value), = knob.items()
+    (jws, jbs), (ws, bs) = _stacks(42, 2, 64)
+    jy, y = _u(43, (64, 40))
+    if name == "vmem_limit_bytes":
+        port = TunedConfig(vmem_limit_bytes=fused_mlp_smem_bytes(64) - 1)
+        ref = JTuned(vmem_limit_bytes=fused_mlp_vmem_bytes(64, 128) - 1)
+        assert port.token() == f"vmem_limit_bytes={fused_mlp_smem_bytes(64) - 1}"
+        plan, jplan = P.build_plan(ws, bs, 40, tuned=port), JP.build_plan(jws, jbs, 40, tuned=ref)
+        assert plan.route == jplan.route == P.ROUTE_FUSED_TILED
+        bf16 = dataclasses.replace(port, panel_dtype="bfloat16")
+        assert P.build_plan(ws, bs, 40, tuned=bf16).route == P.ROUTE_FUSED
+        _close(plan.forward(y), jplan.forward(jy))
+        return
+    cfg, jcfg = TunedConfig(**knob), JTuned(**knob)
+    assert cfg.token() == jcfg.token() and cfg.to_dict() == jcfg.to_dict() == knob
+    assert TunedConfig(panel_dtype="bfloat16", **knob).token() == JTuned(
+        panel_dtype="bfloat16", **knob).token()
+    mixed, jmixed = [BlockCSRMatrix.from_bsr(ws[0]), ws[1]], [JBCSR.from_bsr(jws[0]), jws[1]]
+    plan, jplan = P.build_plan(mixed, bs, 40, tuned=cfg), JP.build_plan(jmixed, jbs, 40, tuned=jcfg)
+    assert plan.route == jplan.route == P.ROUTE_LAYERED and plan.key.tuned == cfg.token()
+    assert plan.layouts == jplan.layouts
+    assert [w.block_shape for w in plan.weights] == [w.block_shape for w in jplan.weights]
+    if name == "block_n":
+        assert plan.block_n == 8 and plan.grid_steps == jplan.grid_steps
+        assert plan.grid_steps == P.stack_grid_steps(plan.weights, 40, block_n=8) > (
+            P.build_plan(mixed, bs, 40).grid_steps)
+    np.testing.assert_allclose(plan.forward(y).numpy(), np.asarray(jplan.forward(jy)),
+                               rtol=1e-4, atol=1e-4)
 
 
 def test_plan_cache_tuned_untuned_non_collision():
@@ -408,9 +442,14 @@ def test_dnn_forward_resident_matches_reference_over_the_default_cache():
     tuned = cache.plans()[-1]
     assert tuned.route == P.ROUTE_LAYERED and tuned.key.tuned == "panel_dtype=float32"
     assert cache.stats()["builds"] == 3
-    # the plans run at the default block_n only
-    with pytest.raises(ValueError, match="block_n=8"):
-        dnn.dnn_forward_resident(ws, bs, y, block_n=8)
+    # an explicit block_n is a tuned plan of the cache too; the fused
+    # kernels take column tiles of 8 and 16 only
+    _close(dnn.dnn_forward_resident(ws, bs, y, block_n=8),
+           jdnn.dnn_forward_resident(jws, jbs, jy, block_n=8))
+    assert cache.plans()[-1].key.tuned == "block_n=8"
+    assert cache.plans()[-1].route == P.ROUTE_FUSED and cache.plans()[-1].block_n == 8
+    with pytest.raises(ValueError, match="block_n=32"):
+        dnn.dnn_forward_resident(ws, bs, y, block_n=32)
     P.reset_default_cache()
 
 

@@ -160,14 +160,14 @@ def test_sparse_train_step_decreases_loss_and_keeps_the_pattern():
     state = psparse.init_sparse_mlp_state(ws, bs, opt)
     reset_transpose_sort_count()
     plan = build_plan(ws, bs, 16, differentiable=True)
-    assert transpose_sort_count() == 1  # the block-CSR layer, sorted once
+    assert transpose_sort_count() == 2  # each sparse layer, sorted once
     step = psparse.make_sparse_train_step(opt, plan=plan)
     batch = {"y0": t(y0), "targets": t(targets)}
     losses = []
     for _ in range(4):
         state, metrics = step(state, batch)
         losses.append(float(metrics["loss"]))
-    assert transpose_sort_count() == 1  # no backward sorted again
+    assert transpose_sort_count() == 2  # no backward sorted again
     assert losses[-1] < losses[0], losses
     assert torch.equal(state.weights[0].col_idx, ws[0].col_idx)
     assert torch.equal(state.weights[1].row_id, ws[1].row_id)

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's GraphChallenge, GraphBLAS, training and tuning paths on one GPU.
+"""Drive the PyTorch/CUDA port's GraphChallenge, GraphBLAS, training, tuning,
+sharded and fleet paths on one GPU.
 
     python3 chip_smoke.py        # from the repository root, on a CUDA host
 
@@ -120,6 +121,41 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    give the clean run's losses bit for bit. The checkpoint's bytes and
    its save, restore and (on the card) validation times.
 
+16. sharded — ``run_challenge(RadixNetSpec(65536, 120), mesh=
+   make_row_blocks_mesh(4))`` on the one card (``SHARDED``: 8 192 inputs
+   in 512-column panels, input density 0.45): route and level
+   ``sharded``, 4 ``bcsr_spmm`` launches a layer a replay (the captured
+   graph's kernel nodes), imbalance <= 1.10, the per-shard bills summing
+   to the unsharded block-CSR bill, a replay bit-identical to the eager
+   forward; at the first layer of each of the 4 distinct partitions,
+   every shard's launch (no epilogue, the served panel's 512 columns)
+   against ``bcsr_spmm_plain`` on its sub-segment and the summed layer
+   against the plain unsharded layer (``SPMM_RTOL``); categories equal to
+   the unsharded engine's (its own route) on every input and to the numpy
+   oracle on 64, whose final values the served ones match by the stack
+   criterion (``STACK_RTOL`` and the f32 bound); edge·inputs/s beside the
+   unsharded run's; the heaviest layer's 4 launches against its
+   partial-panel sum (CUDA events); then a fresh engine with a shard lost
+   at dispatch 1: the timed panels serve from ``layered`` with the same
+   categories, one ladder event.
+17. sharded-train — train-radixnet's network with every layer block-CSR
+   through a differentiable 4-shard plan (``SHARDED_TRAIN``): the first
+   step's gradients against the plain versions on the sharded kernels'
+   ReLU masks (``GRAD_RTOL``), two backward passes bit-identical, 3 SGD
+   steps whose losses are within 1e-5 of the unsharded differentiable
+   plan's, launches per step (4 a layer forward, 4 a layer but the first
+   backward), step times.
+18. fleet — the reference's fleet arm (``FLEET``): 3 replicas of
+   RadiX-net 1024 × 120, each its own plan cache, behind
+   ``FleetFrontend`` on a ``VirtualClock``; a bursty trace at rate factor
+   4 (8 s, seed 17, widths 4 and 24, classes 8 and 24, deadline 0.05 s,
+   2 048 pending columns); the service model's price of a billed block
+   product is a replayed 24-column plan's time over its bill. Plan hit
+   rate >= 0.9, no failed job, launches = the replicas' warm-ups +
+   replays; the same trace with replica 0 lost at dispatch 100 drops no
+   admitted job; every served job's categories in both runs against the
+   numpy oracle.
+
 Every engine plan on the card captures its forward as a CUDA graph at
 its first panel (an eager warm-up, then the capture) and replays it for
 the others: each serving phase checks that its launches are the
@@ -132,8 +168,9 @@ same layer loop called eagerly through ``kernel_ops`` from this script,
 interleaved, five times each, beside the kernels' CUDA-event time
 (``host_share``).
 
-Launch counts are reset to 0 right before each of phases 3-15 and read
-right after (for 8 and 9, around the train steps). The ``kernels`` line, the ``nvidia-smi`` line and, last,
+Launch counts are reset to 0 right before each of phases 3-18 and read
+right after (for 8, 9 and 17, around the train steps; for 18, around
+each run of the trace). The ``kernels`` line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}`` close the run. Numbers are this run's
 own; the bound of a kernel is max(bytes / 3.35 TB/s, ops / 67 TFLOP/s)
 (H100 SXM HBM3 rate and f32 CUDA-core peak at 700 W), counting the
@@ -205,6 +242,21 @@ TUNE_SKEWED = dict(specs=(((128, 256), 100), ((128, 128), 55), ((64, 128), 28)),
 TUNE_RADIX = dict(sizes=((1024, 0.3), (4096, 0.35)), layers=120, block=16, width=512, reps=3)
 RESILIENT = dict(neurons=1024, layers=120, columns=512, lr=0.02, steps=12, ckpt_interval=4,
                  nan_step=6, kill_step=8)
+# the sharded phases: RadiX-net 65536 × 120 (the largest official size) served
+# over a mesh of 4 shards on the one card, 8 192 inputs in 512-column panels
+# (16 timed panels a route).
+# At 0.3–0.4 input density no input of 16 survives to the last layer in the
+# oracle; 0.45 keeps 8 of 16, so the cell takes 0.45. The oracle runs on 64
+# columns (~120 × 65536 × 32 gathers a column), 8 processes of 8.
+SHARDED = dict(neurons=65536, layers=120, shards=4, n_inputs=8192, density=0.45, ref_cols=64)
+SHARDED_TRAIN = dict(neurons=1024, layers=120, columns=512, steps=3, lr=0.02, shards=4)
+# the fleet phase: the reference's fleet arm (benchmarks/kernel_bench.py fleet_arm,
+# its full config) at rate factor 4, over RadiX-net 1024 × 120
+FLEET = dict(neurons=1024, layers=120, replicas=3,
+             profile=dict(base=10.0, burst_rate=40.0, burst_every=2.0, burst_len=0.5),
+             rate_factor=4.0, duration=8.0, width_mix=((4, 0.7), (24, 0.3)),
+             width_classes=(8, 24), deadline_s=0.05, max_pending_cols=2048, seed=17,
+             loss_at=100)
 WIDTH_CLASSES = (64, 128, 256, 512)
 HOST_SHARE_REPEATS = 5  # captured and eager forwards, interleaved
 # the graphblas phase's adjacency: random_skewed(SKEWED_SEED, (m, m), (16, 16), blocks, skew)
@@ -863,18 +915,23 @@ def host_share(plan, y, *, other=None) -> dict:
 
 
 def _oracle_chunk(job):
-    """The numpy oracle's categories on one chunk of panel columns (run in
-    a worker process)."""
+    """The numpy oracle's final activations and categories on one chunk of
+    panel columns (run in a worker process)."""
     from repro_torch.data import radixnet as rx
 
     neurons, layers, chunk = job
-    return rx.radixnet_reference(rx.RadixNetSpec(neurons, layers), chunk)[1]
+    return rx.radixnet_reference(rx.RadixNetSpec(neurons, layers), chunk)
 
 
 def oracle_categories(spec, panel, chunk: int = 512) -> np.ndarray:
-    """``radixnet_reference``'s categories on every column of ``panel``,
-    chunks of columns in parallel processes (the oracle is one numpy
-    gather a layer, single-threaded)."""
+    """``radixnet_reference``'s categories on every column of ``panel``."""
+    return oracle_forward(spec, panel, chunk)[1]
+
+
+def oracle_forward(spec, panel, chunk: int = 512) -> tuple[np.ndarray, np.ndarray]:
+    """``radixnet_reference``'s (final activations, categories) on every
+    column of ``panel``, chunks of columns in parallel processes (the
+    oracle is one numpy gather a layer, single-threaded)."""
     import concurrent.futures
     import multiprocessing
 
@@ -885,7 +942,8 @@ def oracle_categories(spec, panel, chunk: int = 512) -> np.ndarray:
             max_workers=min(len(jobs), os.cpu_count() or 1),
             mp_context=multiprocessing.get_context("spawn")) as pool:
         parts = list(pool.map(_oracle_chunk, jobs))
-    return np.concatenate([cats + i for cats, i in zip(parts, starts)])
+    return (np.concatenate([y for y, _ in parts], axis=1),
+            np.concatenate([cats + i for (_, cats), i in zip(parts, starts)]))
 
 
 def serve_trace(batcher, ticks, features, *, on_tick=None) -> float:
@@ -1875,6 +1933,394 @@ def phase_train_resilient(neurons: int, layers: int, columns: int, lr: float, st
     }
 
 
+def sharded_layer_times(plan, y) -> dict:
+    """One sparse layer of a sharded plan, eager, on the card: its S
+    ``bcsr_spmm`` launches (``layer_partials``) against the partial
+    panels' sum and epilogue (``sum_and_relu``), CUDA events; the heaviest
+    layer (most stored blocks)."""
+    from repro_torch.plan.sharded import sum_and_relu
+
+    i, lp = max(enumerate(plan.layers), key=lambda e: sum(e[1].nnz_per_shard))
+    b = plan.biases[i]
+    parts = plan.layer_partials(i, y)
+    spmm_ms = gpu_time_ms(lambda: plan.layer_partials(i, y), per_rep=2, reps=3)
+    sum_ms = gpu_time_ms(lambda: sum_and_relu(parts, b), per_rep=2, reps=3)
+    works = [spmm_work(local, y.shape[1]) for local in lp.shards]
+    spmm_bound, spmm_by = bound(sum(w[0] for w in works), sum(w[1] for w in works))
+    # the function reads the S partial panels and the bias once and writes
+    # the output once: S - 1 adds, the bias add and the ReLU an entry
+    m, n = y.shape
+    sum_bound, sum_by = bound(4.0 * ((len(parts) + 1) * m * n + m), (len(parts) + 1) * m * n)
+    return {"layer": i, "nnz_per_shard": list(lp.nnz_per_shard), "spmm_ms": spmm_ms,
+            "spmm_bound_ms": spmm_bound, "spmm_bound_by": spmm_by,
+            "partial_sum_ms": sum_ms, "partial_sum_bound_ms": sum_bound,
+            "partial_sum_bound_by": sum_by, "partial_sum_share": sum_ms / (spmm_ms + sum_ms)}
+
+
+def sharded_layer_checks(plan, unsharded, y0) -> dict:
+    """The sharded forward layer by layer, eager, on the card: at the first
+    layer of each distinct partition, every shard's ``bcsr_spmm`` (no
+    epilogue) against ``bcsr_spmm_plain`` on the same sub-segment and
+    panel, and the summed layer against the plain UNSHARDED layer
+    (``unsharded[i]``, bias and ReLU fused), both within ``SPMM_RTOL`` /
+    ``SPMM_ATOL``; the walk's output must be the plan's own forward."""
+    import torch
+
+    from repro_torch.kernels.bcsr_spmm import bcsr_spmm_plain
+    from repro_torch.plan.sharded import sum_and_relu
+
+    seen, checked = set(), []
+    part_err = layer_err = 0.0
+    y = y0
+    for i, (lp, b) in enumerate(zip(plan.layers, plan.biases)):
+        if id(lp.sharded) in seen:
+            y = plan.layer_forward(i, y)
+            continue
+        seen.add(id(lp.sharded))
+        parts = plan.layer_partials(i, y)
+        for local, part in zip(lp.shards, parts):
+            want = bcsr_spmm_plain(local, y, fuse_bias_relu=False)
+            torch.testing.assert_close(part, want, rtol=SPMM_RTOL, atol=SPMM_ATOL)
+            part_err = max(part_err, float((part - want).abs().max()))
+        out = sum_and_relu(parts, b)
+        want = bcsr_spmm_plain(unsharded[i], y, b, fuse_bias_relu=True)
+        torch.testing.assert_close(out, want, rtol=SPMM_RTOL, atol=SPMM_ATOL)
+        layer_err = max(layer_err, float((out - want).abs().max()))
+        checked.append(i)
+        del parts, want
+        y = out
+    check(torch.equal(y, plan._eager(y0)), "the layer walk is the plan's forward")
+    return {"layers_checked": checked, "shard_max_abs_err": part_err,
+            "layer_max_abs_err": layer_err,
+            "check": "each shard's launch vs bcsr_spmm_plain on its sub-segment, and the "
+                     "summed layer vs the plain unsharded layer: |kernel - plain| <= "
+                     f"{SPMM_RTOL} |plain| + {SPMM_ATOL}"}
+
+
+def phase_sharded(neurons, layers, shards, n_inputs, density, ref_cols) -> dict:
+    """``run_challenge(spec, mesh=make_row_blocks_mesh(shards))`` on the one
+    card: route and level ``sharded``, ``bcsr_spmm`` launches counted as
+    the captured graph's kernel nodes, per-shard nnz and bills, categories
+    against the unsharded engine's on every input and the numpy oracle's
+    on ``ref_cols``; then a shard failure at dispatch 1."""
+    import torch
+
+    from repro_torch.data import radixnet as rx
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_row_blocks_mesh
+    from repro_torch.plan import stack_grid_steps
+    from repro_torch.serve import SparseDNNEngine, run_challenge
+    from repro_torch.sparse import BlockCSRMatrix
+    from repro_torch.testing import SITE_SHARD_FAILURE, FaultInjector
+
+    dev = torch.device("cuda")
+    spec = rx.RadixNetSpec(neurons, layers)
+    t0 = time.perf_counter()
+    weights, biases = rx.radixnet_weights(spec, device=dev)
+    weights_seconds = time.perf_counter() - t0
+    mesh = make_row_blocks_mesh(shards)
+    engine = SparseDNNEngine(weights, biases, batch_align=32, mesh=mesh)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res = run_challenge(spec, n_inputs=n_inputs, density=density, engine=engine)
+    counts = ops.launch_counts()
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(res.routes == ("sharded",) and res.levels == ("sharded",), (res.routes, res.levels))
+    check(res.served == n_inputs, res.served)
+    (plan,) = engine.plan_cache.plans()
+    captured = check_captured(engine.plan_cache, counts)
+    check(plan.captured_launches == {**dict.fromkeys(ops.KERNELS, 0),
+                                     "bcsr_spmm": shards * layers}, plan.captured_launches)
+    check(plan.imbalance() <= 1.10, ("imbalance", plan.imbalance()))
+    relaid = {}
+    for w in weights:
+        relaid.setdefault(id(w), BlockCSRMatrix.from_bsr(w))
+    unsharded_bill = stack_grid_steps([relaid[id(w)] for w in weights], plan.width)
+    check(plan.grid_steps == sum(plan.grid_steps_per_shard) == unsharded_bill,
+          ("bills", plan.grid_steps_per_shard, unsharded_bill))
+    panel = rx.radixnet_input_panel(neurons, n_inputs, density=density, seed=0)
+    y = torch.from_numpy(np.ascontiguousarray(panel[:, :plan.width])).to(dev)
+    got, want = plan.forward(y), plan._eager(y)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "a sharded replay gives the eager forward's bits")
+    served = got[:, :ref_cols].clone()
+    layer = sharded_layer_times(plan, y)
+    layer_checks = sharded_layer_checks(plan, [relaid[id(w)] for w in weights], y)
+    del relaid, got, want
+
+    # the unsharded engine on the same inputs
+    single = SparseDNNEngine(weights, biases, batch_align=32)
+    base = run_challenge(spec, n_inputs=n_inputs, density=density, engine=single)
+    check(np.array_equal(res.categories, base.categories),
+          ("sharded vs unsharded categories", len(res.categories), len(base.categories)))
+    del single
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ref_y, ref_cats = oracle_forward(spec, np.ascontiguousarray(panel[:, :ref_cols]), chunk=8)
+    oracle_seconds = time.perf_counter() - t0
+    got_cats = res.categories[res.categories < ref_cols]
+    check(0 < len(ref_cats) < ref_cols, ("nondegenerate answer set", len(ref_cats)))
+    check(np.array_equal(got_cats, ref_cats), (got_cats, ref_cats))
+    # the served values on the oracle's columns, by the stack criterion:
+    # both are f32 evaluations, each within e of the exact forward
+    check(bool(torch.isfinite(served).all()) and np.isfinite(ref_y).all(), "finite values")
+    oracle = torch.from_numpy(ref_y).to(dev)
+    exact, e = f32_chain_bound(weights, biases, y[:, :ref_cols])
+    diff = (served.double() - oracle.double()).abs()
+    values = {"max_abs_err": float(diff.max()), "max_oracle": float(oracle.abs().max()),
+              "bound_share": float((diff / (2 * e + STACK_ATOL)).max()),
+              "col_rel_err": col_rel(served.double(), oracle.double()),
+              "col_rel_err_vs_exact": {"sharded": col_rel(served.double(), exact),
+                                       "oracle": col_rel(oracle.double(), exact)}}
+    check(values["max_abs_err"] <= STACK_RTOL * values["max_oracle"], ("values", values))
+    check(values["bound_share"] <= 1.0, ("values", values))
+    del oracle, exact, e, diff, served
+
+    # the reference's degrade arm: a shard lost at dispatch 1
+    inj = FaultInjector()
+    inj.schedule(SITE_SHARD_FAILURE, 1, reason="injected shard loss")
+    faulted = SparseDNNEngine(weights, biases, batch_align=32, mesh=mesh, fault_injector=inj)
+    deg = run_challenge(spec, n_inputs=n_inputs, density=density, engine=faulted)
+    check(deg.levels == ("layered",) and deg.routes == ("layered",), (deg.levels, deg.routes))
+    check(np.array_equal(deg.categories, res.categories), "categories after the demotion")
+    check([(e.level, e.healthy, e.step) for e in faulted.ladder.events]
+          == [("sharded", False, 1)], faulted.ladder.describe())
+    return {
+        "spec": [neurons, layers], "shards": shards, "n_inputs": n_inputs, "density": density,
+        "routes": list(res.routes), "levels": list(res.levels), "steps": res.steps,
+        "width_classes": list(res.width_classes), "launches": counts, **captured,
+        "nnz_per_shard": list(plan.nnz_per_shard()), "imbalance": plan.imbalance(),
+        "grid_steps_per_shard": list(plan.grid_steps_per_shard),
+        "unsharded_bill": unsharded_bill, "shard_pad_blocks": plan.shard_pad_blocks(),
+        "seconds": res.seconds, "edge_inputs_per_sec": res.edge_inputs_per_sec,
+        "unsharded": {"route": base.routes[0], "seconds": base.seconds,
+                      "edge_inputs_per_sec": base.edge_inputs_per_sec},
+        "layer": layer, "layer_checks": layer_checks, "values_vs_oracle": values,
+        "peak_memory_gb": peak_gb, "weights_seconds": weights_seconds,
+        "categories": int(len(res.categories)), "reference_columns": ref_cols,
+        "reference_categories": int(len(ref_cats)), "oracle_seconds": oracle_seconds,
+        "degrade": {"levels": list(deg.levels), "routes": list(deg.routes),
+                    "events": faulted.ladder.describe()["events"],
+                    "categories_match": True},
+    }
+
+
+def sharded_relu_masks(plan, y0) -> list:
+    """Each layer's ReLU mask in a sharded plan's forward on the kernels."""
+    import torch
+
+    masks, y = [], y0
+    with torch.no_grad():
+        for i in range(plan.n_layers):
+            y = plan.layer_forward(i, y)
+            masks.append(y > 0)
+    return masks
+
+
+def phase_sharded_train(neurons, layers, columns, steps, lr, shards) -> dict:
+    """train-radixnet's network, every layer block-CSR, through a
+    differentiable sharded plan: the first step's gradients against the
+    plain versions on the sharded kernels' ReLU masks, the same bits on
+    two backward passes, then ``steps`` SGD steps against the unsharded
+    differentiable plan's losses, launches per step, step times."""
+    import torch
+
+    from repro_torch.core import dnn
+    from repro_torch.data import radixnet as rx
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_row_blocks_mesh
+    from repro_torch.plan import build_plan, build_sharded_plan
+    from repro_torch.sparse import BlockCSRMatrix
+    from repro_torch.train import init_sparse_mlp_state, make_sparse_train_step, sgd
+
+    dev = torch.device("cuda")
+    spec = rx.RadixNetSpec(neurons, layers)
+    phases, _ = rx.radixnet_weights(spec, device=dev)
+    csr, weights = {}, []
+    gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+    for w in phases:
+        weights.append(he_values(csr.setdefault(id(w), BlockCSRMatrix.from_bsr(w)), gen,
+                                 fan_in=32))
+    biases = [torch.zeros(neurons, device=dev) for _ in weights]
+    y0 = torch.from_numpy(rx.radixnet_input_panel(neurons, columns, density=0.3, seed=0)).to(dev)
+    targets = torch.rand((neurons, columns), generator=gen, device=dev)
+    t0 = time.perf_counter()
+    plan = build_sharded_plan(weights, biases, columns, make_row_blocks_mesh(shards),
+                              differentiable=True)
+    plan_seconds = time.perf_counter() - t0
+    check(plan.imbalance() <= 1.10, plan.imbalance())
+
+    loss1, (dw1, db1) = dnn.dnn_value_and_grad(weights, biases, y0, targets, plan=plan)
+    loss2, (dw2, db2) = dnn.dnn_value_and_grad(weights, biases, y0, targets, plan=plan)
+    got = [dnn.values_of(g) for g in dw1] + list(db1)
+    same_bits = bool(torch.equal(loss1, loss2)) and all(
+        torch.equal(a, b) for a, b in zip(got, [dnn.values_of(g) for g in dw2] + list(db2)))
+    check(same_bits, "two sharded backward passes give the same bits")
+    masks = sharded_relu_masks(plan, y0)
+    loss_m, want = grads_on_masks(weights, biases, y0, targets, masks)
+    del masks, dw2, db2
+    grad_err = max(rel_norm_err(a, b) for a, b in zip(got, want))
+    loss_err = abs(float(loss1) - float(loss_m)) / abs(float(loss_m))
+    check(all(bool(torch.isfinite(a).all()) for a in got), "finite gradients")
+    check(grad_err <= GRAD_RTOL, ("gradients vs plain on the kernels' masks", grad_err))
+    check(loss_err <= GRAD_RTOL, ("loss vs plain", loss_err))
+    del got, want, dw1, db1
+
+    def train(p):
+        state = init_sparse_mlp_state(weights, biases, sgd(lr))
+        step = make_sparse_train_step(sgd(lr), plan=p)
+        losses, times = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            state, metrics = step(state, {"y0": y0, "targets": targets})
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+        return losses, times
+
+    ops.reset_launch_counts()
+    losses, times = train(plan)
+    counts = ops.launch_counts()
+    # forward: a launch per shard per layer; backward: dX on each shard's
+    # transpose for every layer but the first (its input is data)
+    per_step = shards * layers + shards * (layers - 1)
+    check(counts == {**dict.fromkeys(ops.KERNELS, 0), "bcsr_spmm": steps * per_step},
+          ("launches", counts))
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], ("loss falls", losses))
+    unsharded, u_times = train(build_plan(weights, biases, columns, differentiable=True))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, unsharded))
+    check(loss_rel <= 1e-5, ("sharded vs unsharded losses", losses, unsharded))
+    return {
+        "spec": [neurons, layers], "shards": shards, "columns": columns,
+        "optimizer": f"sgd(lr={lr}, momentum=0.9)", "plan_seconds": plan_seconds,
+        "nnz_per_shard": list(plan.nnz_per_shard()), "imbalance": plan.imbalance(),
+        "losses": losses, "unsharded_losses": unsharded, "loss_rel_err": loss_rel,
+        "first_step_loss_rel_err": loss_err, "grad_rel_err": grad_err,
+        "grad_check": f"per layer tensor ||kernel - plain|| <= {GRAD_RTOL} ||plain||, the "
+                      "sharded kernels' ReLU masks",
+        "same_bits_on_two_backward_passes": same_bits,
+        "launches": counts, "launches_per_step": {"forward": shards * layers,
+                                                  "backward": shards * (layers - 1)},
+        "step_ms": 1e3 * statistics.median(times[1:]), "step_ms_all": [1e3 * t for t in times],
+        "unsharded_step_ms": 1e3 * statistics.median(u_times[1:]),
+    }
+
+
+def phase_fleet(neurons, layers, replicas, profile, rate_factor, duration, width_mix,
+                width_classes, deadline_s, max_pending_cols, seed, loss_at) -> dict:
+    """The reference's fleet arm on the card: ``replicas`` engines of
+    RadiX-net ``neurons × layers`` behind ``FleetFrontend`` on a
+    ``VirtualClock``, the service model priced by a replayed plan's
+    measured time over its bill; every served job's categories against
+    the numpy oracle, the plan hit rate, then the same trace with a
+    replica lost mid-trace, which must drop no admitted job."""
+    import torch
+
+    from repro_torch.data import radixnet as rx
+    from repro_torch.kernels import ops
+    from repro_torch.serve import (
+        FleetFrontend,
+        LoadProfile,
+        ReplicaFleet,
+        ServiceModel,
+        SparseDNNEngine,
+        VirtualClock,
+        generate_jobs,
+    )
+    from repro_torch.testing import SITE_REPLICA_LOSS, FaultInjector
+
+    dev = torch.device("cuda")
+    spec = rx.RadixNetSpec(neurons, layers)
+    weights, biases = rx.radixnet_weights(spec, device=dev)
+    jobs = generate_jobs(LoadProfile.bursty(**profile).scaled(rate_factor), duration,
+                         m=neurons, seed=seed, width_mix=width_mix, deadline_s=deadline_s)
+    # the card's price of a billed block product: a replayed plan of the
+    # largest class, its CUDA-event time over its bill
+    probe = SparseDNNEngine(weights, biases, batch_align=8)
+    top = max(width_classes)
+    probe.infer(torch.zeros((neurons, top), device=dev))
+    (plan,) = probe.plan_cache.plans()
+    y = torch.rand((neurons, top), device=dev)
+    replay_ms = gpu_time_ms(lambda: plan.forward(y), per_rep=4, reps=3)
+    service = ServiceModel(base_s=2e-3, per_grid_step_s=1e-3 * replay_ms / plan.grid_steps)
+    del probe, plan
+
+    def run(injector):
+        engines = [SparseDNNEngine(weights, biases, batch_align=8) for _ in range(replicas)]
+        fleet = ReplicaFleet(engines, width_classes=width_classes)
+        fe = FleetFrontend(fleet, clock=VirtualClock(), service_model=service,
+                           max_pending_cols=max_pending_cols, fault_injector=injector)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        stats = fe.run(jobs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        want = dict.fromkeys(ops.KERNELS, 0)
+        for r in fleet.replicas:
+            for name, k in plan_launches(r.engine.plan_cache).items():
+                want[name] += k
+        check(counts == want, ("launches = warm-ups + replays", counts, want))
+        check(counts["fused_mlp_forward"] == sum(r.dispatches for r in fleet.replicas), counts)
+        return fleet, fe, stats, counts, seconds
+
+    _, fe, stats, counts, seconds = run(None)
+    f = stats["fleet"]
+    check(stats["failed_jobs"] == 0 and stats["served_jobs"] == stats["admitted_jobs"], stats)
+    check(f["plan_hit_rate"] >= 0.9, ("plan hit rate", f["plan_hit_rate"]))
+    inj = FaultInjector()
+    inj.schedule(SITE_REPLICA_LOSS, loss_at, replica=0)
+    _, lfe, lstats, lcounts, lseconds = run(inj)
+    check(inj.pending() == 0 and lstats["fleet"]["alive"] == replicas - 1, lstats["fleet"])
+    check(lstats["failed_jobs"] == 0 and lstats["served_jobs"] == lstats["admitted_jobs"]
+          and lstats["requeued_jobs"] >= 1, lstats)
+
+    # every served job of both runs against the numpy oracle
+    rids = sorted(set(fe.results) | set(lfe.results))
+    cols = np.cumsum([0] + [jobs[r].cols for r in rids])
+    t0 = time.perf_counter()
+    ref = np.zeros(cols[-1], bool)
+    ref[oracle_categories(spec, np.ascontiguousarray(np.concatenate(
+        [jobs[r].features.cpu().numpy() for r in rids], axis=1)))] = True
+    oracle_seconds = time.perf_counter() - t0
+    for results in (fe.results, lfe.results):
+        for i, r in enumerate(rids):
+            if r in results:
+                got = (results[r] > 0).any(dim=0).cpu().numpy()
+                check(np.array_equal(got, ref[cols[i]:cols[i + 1]]), ("job categories", r))
+    # the trace's features are U[0, 1): every column stays alive, so the
+    # values of the first jobs are held too
+    first = [r for r in rids if r in fe.results][:8]
+    ref_y, _ = rx.radixnet_reference(spec, np.ascontiguousarray(np.concatenate(
+        [jobs[r].features.cpu().numpy() for r in first], axis=1)))
+    got_y = torch.cat([fe.results[r] for r in first], dim=1).cpu().double()
+    value_err = col_rel(got_y, torch.from_numpy(ref_y).double())
+    check(value_err <= STACK_RTOL, ("fleet values vs the oracle", value_err))
+    keep = ("offered_jobs", "admitted_jobs", "rejected_jobs", "served_jobs", "failed_jobs",
+            "deadline_misses", "miss_rate", "requeued_jobs", "latency_p50_s", "latency_p99_s",
+            "latency_max_s", "throughput_cols_per_s", "goodput_cols_per_s")
+    return {
+        "spec": [neurons, layers], "replicas": replicas,
+        "trace": {"profile": {"kind": "bursty", **profile}, "rate_factor": rate_factor,
+                  "duration_s": duration, "width_mix": [list(w) for w in width_mix],
+                  "width_classes": list(width_classes), "deadline_s": deadline_s,
+                  "max_pending_cols": max_pending_cols, "seed": seed, "jobs": len(jobs)},
+        "service_model": {"base_s": service.base_s, "per_grid_step_s": service.per_grid_step_s,
+                          "replay_ms": replay_ms, "replay_width": top},
+        **{k: stats[k] for k in keep},
+        "routing": f["routing"], "plan_hit_rate": f["plan_hit_rate"],
+        "cross_replica_compiles": f["cross_replica_compiles"],
+        "launches": counts, "host_seconds": seconds,
+        "oracle_columns": int(cols[-1]), "oracle_categories": int(ref.sum()),
+        "oracle_seconds": oracle_seconds, "value_col_rel_err_first_8_jobs": value_err,
+        "replica_loss": {"at_dispatch": loss_at, **{k: lstats[k] for k in keep},
+                         "routing": lstats["fleet"]["routing"],
+                         "events": lstats["fleet"]["events"], "launches": lcounts,
+                         "host_seconds": lseconds},
+    }
+
+
 def main() -> int:
     import torch
 
@@ -1940,6 +2386,12 @@ def main() -> int:
     emit({"phase": "serve-tuned", **served})
     resilient = phase_train_resilient(**RESILIENT)
     emit({"phase": "train-resilient", **resilient})
+    sharded = phase_sharded(**SHARDED)
+    emit({"phase": "sharded", **sharded})
+    sharded_train = phase_sharded_train(**SHARDED_TRAIN)
+    emit({"phase": "sharded-train", **sharded_train})
+    fleet = phase_fleet(**FLEET)
+    emit({"phase": "fleet", **fleet})
 
     by_phase = {"serve": serve["launches"], "layered": layered["launches"],
                 "tiled": tiled["launches"], "dense": dense["launches"],
@@ -1949,7 +2401,9 @@ def main() -> int:
                 "train-paper": train_paper["launches"],
                 "continuous": cont["launches"], "continuous-faults": faulted["launches"],
                 "serve-bf16": bf16["launches"], "tune": tune["launches"],
-                "serve-tuned": served["launches"], "train-resilient": resilient["launches"]}
+                "serve-tuned": served["launches"], "train-resilient": resilient["launches"],
+                "sharded": sharded["launches"], "sharded-train": sharded_train["launches"],
+                "fleet": fleet["launches"]}
     checks = {name: "max|kernel - plain| <= 1e-5 |plain| + 1e-6 (f32 order)"
               for name in ("semiring_matmul", "bsr_spmm", "bcsr_spmm")}
     checks.update({name: "stack: <= 1e-4 max|plain|, each entry within 2x the f32 bound, "

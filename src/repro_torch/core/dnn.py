@@ -16,7 +16,8 @@
 
 Weights are dense tensors, ELL-padded :class:`BlockSparseMatrix` or
 :class:`BlockCSRMatrix`. :func:`dnn_forward_resident` runs a whole stack
-as one fused kernel launch through the shared plan cache.
+as one fused kernel launch through the shared plan cache; ``mesh=`` on
+either forward runs it sharded (``repro_torch.plan.sharded``).
 
 Training: :func:`dnn_forward_trainable` runs each sparse layer through the
 differentiable SpMM wrappers (``repro_torch.kernels.autodiff``: the
@@ -42,6 +43,28 @@ from repro_torch.sparse.bsr import BlockSparseMatrix
 Weight = Union[torch.Tensor, BlockSparseMatrix, BlockCSRMatrix]
 
 
+def dnn_grid_steps(
+    weights: Sequence[Weight], n: int, *, block_n: int = DEFAULT_BLOCK_N
+) -> int:
+    """Total forward bill of the L-layer stack on an (m, n) panel (alias
+    of :func:`repro_torch.plan.stack_grid_steps`; a plan carries it as
+    ``grid_steps``)."""
+    from repro_torch.plan import cost as _plan_cost
+
+    return _plan_cost.stack_grid_steps(weights, n, block_n=block_n)
+
+
+def _sharded_plan_forward(
+    weights: Sequence[Weight], biases: Sequence[torch.Tensor], y0: torch.Tensor, mesh
+) -> torch.Tensor:
+    """The mesh dispatch both forwards share: the sharded plan for this
+    panel width from the shared default cache, run."""
+    from repro_torch.plan.cache import default_cache
+
+    plan = default_cache().get(weights, biases, max(y0.shape[1], 1), mesh=mesh)
+    return plan.forward(y0)
+
+
 def dnn_layer(
     w: Weight, y: torch.Tensor, b: torch.Tensor, *, fused: bool = True
 ) -> torch.Tensor:
@@ -65,8 +88,18 @@ def dnn_forward(
     y0: torch.Tensor,
     *,
     fused: bool = True,
+    mesh=None,
 ) -> torch.Tensor:
-    """Full L-layer forward pass (the paper's ``dnn()`` function)."""
+    """Full L-layer forward pass (the paper's ``dnn()`` function).
+
+    ``mesh`` (a :class:`repro_torch.launch.mesh.Mesh`): run the stack
+    sharded — every sparse layer's block-CSR segment partitioned across
+    the mesh's ``row_blocks`` shards, one ``bcsr_spmm`` launch per shard,
+    the partial panels summed before the bias and ReLU
+    (:class:`repro_torch.plan.ShardedStackPlan`, from the shared
+    :func:`repro_torch.plan.default_cache`)."""
+    if mesh is not None:
+        return _sharded_plan_forward(weights, biases, y0, mesh)
     y = y0
     for w, b in zip(weights, biases):
         y = dnn_layer(w, y, b, fused=fused)
@@ -115,6 +148,7 @@ def dnn_forward_resident(
     block_n: int = DEFAULT_BLOCK_N,
     panel_dtype=None,
     tuned=None,
+    mesh=None,
 ) -> torch.Tensor:
     """L-layer forward as ONE launch of a fused whole-stack kernel: the
     panel resident in shared memory, or in global scratch for stacks past
@@ -128,8 +162,12 @@ def dnn_forward_resident(
     rides into the cache key; an explicit ``panel_dtype``, and a
     ``block_n`` other than ``DEFAULT_BLOCK_N``, override its own (the
     fused kernels take ``block_n`` 8 or 16: a fused route at another is
-    refused with a ValueError).
+    refused with a ValueError). ``mesh`` overrides residency: the fused
+    kernels run one unsharded stack, so a mesh runs the sharded plan, as
+    in :func:`dnn_forward`.
     """
+    if mesh is not None:
+        return _sharded_plan_forward(weights, biases, y0, mesh)
     from repro_torch.plan.cache import default_cache
     from repro_torch.tune import TunedConfig
 
@@ -191,9 +229,14 @@ def dnn_forward_trainable(
     product); ``use_kernel=False`` the plain fused forms (the same math,
     autograd through plain PyTorch). ``plan``: a differentiable StackPlan
     for this topology, whose cached transposes make the backward
-    sort-free. The fused whole-stack kernels are not
+    sort-free; a :class:`repro_torch.plan.ShardedStackPlan` runs the
+    whole forward and its backward sharded instead (fresh values
+    re-shard through its frozen partition, gradients keep the caller's
+    unsharded layout). The fused whole-stack kernels are not
     differentiable and never run here.
     """
+    if getattr(plan, "is_sharded", False):
+        return plan.forward_trainable(weights, biases, y0, use_kernel=use_kernel)
     tps = _layer_transpose_plans(weights, plan)
     y = y0
     for w, b, tp in zip(weights, biases, tps):

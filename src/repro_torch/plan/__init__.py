@@ -5,6 +5,9 @@ exact launch bill and bound weights are analysed once per (topology
 fingerprint, width class) into a :class:`StackPlan`, whose executable on
 the card is a CUDA graph captured at its first forward; plans are cached
 in a :class:`PlanCache` and served through a :class:`DegradationLadder`.
+Over a mesh, a :class:`ShardedStackPlan` partitions every sparse layer
+across the shards and runs one block-CSR launch per shard
+(:func:`build_sharded_plan`).
 GraphBLAS products on one sparse operand get an :class:`MxmPlan` per
 (topology, width, semiring) from :func:`mxm_plan`.
 """
@@ -24,6 +27,7 @@ from repro_torch.plan.cost import (  # noqa: F401
 from repro_torch.plan.degrade import (  # noqa: F401
     LEVEL_LAYERED,
     LEVEL_RESIDENT,
+    LEVEL_SHARDED,
     DegradationLadder,
     DegradeEvent,
 )
@@ -43,10 +47,17 @@ from repro_torch.plan.routes import (  # noqa: F401
     ROUTE_FUSED,
     ROUTE_FUSED_TILED,
     ROUTE_LAYERED,
+    ROUTE_SHARDED,
     ROUTE_XLA,
     fused_route,
     layer_path,
     resident_eligible,
+)
+from repro_torch.plan.sharded import (  # noqa: F401
+    ShardedLayerPlan,
+    ShardedStackPlan,
+    build_sharded_plan,
+    mesh_fingerprint,
 )
 from repro_torch.plan.stack_plan import (  # noqa: F401
     DEFAULT_WIDTH_CLASSES,
@@ -64,9 +75,11 @@ __all__ = [
     "ELL_WASTE_THRESHOLD",
     "LEVEL_LAYERED",
     "LEVEL_RESIDENT",
+    "LEVEL_SHARDED",
     "ROUTE_FUSED",
     "ROUTE_FUSED_TILED",
     "ROUTE_LAYERED",
+    "ROUTE_SHARDED",
     "ROUTE_XLA",
     "DegradationLadder",
     "DegradeEvent",
@@ -75,14 +88,18 @@ __all__ = [
     "PlanCache",
     "PlanCaptureError",
     "PlanKey",
+    "ShardedLayerPlan",
+    "ShardedStackPlan",
     "StackPlan",
     "build_plan",
+    "build_sharded_plan",
     "default_cache",
     "fused_route",
     "layer_block_area",
     "layer_grid_steps",
     "layer_layout",
     "layer_path",
+    "mesh_fingerprint",
     "mxm_cache_stats",
     "mxm_plan",
     "mxv_grid_steps",

@@ -1,11 +1,13 @@
-"""LRU cache of :class:`~repro_torch.plan.StackPlan` objects.
+"""LRU cache of execution plans — counterpart of ``repro/plan/cache.py``.
 
-Counterpart of ``repro/plan/cache.py`` without the mesh branch (sharded
-plans arrive with the scale-out slice, ROADMAP Queue 1 item 5).
+Holds :class:`~repro_torch.plan.StackPlan` objects and, for a ``mesh``,
+:class:`~repro_torch.plan.sharded.ShardedStackPlan` objects, keyed apart
+by the mesh fingerprint in :class:`~repro_torch.plan.PlanKey`.
 Serving looks a plan up per dispatched panel; after the first panel of
 each width class every lookup is a hit, and on the card a hit replays
 the plan's captured CUDA graph. Plans of one stack at other width
-classes share one graph memory pool (``build_plan``'s donor).
+classes share their width-independent pieces and one graph memory pool
+(the ``donor`` of ``build_plan`` and ``build_sharded_plan``).
 
 Because plans bind weight/bias tensors (serving weights are frozen), a
 hit additionally requires the cached plan's bound tensors to be the
@@ -19,6 +21,7 @@ from collections import OrderedDict
 from typing import Sequence
 
 from repro_torch.core.dnn import Weight
+from repro_torch.plan import sharded as _sharded
 from repro_torch.plan.stack_plan import (
     PlanKey,
     StackPlan,
@@ -81,18 +84,27 @@ class PlanCache:
         fingerprint: str | None = None,
         differentiable: bool = False,
         tuned=None,
+        mesh=None,
     ) -> StackPlan:
         """The plan for this (stack, width, residency, differentiable?,
-        tuned config) — cached. ``fingerprint`` skips the topology hash
-        when the caller already knows it; ``tuned`` (a
+        tuned config, mesh) — cached. ``fingerprint`` skips the topology
+        hash when the caller already knows it; ``tuned`` (a
         :class:`repro_torch.tune.TunedConfig`) keys the entry by its
-        ``token()``."""
+        ``token()``; ``mesh`` (a :class:`repro_torch.launch.mesh.Mesh`)
+        builds a :class:`~repro_torch.plan.sharded.ShardedStackPlan`,
+        keyed by the mesh's fingerprint. ``build_sharded_plan`` takes no
+        tuning knobs, so a mesh with a tuned config is refused."""
         weights = tuple(weights)
         biases = tuple(biases)
+        if mesh is not None and tuned is not None:
+            raise ValueError(
+                "tuned configs apply to single-device plans only; pass tuned=None "
+                "with a mesh")
         if fingerprint is None:
             fingerprint = topology_fingerprint(weights)
         key = PlanKey(fingerprint, width, use_resident, differentiable=differentiable,
-                      tuned=None if tuned is None else tuned.token())
+                      tuned=None if tuned is None else tuned.token(),
+                      mesh=None if mesh is None else _sharded.mesh_fingerprint(mesh))
         self.lookups += 1
         plan = self._entries.get(key)
         if (
@@ -106,7 +118,7 @@ class PlanCache:
         self.misses += 1
         # A plan for the same stack at ANOTHER width class donates its
         # width-independent pieces (relayouted weights, fused stack,
-        # cached transposes, graph memory pool).
+        # cached transposes, partitions, graph memory pool).
         donor = None
         for cand in reversed(self._entries.values()):
             if (
@@ -116,16 +128,21 @@ class PlanCache:
             ):
                 donor = cand
                 break
-        plan = build_plan(
-            weights,
-            biases,
-            width,
-            use_resident=use_resident,
-            fingerprint=fingerprint,
-            donor=donor,
-            differentiable=differentiable,
-            tuned=tuned,
-        )
+        if mesh is not None:
+            plan = _sharded.build_sharded_plan(
+                weights, biases, width, mesh, differentiable=differentiable,
+                use_resident=use_resident, fingerprint=fingerprint, donor=donor)
+        else:
+            plan = build_plan(
+                weights,
+                biases,
+                width,
+                use_resident=use_resident,
+                fingerprint=fingerprint,
+                donor=donor,
+                differentiable=differentiable,
+                tuned=tuned,
+            )
         self.builds += 1
         self._entries[plan.key] = plan
         self._entries.move_to_end(plan.key)

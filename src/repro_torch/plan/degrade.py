@@ -1,13 +1,14 @@
-"""Graceful plan degradation: resident → layered.
+"""Graceful plan degradation: sharded → resident → layered.
 
-Counterpart of ``repro/plan/degrade.py`` with its two single-device
-levels (the ``sharded`` level arrives with the scale-out slice, ROADMAP
-Queue 1 item 5):
+Counterpart of ``repro/plan/degrade.py``, with its three levels:
 
-1. ``resident`` — the fused whole-stack plan (shared-memory panel or its
+1. ``sharded``  — the mesh-sharded plan
+   (:class:`~repro_torch.plan.sharded.ShardedStackPlan`), when the engine
+   was built with a mesh and the level is healthy;
+2. ``resident`` — the fused whole-stack plan (shared-memory panel or its
    tiled variant), when the engine resolved residency and the level is
    healthy;
-2. ``layered``  — the per-layer kernel plan, the floor: it needs nothing
+3. ``layered``  — the per-layer kernel plan, the floor: it needs nothing
    but one device and always exists.
 
 ``get_plan`` walks the levels top-down and returns the first that builds.
@@ -15,11 +16,13 @@ A level whose build fails — a plan-build error, an injected fault — is
 marked unhealthy and the walk continues, so the panel that hit the
 failure is still served. A CUDA graph capture that fails is a compile
 failure too: the engine marks the level unhealthy the same way
-(:meth:`DegradationLadder.mark_unhealthy`). Health marks are sticky
+(:meth:`DegradationLadder.mark_unhealthy`), and a lost shard
+(``SITE_SHARD_FAILURE``) marks ``sharded``. Health marks are sticky
 until :meth:`DegradationLadder.restore`, and every transition is recorded
-in :attr:`DegradationLadder.events`. Only the floor's failure
-propagates. The ladder knows nothing about *why* a level failed: fault
-injection reaches it only through the engine's ``compile_hook``.
+in :attr:`DegradationLadder.events`: a demotion is counted and reported,
+never hidden. Only the floor's failure propagates. The ladder knows
+nothing about *why* a level failed: fault injection reaches it only
+through the engine's ``compile_hook`` and ``mark_unhealthy``.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
+LEVEL_SHARDED = "sharded"
 LEVEL_RESIDENT = "resident"
 LEVEL_LAYERED = "layered"
 
@@ -44,25 +48,31 @@ class DegradeEvent:
 class DegradationLadder:
     """Health-aware plan lookup over a :class:`~repro_torch.plan.PlanCache`.
 
-    ``use_resident`` names the engine's preferred level; the ladder serves
-    the highest healthy level at or below it. ``tuned`` (a
-    :class:`repro_torch.tune.TunedConfig`) is applied at both levels.
+    ``mesh``/``use_resident`` name the engine's preferred level; the
+    ladder serves the highest healthy level at or below it. ``tuned`` (a
+    :class:`repro_torch.tune.TunedConfig`) is applied at the
+    single-device levels; ``build_sharded_plan`` takes no tuning knobs.
     """
 
-    def __init__(self, cache, *, use_resident: bool = False, tuned=None):
+    def __init__(self, cache, *, mesh=None, use_resident: bool = False, tuned=None):
         self.cache = cache
+        self.mesh = mesh
         self.use_resident = bool(use_resident)
         self.tuned = tuned
-        self._healthy = {LEVEL_RESIDENT: True}
+        self._healthy = {LEVEL_SHARDED: True, LEVEL_RESIDENT: True}
         self.events: list[DegradeEvent] = []
 
     @property
     def preferred_level(self) -> str:
+        if self.mesh is not None:
+            return LEVEL_SHARDED
         return LEVEL_RESIDENT if self.use_resident else LEVEL_LAYERED
 
     def levels(self) -> list[str]:
         """Currently serviceable levels, most preferred first."""
         out = []
+        if self.mesh is not None and self._healthy[LEVEL_SHARDED]:
+            out.append(LEVEL_SHARDED)
         if self.use_resident and self._healthy[LEVEL_RESIDENT]:
             out.append(LEVEL_RESIDENT)
         out.append(LEVEL_LAYERED)
@@ -76,7 +86,8 @@ class DegradationLadder:
         return self.levels()[0] != self.preferred_level
 
     def mark_unhealthy(self, level: str, *, reason: str, step: int = -1) -> None:
-        """Demote a level (its plan failed to build or capture). Idempotent."""
+        """Demote a level (its plan failed to build or capture, or the mesh
+        lost a shard). Idempotent."""
         if level not in self._healthy:
             raise ValueError(f"level {level!r} cannot be demoted (floor or unknown)")
         if self._healthy[level]:
@@ -108,7 +119,7 @@ class DegradationLadder:
         raising from it (fault injection) demotes that level and falls
         through. Differentiable plans have no resident level to try."""
         for level in self.levels():
-            if differentiable and level != LEVEL_LAYERED:
+            if differentiable and level == LEVEL_RESIDENT:
                 continue
             try:
                 if compile_hook is not None:
@@ -121,7 +132,8 @@ class DegradationLadder:
                     use_resident=level == LEVEL_RESIDENT,
                     fingerprint=fingerprint,
                     differentiable=differentiable,
-                    tuned=self.tuned,
+                    tuned=self.tuned if level != LEVEL_SHARDED else None,
+                    mesh=self.mesh if level == LEVEL_SHARDED else None,
                 )
                 return plan, level, self.cache.hits > before
             except Exception as e:  # noqa: BLE001 — any plan-build failure

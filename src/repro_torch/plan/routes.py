@@ -12,6 +12,10 @@
                differentiates) when the plan is differentiable
     all layers xla-dense → the stack route reads **xla**.
 
+A mesh takes none of these: its plans (``repro_torch.plan.sharded``) run
+every shard's block-CSR segment through ``bcsr_spmm`` and read
+**sharded**.
+
 The route strings are the reference's (public names); ``xla`` names the
 plain PyTorch path here.
 """
@@ -30,6 +34,7 @@ ROUTE_FUSED = "fused"
 ROUTE_FUSED_TILED = "fused-tiled"
 ROUTE_LAYERED = "layered"
 ROUTE_XLA = "xla"
+ROUTE_SHARDED = "sharded"  # plan.sharded.ShardedStackPlan: per-shard bcsr_spmm
 
 
 def _homogeneous_bsr_stack(weights: Sequence[Weight]) -> bool:

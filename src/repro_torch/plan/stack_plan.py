@@ -115,13 +115,15 @@ def topology_fingerprint(weights: Sequence[Weight]) -> str:
 
 class PlanKey(NamedTuple):
     """What a plan is keyed on: same topology + width class + residency
-    request + semiring + differentiability + tuned config → the same
-    plan, hence a cache hit.
+    request + semiring + differentiability + tuned config + mesh → the
+    same plan, hence a cache hit.
 
     ``semiring`` is the ⊕.⊗ algebra the plan computes: DNN stack plans
     are ``plus_times``; the GraphBLAS ``mxm``/``mxv`` plans
     (:mod:`repro_torch.plan.mxm`) key theirs here, so a ``plus_times``
-    and a ``min_plus`` plan over one topology never collide."""
+    and a ``min_plus`` plan over one topology never collide. ``mesh`` is
+    the fingerprint of a sharded plan's mesh, so a sharded and a
+    single-device plan over one topology never collide either."""
 
     fingerprint: str
     width: int
@@ -129,6 +131,7 @@ class PlanKey(NamedTuple):
     semiring: str = "plus_times"  # the plan's ⊕.⊗ algebra
     differentiable: bool = False  # autograd-compatible routes only
     tuned: str | None = None  # TunedConfig.token(), None = default constants
+    mesh: str | None = None  # plan.sharded.mesh_fingerprint, None = one device unsharded
 
 
 @dataclasses.dataclass(frozen=True)
@@ -210,8 +213,124 @@ class _Captured:
     versions: tuple[int, ...]
 
 
+class CapturedForward:
+    """The executable of a plan: its wrapper loop (``_run``), called
+    eagerly, or captured as a CUDA graph at the first ``forward`` on the
+    card and replayed after. The plan class supplies ``_run``,
+    ``_bound_objects`` (what a capture reads), ``in_rows``, ``width``,
+    ``route``, ``device``, ``differentiable`` and the counters
+    (``calls``, ``replays``, ``warmups``, ``pool``, ``_compiles``,
+    ``_captured``, ``_bound``)."""
+
+    @property
+    def compile_count(self) -> int:
+        """Executables built so far: CUDA graph captures on the card; on
+        the CPU or for a differentiable plan, the one eager executable."""
+        return self._compiles
+
+    @property
+    def eager_because(self) -> str | None:
+        """Why this plan runs eagerly, or None when it captures a graph."""
+        if self.differentiable:
+            return ("differentiable: autograd records no nodes inside a replayed "
+                    "CUDA graph")
+        if self.device.type != "cuda":
+            return f"no CUDA graphs on {self.device.type}: the wrapper loop runs as it is"
+        return None
+
+    @property
+    def captured_launches(self) -> dict[str, int] | None:
+        """Per-kernel launches one replay runs (what the capture recorded)."""
+        return None if self._captured is None else dict(self._captured.launches.counts)
+
+    @property
+    def graph_launches(self) -> dict[str, int] | None:
+        """Per wrapper, the port's kernels among the captured graph's kernel
+        nodes (:func:`graph_kernel_names`): what one replay launches, read
+        from the graph itself."""
+        if self._captured is None:
+            return None
+        counts = dict.fromkeys(kernel_ops.KERNELS, 0)
+        for name in graph_kernel_names(self._captured.graph):
+            wrapper = kernel_ops.wrapper_of(name)
+            if wrapper is not None:
+                counts[wrapper] += 1
+        return counts
+
+    def _eager(self, y0: torch.Tensor) -> torch.Tensor:
+        k = y0.shape[1]
+        y = F.pad(y0, (0, self.width - k)) if k < self.width else y0
+        return self._run(y)[:, :k]
+
+    def _bound_versions(self) -> tuple[int, ...]:
+        """The in-place versions of every tensor a captured forward reads."""
+        if self._bound is None:
+            objs = {id(o): o for o in self._bound_objects()}
+            self._bound = tuple({id(t): t for o in objs.values() for t in _tensors_of(o)}.values())
+        return tuple(t._version for t in self._bound)
+
+    def _capture(self, versions: tuple[int, ...]) -> _Captured:
+        """Record :meth:`_run` into a CUDA graph (no kernel runs now)."""
+        static_in = torch.zeros((self.in_rows, self.width), dtype=torch.float32,
+                                device=self.device)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)  # kept for graph_launches
+        try:
+            with kernel_ops.recording_launches() as launches:
+                with torch.cuda.graph(graph, pool=self.pool):
+                    static_out = self._run(static_in)
+            graph.instantiate()
+        except Exception as e:  # noqa: BLE001 — any capture failure is a compile failure
+            raise PlanCaptureError(
+                f"capturing the {self.route} plan at width {self.width} as a CUDA graph "
+                f"failed: {type(e).__name__}: {e}") from e
+        return _Captured(graph, static_in, static_out, launches, versions)
+
+    def forward(self, y0: torch.Tensor) -> torch.Tensor:
+        """One forward pass of the bound stack over an (m, k) panel,
+        k ≤ the plan's width; the panel is padded to the width class.
+
+        On a CUDA device (not differentiable) the first call, and the
+        first after a bound tensor changed in place, runs eagerly and
+        captures; the others replay. A call that autograd must record
+        (grad enabled, and the panel or a bound tensor requires it) runs
+        the wrappers eagerly: a replayed graph records no autograd nodes.
+        The result is the caller's own tensor either way: a replay returns
+        a copy of the graph's output, which the next replay overwrites."""
+        m, k = y0.shape
+        if k > self.width:
+            raise ValueError(
+                f"panel width {k} exceeds this plan's width class "
+                f"{self.width}; fetch a plan for the wider class"
+            )
+        self.calls += 1
+        if self.eager_because is not None:
+            self._compiles = max(self._compiles, 1)  # the eager executable, built once
+            return self._eager(y0)
+        versions = self._bound_versions()
+        if torch.is_grad_enabled() and (y0.requires_grad
+                                        or any(t.requires_grad for t in self._bound)):
+            return self._eager(y0)
+        cap = self._captured
+        if cap is None or cap.versions != versions:
+            # the warm-up: builds what a capture must find built, and is
+            # this call's answer
+            self._captured = None
+            self.warmups += 1
+            out = self._eager(y0)
+            self._captured = self._capture(versions)
+            self._compiles += 1
+            return out
+        cap.static_in[:, :k].copy_(y0)
+        if k < self.width:
+            cap.static_in[:, k:].zero_()
+        cap.graph.replay()
+        self.replays += 1
+        kernel_ops.add_replayed(cap.launches)
+        return cap.static_out[:, :k].clone()
+
+
 @dataclasses.dataclass
-class StackPlan:
+class StackPlan(CapturedForward):
     """An execution plan for one sparse stack at one width class. The
     plan binds the (frozen) serving weights it was built from."""
 
@@ -261,41 +380,6 @@ class StackPlan:
         if self.is_fused_route:
             return 1
         return sum(1 for lp in self.layers if lp.path != "xla-dense")
-
-    @property
-    def compile_count(self) -> int:
-        """Executables built so far: CUDA graph captures on the card; on
-        the CPU or for a differentiable plan, the one eager executable."""
-        return self._compiles
-
-    @property
-    def eager_because(self) -> str | None:
-        """Why this plan runs eagerly, or None when it captures a graph."""
-        if self.differentiable:
-            return ("differentiable: autograd records no nodes inside a replayed "
-                    "CUDA graph")
-        if self.device.type != "cuda":
-            return f"no CUDA graphs on {self.device.type}: the wrapper loop runs as it is"
-        return None
-
-    @property
-    def captured_launches(self) -> dict[str, int] | None:
-        """Per-kernel launches one replay runs (what the capture recorded)."""
-        return None if self._captured is None else dict(self._captured.launches.counts)
-
-    @property
-    def graph_launches(self) -> dict[str, int] | None:
-        """Per wrapper, the port's kernels among the captured graph's kernel
-        nodes (:func:`graph_kernel_names`): what one replay launches, read
-        from the graph itself."""
-        if self._captured is None:
-            return None
-        counts = dict.fromkeys(kernel_ops.KERNELS, 0)
-        for name in graph_kernel_names(self._captured.graph):
-            wrapper = kernel_ops.wrapper_of(name)
-            if wrapper is not None:
-                counts[wrapper] += 1
-        return counts
 
     @property
     def layouts(self) -> tuple[str, ...]:
@@ -357,76 +441,13 @@ class StackPlan:
                 y = sparse_ops.dense_matmul_fused_relu(w, y, b)
         return y
 
-    def _eager(self, y0: torch.Tensor) -> torch.Tensor:
-        k = y0.shape[1]
-        y = F.pad(y0, (0, self.width - k)) if k < self.width else y0
-        return self._run(y)[:, :k]
+    def _bound_objects(self) -> tuple:
+        return self.stacked or (*self.weights, *self.biases)
 
-    def _bound_versions(self) -> tuple[int, ...]:
-        """The in-place versions of every tensor a captured forward reads."""
-        if self._bound is None:
-            objs = {id(o): o for o in (self.stacked or (*self.weights, *self.biases))}
-            self._bound = tuple({id(t): t for o in objs.values() for t in _tensors_of(o)}.values())
-        return tuple(t._version for t in self._bound)
-
-    def _capture(self, versions: tuple[int, ...]) -> _Captured:
-        """Record :meth:`_run` into a CUDA graph (no kernel runs now)."""
-        m = self.weights[0].shape[1]
-        static_in = torch.zeros((m, self.width), dtype=torch.float32, device=self.device)
-        graph = torch.cuda.CUDAGraph(keep_graph=True)  # kept for graph_launches
-        try:
-            with kernel_ops.recording_launches() as launches:
-                with torch.cuda.graph(graph, pool=self.pool):
-                    static_out = self._run(static_in)
-            graph.instantiate()
-        except Exception as e:  # noqa: BLE001 — any capture failure is a compile failure
-            raise PlanCaptureError(
-                f"capturing the {self.route} plan at width {self.width} as a CUDA graph "
-                f"failed: {type(e).__name__}: {e}") from e
-        return _Captured(graph, static_in, static_out, launches, versions)
-
-    def forward(self, y0: torch.Tensor) -> torch.Tensor:
-        """One forward pass of the bound stack over an (m, k) panel,
-        k ≤ the plan's width; the panel is padded to the width class.
-
-        On a CUDA device (not differentiable) the first call, and the
-        first after a bound tensor changed in place, runs eagerly and
-        captures; the others replay. A call that autograd must record
-        (grad enabled, and the panel or a bound tensor requires it) runs
-        the wrappers eagerly: a replayed graph records no autograd nodes.
-        The result is the caller's own tensor either way: a replay returns
-        a copy of the graph's output, which the next replay overwrites."""
-        m, k = y0.shape
-        if k > self.width:
-            raise ValueError(
-                f"panel width {k} exceeds this plan's width class "
-                f"{self.width}; fetch a plan for the wider class"
-            )
-        self.calls += 1
-        if self.eager_because is not None:
-            self._compiles = max(self._compiles, 1)  # the eager executable, built once
-            return self._eager(y0)
-        versions = self._bound_versions()
-        if torch.is_grad_enabled() and (y0.requires_grad
-                                        or any(t.requires_grad for t in self._bound)):
-            return self._eager(y0)
-        cap = self._captured
-        if cap is None or cap.versions != versions:
-            # the warm-up: builds what a capture must find built, and is
-            # this call's answer
-            self._captured = None
-            self.warmups += 1
-            out = self._eager(y0)
-            self._captured = self._capture(versions)
-            self._compiles += 1
-            return out
-        cap.static_in[:, :k].copy_(y0)
-        if k < self.width:
-            cap.static_in[:, k:].zero_()
-        cap.graph.replay()
-        self.replays += 1
-        kernel_ops.add_replayed(cap.launches)
-        return cap.static_out[:, :k].clone()
+    @property
+    def in_rows(self) -> int:
+        """Rows of the input panel."""
+        return self.weights[0].shape[1]
 
     def forward_trainable(
         self,

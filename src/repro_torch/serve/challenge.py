@@ -8,10 +8,10 @@ challenge's 60 000 inputs as columns, and the official rate metric
 
     edges × inputs / second,   edges = layers · neurons · 32
 
-Each step's output panel is reduced to its per-column activity on the
-spot; the run's answer is the challenge category set (inputs with any
-positive final activation), bit-comparable against
-``radixnet_reference``.
+A mesh makes this the sharded engine's run. Each step's output panel is
+reduced to its per-column activity on the spot; the run's answer is the
+challenge category set (inputs with any positive final activation),
+bit-comparable against ``radixnet_reference``.
 """
 
 from __future__ import annotations
@@ -64,6 +64,7 @@ def run_challenge(
     batch_align: int = 32,
     density: float = 0.3,
     seed: int = 0,
+    mesh: Any = None,
     use_resident: bool | None = None,
     engine: SparseDNNEngine | None = None,
     warmup: bool = True,
@@ -77,8 +78,10 @@ def run_challenge(
     ``engine``: a prebuilt engine (with a fault injector, a shared plan
     cache, ...) that serves the spec's topology; it brings its own
     device. By default ``run_challenge`` builds one from ``radixnet_weights``
-    (``block_size``) on ``device`` (default: the GPU, raising if there is
-    none) with ``use_resident``, ``tuning_table`` (a hit on this spec's
+    (``block_size``) on ``device`` (default: the mesh's device, else the
+    GPU, raising if there is none) with ``mesh`` (a
+    :class:`repro_torch.launch.mesh.Mesh`: serve sharded), ``use_resident``,
+    ``tuning_table`` (a hit on this spec's
     fingerprint retunes every panel's plan) and ``panel_dtype``
     (``"bfloat16"`` panels for the fused routes, over any hit's).
     ``warmup`` first runs one untimed
@@ -87,12 +90,13 @@ def run_challenge(
     the CUDA graph capture.
     """
     if engine is None:
-        device = resolve_device(device)
+        device = resolve_device(mesh.device if device is None and mesh is not None else device)
         weights, biases = rx.radixnet_weights(spec, block_size=block_size, device=device)
         engine = SparseDNNEngine(
             weights,
             biases,
             batch_align=batch_align,
+            mesh=mesh,
             use_resident=use_resident,
             device=device,
             tuning_table=tuning_table,

@@ -6,15 +6,17 @@ Requests are feature columns. ``submit(cols)`` stages columns,
 what is staged, ``drain()`` steps until the stage is empty and
 ``infer(y0)`` is the one-shot form; the step API is what
 ``repro_torch.serve.scheduler.ContinuousBatcher`` drives. Every step
-fetches a :class:`~repro_torch.plan.StackPlan` for its padded width from
-the engine's plan cache through the degradation ladder (resident →
-layered) and runs it: on the card the plan's first panel captures a
-CUDA graph and later panels of that width class replay it. Step stats
-report exact launch accounting.
+fetches a plan for its padded width from the engine's plan cache
+through the degradation ladder (sharded → resident → layered) and runs
+it: on the card the plan's first panel captures a CUDA graph and later
+panels of that width class replay it. Step stats report exact launch
+accounting.
 
 Fault handling, as the reference's: a ``fault_injector`` is polled at
-the engine's sites (panel-nans, step-transient, plan-compile,
-cache-eviction), keyed by the dispatch ordinal; transient step failures
+the engine's sites (cache-eviction, shard-failure, panel-nans,
+plan-compile, step-transient), keyed by the dispatch ordinal; a shard
+failure marks the ladder's ``sharded`` level unhealthy, so the panel and
+those after it serve one level down; transient step failures
 are retried up to ``max_step_retries`` times with exponential backoff on
 ``clock``; an exhausted panel fails gracefully (``step`` returns
 ``(None, stats)`` naming the lost request ids); output columns that are
@@ -33,8 +35,9 @@ serves the fused routes on bf16 activation panels, on top of any hit
 (bf16 panels also move the resident↔tiled boundary).
 ``differentiable=True`` serves a forward that autograd can go through:
 the plans route around the fused kernels (they have no backward) and run
-eagerly. The reference engine's ``mesh=`` is not taken (ROADMAP Queue 1
-item 5).
+eagerly. ``mesh`` (a :class:`repro_torch.launch.mesh.Mesh`) serves the
+stack sharded (:class:`repro_torch.plan.ShardedStackPlan`): the same
+outputs, with per-shard bills in the step stats.
 """
 
 from __future__ import annotations
@@ -47,9 +50,10 @@ import torch
 from repro_torch.core.dnn import Weight
 from repro_torch.device import resolve_device, to_device
 from repro_torch.kernels import DEFAULT_BLOCK_N
+from repro_torch.launch.mesh import normalized_device
 from repro_torch.plan import routes as _routes
 from repro_torch.plan.cache import PlanCache
-from repro_torch.plan.degrade import LEVEL_LAYERED, DegradationLadder
+from repro_torch.plan.degrade import LEVEL_LAYERED, LEVEL_SHARDED, DegradationLadder
 from repro_torch.plan.stack_plan import PlanCaptureError, topology_fingerprint
 from repro_torch.serve.clock import WALL_CLOCK
 from repro_torch.testing import faults as _faults
@@ -68,9 +72,12 @@ class SparseDNNEngine:
     stack is eligible, True demands them, False forces the layered
     kernels. ``differentiable``: serve only routes autograd can go
     through (never the fused kernels; ``use_resident=True`` is refused).
-    ``plan_cache``: the engine's own :class:`PlanCache` (max 16) unless
-    one is shared. The fault-handling and tuning arguments are the
-    reference's, with its defaults (module docstring).
+    ``mesh``: serve sharded over the mesh's shards, on the mesh's device
+    (``device`` defaults to it; ``use_resident=True`` is refused, and the
+    sharded level serves untuned). ``plan_cache``: the engine's own
+    :class:`PlanCache` (max 16) unless one is shared. The fault-handling
+    and tuning arguments are the reference's, with its defaults (module
+    docstring).
     """
 
     weights: Sequence[Weight]
@@ -79,6 +86,7 @@ class SparseDNNEngine:
     use_resident: bool | None = None  # None = auto-detect eligibility
     device: Any = None
     differentiable: bool = False
+    mesh: Any = None
     plan_cache: PlanCache | None = None
     fault_injector: Any = None
     max_step_retries: int = 2
@@ -90,6 +98,11 @@ class SparseDNNEngine:
     panel_dtype: Any = None
 
     def __post_init__(self):
+        if self.mesh is not None:
+            if self.device is not None and normalized_device(self.device) != self.mesh.device:
+                raise ValueError(f"the engine serves on {self.device}, its mesh's shards "
+                                 f"on {self.mesh.device}")
+            self.device = self.mesh.device
         self.device = resolve_device(self.device)
         self.n_layers = len(self.weights)
         if len(self.biases) != self.n_layers:
@@ -100,6 +113,13 @@ class SparseDNNEngine:
                 "fused whole-stack kernels have no backward (no VJP). Use "
                 "use_resident=None/False to route through the layered kernels, "
                 "whose autograd Functions support torch.autograd."
+            )
+        if self.mesh is not None and self.use_resident:
+            raise ValueError(
+                "use_resident=True is incompatible with mesh=: the fused "
+                "whole-stack kernels run one unsharded stack; sharded serving "
+                "always takes the per-shard block-CSR route. Pass "
+                "use_resident=None/False."
             )
         # Layers that share one matrix object (RadiX-net phases) stay
         # shared: moved, validated and fingerprinted once each.
@@ -122,7 +142,7 @@ class SparseDNNEngine:
             fused_kw = {"block_n": self._tuned.block_n or DEFAULT_BLOCK_N,
                         "panel_dtype": self._tuned.panel_dtype,
                         "smem_limit": self._tuned.vmem_limit_bytes}
-        resident_ok = (not self.differentiable
+        resident_ok = (not self.differentiable and self.mesh is None
                        and _routes.fused_route(self.weights, **fused_kw) is not None)
         if self.use_resident and not resident_ok:
             raise ValueError(
@@ -142,7 +162,7 @@ class SparseDNNEngine:
         if self.plan_cache is None:
             self.plan_cache = PlanCache(max_size=16)
         self._ladder = DegradationLadder(
-            self.plan_cache, use_resident=self._resident, tuned=self._tuned
+            self.plan_cache, mesh=self.mesh, use_resident=self._resident, tuned=self._tuned
         )
         self._served = 0
         self._steps = 0
@@ -261,6 +281,11 @@ class SparseDNNEngine:
         if inj is not None:
             if inj.fires(_faults.SITE_CACHE_EVICTION, ordinal) is not None:
                 self.plan_cache.clear()  # eviction storm: every width builds again
+            spec = inj.fires(_faults.SITE_SHARD_FAILURE, ordinal)
+            if spec is not None and self.mesh is not None:
+                self._ladder.mark_unhealthy(
+                    LEVEL_SHARDED, reason=spec.get("reason", "injected shard failure"),
+                    step=ordinal)
             spec = inj.fires(_faults.SITE_PANEL_NANS, ordinal)
             if spec is not None:  # poison only real request columns, not the pad
                 yp, _ = _faults.poison_panel(yp, limit=batch, rng=inj.rng, **spec)
@@ -321,6 +346,20 @@ class SparseDNNEngine:
             col_ok = torch.isfinite(res).all(dim=0)
             if not bool(col_ok.all()):
                 quarantined = [ids[j] for j in torch.nonzero(~col_ok).flatten().tolist()]
+        plan_stats = {
+            "width_class": width,
+            "cache_hit": cache_hit,
+            "route": plan.route,
+            "compiles": plan.compile_count,
+            "level": level,
+            "degraded": level != self._ladder.preferred_level,
+            "tuned": plan.key.tuned,
+        }
+        if getattr(plan, "is_sharded", False):
+            # per-shard bills: a shard's valid blocks × column tiles; they
+            # sum to plan.grid_steps, the unsharded bill
+            plan_stats["shards"] = plan.n_shards
+            plan_stats["grid_steps_per_shard"] = list(plan.grid_steps_per_shard)
         stats = {
             "batch": batch,
             "padded_batch": width,
@@ -332,15 +371,7 @@ class SparseDNNEngine:
             "kernel_launches": plan.kernel_launches,
             "served_total": self._served,
             "engine_steps": self._steps,
-            "plan": {
-                "width_class": width,
-                "cache_hit": cache_hit,
-                "route": plan.route,
-                "compiles": plan.compile_count,
-                "level": level,
-                "degraded": level != self._ladder.preferred_level,
-                "tuned": plan.key.tuned,
-            },
+            "plan": plan_stats,
             "failed": False,
             "retries": retries,
             "quarantined_request_ids": quarantined,

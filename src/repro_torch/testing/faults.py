@@ -14,15 +14,11 @@ site                       ``when`` counter (owner)
 ``SITE_PLAN_COMPILE``      engine dispatch ordinal
 ``SITE_CACHE_EVICTION``    engine dispatch ordinal
 ``SITE_STRAGGLER``         scheduler tick (``ContinuousBatcher``)
-``SITE_SHARD_FAILURE``     (no consumer yet: sharded serving)
+``SITE_SHARD_FAILURE``     engine dispatch ordinal (a mesh engine)
 ``SITE_TRAIN_NAN_LOSS``    train step (``run_resilient_training``)
-``SITE_REPLICA_LOSS``      (no consumer yet: the serving fleet)
-``SITE_REPLICA_SLOW``      (no consumer yet: the serving fleet)
+``SITE_REPLICA_LOSS``      fleet dispatch ordinal (``FleetFrontend``)
+``SITE_REPLICA_SLOW``      fleet dispatch ordinal
 =========================  ============================================
-
-The shard and replica sites are names only until the scale-out slice
-that consumes them is ported (ROADMAP Queue 1 item 5); they are kept so
-one schedule names the same sites in both packages.
 
 A fired fault is consumed (popped) and logged in :attr:`FaultInjector.
 fired`, so one ``schedule`` call produces exactly one fault — same

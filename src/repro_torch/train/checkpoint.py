@@ -18,9 +18,10 @@
   tensors, which numpy cannot hold, are stored as float32, exactly, and
   cast back to the template's dtype on restore.
 
-Restoring places each leaf on its template leaf's device. The
-reference's ``shardings=`` (restore onto another mesh) waits for the
-port's scale-out slice.
+Restoring places each leaf on its template leaf's device, or on the
+device ``shardings=`` names for it: the reference's ``NamedSharding``
+leaves become ``torch.device`` leaves (a mesh of the port is one
+device, ``repro_torch.launch.mesh``).
 """
 
 from __future__ import annotations
@@ -128,11 +129,15 @@ def latest_step(directory: str) -> int | None:
     return steps[-1] if steps else None
 
 
-def restore(directory: str, like: Any, *, step: int | None = None) -> tuple[Any, dict]:
+def restore(
+    directory: str, like: Any, *, step: int | None = None, shardings: Any = None
+) -> tuple[Any, dict]:
     """Restore the checkpoint at ``step`` (default: the latest) into the
     structure of ``like``; returns ``(state, manifest)``. Each leaf takes
     its template leaf's dtype and device; a missing leaf raises KeyError,
-    a leaf of another shape ValueError."""
+    a leaf of another shape ValueError. ``shardings``: a tree of
+    ``like``'s structure whose leaves are the devices to restore each
+    leaf onto (the reference's elastic restore onto the current mesh)."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -140,6 +145,10 @@ def restore(directory: str, like: Any, *, step: int | None = None) -> tuple[Any,
     path = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
+    places: dict[str, torch.device] = {}
+    if shardings is not None:
+        _map_leaves(lambda key, d: places.setdefault(key, torch.device(d)),
+                    _as_tree(shardings))
     with np.load(os.path.join(path, "arrays.npz")) as arrays:
 
         def load(key, leaf):
@@ -150,7 +159,7 @@ def restore(directory: str, like: Any, *, step: int | None = None) -> tuple[Any,
                 raise ValueError(f"{key}: checkpoint shape {host.shape} != model {tuple(leaf.shape)}")
             if not isinstance(leaf, torch.Tensor):
                 return host.astype(leaf.dtype)
-            return torch.from_numpy(host).to(leaf.device, leaf.dtype)
+            return torch.from_numpy(host).to(places.get(key, leaf.device), leaf.dtype)
 
         tree = _map_leaves(load, _as_tree(like))
     return (state_from_tree(tree) if isinstance(like, SparseMLPState) else tree), manifest

@@ -68,10 +68,11 @@ def state_tree(state: SparseMLPState) -> SparseMLPState:
     """``state`` as the reference's tree of the same state: the optimizer's
     moments (flat lists here) shaped like the ``(weights, biases)`` they
     follow, as the reference's ``OptState`` holds them; a scalar moment
-    (SGD's unused ``nu``) stays as it is. What a checkpoint keys by."""
+    (SGD's unused ``nu``) stays as it is. What a checkpoint keys by, for
+    a state and for a tree of devices of the state's structure."""
 
     def shaped(moments):
-        return moments if isinstance(moments, torch.Tensor) else unflatten(state.weights, moments)
+        return unflatten(state.weights, moments) if isinstance(moments, list) else moments
 
     opt = state.opt
     return SparseMLPState(state.weights, state.biases,
@@ -103,7 +104,11 @@ def make_sparse_train_step(optimizer: Optimizer, *, use_kernel: bool = True, pla
     backward; ``False`` the plain forms (same math, plain autograd).
     ``plan``: a differentiable StackPlan for the state's topology
     (``build_plan(weights, biases, n, differentiable=True)``); its cached
-    block-CSR transposes keep every backward free of sorts. ``metrics``
+    block-CSR transposes keep every backward free of sorts. A sharded
+    plan (``build_sharded_plan(..., differentiable=True)``) runs both
+    passes per shard instead: fresh values re-shard through its frozen
+    partition each step and the gradients come back on the caller's
+    unsharded block-CSR layout, so the update is unchanged. ``metrics``
     holds the loss and the gradients' global norm as device scalars.
     """
 

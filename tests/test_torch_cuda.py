@@ -872,3 +872,139 @@ def test_resilient_training_replays_the_clean_losses_after_a_nan_fault(cuda, tmp
     _, rest = run_resilient_training(state(), batch, sgd(0.05), 8, str(tmp_path / "kill"), **kw)
     assert rest["start_step"] == 5
     assert {**part["losses"], **rest["losses"]} == clean["losses"]
+
+
+# --- the sharded stack ----------------------------------------------------
+
+
+def _sharded_stack(device, layers=3, m=512, shards=4):
+    """A seeded block-CSR stack of width ``m`` (pad slots and an empty
+    block-row in each layer's source) and a mesh of ``shards`` on the card."""
+    from repro_torch.launch.mesh import make_row_blocks_mesh
+
+    rng = np.random.default_rng(66)
+    ws = [BlockCSRMatrix.from_bsr(dataclasses.replace(w, blocks=w.blocks * 0.05))
+          for w in (_weight(rng, m, m, 16, device) for _ in range(layers))]
+    bs = [torch.full((m,), 0.01 * i, device=device) for i in range(layers)]
+    return ws, bs, make_row_blocks_mesh(shards, device=device)
+
+
+def test_a_sharded_replay_is_bit_identical_to_its_eager_forward(cuda):
+    from repro_torch.plan import build_sharded_plan
+
+    ws, bs, mesh = _sharded_stack(cuda)
+    plan = build_sharded_plan(ws, bs, 64, mesh)
+    ys = _panels(512, cuda, 3)
+    eager = [plan._eager(y) for y in ys]
+    ops.reset_launch_counts()
+    got = [plan.forward(y) for y in ys]  # warm-up and capture, then replays
+    assert plan.describe()["executable"] == "cuda-graph" and plan.compile_count == 1
+    assert plan.replays == 2 and plan.warmups == 1
+    for g, e in zip(got, eager):
+        assert torch.equal(g, e)
+    assert ops.launch_counts()["bcsr_spmm"] == 3 * plan.kernel_launches == 3 * 4 * 3
+    nonzero = {k: v for k, v in plan.graph_launches.items() if v}
+    assert nonzero == {"bcsr_spmm": plan.kernel_launches}
+    want = ys[0]
+    for w, b in zip(ws, bs):
+        want = bcsr_spmm_plain(w, want, b, fuse_bias_relu=True)
+    torch.testing.assert_close(got[0], want, **STACK_TOL)
+
+
+def test_a_rectangular_sharded_stack_runs_on_the_card(cuda):
+    """The tune arm's skewed shapes, 256 -> 128 -> 128 -> 64 rows: every
+    shard launch takes a bias of its layer's rows; the replay matches the
+    plain layers."""
+    from repro_torch.launch.mesh import make_row_blocks_mesh
+    from repro_torch.plan import build_sharded_plan
+
+    rng = np.random.default_rng(67)
+    ws = [BlockCSRMatrix.from_bsr(dataclasses.replace(w, blocks=w.blocks * 0.05))
+          for w in (_weight(rng, m, k, 16, cuda) for m, k in ((128, 256), (128, 128),
+                                                               (64, 128)))]
+    bs = [torch.full((w.shape[0],), 0.01 * i, device=cuda) for i, w in enumerate(ws)]
+    plan = build_sharded_plan(ws, bs, 64, make_row_blocks_mesh(4, device=cuda))
+    y = torch.from_numpy(rng.random((256, 64), dtype=np.float32)).to(cuda)
+    ops.reset_launch_counts()
+    got = [plan.forward(y) for _ in range(2)]  # warm-up and capture, then a replay
+    assert plan.compile_count == 1 and plan.replays == 1
+    assert ops.launch_counts()["bcsr_spmm"] == 2 * plan.kernel_launches == 2 * 4 * 3
+    assert torch.equal(got[0], got[1])
+    want = y
+    for w, b in zip(ws, bs):
+        want = bcsr_spmm_plain(w, want, b, fuse_bias_relu=True)
+    torch.testing.assert_close(got[1], want, **STACK_TOL)
+
+
+def test_an_empty_shard_launch_gives_exact_zeros(cuda):
+    """The reference's ``degenerate8`` topology: 2 stored blocks over 8
+    shards, 6 shards empty; each empty shard's launch (no epilogue) is
+    exactly 0, and the sharded forward is the unsharded one."""
+    from repro_torch.launch.mesh import make_row_blocks_mesh
+    from repro_torch.plan import build_sharded_plan
+
+    m = 64
+    dense = torch.zeros((m, m))
+    dense[:16, :32] = 0.25
+    tiny = [BlockCSRMatrix.from_dense(dense, (16, 16), device=cuda)]
+    plan = build_sharded_plan(tiny, [torch.zeros(m, device=cuda)], 8,
+                              make_row_blocks_mesh(8, device=cuda))
+    assert plan.layers[0].nnz_per_shard.count(0) == 6
+    y = torch.rand((m, 8), device=cuda) + 1.0
+    ops.reset_launch_counts()
+    for local, nnz in zip(plan.layers[0].shards, plan.layers[0].nnz_per_shard):
+        part = ops.bcsr_spmm(local, y, torch.full((m,), 3.0, device=cuda))
+        if nnz == 0:
+            assert not bool(part.any())
+    assert ops.launch_counts()["bcsr_spmm"] == 8
+    out = plan.forward(y)
+    torch.testing.assert_close(out, torch.relu(dense.to(cuda) @ y), **SPMM_TOL)
+
+
+def test_two_sharded_backward_passes_give_the_same_bits(cuda):
+    from repro_torch.core import dnn
+    from repro_torch.plan import build_sharded_plan
+
+    ws, bs, mesh = _sharded_stack(cuda)
+    plan = build_sharded_plan(ws, bs, 64, mesh, differentiable=True)
+    y = _panels(512, cuda, 1)[0]
+    targets = torch.rand((512, 64), generator=torch.Generator(device=cuda).manual_seed(3),
+                         device=cuda)
+    ops.reset_launch_counts()
+    runs = [dnn.dnn_value_and_grad(ws, bs, y, targets, plan=plan) for _ in range(2)]
+    # forward: a launch per shard per layer; backward: dX on each shard's
+    # transpose for every layer but the first
+    assert ops.launch_counts()["bcsr_spmm"] == 2 * (4 * 3 + 4 * 2)
+    (l1, (dw1, db1)), (l2, (dw2, db2)) = runs
+    assert torch.equal(l1, l2)
+    for a, b in zip(dw1, dw2):
+        assert torch.equal(a.values, b.values)
+    for a, b in zip(db1, db2):
+        assert torch.equal(a, b)
+    lp, (dwp, dbp) = dnn.dnn_value_and_grad(ws, bs, y, targets, use_kernel=False)
+    torch.testing.assert_close(l1, lp, rtol=1e-5, atol=0)
+    for a, b in zip(dw1, dwp):
+        torch.testing.assert_close(a.values, b.values, rtol=1e-4, atol=1e-6)
+
+
+def test_a_shard_failure_demotes_and_the_categories_still_match(cuda):
+    from repro_torch.launch.mesh import make_row_blocks_mesh
+    from repro_torch.serve import SparseDNNEngine
+    from repro_torch.testing import SITE_SHARD_FAILURE, FaultInjector
+
+    spec = rx.RadixNetSpec(1024, 24)
+    weights, biases = rx.radixnet_weights(spec, device=cuda)
+    inj = FaultInjector()
+    inj.schedule(SITE_SHARD_FAILURE, 1)
+    engine = SparseDNNEngine(weights, biases, batch_align=32, mesh=make_row_blocks_mesh(
+        4, device=cuda), fault_injector=inj)
+    panel = rx.radixnet_input_panel(1024, 384, density=0.3, seed=0)
+    _, want = rx.radixnet_reference(spec, panel)
+    levels, active = [], []
+    for i in range(3):
+        out, stats = engine.infer(torch.from_numpy(panel[:, 128 * i:128 * (i + 1)]).to(cuda))
+        levels.append(stats["plan"]["level"])
+        active.append((out > 0).any(dim=0).cpu().numpy())
+    assert levels == ["sharded", "layered", "layered"]
+    assert [e.level for e in engine.ladder.events] == ["sharded"]
+    np.testing.assert_array_equal(np.flatnonzero(np.concatenate(active)), want)

@@ -26,7 +26,10 @@ print(len(names), "modules", *names)
 # modules each slice added, which the walk above must reach
 SLICE_MODULES = ("repro_torch.tune.table", "repro_torch.tune.sweep",
                  "repro_torch.train.checkpoint", "repro_torch.train.fault_tolerance",
-                 "repro_torch.train.resilience")
+                 "repro_torch.train.resilience", "repro_torch.launch.mesh",
+                 "repro_torch.distribution.sharding", "repro_torch.sparse.partition",
+                 "repro_torch.plan.sharded", "repro_torch.serve.loadgen",
+                 "repro_torch.serve.fleet", "repro_torch.serve.frontend")
 
 
 def test_every_module_imports_without_jax():

@@ -4,9 +4,8 @@ Every case of the reference's ``tests/test_tune.py`` runs on both
 packages with the same stacks (``jax.random`` ones converted through
 numpy): the same tokens, table round trips and refusals, and the same
 winners on the reference's stacks; bills are compared at the port's
-16-column tile. The reference's ``test_mesh_plus_tuned_rejected`` has no
-counterpart yet: the port's plan cache takes no mesh (ROADMAP Queue 1
-item 5), which its case here pins. Then the file format both ways (the
+16-column tile; a mesh with a tuned config is refused by both caches.
+Then the file format both ways (the
 committed ``BENCH_tuning_table.json`` read by both, a table the port
 saved read by the reference), and what the port refuses by design: a
 ``block_n`` outside the wrappers' column tiles, a shared-memory budget
@@ -264,12 +263,12 @@ def test_plan_cache_tuned_untuned_non_collision():
 
 
 def test_mesh_plus_tuned_rejected():
-    """The reference refuses a mesh with a tuned config; the port's cache
-    takes no mesh at all yet (ROADMAP Queue 1 item 5)."""
+    """Both caches refuse a mesh with a tuned config: the sharded plans
+    take no tuning knobs."""
     (jws, jbs), (ws, bs) = _square_stack(jax.random.PRNGKey(3))
     with pytest.raises(ValueError, match="single-device"):
         JP.PlanCache().get(jws, jbs, 32, mesh=object(), tuned=JTuned(block_n=64))
-    with pytest.raises(TypeError, match="mesh"):
+    with pytest.raises(ValueError, match="single-device"):
         P.PlanCache().get(ws, bs, 32, mesh=object(), tuned=TunedConfig(block_n=8))
 
 

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's GraphChallenge, GraphBLAS, training, tuning,
-sharded and fleet paths on one GPU.
+sharded, fleet and model-stack (LLM serving) paths on one GPU.
 
     python3 chip_smoke.py        # from the repository root, on a CUDA host
 
@@ -155,6 +155,31 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    replays; the same trace with replica 0 lost at dispatch 100 drops no
    admitted job; every served job's categories in both runs against the
    numpy oracle.
+19. llm-serve — Llama-3.2-1B at its published dimensions (``LLM_SERVE``):
+   ``Model.init`` draws the 1.236e9 f32 parameters on the card from a
+   seeded generator; ``Engine(batch_size=4, cache_len=128,
+   temperature=0.0)`` casts its bf16 serving copy once; two ``generate``
+   calls of 32 tokens for a seeded 4 × 32 prompt panel must agree; the
+   first token must be the argmax of ``Model.forward``'s last prompt
+   position, ``decode_step``'s logits at position 32 must match
+   ``forward`` at 32 within the reference's rtol = atol = 2e-2, and the
+   cache must hold the bytes its shapes give (16 785 408). Prints prefill
+   ms, decode ms a step (host clock after ``synchronize``, median of 8),
+   the step's kernel time (``torch.profiler``, kernel rows only), its
+   bound (the serving copy and the cache read once), tokens/s and peak
+   memory.
+20. model-mlp — the paper's MLP through ``Model`` (``MODEL_MLP``:
+   ``graphblas_mlp.make_config(m=8192, num_layers=8, inverse_sparsity=16,
+   block=128)``, 4 blocks of 128 × 128 a block-row): ``init``,
+   ``sparsify``, ``forward`` on 64 U[0, 1) feature vectors: 8
+   ``bsr_spmm`` launches, all at the re-tiled 64 × 64 blocks, the output
+   against ``Model(cfg, use_kernel=False)`` on the same params by the
+   stack criterion (``STACK_RTOL`` and ``f32_chain_bound``).
+21. llm-sparse — llm-serve's weights with every FFN projection
+   block-pruned to 4 blocks of 128 × 128 a block-row (``SparsityConfig``,
+   ``Model.sparsify``), cast to bf16: a 4 × 32 ``prefill`` launches 48
+   ``bsr_spmm`` (3 a layer; bf16 operands read as f32 by ``linear``) and
+   its logits match ``use_kernel=False`` within 2e-2.
 
 Every engine plan on the card captures its forward as a CUDA graph at
 its first panel (an eager warm-up, then the capture) and replays it for
@@ -168,7 +193,7 @@ same layer loop called eagerly through ``kernel_ops`` from this script,
 interleaved, five times each, beside the kernels' CUDA-event time
 (``host_share``).
 
-Launch counts are reset to 0 right before each of phases 3-18 and read
+Launch counts are reset to 0 right before each of phases 3-21 and read
 right after (for 8, 9 and 17, around the train steps; for 18, around
 each run of the trace). The ``kernels`` line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}`` close the run. Numbers are this run's
@@ -257,6 +282,24 @@ FLEET = dict(neurons=1024, layers=120, replicas=3,
              rate_factor=4.0, duration=8.0, width_mix=((4, 0.7), (24, 0.3)),
              width_classes=(8, 24), deadline_s=0.05, max_pending_cols=2048, seed=17,
              loss_at=100)
+# the model-stack phases: Llama-3.2-1B at its published dimensions (random
+# weights from MODEL_SEED), served 4 prompts of 32 tokens into a 128-position
+# cache, 32 new tokens; the paper's MLP at the Fig. 5 point m = 8192,
+# inverse sparsity 16 (4 blocks of 128 x 128 a block-row); the same Llama with
+# its FFNs block-pruned to 4 blocks of 128 x 128 a block-row
+MODEL_SEED = 0
+LLM_SERVE = dict(arch="llama3.2-1b", batch=4, prompt_len=32, new_tokens=32, cache_len=128,
+                 seed=MODEL_SEED)
+MODEL_MLP = dict(m=8192, num_layers=8, inverse_sparsity=16, block=128, batch=64,
+                 seed=MODEL_SEED)
+LLM_SPARSE = dict(arch="llama3.2-1b", batch=4, prompt_len=32, block=128, blocks_per_row=4,
+                  seed=MODEL_SEED)
+# logits, per row: max|got - want| <= tol x max|want|. bf16 compute: 2e-2 (the
+# reference's decode/forward tolerance, tests/test_arch_smoke.py, taken against
+# the row's scale: at published width two bf16 forwards of 32 and 33 tokens
+# already differ by 1.2% of it at one position, 0.05 on logits up to ~5, so
+# its elementwise form cannot hold); f32 compute on the same weights: 1e-4
+LLM_TOL, LLM_F32_TOL = 2e-2, 1e-4
 WIDTH_CLASSES = (64, 128, 256, 512)
 HOST_SHARE_REPEATS = 5  # captured and eager forwards, interleaved
 # the graphblas phase's adjacency: random_skewed(SKEWED_SEED, (m, m), (16, 16), blocks, skew)
@@ -2321,6 +2364,287 @@ def phase_fleet(neurons, layers, replicas, profile, rate_factor, duration, width
     }
 
 
+# --- the model stack (Llama-3.2-1B at published width, the paper's MLP) ---------
+
+
+def device_ms_per_call(fn, calls: int, kernel: str = "") -> float | None:
+    """Kernel time on the card per call of ``fn`` (of the kernels whose
+    name holds ``kernel``, or all), summed from a ``torch.profiler`` trace
+    of ``calls`` calls; None when the trace holds no such device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    # the kernels' own rows (an op's row repeats its kernels' time)
+    total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key)
+    return total_us / 1e3 / calls if total_us > 0 else None
+
+
+def row_rel(got, want) -> float:
+    """The worst row's max |got - want| over that row's max |want| (rows
+    along the last axis)."""
+    got, want = got.float(), want.float()
+    return float(((got - want).abs().amax(dim=-1) / want.abs().amax(dim=-1)).max())
+
+
+def synced_ms(fn) -> tuple[float, object]:
+    """Host milliseconds of ``fn()`` up to the card's end of its work."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0), out
+
+
+def phase_llm_serve(arch: str, batch: int, prompt_len: int, new_tokens: int, cache_len: int,
+                    seed: int) -> tuple[dict, object]:
+    """The LLM serving path at published width: ``Model.init`` on the card,
+    ``Engine`` (bf16 serving copy), two greedy ``generate`` calls, the first
+    token against ``forward``'s argmax, a decode step's logits against
+    ``forward`` (the reference's 2e-2), the cache's bytes against the count
+    from shapes; prefill and decode times, the decode step's bound and its
+    kernels' share (profiler). Returns the f32 params for ``llm-sparse``."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+    from repro_torch.serve.engine import Engine, cache_nbytes
+
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(arch)
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(seed), device=dev)
+    engine = Engine(model, params, batch_size=batch, cache_len=cache_len, temperature=0.0)
+    torch.cuda.synchronize()
+    build_seconds = time.perf_counter() - t0
+    n_params = model.param_count()
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(seed + 1))
+
+    ops.reset_launch_counts()
+    gen_ms, (tokens, stats) = synced_ms(lambda: engine.generate(prompts, new_tokens))
+    gen2_ms, (tokens2, _) = synced_ms(lambda: engine.generate(prompts, new_tokens))
+    launches = ops.launch_counts()
+    check(torch.equal(tokens, tokens2), "two greedy generate calls differ")
+    check(tuple(tokens.shape) == (batch, new_tokens), tokens.shape)
+
+    seq = torch.cat([prompts, tokens[:, :1]], dim=1)  # the prompt and its first token
+    full = model.forward(engine.params, seq)
+    check(bool(torch.isfinite(full).all()), "non-finite forward logits")
+    check(torch.equal(tokens[:, 0], torch.argmax(full[:, prompt_len - 1], dim=-1).to(torch.int32)),
+          ("first token", tokens[:, 0].tolist()))
+    cache = model.init_cache(batch, cache_len)
+    prefill_ms, (_, cache) = synced_ms(lambda: model.prefill(engine.params, prompts, cache))
+    step_ms = []
+    dec = None
+    for i in range(8):  # decode at prompt_len .. prompt_len + 7, timed one by one
+        ms, (dec_i, cache_i) = synced_ms(
+            lambda: model.decode_step(engine.params, tokens[:, i], cache, prompt_len + i))
+        cache = cache_i
+        step_ms.append(ms)
+        if i == 0:
+            dec = dec_i
+    want = full[:, prompt_len]
+    dec_err = {"row_rel": row_rel(dec, want),
+               "max_abs": float((dec.float() - want.float()).abs().max()),
+               "elementwise_2e-2": bool(torch.allclose(dec.float(), want.float(),
+                                                       rtol=LLM_TOL, atol=LLM_TOL)),
+               # the bf16 floor: the same position from a forward one token shorter
+               "forward_32_vs_33": row_rel(model.forward(engine.params, prompts)[:, -1],
+                                           full[:, prompt_len - 1])}
+    check(dec_err["row_rel"] <= LLM_TOL, ("decode_step vs forward, bf16", dec_err))
+    # the cache path at f32 compute on the f32 weights: the same check, tight
+    model32 = Model(dataclasses.replace(cfg, compute_dtype="float32"))
+    full32 = model32.forward(params, seq)
+    _, cache32 = model32.prefill(params, prompts, model32.init_cache(batch, cache_len))
+    dec32, _ = model32.decode_step(params, tokens[:, 0], cache32, prompt_len)
+    dec_err["f32_row_rel"] = row_rel(dec32, full32[:, prompt_len])
+    del full32, cache32
+    check(dec_err["f32_row_rel"] <= LLM_F32_TOL, ("decode_step vs forward, f32", dec_err))
+    a = cfg.attention  # keys and values in bf16, and int32 positions, a layer
+    expect_bytes = cfg.num_layers * cache_len * (2 * batch * a.num_kv_heads * a.head_dim * 2 + 4)
+    check(stats["cache_bytes"] == expect_bytes, (stats["cache_bytes"], expect_bytes))
+
+    cache = model.prefill(engine.params, prompts, model.init_cache(batch, cache_len))[1]
+    kernel_ms = device_ms_per_call(
+        lambda: model.decode_step(engine.params, tokens[:, 0], cache, prompt_len), 4)
+    weight_bytes = cache_nbytes(engine.params)
+    bms, by = bound(weight_bytes + stats["cache_bytes"], 2.0 * n_params * batch)
+    step = statistics.median(step_ms)
+    return {
+        "arch": arch, "params": n_params, "param_gb_f32": cache_nbytes(params) / 1e9,
+        "serving_copy_gb": weight_bytes / 1e9, "build_seconds": build_seconds,
+        "batch": batch, "prompt_len": prompt_len, "new_tokens": new_tokens,
+        "cache_len": cache_len, "cache_bytes": stats["cache_bytes"],
+        "generate_ms": [gen_ms, gen2_ms],
+        "tokens_per_s": stats["generated_tokens"] / (min(gen_ms, gen2_ms) / 1e3),
+        "prefill_ms": prefill_ms, "decode_step_ms": step, "decode_step_ms_all": step_ms,
+        "decode_kernel_ms": kernel_ms,
+        "decode_host_share": None if kernel_ms is None else 1 - kernel_ms / step,
+        "decode_bound_ms": bms, "decode_bound_by": by,
+        "decode_vs_forward": dec_err, "tolerance": {"bf16": LLM_TOL, "f32": LLM_F32_TOL},
+        "first_tokens": tokens[:, :8].tolist(), "launches": launches,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }, params
+
+
+def phase_model_mlp(m: int, num_layers: int, inverse_sparsity: int, block: int, batch: int,
+                    seed: int) -> dict:
+    """The paper's MLP through ``Model``: init, ``sparsify`` (block-pruned
+    ELL), ``forward`` on U[0, 1) features — one ``bsr_spmm`` a layer, the
+    blocks re-tiled — against the same params on the plain products
+    (``use_kernel=False``) by the stack criterion."""
+    import torch
+
+    from repro_torch.configs import graphblas_mlp
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+    from repro_torch.models.layers import tree_index
+
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    cfg = graphblas_mlp.make_config(m=m, num_layers=num_layers,
+                                    inverse_sparsity=inverse_sparsity, block=block)
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.sparsify(model.init(torch.Generator(device=dev).manual_seed(seed),
+                                       device=dev))
+    torch.cuda.synchronize()
+    build_seconds = time.perf_counter() - t0
+    x = torch.rand((batch, m), generator=torch.Generator(device=dev).manual_seed(seed + 1),
+                   device=dev)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        got = model.forward(params, x)
+    torch.cuda.synchronize()
+    launches, shapes = ops.launch_counts(), ops.launched_block_shapes()
+    check(launches["bsr_spmm"] == num_layers and sum(launches.values()) == num_layers, launches)
+    check(shapes.get("bsr_spmm") and all(tuple(s) == (64, 64) for s in shapes["bsr_spmm"]),
+          shapes)
+    plain = Model(cfg, use_kernel=False)
+    with torch.no_grad():
+        want = plain.forward(params, x)
+    layers = [tree_index(params["stack"]["period"][0], i)["ffn"] for i in range(cfg.n_periods)]
+    weights, biases = [f["w"] for f in layers], [f["b"] for f in layers]
+    # panel form: (m, batch) columns, as the chain bound takes them
+    g, w_ = got[:, 0].T.contiguous(), want[:, 0].T.contiguous()
+    err = errors(g, w_)
+    exact, e = f32_chain_bound(weights, biases, x.T.contiguous())
+    err["bound_share"] = float(((g.double() - w_.double()).abs() / (2 * e + STACK_ATOL)).max())
+    check(err["max_abs_err"] <= STACK_RTOL * float(w_.abs().max()), err)
+    check(err["bound_share"] <= 1.0, err)
+    check(bool(torch.isfinite(got).all()) and bool((got > 0).any()), "dead or non-finite output")
+    with torch.no_grad():
+        ms = gpu_time_ms(lambda: model.forward(params, x), per_rep=3, reps=5)
+        plain_ms = gpu_time_ms(lambda: plain.forward(params, x), per_rep=1, reps=3)
+        spmm_ms = device_ms_per_call(lambda: model.forward(params, x), 3, "bsr_spmm_kernel")
+        kernels_ms = device_ms_per_call(lambda: model.forward(params, x), 3)
+    nbytes = flops = 0.0
+    for w in weights:
+        b_, f_ = spmm_work(w, batch)
+        nbytes, flops = nbytes + b_, flops + f_
+    bms, by = bound(nbytes, flops)
+    return {
+        "config": {"m": m, "num_layers": num_layers, "inverse_sparsity": inverse_sparsity,
+                   "block": block, "blocks_per_row": cfg.sparsity.blocks_per_row,
+                   "batch": batch},
+        "build_seconds": build_seconds, **err,
+        "col_rel_err_vs_exact": {"kernel": col_rel(g.double(), exact),
+                                 "plain": col_rel(w_.double(), exact)},
+        "launches": launches,
+        "launched_block_shapes": {k: [list(s) for s in v] for k, v in shapes.items()},
+        "forward_ms": ms, "plain_forward_ms": plain_ms, "forward_kernels_ms": kernels_ms,
+        "spmm_ms_per_launch": None if spmm_ms is None else spmm_ms / num_layers,
+        "bound_ms": bms, "bound_by": by, "bound_ms_per_launch": bms / num_layers,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+
+
+def phase_llm_sparse(arch: str, params, batch: int, prompt_len: int, block: int,
+                     blocks_per_row: int, seed: int) -> dict:
+    """The paper's technique on the LLM: the llm-serve weights with every
+    FFN projection block-pruned (``SparsityConfig(targets=("ffn",))``,
+    ``Model.sparsify``), a bf16 ``prefill`` whose FFNs run on ``bsr_spmm``
+    (bf16 operands read as f32, the result cast back), against the same
+    params on the plain products (the reference's 2e-2)."""
+    import torch
+
+    from repro_torch.configs import SparsityConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model, cast_floating
+
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config(arch), sparsity=SparsityConfig(
+        (block, block), blocks_per_row=blocks_per_row, targets=("ffn",)))
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    sparse32 = model.sparsify(params)
+    sparse = cast_floating(sparse32, model.compute_dtype)
+    torch.cuda.synchronize()
+    build_seconds = time.perf_counter() - t0
+    w_in = sparse["stack"]["period"][0]["ffn"]["w_in"]
+    check(w_in.dtype == torch.bfloat16 and tuple(w_in.blocks.shape[:2]) == (
+        cfg.n_periods, cfg.d_ff // block), (w_in.dtype, w_in.blocks.shape))
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(seed + 1))
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        got, _ = model.prefill(sparse, prompts, model.init_cache(batch, prompt_len))
+    torch.cuda.synchronize()
+    launches, shapes = ops.launch_counts(), ops.launched_block_shapes()
+    n_ffn = 3 * cfg.num_layers
+    check(launches["bsr_spmm"] == n_ffn and sum(launches.values()) == n_ffn, launches)
+    plain = Model(cfg, use_kernel=False)
+    with torch.no_grad():
+        want, _ = plain.prefill(sparse, prompts, plain.init_cache(batch, prompt_len))
+    check(got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all()), got.dtype)
+    err = {"row_rel": row_rel(got, want), "max_abs": float((got.float() - want.float()).abs().max()),
+           "elementwise_2e-2": bool(torch.allclose(got.float(), want.float(), rtol=LLM_TOL,
+                                                   atol=LLM_TOL))}
+    check(err["row_rel"] <= LLM_TOL, ("sparse prefill vs plain, bf16", err))
+    # the same at f32 compute (f32 weights: the kernels take them as they are)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    ops.reset_launch_counts()
+    model32, plain32 = Model(cfg32), Model(cfg32, use_kernel=False)
+    with torch.no_grad():
+        got32, _ = model32.prefill(sparse32, prompts, model32.init_cache(batch, prompt_len))
+        want32, _ = plain32.prefill(sparse32, prompts, plain32.init_cache(batch, prompt_len))
+    check(ops.launch_counts()["bsr_spmm"] == n_ffn, ops.launch_counts())
+    err["f32_row_rel"] = row_rel(got32, want32)
+    check(err["f32_row_rel"] <= LLM_F32_TOL, ("sparse prefill vs plain, f32", err))
+
+    def run(m):
+        return lambda: m.prefill(sparse, prompts, m.init_cache(batch, prompt_len))
+
+    with torch.no_grad():
+        ms = gpu_time_ms(run(model), per_rep=1, reps=5)
+        plain_ms = gpu_time_ms(run(plain), per_rep=1, reps=3)
+        spmm_ms = device_ms_per_call(run(model), 2, "bsr_spmm_kernel")
+        kernels_ms = device_ms_per_call(run(model), 2)
+    return {
+        "arch": cfg.name, "sparsity": dataclasses.asdict(cfg.sparsity),
+        "ffn_gb_bf16": sum(sparse["stack"]["period"][0]["ffn"][k].nbytes
+                           for k in ("w_in", "w_gate", "w_out")) / 1e9,
+        "build_seconds": build_seconds, "batch": batch, "prompt_len": prompt_len,
+        "vs_plain": err, "max_abs_logit": float(want.float().abs().max()),
+        "tolerance": {"bf16": LLM_TOL, "f32": LLM_F32_TOL}, "launches": launches,
+        "launched_block_shapes": {k: [list(s) for s in v] for k, v in shapes.items()},
+        "prefill_ms": ms, "plain_prefill_ms": plain_ms, "prefill_kernels_ms": kernels_ms,
+        "spmm_ms_per_launch": None if spmm_ms is None else spmm_ms / n_ffn,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -2392,6 +2716,13 @@ def main() -> int:
     emit({"phase": "sharded-train", **sharded_train})
     fleet = phase_fleet(**FLEET)
     emit({"phase": "fleet", **fleet})
+    llm, llm_params = phase_llm_serve(**LLM_SERVE)
+    emit({"phase": "llm-serve", **llm})
+    mlp = phase_model_mlp(**MODEL_MLP)
+    emit({"phase": "model-mlp", **mlp})
+    llm_sparse = phase_llm_sparse(params=llm_params, **LLM_SPARSE)
+    del llm_params
+    emit({"phase": "llm-sparse", **llm_sparse})
 
     by_phase = {"serve": serve["launches"], "layered": layered["launches"],
                 "tiled": tiled["launches"], "dense": dense["launches"],
@@ -2403,7 +2734,8 @@ def main() -> int:
                 "serve-bf16": bf16["launches"], "tune": tune["launches"],
                 "serve-tuned": served["launches"], "train-resilient": resilient["launches"],
                 "sharded": sharded["launches"], "sharded-train": sharded_train["launches"],
-                "fleet": fleet["launches"]}
+                "fleet": fleet["launches"], "llm-serve": llm["launches"],
+                "model-mlp": mlp["launches"], "llm-sparse": llm_sparse["launches"]}
     checks = {name: "max|kernel - plain| <= 1e-5 |plain| + 1e-6 (f32 order)"
               for name in ("semiring_matmul", "bsr_spmm", "bcsr_spmm")}
     checks.update({name: "stack: <= 1e-4 max|plain|, each entry within 2x the f32 bound, "

@@ -16,7 +16,9 @@ returns the port's tensors on ``device``:
 * :func:`weight` — a layer weight of either class, or a dense array;
 * :func:`cotangent` — a reference gradient of a weight in the port's
   class: its value leaf, with the topology of the port's primal (the
-  reference's topology leaves are ``float0`` and carry nothing).
+  reference's topology leaves are ``float0`` and carry nothing);
+* :func:`model_params` — a ``repro.models`` params tree (dicts and lists
+  of arrays, sparse FFN weights stacked or not) as the port's tree.
 """
 
 from __future__ import annotations
@@ -93,3 +95,14 @@ def cotangent(obj, like, *, device="cpu"):
     if hasattr(like, "block_mask"):
         return dataclasses.replace(like, blocks=_t(obj.blocks, np.float32, device))
     return _t(obj, np.float32, device)
+
+
+def model_params(tree, *, device="cpu"):
+    """The reference's model params tree as the port's: the same dicts
+    and lists, each leaf through :func:`weight` (a stacked sparse weight
+    keeps its leading layer axis; arrays become float32 tensors)."""
+    if isinstance(tree, dict):
+        return {k: model_params(v, device=device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [model_params(v, device=device) for v in tree]
+    return weight(tree, device=device)

@@ -1,0 +1,490 @@
+"""Attention mixers — counterpart of ``repro/models/attention.py``: GQA
+(full / sliding-window, QK-norm, bias) and MLA (DeepSeek-V2 latent
+attention), train, prefill and decode paths.
+
+The same arithmetic as the reference, in einsums over tensors (no fused
+attention call): scores and probabilities are stored in the working
+(compute) dtype and only the softmax runs in f32 (``_attend``); the
+streaming form keeps an online softmax over k-tiles in f32 and skips
+tiles the causal / window mask leaves dead (``_attend_streaming``).
+
+Decode semantics: the KV cache is a fixed-size buffer (a ring buffer for
+windowed layers) with an explicit ``positions`` track; batch entries
+decode at a shared position. A full-attention layer writes a position
+past its buffer into the last slot, as the reference's
+``dynamic_update_slice`` clamps its start index. MLA decode uses the
+absorbed formulation: only the (kv_lora + rope) latents are cached and
+the up-projections fold into the query and output sides.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import AttentionConfig
+from repro_torch.models.layers import Init, dense_init, init_rms_norm, rms_norm, rounded
+
+Params = dict[str, Any]
+
+_NEG_INF = -1e30
+
+
+# --- RoPE -------------------------------------------------------------------
+
+
+def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return theta ** (-torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
+                     / head_dim)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (B, S, H, hd); positions: (B, S) or (S,)."""
+    hd = x.shape[-1]
+    freqs = rope_frequencies(hd, theta, x.device)  # (hd/2,)
+    angles = positions[..., None].float() * freqs  # (B,S,hd/2)
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# --- shared attention core ---------------------------------------------------
+
+
+def _repeat_kv(k: torch.Tensor, v: torch.Tensor, h: int):
+    """KV heads repeated up to the query-head count (``jnp.repeat``)."""
+    hkv = k.shape[2]
+    if hkv != h:
+        k = k.repeat_interleave(h // hkv, dim=2)
+        v = v.repeat_interleave(h // hkv, dim=2)
+    return k, v
+
+
+def _attend(
+    q: torch.Tensor,  # (B, T, H, hd)
+    k: torch.Tensor,  # (B, S, Hkv, hd)
+    v: torch.Tensor,  # (B, S, Hkv, dv)
+    mask: torch.Tensor,  # (B, T, S) or (T, S) boolean (True = attend)
+    *,
+    scale: float,
+    q_chunk: int = 1024,
+) -> torch.Tensor:
+    """Grouped scaled-dot-product attention, f32 softmax, query-chunked so
+    the score matrix never exceeds (chunk × S) per head. Scores and
+    probabilities are stored in the working dtype (the compute dtype);
+    the softmax normalisation runs in f32."""
+    b, t, h, _ = q.shape
+    k, v = _repeat_kv(k, v, h)
+    if mask.dim() == 2:
+        mask = mask[None].expand(b, t, mask.shape[-1])
+    wdt = q.dtype
+    scale_w = rounded(scale, wdt)  # the reference scales by the scale in wdt
+
+    def block(qb, mb):  # (B, tc, H, hd), (B, tc, S)
+        scores = torch.einsum("bthd,bshd->bhts", qb, k) * scale_w
+        scores = torch.where(mb[:, None], scores, _NEG_INF)
+        m = torch.amax(scores, dim=-1, keepdim=True).detach().float()
+        e = torch.exp(scores.float() - m)
+        w = (e / torch.sum(e, dim=-1, keepdim=True)).to(wdt)
+        return torch.einsum("bhts,bshd->bthd", w, v)
+
+    if t <= q_chunk:
+        out = block(q, mask)
+    else:
+        out = torch.cat([block(q[:, i:i + q_chunk], mask[:, i:i + q_chunk])
+                         for i in range(0, t, q_chunk)], dim=1)
+    return out.to(q.dtype)
+
+
+def _attend_streaming(
+    q: torch.Tensor,  # (B, T, H, hd)
+    k: torch.Tensor,  # (B, S, Hkv, hd)
+    v: torch.Tensor,  # (B, S, Hkv, dv)
+    *,
+    scale: float,
+    causal_offset: int = 0,  # absolute position of q[0] minus k[0]
+    window: int = 0,
+    q_chunk: int = 1024,
+    k_chunk: int = 1024,
+) -> torch.Tensor:
+    """Flash-attention-2 style streaming attention: an online softmax over
+    k-tiles in f32, so full (T, S) score matrices never exist. The tiles a
+    query chunk covers are those the causal / window mask leaves alive,
+    ``[max(0, lo − window + 1) … hi]``; dead tiles are never computed."""
+    b, t, h, _ = q.shape
+    k, v = _repeat_kv(k, v, h)
+    s = k.shape[1]
+    dv = v.shape[-1]
+    nq = -(-t // q_chunk)
+    nk_total = -(-s // k_chunk)
+    # a ragged last k-tile: the keys are zero-padded to whole tiles and
+    # the pad (positions >= s) is masked. The reference slices the tile
+    # at full length from a clamped start, which labels its keys with the
+    # wrong positions; the port keeps the block path's answer
+    pad = nk_total * k_chunk - s
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    kf, vf = k.float(), v.float()
+    outs = []
+    for i in range(nq):
+        q_lo = i * q_chunk
+        q_hi = min(t, q_lo + q_chunk) - 1
+        qb = q[:, q_lo:q_hi + 1].float()
+        tc = qb.shape[1]
+        k_hi_tile = min(nk_total, (q_hi + causal_offset) // k_chunk + 1)
+        k_lo_tile = 0
+        if window:
+            k_lo_tile = max(0, (q_lo + causal_offset - window + 1) // k_chunk)
+        acc = torch.zeros((b, h, tc, dv), dtype=torch.float32, device=q.device)
+        m_run = torch.full((b, h, tc), -math.inf, dtype=torch.float32, device=q.device)
+        l_run = torch.zeros((b, h, tc), dtype=torch.float32, device=q.device)
+        qpos = causal_offset + q_lo + torch.arange(tc, device=q.device)[:, None]
+        for kt in range(k_lo_tile, k_hi_tile):
+            kb, vb = kf[:, kt * k_chunk:(kt + 1) * k_chunk], vf[:, kt * k_chunk:(kt + 1) * k_chunk]
+            sc = torch.einsum("bthd,bshd->bhts", qb, kb) * scale
+            kpos = kt * k_chunk + torch.arange(k_chunk, device=q.device)[None, :]
+            ok = kpos <= qpos
+            if window:
+                ok &= (qpos - kpos) < window
+            sc = torch.where(ok, sc, _NEG_INF)
+            m_new = torch.maximum(m_run, torch.amax(sc, dim=-1))
+            p = torch.exp(sc - m_new[..., None])
+            corr = torch.exp(m_run - m_new)
+            l_run = l_run * corr + torch.sum(p, dim=-1)
+            acc = acc * corr[..., None] + torch.einsum("bhts,bshd->bhtd", p, vb)
+            m_run = m_new
+        out = acc / torch.clamp_min(l_run[..., None], 1e-30)
+        outs.append(out.transpose(1, 2).to(q.dtype))  # (B, tc, H, dv)
+    return outs[0] if nq == 1 else torch.cat(outs, dim=1)
+
+
+def attend_causal(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    scale: float,
+    window: int = 0,
+    q_chunk: int = 1024,
+) -> torch.Tensor:
+    """Causal self-attention dispatch: streaming for sequences longer than
+    ``q_chunk``, the single-block path otherwise."""
+    t = q.shape[1]
+    if t > q_chunk:
+        return _attend_streaming(q, k, v, scale=scale, window=window, q_chunk=q_chunk)
+    return _attend(q, k, v, causal_mask(t, window, q.device), scale=scale, q_chunk=q_chunk)
+
+
+def causal_mask(t: int, window: int = 0, device=None) -> torch.Tensor:
+    i = torch.arange(t, device=device)[:, None]
+    j = torch.arange(t, device=device)[None, :]
+    m = j <= i
+    if window:
+        m &= (i - j) < window
+    return m
+
+
+def cache_mask(positions_in_cache: torch.Tensor, pos: int, window: int = 0) -> torch.Tensor:
+    """(S_cache,) absolute positions (−1 = empty) vs current position."""
+    m = (positions_in_cache >= 0) & (positions_in_cache <= pos)
+    if window:
+        m &= (pos - positions_in_cache) < window
+    return m
+
+
+def _write_slot(buf: torch.Tensor, new: torch.Tensor, slot: int, dim: int) -> torch.Tensor:
+    """``buf`` with ``new`` (length 1 along ``dim``) written at ``slot``,
+    out of place; a slot past the end writes the last one (the
+    reference's ``dynamic_update_slice`` clamps its start index)."""
+    slot = min(slot, buf.shape[dim] - 1)
+    out = buf.clone()
+    out.narrow(dim, slot, 1).copy_(new)
+    return out
+
+
+# --- GQA ---------------------------------------------------------------------
+
+
+def init_gqa(rng: Init, cfg: AttentionConfig, d_model: int, dtype=torch.float32) -> Params:
+    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    lead = rng.lead
+    p = {
+        "w_q": dense_init(rng, d_model, h * hd, dtype).reshape(*lead, d_model, h, hd),
+        "w_k": dense_init(rng, d_model, hkv * hd, dtype).reshape(*lead, d_model, hkv, hd),
+        "w_v": dense_init(rng, d_model, hkv * hd, dtype).reshape(*lead, d_model, hkv, hd),
+        "w_o": dense_init(rng, h * hd, d_model, dtype).reshape(*lead, h, hd, d_model),
+    }
+    if cfg.qkv_bias:
+        p["b_q"] = rng.zeros((h, hd), dtype)
+        p["b_k"] = rng.zeros((hkv, hd), dtype)
+        p["b_v"] = rng.zeros((hkv, hd), dtype)
+    if cfg.qk_norm:
+        p["q_norm"] = init_rms_norm(rng, hd)
+        p["k_norm"] = init_rms_norm(rng, hd)
+    return p
+
+
+def _gqa_qkv(p: Params, cfg: AttentionConfig, x: torch.Tensor, positions, theta):
+    q = torch.einsum("bsd,dhk->bshk", x, p["w_q"])
+    k = torch.einsum("bsd,dhk->bshk", x, p["w_k"])
+    v = torch.einsum("bsd,dhk->bshk", x, p["w_v"])
+    if cfg.qkv_bias:
+        q, k, v = q + p["b_q"], k + p["b_k"], v + p["b_v"]
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
+    q = apply_rope(q, positions, theta)
+    k = apply_rope(k, positions, theta)
+    return q, k, v
+
+
+def apply_gqa(
+    p: Params,
+    cfg: AttentionConfig,
+    x: torch.Tensor,
+    *,
+    window: int = 0,
+    rope_theta: float = 0.0,
+    q_chunk: int = 1024,
+) -> torch.Tensor:
+    s = x.shape[1]
+    theta = rope_theta or cfg.rope_theta
+    positions = torch.arange(s, device=x.device)[None, :]
+    q, k, v = _gqa_qkv(p, cfg, x, positions, theta)
+    out = attend_causal(q, k, v, window=window, scale=1.0 / math.sqrt(cfg.head_dim),
+                        q_chunk=q_chunk)
+    return torch.einsum("bshk,hkd->bsd", out, p["w_o"])
+
+
+def init_gqa_cache(
+    cfg: AttentionConfig, batch: int, cache_len: int, window: int, dtype, device=None
+) -> Params:
+    size = min(cache_len, window) if window else cache_len
+    hkv, hd = cfg.num_kv_heads, cfg.head_dim
+    return {
+        "k": torch.zeros((batch, size, hkv, hd), dtype=dtype, device=device),
+        "v": torch.zeros((batch, size, hkv, hd), dtype=dtype, device=device),
+        "positions": torch.full((size,), -1, dtype=torch.int32, device=device),
+    }
+
+
+def prefill_gqa(
+    p: Params,
+    cfg: AttentionConfig,
+    x: torch.Tensor,
+    cache: Params,
+    *,
+    window: int = 0,
+    rope_theta: float = 0.0,
+    q_chunk: int = 1024,
+) -> tuple[torch.Tensor, Params]:
+    s = x.shape[1]
+    theta = rope_theta or cfg.rope_theta
+    positions = torch.arange(s, device=x.device)[None, :]
+    q, k, v = _gqa_qkv(p, cfg, x, positions, theta)
+    out = attend_causal(q, k, v, window=window, scale=1.0 / math.sqrt(cfg.head_dim),
+                        q_chunk=q_chunk)
+    size = cache["k"].shape[1]
+    if size >= s:
+        new_k, new_v = cache["k"].clone(), cache["v"].clone()
+        new_k[:, :s] = k.to(new_k.dtype)
+        new_v[:, :s] = v.to(new_v.dtype)
+        positions_c = cache["positions"].clone()
+        positions_c[:s] = torch.arange(s, dtype=torch.int32, device=x.device)
+        new_cache = {"k": new_k, "v": new_v, "positions": positions_c}
+    else:  # ring buffer smaller than the prompt: keep the last `size`
+        new_cache = {
+            "k": _ring_fill(cache["k"], k, s),
+            "v": _ring_fill(cache["v"], v, s),
+            "positions": _ring_positions(size, s, x.device),
+        }
+    return torch.einsum("bshk,hkd->bsd", out, p["w_o"]), new_cache
+
+
+def _ring_fill(buf: torch.Tensor, seq: torch.Tensor, s: int) -> torch.Tensor:
+    size = buf.shape[1]
+    last = seq[:, s - size:]
+    slots = torch.arange(s - size, s, device=buf.device) % size
+    out = buf.clone()
+    out[:, slots] = last.to(buf.dtype)
+    return out
+
+
+def _ring_positions(size: int, s: int, device=None) -> torch.Tensor:
+    pos = torch.arange(s - size, s, dtype=torch.int32, device=device)
+    out = torch.zeros((size,), dtype=torch.int32, device=device)
+    out[pos.long() % size] = pos
+    return out
+
+
+def decode_gqa(
+    p: Params,
+    cfg: AttentionConfig,
+    x: torch.Tensor,  # (B, 1, D)
+    cache: Params,
+    pos: int,  # current position
+    *,
+    window: int = 0,
+    rope_theta: float = 0.0,
+) -> tuple[torch.Tensor, Params]:
+    theta = rope_theta or cfg.rope_theta
+    positions = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
+    q, k, v = _gqa_qkv(p, cfg, x, positions, theta)
+    size = cache["k"].shape[1]
+    slot = (pos % size) if window else pos
+    k_cache = _write_slot(cache["k"], k, slot, 1)
+    v_cache = _write_slot(cache["v"], v, slot, 1)
+    positions_c = _write_slot(cache["positions"], positions[0], slot, 0)
+    mask = cache_mask(positions_c, pos, window)[None, None, :]  # (1,1,S)
+    out = _attend(q, k_cache, v_cache, mask, scale=1.0 / math.sqrt(cfg.head_dim))
+    out = torch.einsum("bshk,hkd->bsd", out, p["w_o"])
+    return out, {"k": k_cache, "v": v_cache, "positions": positions_c}
+
+
+# --- MLA (DeepSeek-V2) -------------------------------------------------------
+
+
+def init_mla(rng: Init, cfg: AttentionConfig, d_model: int, dtype=torch.float32) -> Params:
+    h = cfg.num_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    ql, kl = cfg.q_lora_rank, cfg.kv_lora_rank
+    lead = rng.lead
+    return {
+        "w_dq": dense_init(rng, d_model, ql, dtype),
+        "q_norm": init_rms_norm(rng, ql),
+        "w_uq": dense_init(rng, ql, h * (dn + dr), dtype).reshape(*lead, ql, h, dn + dr),
+        "w_dkv": dense_init(rng, d_model, kl + dr, dtype),
+        "kv_norm": init_rms_norm(rng, kl),
+        "w_uk": dense_init(rng, kl, h * dn, dtype).reshape(*lead, kl, h, dn),
+        "w_uv": dense_init(rng, kl, h * dv, dtype).reshape(*lead, kl, h, dv),
+        "w_o": dense_init(rng, h * dv, d_model, dtype).reshape(*lead, h, dv, d_model),
+    }
+
+
+def linear_(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("...i,io->...o", x, w)
+
+
+def _mla_q(p, cfg, x, positions, theta):
+    dn = cfg.qk_nope_head_dim
+    cq = rms_norm(linear_(p["w_dq"], x), p["q_norm"])
+    q = torch.einsum("bsl,lhk->bshk", cq, p["w_uq"])
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, positions, theta)
+    return q_nope, q_rope
+
+
+def _mla_latents(p, cfg, x, positions, theta):
+    kl = cfg.kv_lora_rank
+    ckv_full = linear_(p["w_dkv"], x)
+    c_kv = rms_norm(ckv_full[..., :kl], p["kv_norm"])
+    k_rope = apply_rope(ckv_full[..., kl:][:, :, None, :], positions, theta)[:, :, 0]
+    return c_kv, k_rope
+
+
+def apply_mla(
+    p: Params,
+    cfg: AttentionConfig,
+    x: torch.Tensor,
+    *,
+    q_chunk: int = 1024,
+    window: int = 0,
+    rope_theta: float = 0.0,
+) -> torch.Tensor:
+    del window  # MLA archs here are full-attention
+    b, s, _ = x.shape
+    theta = rope_theta or cfg.rope_theta
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    positions = torch.arange(s, device=x.device)[None, :]
+    q_nope, q_rope = _mla_q(p, cfg, x, positions, theta)
+    c_kv, k_rope = _mla_latents(p, cfg, x, positions, theta)
+    k_nope = torch.einsum("bsl,lhk->bshk", c_kv, p["w_uk"])
+    v = torch.einsum("bsl,lhk->bshk", c_kv, p["w_uv"])
+    k = torch.cat([k_nope, k_rope[:, :, None].expand(b, s, cfg.num_heads, dr)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    out = attend_causal(q, k, v, scale=1.0 / math.sqrt(dn + dr), q_chunk=q_chunk)
+    return torch.einsum("bshk,hkd->bsd", out, p["w_o"])
+
+
+def init_mla_cache(
+    cfg: AttentionConfig, batch: int, cache_len: int, window: int, dtype, device=None
+) -> Params:
+    del window
+    return {
+        "c_kv": torch.zeros((batch, cache_len, cfg.kv_lora_rank), dtype=dtype, device=device),
+        "k_rope": torch.zeros((batch, cache_len, cfg.qk_rope_head_dim), dtype=dtype,
+                              device=device),
+        "positions": torch.full((cache_len,), -1, dtype=torch.int32, device=device),
+    }
+
+
+def prefill_mla(
+    p: Params,
+    cfg: AttentionConfig,
+    x: torch.Tensor,
+    cache: Params,
+    *,
+    q_chunk: int = 1024,
+    window: int = 0,
+    rope_theta: float = 0.0,
+) -> tuple[torch.Tensor, Params]:
+    s = x.shape[1]
+    theta = rope_theta or cfg.rope_theta
+    out = apply_mla(p, cfg, x, q_chunk=q_chunk, window=window, rope_theta=rope_theta)
+    positions = torch.arange(s, device=x.device)[None, :]
+    c_kv, k_rope = _mla_latents(p, cfg, x, positions, theta)
+    new_cache = {name: cache[name].clone() for name in ("c_kv", "k_rope", "positions")}
+    new_cache["c_kv"][:, :s] = c_kv.to(new_cache["c_kv"].dtype)
+    new_cache["k_rope"][:, :s] = k_rope.to(new_cache["k_rope"].dtype)
+    new_cache["positions"][:s] = torch.arange(s, dtype=torch.int32, device=x.device)
+    return out, new_cache
+
+
+def decode_mla(
+    p: Params,
+    cfg: AttentionConfig,
+    x: torch.Tensor,  # (B, 1, D)
+    cache: Params,
+    pos: int,
+    *,
+    window: int = 0,
+    rope_theta: float = 0.0,
+) -> tuple[torch.Tensor, Params]:
+    """Absorbed-matrix MLA decode: scores and outputs computed against
+    the cached latents; W_uk folds into q, W_uv into the output."""
+    del window
+    theta = rope_theta or cfg.rope_theta
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    positions = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
+    q_nope, q_rope = _mla_q(p, cfg, x, positions, theta)  # (B,1,H,·)
+    c_kv_t, k_rope_t = _mla_latents(p, cfg, x, positions, theta)
+    c_kv = _write_slot(cache["c_kv"], c_kv_t, pos, 1)
+    k_rope = _write_slot(cache["k_rope"], k_rope_t, pos, 1)
+    positions_c = _write_slot(cache["positions"], positions[0], pos, 0)
+    # absorb W_uk into the query: q_abs (B,1,H,kl); f32 (the reference's
+    # promotion of its f32 query against the working-dtype weights)
+    q_abs = torch.einsum("bthk,lhk->bthl", q_nope.float(), p["w_uk"].float())
+    scores = torch.einsum("bthl,bsl->bhts", q_abs, c_kv.float()) + torch.einsum(
+        "bthk,bsk->bhts", q_rope.float(), k_rope.float())
+    scores = scores / math.sqrt(dn + dr)
+    mask = cache_mask(positions_c, pos)[None, None, None, :]
+    scores = torch.where(mask, scores, _NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    out_latent = torch.einsum("bhts,bsl->bthl", w, c_kv.float())
+    out = torch.einsum("bthl,lhk->bthk", out_latent, p["w_uv"].float())  # (B,1,H,dv)
+    out = torch.einsum("bshk,hkd->bsd", out.to(x.dtype), p["w_o"])
+    return out, {"c_kv": c_kv, "k_rope": k_rope, "positions": positions_c}
+
+
+# --- dispatch ----------------------------------------------------------------
+
+INIT = {"gqa": init_gqa, "mla": init_mla}
+APPLY = {"gqa": apply_gqa, "mla": apply_mla}
+INIT_CACHE = {"gqa": init_gqa_cache, "mla": init_mla_cache}
+PREFILL = {"gqa": prefill_gqa, "mla": prefill_mla}
+DECODE = {"gqa": decode_gqa, "mla": decode_mla}

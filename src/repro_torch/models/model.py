@@ -1,0 +1,196 @@
+"""Top-level model API — counterpart of ``repro/models/model.py``: init /
+forward / loss / prefill / decode per config.
+
+One class serves every assigned architecture (``--arch <id>``); the
+config's layer pattern decides what gets built. Entry points:
+
+  * ``init(generator, device=)``      → params (dense; ``sparsify`` opt-in)
+  * ``forward(params, inputs)``       → logits  (B, S, V)
+  * ``loss(params, batch)``           → (scalar, metrics)
+  * ``init_cache(batch, cache_len)``  → decode cache tree
+  * ``prefill(params, inputs, cache)``→ (logits, cache)
+  * ``decode_step(params, tok, cache, pos)`` → (logits, cache)
+
+Input modes: ``tokens`` (int ids → embedding table), ``embeddings``
+(float (B,S,D) — the VLM/audio frontend stub) and ``features`` (the
+paper's MLP: float (B, m) feature vectors, no embedding, logits = output
+features).
+
+``use_kernel`` is handed to every FFN ``linear``: ``None`` (default)
+runs sparse FFN weights on the SpMM kernels when the tensors are on the
+card, ``False`` on the plain products. The reference's distributed
+embedding lookup and sharding constraints are the identity and
+``table[ids]`` on one device, so the port has neither.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer as tfm
+from repro_torch.models.layers import (
+    SPARSE,
+    Init,
+    cross_entropy_loss,
+    embed_init,
+    init_rms_norm,
+    rms_norm,
+    tree_leaves,
+    tree_map,
+)
+
+Params = dict[str, Any]
+
+
+def dtype_of(name: str) -> torch.dtype:
+    """The torch dtype a config names (``"bfloat16"``, ``"float32"``)."""
+    return getattr(torch, name)
+
+
+def cast_floating(tree, dtype: torch.dtype):
+    """Floating leaves cast to ``dtype`` (a sparse weight's values through
+    ``astype``; index tensors untouched). A tensor already of ``dtype`` is
+    returned as it is, so a tree cast once casts again for free."""
+    def cast(leaf):
+        if isinstance(leaf, SPARSE):
+            return leaf.astype(dtype)
+        return leaf.to(dtype) if leaf.is_floating_point() else leaf
+
+    return tree_map(cast, tree)
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+    use_kernel: bool | None = None
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return dtype_of(self.cfg.compute_dtype)
+
+    # ------------------------------ init ------------------------------------
+    def init(self, generator: torch.Generator | None = None, *, device=None) -> Params:
+        """Parameters drawn from ``generator`` (``None``: seed 0) on
+        ``device`` (``None``: the card), where the generator must live.
+        The ``meta`` device draws shapes only and takes no generator."""
+        device = resolve_device(device)
+        if device.type == "meta":
+            generator = None
+        elif generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        elif generator.device.type != device.type:
+            raise ValueError(f"the generator is on {generator.device}, the parameters go "
+                             f"to {device}: draw them where they live")
+        rng = Init(generator, device)
+        cfg = self.cfg
+        dtype = dtype_of(cfg.param_dtype)
+        p: Params = {"stack": tfm.init_stack(rng, cfg, dtype)}
+        if cfg.input_mode == "tokens":
+            p["embed"] = embed_init(rng, cfg.vocab_size, cfg.d_model, dtype)
+        if cfg.input_mode != "features":
+            p["final_norm"] = init_rms_norm(rng, cfg.d_model)
+            if not cfg.tie_embeddings:
+                p["lm_head"] = rng.normal((cfg.d_model, cfg.vocab_size), dtype) * 0.02
+        return p
+
+    def sparsify(self, params: Params) -> Params:
+        """Apply the paper's technique: block-prune targeted weights → BSR."""
+        out = dict(params)
+        out["stack"] = tfm.sparsify_stack(params["stack"], self.cfg)
+        return out
+
+    # ----------------------------- forward ----------------------------------
+    def _embed(self, params: Params, inputs: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        if cfg.input_mode == "tokens":
+            x = params["embed"][inputs.long()]
+        elif cfg.input_mode == "embeddings":
+            x = inputs  # (B, S, D) float stub frontend
+        else:  # features — the paper's MLP operates on (B, m)
+            x = inputs[:, None, :] if inputs.dim() == 2 else inputs
+        return x.to(self.compute_dtype)
+
+    def _head(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        if cfg.input_mode == "features":
+            return x  # output features ARE the logits (vocab = m)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        if cfg.tie_embeddings:
+            return torch.einsum("bsd,vd->bsv", x, params["embed"].to(x.dtype))
+        return torch.einsum("bsd,dv->bsv", x, params["lm_head"].to(x.dtype))
+
+    def forward(self, params: Params, inputs: torch.Tensor) -> torch.Tensor:
+        return self.forward_with_aux(params, inputs)[0]
+
+    def forward_with_aux(self, params: Params,
+                         inputs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        params = cast_floating(params, self.compute_dtype)
+        x = self._embed(params, inputs)
+        x, aux = tfm.apply_stack(params["stack"], self.cfg, x, use_kernel=self.use_kernel)
+        return self._head(params, x), aux
+
+    # ------------------------------- loss -----------------------------------
+    def loss(self, params: Params, batch: dict[str, torch.Tensor]) -> tuple[torch.Tensor, dict]:
+        """batch: {"inputs": tokens/embeddings, "labels": (B, S) int}."""
+        logits, aux = self.forward_with_aux(params, batch["inputs"])
+        ce = cross_entropy_loss(logits, batch["labels"], z_loss=1e-4)
+        aux_w = self.cfg.moe.aux_loss_weight if self.cfg.moe else 0.0
+        return ce + aux_w * aux, {"ce": ce, "moe_aux": aux}
+
+    # ------------------------------ serving ---------------------------------
+    def init_cache(self, batch: int, cache_len: int, dtype=None, *, device=None) -> Params:
+        """A decode cache on ``device`` (``None``: the card)."""
+        return tfm.init_stack_cache(self.cfg, batch, cache_len, dtype or self.compute_dtype,
+                                    resolve_device(device))
+
+    def prefill(self, params: Params, inputs: torch.Tensor,
+                cache: Params) -> tuple[torch.Tensor, Params]:
+        """Process the prompt, fill the cache; logits for the LAST position."""
+        params = cast_floating(params, self.compute_dtype)
+        x = self._embed(params, inputs)
+        x, cache = tfm.prefill_stack(params["stack"], self.cfg, x, cache,
+                                     use_kernel=self.use_kernel)
+        return self._head(params, x[:, -1:]), cache
+
+    def decode_step(self, params: Params, token: torch.Tensor, cache: Params,
+                    pos) -> tuple[torch.Tensor, Params]:
+        """One new token (B,) int (or (B,1,D) embeddings) at position
+        ``pos`` (an int or a 0-d tensor)."""
+        params = cast_floating(params, self.compute_dtype)
+        if token.dim() == 1:
+            token = token[:, None]
+        x = self._embed(params, token)
+        x, cache = tfm.decode_stack(params["stack"], self.cfg, x, cache, int(pos),
+                                    use_kernel=self.use_kernel)
+        return self._head(params, x)[:, 0], cache
+
+    # ----------------------------- accounting -------------------------------
+    def param_count(self) -> int:
+        """Parameters of the dense model, counted on the ``meta`` device
+        (shapes only; no memory is allocated)."""
+        return sum(math.prod(leaf.shape) for leaf in tree_leaves(self.init(device="meta")))
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top_k + shared experts only)."""
+        cfg = self.cfg
+        total = self.param_count()
+        if cfg.moe is None:
+            return total
+        n_moe = sum(1 for s in cfg.layer_specs() if s.ffn == "moe")
+        e, k = cfg.moe.num_experts, cfg.moe.top_k
+        per_expert = cfg.d_model * cfg.moe.d_expert * (3 if cfg.glu else 2)
+        return total - n_moe * (e - k) * per_expert
+
+
+def build(name_or_cfg) -> Model:
+    if isinstance(name_or_cfg, ModelConfig):
+        return Model(name_or_cfg)
+    from repro_torch.configs import get_config
+
+    return Model(get_config(name_or_cfg))

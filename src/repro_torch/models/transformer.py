@@ -1,0 +1,372 @@
+"""Layer assembly and period stacking — counterpart of
+``repro/models/transformer.py``.
+
+A stack is ``head`` (unique leading layers) + ``n_periods`` repeats of the
+``period`` pattern + ``tail``. The parameter tree is the reference's: each
+period position's leaves are stacked on a leading ``n_periods`` axis (a
+sparse FFN weight as a stacked :class:`BlockSparseMatrix`, index and mask
+tensors included). The reference scans the period; the port loops over
+it in Python and runs layer ``i`` on views of slice ``i``
+(``tree_index``). ``remat`` has no meaning here and is ignored.
+
+Three execution paths per layer, all cache-structure compatible:
+  * ``apply_layer``   — forward without a cache; returns (x, aux_loss)
+  * ``prefill_layer`` — forward that also fills the decode cache
+  * ``decode_layer``  — single-token step against the cache
+
+The paper's technique enters through ``ffn`` weights: any FFN projection
+may be sparse (``layers.linear`` dispatch, ``sparsify_stack``), and the
+``relu_mlp`` layer kind *is* the paper's Fig. 4 layer. ``use_kernel``
+goes to every ``linear`` (``None``: the SpMM kernels on the card).
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm
+from repro_torch.models.layers import (
+    Init,
+    apply_ffn,
+    dense_init,
+    init_ffn,
+    init_rms_norm,
+    linear,
+    rms_norm,
+    sparsify_ffn,
+    tree_index,
+    tree_map,
+    tree_stack,
+)
+
+Params = dict[str, Any]
+
+
+# =============================== single layer ================================
+
+
+def init_layer(rng: Init, cfg: ModelConfig, spec: LayerSpec, dtype=torch.float32) -> Params:
+    p: Params = {}
+    d = cfg.d_model
+    if spec.mixer == "attn":
+        p["mixer_norm"] = init_rms_norm(rng, d)
+        p["mixer"] = attn.INIT[cfg.attention.kind](rng, cfg.attention, d, dtype)
+        if cfg.post_norms:
+            p["mixer_post_norm"] = init_rms_norm(rng, d)
+    elif spec.mixer == "mamba":
+        p["mixer_norm"] = init_rms_norm(rng, d)
+        p["mixer"] = ssm.init_mamba(rng, d, cfg.mamba, dtype)
+    elif spec.mixer == "rwkv":
+        p["mixer_norm"] = init_rms_norm(rng, d)
+        p["mixer"] = ssm.init_rwkv_time_mix(rng, d, cfg.rwkv, dtype)
+    elif spec.mixer != "none":
+        raise ValueError(f"unknown mixer {spec.mixer!r}")
+
+    if spec.ffn == "dense":
+        p["ffn_norm"] = init_rms_norm(rng, d)
+        p["ffn"] = init_ffn(rng, d, cfg.d_ff, cfg.glu, dtype)
+        if cfg.post_norms:
+            p["ffn_post_norm"] = init_rms_norm(rng, d)
+    elif spec.ffn == "moe":
+        p["ffn_norm"] = init_rms_norm(rng, d)
+        p["ffn"] = moe_mod.init_moe(rng, d, cfg.moe, cfg.glu, dtype)
+    elif spec.ffn == "rwkv_channel_mix":
+        p["ffn_norm"] = init_rms_norm(rng, d)
+        p["ffn"] = ssm.init_rwkv_channel_mix(rng, d, cfg.d_ff, dtype)
+    elif spec.ffn == "relu_mlp":
+        # The paper's layer: square weight + bias, no norm, no residual.
+        p["ffn"] = {"w": dense_init(rng, d, d, dtype), "b": rng.zeros((d,), dtype)}
+    elif spec.ffn != "none":
+        raise ValueError(f"unknown ffn {spec.ffn!r}")
+    return p
+
+
+def _relu_mlp(f: Params, x: torch.Tensor, use_kernel) -> torch.Tensor:
+    """The paper's Fig. 4 layer: max(x W + b, 0)."""
+    return torch.clamp_min(linear(f["w"], x, use_kernel=use_kernel) + f["b"], 0.0)
+
+
+def _apply_mixer(p: Params, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor) -> torch.Tensor:
+    h = rms_norm(x, p["mixer_norm"], cfg.norm_eps)
+    if spec.mixer == "attn":
+        out = attn.APPLY[cfg.attention.kind](p["mixer"], cfg.attention, h, window=spec.window,
+                                             rope_theta=spec.rope_theta)
+    elif spec.mixer == "mamba":
+        out, _ = ssm.apply_mamba(p["mixer"], cfg.mamba, h)
+    else:  # rwkv
+        out, _ = ssm.apply_rwkv_time_mix(p["mixer"], cfg.rwkv, h)
+    if cfg.post_norms:
+        out = rms_norm(out, p["mixer_post_norm"], cfg.norm_eps)
+    return x + out
+
+
+def _apply_ffn_block(
+    p: Params, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor, use_kernel
+) -> tuple[torch.Tensor, torch.Tensor]:
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if spec.ffn == "relu_mlp":
+        return _relu_mlp(p["ffn"], x, use_kernel), aux
+    h = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
+    if spec.ffn == "dense":
+        out = apply_ffn(p["ffn"], h, cfg.act, cfg.glu, use_kernel=use_kernel)
+    elif spec.ffn == "moe":
+        out, aux = moe_mod.apply_moe(p["ffn"], cfg.moe, h, cfg.act, cfg.glu)
+    else:  # rwkv_channel_mix
+        out, _ = ssm.apply_rwkv_channel_mix(p["ffn"], h)
+    if cfg.post_norms:
+        out = rms_norm(out, p["ffn_post_norm"], cfg.norm_eps)
+    return x + out, aux
+
+
+def apply_layer(
+    p: Params, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor, *,
+    use_kernel: bool | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward. Returns (x, moe_aux_loss)."""
+    if spec.mixer != "none":
+        x = _apply_mixer(p, cfg, spec, x)
+    if spec.ffn != "none":
+        return _apply_ffn_block(p, cfg, spec, x, use_kernel)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# ------------------------------- caches --------------------------------------
+
+
+def init_layer_cache(
+    cfg: ModelConfig,
+    spec: LayerSpec,
+    batch: int,
+    cache_len: int,
+    dtype,
+    device=None,
+) -> Params:
+    c: Params = {}
+    d = cfg.d_model
+    if spec.mixer == "attn":
+        c["attn"] = attn.INIT_CACHE[cfg.attention.kind](cfg.attention, batch, cache_len,
+                                                        spec.window, dtype, device)
+    elif spec.mixer == "mamba":
+        di = cfg.mamba.expand * d
+        c["mamba"] = {
+            "conv": torch.zeros((batch, cfg.mamba.d_conv - 1, di), dtype=dtype, device=device),
+            "ssm": torch.zeros((batch, di, cfg.mamba.d_state), dtype=torch.float32,
+                               device=device),
+        }
+    elif spec.mixer == "rwkv":
+        hd = cfg.rwkv.head_dim
+        c["rwkv"] = {
+            "shift": torch.zeros((batch, d), dtype=dtype, device=device),
+            "wkv": torch.zeros((batch, d // hd, hd, hd), dtype=torch.float32, device=device),
+        }
+    if spec.ffn == "rwkv_channel_mix":
+        c["cmix"] = {"shift": torch.zeros((batch, d), dtype=dtype, device=device)}
+    return c
+
+
+def _mixer_with_cache(
+    p: Params,
+    cfg: ModelConfig,
+    spec: LayerSpec,
+    x: torch.Tensor,
+    cache: Params,
+    pos: int | None,
+    *,
+    decode: bool,
+) -> tuple[torch.Tensor, Params]:
+    h = rms_norm(x, p["mixer_norm"], cfg.norm_eps)
+    new = dict(cache)
+    if spec.mixer == "attn":
+        kind = cfg.attention.kind
+        if decode:
+            out, new["attn"] = attn.DECODE[kind](p["mixer"], cfg.attention, h, cache["attn"],
+                                                 pos, window=spec.window,
+                                                 rope_theta=spec.rope_theta)
+        else:
+            out, new["attn"] = attn.PREFILL[kind](p["mixer"], cfg.attention, h, cache["attn"],
+                                                  window=spec.window,
+                                                  rope_theta=spec.rope_theta)
+    elif spec.mixer == "mamba":
+        state = cache["mamba"] if decode else None
+        out, new["mamba"] = ssm.apply_mamba(p["mixer"], cfg.mamba, h, state)
+    else:  # rwkv
+        state = cache["rwkv"] if decode else None
+        out, new["rwkv"] = ssm.apply_rwkv_time_mix(p["mixer"], cfg.rwkv, h, state)
+    if cfg.post_norms:
+        out = rms_norm(out, p["mixer_post_norm"], cfg.norm_eps)
+    return x + out, new
+
+
+def _ffn_with_cache(
+    p: Params,
+    cfg: ModelConfig,
+    spec: LayerSpec,
+    x: torch.Tensor,
+    cache: Params,
+    *,
+    decode: bool,
+    use_kernel,
+) -> tuple[torch.Tensor, Params]:
+    new = dict(cache)
+    if spec.ffn == "relu_mlp":
+        return _relu_mlp(p["ffn"], x, use_kernel), new
+    h = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
+    if spec.ffn == "dense":
+        out = apply_ffn(p["ffn"], h, cfg.act, cfg.glu, use_kernel=use_kernel)
+    elif spec.ffn == "moe":
+        out, _ = moe_mod.apply_moe(p["ffn"], cfg.moe, h, cfg.act, cfg.glu)
+    else:  # rwkv_channel_mix (stateful token shift)
+        state = cache["cmix"] if decode else None
+        out, new["cmix"] = ssm.apply_rwkv_channel_mix(p["ffn"], h, state)
+    if cfg.post_norms:
+        out = rms_norm(out, p["ffn_post_norm"], cfg.norm_eps)
+    return x + out, new
+
+
+def prefill_layer(
+    p: Params, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor, cache: Params, *,
+    use_kernel: bool | None = None,
+) -> tuple[torch.Tensor, Params]:
+    new = cache
+    if spec.mixer != "none":
+        x, new = _mixer_with_cache(p, cfg, spec, x, new, None, decode=False)
+    if spec.ffn != "none":
+        x, new = _ffn_with_cache(p, cfg, spec, x, new, decode=False, use_kernel=use_kernel)
+    return x, new
+
+
+def decode_layer(
+    p: Params,
+    cfg: ModelConfig,
+    spec: LayerSpec,
+    x: torch.Tensor,
+    cache: Params,
+    pos: int,
+    *,
+    use_kernel: bool | None = None,
+) -> tuple[torch.Tensor, Params]:
+    new = cache
+    if spec.mixer != "none":
+        x, new = _mixer_with_cache(p, cfg, spec, x, new, pos, decode=True)
+    if spec.ffn != "none":
+        x, new = _ffn_with_cache(p, cfg, spec, x, new, decode=True, use_kernel=use_kernel)
+    return x, new
+
+
+# ============================ stacked execution ==============================
+
+
+def init_stack(rng: Init, cfg: ModelConfig, dtype=torch.float32) -> Params:
+    """Parameters for head + stacked period + tail."""
+    stacked = rng.stacked(cfg.n_periods)
+    return {
+        "head": [init_layer(rng, cfg, s, dtype) for s in cfg.head],
+        "period": [init_layer(stacked, cfg, s, dtype) for s in cfg.period],
+        "tail": [init_layer(rng, cfg, s, dtype) for s in cfg.tail],
+    }
+
+
+def init_stack_cache(
+    cfg: ModelConfig, batch: int, cache_len: int, dtype, device=None
+) -> Params:
+    def one(spec):
+        return init_layer_cache(cfg, spec, batch, cache_len, dtype, device)
+
+    period = [tree_map(lambda a: a.expand((cfg.n_periods,) + a.shape).clone(), one(spec))
+              for spec in cfg.period]
+    return {
+        "head": [one(s) for s in cfg.head],
+        "period": period,
+        "tail": [one(s) for s in cfg.tail],
+    }
+
+
+def apply_stack(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
+                use_kernel: bool | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward through the whole stack → (x, aux_sum)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    layers = list(zip(p["head"], cfg.head))
+    for i in range(cfg.n_periods):
+        layers += [(tree_index(lp, i), spec) for lp, spec in zip(p["period"], cfg.period)]
+    layers += list(zip(p["tail"], cfg.tail))
+    for lp, spec in layers:
+        x, a = apply_layer(lp, cfg, spec, x, use_kernel=use_kernel)
+        aux = aux + a
+    return x, aux
+
+
+def _stack_with_cache(step, p: Params, cfg: ModelConfig, x: torch.Tensor,
+                      cache: Params) -> tuple[torch.Tensor, Params]:
+    """``step(layer_params, spec, x, layer_cache) -> (x, new_cache)`` over
+    head, the periods and tail; the period's new caches restacked."""
+    new_head = []
+    for lp, spec, c in zip(p["head"], cfg.head, cache["head"]):
+        x, nc = step(lp, spec, x, c)
+        new_head.append(nc)
+    new_period = cache["period"]
+    if cfg.n_periods > 0:
+        per_rep = []
+        for i in range(cfg.n_periods):
+            new = []
+            for lp, spec, c in zip(p["period"], cfg.period, cache["period"]):
+                x, nc = step(tree_index(lp, i), spec, x, tree_index(c, i))
+                new.append(nc)
+            per_rep.append(new)
+        new_period = tree_stack(per_rep)
+    new_tail = []
+    for lp, spec, c in zip(p["tail"], cfg.tail, cache["tail"]):
+        x, nc = step(lp, spec, x, c)
+        new_tail.append(nc)
+    return x, {"head": new_head, "period": new_period, "tail": new_tail}
+
+
+def prefill_stack(
+    p: Params, cfg: ModelConfig, x: torch.Tensor, cache: Params, *,
+    use_kernel: bool | None = None,
+) -> tuple[torch.Tensor, Params]:
+    def step(lp, spec, x, c):
+        return prefill_layer(lp, cfg, spec, x, c, use_kernel=use_kernel)
+
+    return _stack_with_cache(step, p, cfg, x, cache)
+
+
+def decode_stack(
+    p: Params, cfg: ModelConfig, x: torch.Tensor, cache: Params, pos: int, *,
+    use_kernel: bool | None = None,
+) -> tuple[torch.Tensor, Params]:
+    def step(lp, spec, x, c):
+        return decode_layer(lp, cfg, spec, x, c, pos, use_kernel=use_kernel)
+
+    return _stack_with_cache(step, p, cfg, x, cache)
+
+
+# ------------------------- the paper's technique -----------------------------
+
+
+def sparsify_stack(p: Params, cfg: ModelConfig) -> Params:
+    """Convert targeted FFN weights to BSR by block-magnitude pruning
+    (host-side). Stacked period layers are converted slice by slice and
+    restacked, so each slice keeps its own pad slots and masks."""
+    sp = cfg.sparsity
+    if sp is None or sp.blocks_per_row <= 0:
+        return p
+
+    def convert(layer: Params) -> Params:
+        out = dict(layer)
+        if "ffn" in layer and "ffn" in sp.targets:
+            out["ffn"] = sparsify_ffn(layer["ffn"], sp.block_shape, sp.blocks_per_row)
+        return out
+
+    def convert_stacked(layer: Params) -> Params:
+        return tree_stack([convert(tree_index(layer, i)) for i in range(cfg.n_periods)])
+
+    return {
+        "head": [convert(layer) for layer in p["head"]],
+        "period": [convert_stacked(layer) for layer in p["period"]],
+        "tail": [convert(layer) for layer in p["tail"]],
+    }

@@ -1,7 +1,6 @@
-"""Serving the sparse DNN (counterpart of ``repro.serve``): the engine,
-the continuous batcher above it, the challenge run, the clocks, and the
-replica fleet (load generator, router, front end). The reference's LLM
-``Engine`` is not ported yet (ROADMAP Queue 1 item 7)."""
+"""Serving (counterpart of ``repro.serve``): the LLM ``Engine``, the
+sparse DNN's engine, the continuous batcher above it, the challenge run,
+the clocks, and the replica fleet (load generator, router, front end)."""
 
 from repro_torch.serve.challenge import ChallengeResult, run_challenge  # noqa: F401
 from repro_torch.serve.clock import (  # noqa: F401
@@ -10,7 +9,7 @@ from repro_torch.serve.clock import (  # noqa: F401
     VirtualClock,
     WallClock,
 )
-from repro_torch.serve.engine import SparseDNNEngine  # noqa: F401
+from repro_torch.serve.engine import Engine, SparseDNNEngine, cache_nbytes  # noqa: F401
 from repro_torch.serve.fleet import (  # noqa: F401
     Replica,
     ReplicaFleet,
@@ -45,6 +44,7 @@ __all__ = [
     "ChallengeResult",
     "Clock",
     "CompletedJob",
+    "Engine",
     "ContinuousBatcher",
     "FaultCounters",
     "FleetFrontend",
@@ -61,6 +61,7 @@ __all__ = [
     "StepRecord",
     "VirtualClock",
     "WallClock",
+    "cache_nbytes",
     "compare_static_continuous",
     "generate_jobs",
     "poissonish_trace",

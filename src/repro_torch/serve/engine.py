@@ -1,5 +1,12 @@
-"""Batched serving of the sparse DNN — counterpart of ``SparseDNNEngine``
-in ``repro/serve/engine.py``.
+"""Batched serving engines — counterpart of ``repro/serve/engine.py``.
+
+``Engine`` — the LLM prefill + decode loop with sampling over
+``repro_torch.models.Model``. It owns the decode cache (GQA KV, MLA
+latents, SSM state — ``Model.init_cache`` per the arch's mixers), casts
+the parameters to the compute dtype once, at construction, and runs
+``prefill`` then one eager ``decode_step`` a token, in aligned batches.
+
+``SparseDNNEngine`` — the paper's workload as a service, below.
 
 Requests are feature columns. ``submit(cols)`` stages columns,
 ``step(limit=..., pad_to=...)`` dispatches one right-padded panel over
@@ -49,6 +56,8 @@ import torch
 
 from repro_torch.core.dnn import Weight
 from repro_torch.device import resolve_device, to_device
+from repro_torch.models.layers import tree_leaves, tree_map
+from repro_torch.models.model import Model, cast_floating
 from repro_torch.kernels import DEFAULT_BLOCK_N
 from repro_torch.launch.mesh import normalized_device
 from repro_torch.plan import routes as _routes
@@ -58,6 +67,66 @@ from repro_torch.plan.stack_plan import PlanCaptureError, topology_fingerprint
 from repro_torch.serve.clock import WALL_CLOCK
 from repro_torch.testing import faults as _faults
 from repro_torch.tune.table import TunedConfig, default_backend, panel_dtype_name
+
+
+def cache_nbytes(cache: Any) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(cache))
+
+
+def sample_token(logits: torch.Tensor, generator: torch.Generator | None,
+                 temperature: float = 0.0) -> torch.Tensor:
+    """Greedy (T=0: argmax, ties to the lower index) or temperature
+    sampling over (B, V) logits, drawn from ``generator``."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    probs = torch.softmax(logits.float() / temperature, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
+
+
+@dataclasses.dataclass
+class Engine:
+    """Generate from ``model`` with ``params``, ``batch_size`` prompts at a
+    time, into a cache of ``cache_len`` positions. The parameters are
+    moved to ``device`` (``None``: the card; without one the constructor
+    raises) and cast to the compute dtype once, here; ``Model`` casts
+    again for free. Sampling draws from a ``torch.Generator`` seeded from
+    ``seed``, which advances across ``generate`` calls."""
+
+    model: Model
+    params: Any
+    batch_size: int
+    cache_len: int
+    temperature: float = 0.0
+    seed: int = 0
+    device: Any = None
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        moved = tree_map(lambda leaf: leaf.to(self.device), self.params)
+        self.params = cast_floating(moved, self.model.compute_dtype)
+        self._generator = torch.Generator(device=self.device).manual_seed(self.seed)
+
+    def generate(self, prompts: torch.Tensor, max_new_tokens: int) -> tuple[torch.Tensor, dict]:
+        """prompts: (B, S_prompt) int (aligned, no padding). Returns the
+        (B, max_new_tokens) tokens and the run's counts."""
+        b, s = prompts.shape
+        if b != self.batch_size:
+            raise ValueError(f"{b} prompts for an engine of batch_size {self.batch_size}")
+        prompts = prompts.to(self.device)
+        cache = self.model.init_cache(b, self.cache_len, device=self.device)
+        logits, cache = self.model.prefill(self.params, prompts, cache)
+        tok = sample_token(logits[:, -1], self._generator, self.temperature)
+        out = [tok]
+        for i in range(max_new_tokens - 1):
+            logits, cache = self.model.decode_step(self.params, tok, cache, s + i)
+            tok = sample_token(logits, self._generator, self.temperature)
+            out.append(tok)
+        stats = {
+            "prompt_tokens": b * s,
+            "generated_tokens": b * max_new_tokens,
+            "cache_bytes": cache_nbytes(cache),
+        }
+        return torch.stack(out, dim=1), stats
 
 
 @dataclasses.dataclass

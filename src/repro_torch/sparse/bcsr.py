@@ -168,6 +168,11 @@ class BlockCSRMatrix:
             + self.valid.numel()  # bool = 1 byte
         )
 
+    def astype(self, dtype) -> "BlockCSRMatrix":
+        """The values cast to ``dtype``; the index tensors are shared."""
+        return BlockCSRMatrix(self.values.to(dtype), self.row_ptr, self.row_id, self.col_idx,
+                              self.valid, self.shape, self.block_shape)
+
     def to(self, device=None, dtype=None) -> "BlockCSRMatrix":
         """Move to ``device`` (and cast the values to ``dtype``)."""
         return BlockCSRMatrix(

@@ -73,6 +73,28 @@ class BlockSparseMatrix:
             + self.block_mask.numel()  # bool = 1 byte
         )
 
+    @property
+    def block_density(self) -> float:
+        """Stored blocks over all blocks of the logical shape."""
+        return self.nnz_blocks() / (self.n_row_blocks * self.n_col_blocks)
+
+    @property
+    def dense_nbytes(self) -> int:
+        m, n = self.shape
+        return int(m * n * self.blocks.element_size())
+
+    def astype(self, dtype) -> "BlockSparseMatrix":
+        """The values cast to ``dtype``; the index tensors are shared."""
+        return BlockSparseMatrix(self.blocks.to(dtype), self.col_idx, self.block_mask,
+                                 self.shape, self.block_shape)
+
+    def map_blocks(self, fn) -> "BlockSparseMatrix":
+        """Elementwise transform of stored values (keeps topology; pad
+        slots keep their values)."""
+        blocks = torch.where(self.block_mask[..., None, None], fn(self.blocks), self.blocks)
+        return BlockSparseMatrix(blocks, self.col_idx, self.block_mask, self.shape,
+                                 self.block_shape)
+
     def to(self, device=None, dtype=None) -> "BlockSparseMatrix":
         """Move to ``device`` (and cast the values to ``dtype``)."""
         return BlockSparseMatrix(

@@ -1008,3 +1008,106 @@ def test_a_shard_failure_demotes_and_the_categories_still_match(cuda):
     assert levels == ["sharded", "layered", "layered"]
     assert [e.level for e in engine.ladder.events] == ["sharded"]
     np.testing.assert_array_equal(np.flatnonzero(np.concatenate(active)), want)
+
+
+# --- the model stack on the card ------------------------------------------------
+
+
+def _sparse_ffn_weight(rng, d_out, d_in, bs, bpr, device, csr=False):
+    from repro_torch.core import pruning
+
+    w = torch.from_numpy(rng.standard_normal((d_out, d_in)).astype(np.float32)).to(device)
+    a = pruning.block_prune(w, bs, blocks_per_row=bpr)
+    return BlockCSRMatrix.from_bsr(a) if csr else a
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("csr", [False, True], ids=["bsr", "bcsr"])
+@pytest.mark.parametrize("bs", [(16, 16), (128, 128)])
+def test_linear_runs_sparse_weights_on_the_spmm_kernels(cuda, dtype, csr, bs):
+    """``linear`` on a sparse FFN weight launches the SpMM kernel (bf16
+    weights and panels read as f32, the result cast back) and matches the
+    plain product of the same operands."""
+    from repro_torch.models.layers import linear
+
+    rng = np.random.default_rng(11)
+    w = _sparse_ffn_weight(rng, 512, 256, bs, 2, cuda, csr).astype(dtype)
+    x = torch.from_numpy(rng.standard_normal((2, 7, 256)).astype(np.float32)).to(cuda, dtype)
+    name = "bcsr_spmm" if csr else "bsr_spmm"
+    ops.reset_launch_counts()
+    got = linear(w, x)
+    assert ops.launch_counts()[name] == 1 and got.dtype == dtype and got.shape == (2, 7, 512)
+    want = linear(w.astype(torch.float32), x.float(), use_kernel=False)
+    assert ops.launch_counts()[name] == 1
+    # normal weights and inputs cancel: f32 orders are held to the output's
+    # scale (the SPMM rtol of max|want|), bf16 to one rounding of the f32 sum
+    scale = float(want.abs().max())
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=SPMM_TOL["rtol"], atol=SPMM_TOL["rtol"] * scale)
+    else:
+        torch.testing.assert_close(got.float(), want, rtol=2 ** -8, atol=SPMM_TOL["rtol"] * scale)
+
+
+def _numpy_tree(tree):
+    from repro_torch.models.layers import tree_map
+
+    def leaf(t):
+        if isinstance(t, (BlockSparseMatrix, BlockCSRMatrix)):
+            return dataclasses.replace(t, **{f.name: getattr(t, f.name).cpu().numpy()
+                                             for f in dataclasses.fields(t)
+                                             if isinstance(getattr(t, f.name), torch.Tensor)})
+        return t.cpu().numpy()
+
+    return tree_map(leaf, tree)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "graphblas-mlp"])
+def test_model_params_on_the_card_match_the_cpu_forward(cuda, arch):
+    """A numpy params tree (the reference's format) converted onto the card
+    and onto the CPU: the card's forward (sparse FFNs on the kernels) within
+    1e-4 of each row's max |CPU logit| at f32 compute."""
+    from repro_torch import convert
+    from repro_torch.configs import get_config, graphblas_mlp
+    from repro_torch.models import Model
+
+    if arch == "graphblas-mlp":
+        cfg = graphblas_mlp.make_config(m=256, num_layers=3, inverse_sparsity=4, block=32)
+    else:
+        cfg = dataclasses.replace(get_config(arch).scaled_down(), compute_dtype="float32")
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    if cfg.sparsity is not None:
+        params = model.sparsify(params)
+    tree = _numpy_tree(params)
+    rng = np.random.default_rng(1)
+    if cfg.input_mode == "tokens":
+        inp = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 9)).astype(np.int32))
+    else:
+        inp = torch.from_numpy(rng.random((8, cfg.d_model), dtype=np.float32))
+    ops.reset_launch_counts()
+    got = model.forward(convert.model_params(tree, device=cuda), inp.to(cuda)).cpu()
+    want = model.forward(convert.model_params(tree, device="cpu"), inp)
+    if cfg.sparsity is not None:
+        assert ops.launch_counts()["bsr_spmm"] == cfg.num_layers
+    scale = want.abs().amax(dim=-1, keepdim=True)
+    assert bool(((got - want).abs().amax(dim=-1, keepdim=True) <= 1e-4 * scale).all())
+
+
+def test_a_scaled_down_engine_on_the_card_is_deterministic(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serve.engine import Engine
+
+    cfg = get_config("llama3.2-1b").scaled_down()
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    engine = Engine(model, params, batch_size=3, cache_len=64)
+    assert engine.device.type == "cuda"
+    prompts = torch.randint(0, cfg.vocab_size, (3, 8), device=cuda,
+                            generator=torch.Generator(device=cuda).manual_seed(1))
+    out1, stats = engine.generate(prompts, 12)
+    out2, _ = engine.generate(prompts, 12)
+    assert out1.shape == (3, 12) and out1.is_cuda and bool((out1 == out2).all())
+    first = torch.argmax(model.forward(engine.params, prompts)[:, -1], dim=-1)
+    assert bool((out1[:, 0] == first).all())
+    assert stats["cache_bytes"] > 0

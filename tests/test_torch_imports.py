@@ -29,7 +29,13 @@ SLICE_MODULES = ("repro_torch.tune.table", "repro_torch.tune.sweep",
                  "repro_torch.train.resilience", "repro_torch.launch.mesh",
                  "repro_torch.distribution.sharding", "repro_torch.sparse.partition",
                  "repro_torch.plan.sharded", "repro_torch.serve.loadgen",
-                 "repro_torch.serve.fleet", "repro_torch.serve.frontend")
+                 "repro_torch.serve.fleet", "repro_torch.serve.frontend",
+                 "repro_torch.configs", "repro_torch.configs.base",
+                 "repro_torch.configs.graphblas_mlp", "repro_torch.configs.llama3_2_1b",
+                 "repro_torch.models.layers", "repro_torch.models.attention",
+                 "repro_torch.models.moe", "repro_torch.models.ssm",
+                 "repro_torch.models.transformer", "repro_torch.models.model",
+                 "repro_torch.launch.serve")
 
 
 def test_every_module_imports_without_jax():

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's GraphChallenge, GraphBLAS, training, tuning,
-sharded, fleet and model-stack (LLM serving) paths on one GPU.
+sharded, fleet and model-stack (LLM serving and training) paths on one GPU.
 
     python3 chip_smoke.py        # from the repository root, on a CUDA host
 
@@ -180,6 +180,38 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    ``Model.sparsify``), cast to bf16: a 4 × 32 ``prefill`` launches 48
    ``bsr_spmm`` (3 a layer; bf16 operands read as f32 by ``linear``) and
    its logits match ``use_kernel=False`` within 2e-2.
+22. model-train — model-mlp's network trained through the model API
+   (``MODEL_TRAIN``): ``sparsify``, ``make_train_step`` with AdamW on one
+   fixed batch of 64 U[0, 1) feature vectors, 20 steps: the loss falls by
+   more than 0.2; a step launches 8 ``bsr_spmm`` (forward) and 7
+   ``bcsr_spmm`` (dX on the ELL transpose of every layer but the first),
+   all at 64 × 64; the first step's loss and every gradient within
+   ``GRAD_RTOL`` of each leaf's max |plain| against the plain products on
+   the kernels' ReLU masks (the plain model's own gradients and its mask
+   flips printed, held when nothing flips); a 2-microbatch SGD step
+   against the 1-microbatch one (the reference's tolerances); topology
+   unchanged. Step, forward and backward ms, the step's kernel ms, the
+   plain step's ms, transposes sorted a step.
+23. llm-train — Llama-3.2-1B at published width (``LLM_TRAIN``):
+   ``init_train_state`` on the card (4.94 GB of f32 weights), AdamW with
+   ``warmup_cosine(3e-4, 10, 100)`` and f32 moments, ``SyntheticLM(vocab,
+   128, 8)`` through a ``Prefetcher``, 2 microbatches, 5 steps; then the
+   same weights with every FFN block-pruned to 4 blocks of 128 × 128 a row
+   (48 sparse projections, each forward and backward on the SpMM kernels
+   a microbatch). Finite losses, ``opt.step`` = 5, every float leaf moved,
+   launches against the count from shapes, the sparse first step's loss
+   and gradients at f32 compute against the plain products microbatch by
+   microbatch, at the timed steps' 512 columns (``GRAD_RTOL`` of each
+   leaf's max), topology unchanged. Step ms (median of steps
+   2–5), tokens/s, peak memory, kernel ms, beside the step's bound: the
+   larger of 6 × params × tokens over the dense bf16 tensor-core peak and
+   the optimizer's f32 passes over params, gradients and moments over the
+   HBM rate.
+24. launch-train — ``repro_torch.launch.train.main`` on the default device
+   at ``--arch llama3.2-1b --scale-down``, 20 steps, checkpoints at steps 10
+   and 20; the run stopped at 10 (its step-20 checkpoint dropped) and
+   resumed with ``--resume`` gives the uninterrupted run's metrics for
+   steps 11–20 bit for bit.
 
 Every engine plan on the card captures its forward as a CUDA graph at
 its first panel (an eager warm-up, then the capture) and replays it for
@@ -193,12 +225,13 @@ same layer loop called eagerly through ``kernel_ops`` from this script,
 interleaved, five times each, beside the kernels' CUDA-event time
 (``host_share``).
 
-Launch counts are reset to 0 right before each of phases 3-21 and read
-right after (for 8, 9 and 17, around the train steps; for 18, around
-each run of the trace). The ``kernels`` line, the ``nvidia-smi`` line and, last,
+Launch counts are reset to 0 right before each of phases 3-24 and read
+right after (for 8, 9, 17 and 22, around the train steps; for 23, around
+the sparse model's steps; for 18, around each run of the trace). The ``kernels`` line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}`` close the run. Numbers are this run's
 own; the bound of a kernel is max(bytes / 3.35 TB/s, ops / 67 TFLOP/s)
-(H100 SXM HBM3 rate and f32 CUDA-core peak at 700 W), counting the
+(H100 SXM HBM3 rate and f32 CUDA-core peak at 700 W; the LLM train step's
+bound takes the dense bf16 tensor-core peak, 989 TFLOP/s), counting the
 stored blocks' values, the index arrays, bias, the panel read once and
 the output written once, and 2·n operations (one ⊗, one ⊕) per weight
 the product needs: the nonzero weights under ``plus_times`` (zeros
@@ -224,6 +257,9 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
+# H100 SXM, dense bf16 on the tensor cores (NVIDIA's data sheet: 1,979 TFLOP/s
+# with 2:4 sparsity, half that dense), at the full 700 W
+BF16_TC_FLOPS_PER_S = 989e12
 SPMM_RTOL, SPMM_ATOL = 1e-5, 1e-6  # f32, one layer, summation order differs
 # f32 stacks: max|kernel - plain| <= 1e-4 x max|plain| over the output,
 # and every entry |kernel - plain| <= 2e + 1e-6, where e bounds how far
@@ -294,6 +330,23 @@ MODEL_MLP = dict(m=8192, num_layers=8, inverse_sparsity=16, block=128, batch=64,
                  seed=MODEL_SEED)
 LLM_SPARSE = dict(arch="llama3.2-1b", batch=4, prompt_len=32, block=128, blocks_per_row=4,
                   seed=MODEL_SEED)
+# the training phases on the model API: model-mlp's network trained sparse, 20
+# AdamW steps on one fixed batch (the reference's test_sparse_mlp_trainable).
+# AdamW's first steps move every weight by about lr, so what a step does to a
+# pre-activation grows with the fan-in (512 stored weights a row here, of
+# scale 1/sqrt(8192)). At lr 1e-3 the loss falls to 6.92 by step 9 and then
+# climbs to 38.7 by step 20, on the kernels and on the plain products alike
+# (and in the reference at m = 4096 on the CPU); at 2e-4 it falls by 0.075 in
+# 20 steps, at 3e-4 by 0.90 with every step lower than the one before, at 4e-4
+# to 6.46 by step 19 and back up to 7.52 at step 20.
+# Llama-3.2-1B at published width, the launcher's optimizer and data (global
+# batch 8 of 128 tokens, 2 microbatches), dense and then with llm-sparse's FFN
+# pruning; the launcher itself at --scale-down, 20 steps, stopped at 10 and resumed
+MODEL_TRAIN = dict(m=8192, num_layers=8, inverse_sparsity=16, block=128, batch=64, steps=20,
+                   lr=3e-4, seed=MODEL_SEED)
+LLM_TRAIN = dict(arch="llama3.2-1b", seq_len=128, global_batch=8, microbatches=2, steps=5,
+                 lr=3e-4, block=128, blocks_per_row=4, seed=MODEL_SEED)
+LAUNCH_TRAIN = dict(arch="llama3.2-1b", steps=20, ckpt_interval=10, seed=MODEL_SEED)
 # logits, per row: max|got - want| <= tol x max|want|. bf16 compute: 2e-2 (the
 # reference's decode/forward tolerance, tests/test_arch_smoke.py, taken against
 # the row's scale: at published width two bf16 forwards of 32 and 33 tokens
@@ -2384,6 +2437,26 @@ def device_ms_per_call(fn, calls: int, kernel: str = "") -> float | None:
     return total_us / 1e3 / calls if total_us > 0 else None
 
 
+def kernel_breakdown(fn, calls: int, top: int = 8) -> dict:
+    """Kernel time on the card per call of ``fn`` from one ``torch.profiler``
+    trace of ``calls`` calls: the total and the ``top`` kernels by time,
+    with their launches a call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = sorted(((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0), reverse=True)
+    total = sum(r[0] for r in rows) / 1e3 / calls
+    return {"kernel_ms": total or None, "kernels_per_call": sum(r[1] for r in rows) / calls,
+            "top": [{"kernel": k[:120], "ms": t / 1e3 / calls, "launches": n / calls}
+                    for t, n, k in rows[:top]]}
+
+
 def row_rel(got, want) -> float:
     """The worst row's max |got - want| over that row's max |want| (rows
     along the last axis)."""
@@ -2645,6 +2718,463 @@ def phase_llm_sparse(arch: str, params, batch: int, prompt_len: int, block: int,
     }
 
 
+def sparse_projections(params) -> int:
+    """Sparse FFN projections a forward runs: each sparse matrix of the
+    params tree once a layer (a stacked one once for each of its layers)."""
+    from repro_torch.models.layers import SPARSE, tree_leaves
+
+    return sum(leaf.col_idx.shape[0] if leaf.col_idx.dim() == 3 else 1
+               for leaf in tree_leaves(params) if isinstance(leaf, SPARSE))
+
+
+def leaf_errors(got: list, want: list) -> float:
+    """The worst float leaf's max |got - want| over its max |want| (leaves
+    of ``checkpoint.leaves`` order; None for an index leaf in both)."""
+    import torch
+
+    worst = 0.0
+    for g, w in zip(got, want):
+        check((g is None) == (w is None), "gradient leaves line up")
+        if w is not None:
+            check(bool(torch.isfinite(g).all()), "finite gradients")
+            worst = max(worst, float((g.float() - w.float()).abs().max())
+                        / max(float(w.float().abs().max()), 1e-30))
+    return worst
+
+
+def topology_unchanged(before, after) -> bool:
+    """Every index leaf of ``after`` is the tensor ``before`` held, unchanged."""
+    from repro_torch.train import checkpoint
+
+    return all(b is a for b, a in zip(checkpoint.leaves(before), checkpoint.leaves(after))
+               if not b.is_floating_point())
+
+
+def mlp_relu_masks(params, cfg, x, *, use_kernel: bool) -> tuple[list, object]:
+    """The paper's MLP as ``Model`` runs it (``clamp_min(linear(w, x) + b,
+    0)`` a layer), on the kernels or the plain products: each layer's ReLU
+    mask (``z >= 0``, where ``clamp_min`` passes the gradient) and the
+    output."""
+    import torch
+
+    from repro_torch.models.layers import linear, tree_index
+
+    f = params["stack"]["period"][0]["ffn"]
+    masks, y = [], x[:, None, :]
+    with torch.no_grad():
+        for i in range(cfg.n_periods):
+            z = linear(tree_index(f["w"], i), y, use_kernel=use_kernel) + f["b"][i]
+            masks.append(z >= 0)
+            y = torch.clamp_min(z, 0.0)
+    return masks, y
+
+
+def mlp_grads_on_masks(params, batch, masks):
+    """Loss and gradients (``checkpoint.leaves`` order) of the paper's MLP
+    on the plain products with each layer's ReLU mask fixed to ``masks``:
+    the function the kernels' forward computed, at the same point."""
+    import torch
+
+    from repro_torch.models.layers import cross_entropy_loss, linear, tree_index
+    from repro_torch.train import checkpoint
+
+    flat = [leaf.detach().requires_grad_() if leaf.is_floating_point() else leaf
+            for leaf in checkpoint.leaves(params)]
+    f = checkpoint.with_leaves(params, flat)["stack"]["period"][0]["ffn"]
+    y = batch["inputs"][:, None, :]
+    with torch.enable_grad():
+        for i, mask in enumerate(masks):
+            z = linear(tree_index(f["w"], i), y, use_kernel=False) + f["b"][i]
+            y = torch.where(mask, z, torch.zeros((), device=z.device))
+        loss = cross_entropy_loss(y, batch["labels"], z_loss=1e-4)
+        got = iter(torch.autograd.grad(loss, [x for x in flat if x.is_floating_point()]))
+    return loss.detach(), [next(got) if x.is_floating_point() else None for x in flat]
+
+
+def train_steps(step_fn, state, batches, *, counted: bool = True):
+    """``step_fn`` over ``batches`` (an iterable of device batches), each
+    step timed on the host clock to the card's end of its work; launches
+    counted over all of them. Returns (state, losses, grad norms, step ms,
+    launch counts)."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    losses, norms, times = [], [], []
+    if counted:
+        ops.reset_launch_counts()
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    return state, losses, norms, times, ops.launch_counts()
+
+
+def phase_model_train(m: int, num_layers: int, inverse_sparsity: int, block: int, batch: int,
+                      steps: int, lr: float, seed: int) -> dict:
+    """The paper's MLP trained through ``Model`` (model-mlp's network):
+    ``sparsify``, then ``make_train_step`` with AdamW on one fixed batch
+    of U[0, 1) features, the sparse FFNs on the SpMM kernels forward
+    (``bsr_spmm`` a layer) and backward (a ``bcsr_spmm`` dX on the ELL
+    transpose of each layer whose input needs a gradient, all but the
+    first). The first step's loss and gradients against the plain
+    products on the kernels' ReLU masks (``GRAD_RTOL`` of each leaf's max
+    |plain|); the plain model's own gradients, and its masks' flips,
+    printed (held when no mask flips); launches per step against the
+    count from shapes; a 2-microbatch SGD step against the 1-microbatch
+    one (the reference's tolerances); topology unchanged after the steps;
+    the loss falls by more than 0.2."""
+    import torch
+
+    from repro_torch.configs import graphblas_mlp
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+    from repro_torch.sparse.bcsr import reset_transpose_sort_count, transpose_sort_count
+    from repro_torch.train import adamw, checkpoint, sgd
+    from repro_torch.train.trainer import TrainState, loss_and_grads, make_train_step
+
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    cfg = graphblas_mlp.make_config(m=m, num_layers=num_layers,
+                                    inverse_sparsity=inverse_sparsity, block=block)
+    model, plain = Model(cfg), Model(cfg, use_kernel=False)
+    params = model.sparsify(model.init(torch.Generator(device=dev).manual_seed(seed),
+                                       device=dev))
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    data = {"inputs": torch.rand((batch, m), generator=gen, device=dev),
+            "labels": torch.randint(0, m, (batch, 1), generator=gen, device=dev,
+                                    dtype=torch.int32)}
+    n_fwd = sparse_projections(params)
+    check(n_fwd == num_layers, n_fwd)
+    n_bwd = n_fwd - 1  # the first layer's input is data
+
+    # the first step's gradients, kernels against plain
+    ops.reset_launch_counts()
+    reset_transpose_sort_count()
+    loss_k, _, got = loss_and_grads(model, params, data)
+    torch.cuda.synchronize()
+    grad_counts, sorts = ops.launch_counts(), transpose_sort_count()
+    shapes = ops.launched_block_shapes()
+    check({k: grad_counts[k] for k in ("bsr_spmm", "bcsr_spmm")}
+          == {"bsr_spmm": n_fwd, "bcsr_spmm": n_bwd}, ("launches a step", grad_counts))
+    check(shapes.get("bsr_spmm") and shapes.get("bcsr_spmm")
+          and all(tuple(x) == (64, 64) for v in shapes.values() for x in v), shapes)
+    masks, out = mlp_relu_masks(params, cfg, data["inputs"], use_kernel=True)
+    with torch.no_grad():
+        check(torch.equal(out, model.forward(params, data["inputs"])),
+              "the layer loop is the model's kernel forward")
+    loss_m, want = mlp_grads_on_masks(params, data, masks)
+    grad_err = leaf_errors(got, want)
+    loss_err = abs(float(loss_k) - float(loss_m)) / abs(float(loss_m))
+    check(grad_err <= GRAD_RTOL and loss_err <= GRAD_RTOL,
+          ("gradients vs plain on the kernels' masks", grad_err, loss_err))
+    del want
+    loss_p, _, own = loss_and_grads(plain, params, data)
+    own_masks, _ = mlp_relu_masks(params, cfg, data["inputs"], use_kernel=False)
+    flips = [int((a != b).sum()) for a, b in zip(masks, own_masks)]
+    own_err = leaf_errors(got, own)
+    if not sum(flips):
+        check(own_err <= GRAD_RTOL, ("gradients vs the plain model, no mask flips", own_err))
+    del got, own, masks, own_masks
+
+    # one SGD step in 2 microbatches against the full batch
+    opt = sgd(1e-2, momentum=0.0)
+    state = TrainState(params, opt.init(checkpoint.leaves(params)))
+    s1, m1 = make_train_step(model, opt)(state, data)
+    ops.reset_launch_counts()
+    s2, m2 = make_train_step(model, opt, microbatches=2)(state, data)
+    mb_counts = ops.launch_counts()
+    check(mb_counts["bsr_spmm"] == 2 * n_fwd and mb_counts["bcsr_spmm"] == 2 * n_bwd, mb_counts)
+    mb_loss = abs(float(m1["loss"]) - float(m2["loss"])) / abs(float(m1["loss"]))
+    check(mb_loss <= 1e-4, ("microbatched loss", mb_loss))
+    mb_err = 0.0
+    for a, b in zip(checkpoint.leaves(s1.params), checkpoint.leaves(s2.params)):
+        if a.is_floating_point():
+            check(bool(((a - b).abs() <= 2e-4 + 2e-3 * b.abs()).all()), "microbatched params")
+            mb_err = max(mb_err, float((a - b).abs().max()))
+    del s1, s2
+
+    # the main path: AdamW steps on the fixed batch, timed and counted
+    opt = adamw(lr, weight_decay=0.0)
+    state = TrainState(params, opt.init(checkpoint.leaves(params)))
+    step = make_train_step(model, opt)
+    reset_transpose_sort_count()
+    state, losses, norms, step_ms, counts = train_steps(step, state, [data] * steps)
+    sorts_per_step = transpose_sort_count() / steps
+    check(counts["bsr_spmm"] == steps * n_fwd and counts["bcsr_spmm"] == steps * n_bwd
+          and sum(counts.values()) == steps * (n_fwd + n_bwd), ("launches", counts))
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0] - 0.2, ("loss falls", losses))
+    check(topology_unchanged(params, state.params), "topology changed")
+    w0, w1 = params["stack"]["period"][0]["ffn"]["w"], state.params["stack"]["period"][0]["ffn"]["w"]
+    check(bool((w1.blocks[~w1.block_mask] == 0).all()) and not torch.equal(w0.blocks, w1.blocks),
+          "stored blocks trained, pad slots zero")
+
+    # forward alone, forward + backward, the plain step, kernel time a step
+    def leaves():
+        return checkpoint.with_leaves(params, [x.detach().requires_grad_()
+                                               if x.is_floating_point() else x
+                                               for x in checkpoint.leaves(params)])
+
+    fwd, vag = [], []
+    for _ in range(3):
+        p = leaves()
+        ms, _ = synced_ms(lambda: model.loss(p, data))
+        fwd.append(ms)
+        ms, _ = synced_ms(lambda: loss_and_grads(model, params, data))
+        vag.append(ms)
+    plain_state = TrainState(params, opt.init(checkpoint.leaves(params)))
+    _, _, _, plain_ms, _ = train_steps(make_train_step(plain, opt), plain_state, [data] * 3,
+                                       counted=False)
+    kernels = kernel_breakdown(lambda: step(state, data), 2)
+    kernel_ms = kernels["kernel_ms"]
+    spmm_ms = device_ms_per_call(lambda: step(state, data), 2, "spmm")
+    return {
+        "config": {"m": m, "num_layers": num_layers, "inverse_sparsity": inverse_sparsity,
+                   "block": block, "blocks_per_row": cfg.sparsity.blocks_per_row,
+                   "batch": batch},
+        "optimizer": f"adamw({lr}, weight_decay=0.0)", "steps": steps,
+        "losses": losses, "grad_norms": norms,
+        "first_step": {"loss_rel_err": loss_err, "grad_max_rel_err": grad_err,
+                       "check": f"each float leaf max|kernel - plain| <= {GRAD_RTOL} "
+                                "max|plain|, plain on the kernels' ReLU masks",
+                       "own_masks": {"grad_max_rel_err": own_err, "relu_mask_flips": sum(flips),
+                                     "layers_with_flips": [i for i, f in enumerate(flips) if f],
+                                     "loss_rel_err": abs(float(loss_k) - float(loss_p))
+                                     / abs(float(loss_p))}},
+        "microbatches_2_vs_1": {"loss_rel_err": mb_loss, "param_max_abs_err": mb_err,
+                                "launches": mb_counts},
+        "launches": counts,
+        "launches_per_step": {"forward": {"bsr_spmm": n_fwd}, "backward": {"bcsr_spmm": n_bwd}},
+        "launched_block_shapes": {k: [list(x) for x in v] for k, v in shapes.items()},
+        "transpose_sorts_per_step": sorts_per_step,
+        "first_step_sorts": sorts,
+        "step_ms": statistics.median(step_ms[1:]), "step_ms_all": step_ms,
+        "forward_ms": statistics.median(fwd),
+        "backward_ms": statistics.median(vag) - statistics.median(fwd),
+        "step_kernels": kernels, "step_spmm_kernel_ms": spmm_ms,
+        "step_host_share": None if kernel_ms is None
+        else 1 - kernel_ms / statistics.median(step_ms[1:]),
+        "plain_step_ms": statistics.median(plain_ms),
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+
+
+def llm_train_bound(cfg, n_params: int, tokens: int) -> tuple[float, str, dict]:
+    """The least time a train step could take on the card: the larger of
+    6 x (non-embedding params + the tied head's d_model x vocab) x tokens
+    over the dense bf16 tensor-core peak, and the optimizer's passes (read
+    params, gradients and two moments, write params and two moments, f32)
+    over the HBM rate."""
+    embed = cfg.vocab_size * cfg.d_model
+    matmul_params = n_params - embed + (embed if cfg.tie_embeddings else 0)
+    flops = 6.0 * matmul_params * tokens
+    nbytes = 7 * 4.0 * n_params
+    t_ops, t_bytes = flops / BF16_TC_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes",
+            {"flops": flops, "bytes": nbytes, "ops_ms": 1e3 * t_ops, "bytes_ms": 1e3 * t_bytes,
+             "peaks": "989e12 bf16 FLOP/s dense (tensor cores), 3.35e12 B/s HBM3: NVIDIA's "
+                      "H100 SXM data sheet, 700 W"})
+
+
+def phase_llm_train(arch: str, seq_len: int, global_batch: int, microbatches: int, steps: int,
+                    lr: float, block: int, blocks_per_row: int, seed: int) -> dict:
+    """Llama-3.2-1B trained at published width with the launcher's parts:
+    ``init_train_state`` on the card (f32 weights), AdamW with a
+    warmup-cosine schedule and f32 moments, ``SyntheticLM`` batches through
+    a ``Prefetcher``, ``make_train_step(microbatches=2)``, 5 steps; then
+    the same from the same weights with every FFN block-pruned
+    (``Model.sparsify``), its 48 sparse projections a microbatch on the
+    SpMM kernels forward and backward. Held: finite loss and grad norm,
+    ``opt.step``, params moved, launches against the count from shapes,
+    the sparse first step's loss and gradients against the plain products
+    at f32 compute, microbatch by microbatch as the timed steps launch
+    (``GRAD_RTOL`` of each leaf's max |plain|), topology
+    unchanged. Step times beside the step's bound."""
+    import torch
+
+    from repro_torch.configs import SparsityConfig, get_config
+    from repro_torch.data import Prefetcher, SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+    from repro_torch.sparse.bcsr import reset_transpose_sort_count, transpose_sort_count
+    from repro_torch.train import adamw, checkpoint
+    from repro_torch.train.optimizer import warmup_cosine
+    from repro_torch.train.trainer import (
+        TrainState,
+        init_train_state,
+        loss_and_grads,
+        make_train_step,
+    )
+
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(arch)
+    model = Model(cfg)
+    opt = adamw(warmup_cosine(lr, 10, 100), state_dtype=torch.float32)
+    t0 = time.perf_counter()
+    state0 = init_train_state(model, opt, torch.Generator(device=dev).manual_seed(seed),
+                              device=dev)
+    torch.cuda.synchronize()
+    init_seconds = time.perf_counter() - t0
+    n_params = model.param_count()
+    data = SyntheticLM(cfg.vocab_size, seq_len, global_batch, seed=seed)
+    tokens = seq_len * global_batch
+
+    def run(step_fn, state):
+        prefetch = Prefetcher(data)
+        try:
+            def batches():
+                for _ in range(steps):
+                    _, host = prefetch.next()
+                    yield {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+
+            return train_steps(step_fn, state, batches())
+        finally:
+            prefetch.close()
+
+    dense_step = make_train_step(model, opt, microbatches=microbatches)
+    state, losses, norms, step_ms, dense_counts = run(dense_step, state0)
+    check(all(np.isfinite(losses + norms)), ("finite loss and grad norm", losses, norms))
+    check(int(state.opt.step) == steps, int(state.opt.step))
+    check(sum(dense_counts.values()) == 0, ("dense FFNs launch no kernel", dense_counts))
+    moved = [not torch.equal(a, b) for a, b in zip(checkpoint.leaves(state0.params),
+                                                   checkpoint.leaves(state.params))]
+    check(all(moved), ("every float leaf moved", moved.count(False)))
+    dense_peak = torch.cuda.max_memory_allocated() / 1e9
+    dense_ms = statistics.median(step_ms[1:])
+    dense = {"losses": losses, "grad_norms": norms, "step_ms": dense_ms, "step_ms_all": step_ms,
+             "tokens_per_s": tokens / (dense_ms / 1e3), "launches": dense_counts,
+             "peak_memory_gb": dense_peak}
+    first = {k: torch.from_numpy(v).to(dev) for k, v in data.batch(0).items()}
+    dense["step_kernels"] = kernel_breakdown(lambda: dense_step(state, first), 1)
+    bms, by, bound_info = llm_train_bound(cfg, n_params, tokens)
+    del state
+
+    # the same from the same weights with every FFN block-pruned
+    torch.cuda.reset_peak_memory_stats()
+    scfg = dataclasses.replace(cfg, sparsity=SparsityConfig(
+        (block, block), blocks_per_row=blocks_per_row, targets=("ffn",)))
+    smodel = Model(scfg)
+    sparams = smodel.sparsify(state0.params)
+    del state0
+    n_proj = sparse_projections(sparams)
+    check(n_proj == 3 * cfg.num_layers, n_proj)
+
+    # the first step's loss and gradients at f32 compute, kernels against
+    # plain, microbatch by microbatch: the shapes the timed steps launch at
+    cfg32 = dataclasses.replace(scfg, compute_dtype="float32")
+    rows = global_batch // microbatches
+    ops.reset_launch_counts()
+    grad_err = loss_err = 0.0
+    for i in range(microbatches):
+        mb = {k: v[i * rows:(i + 1) * rows] for k, v in first.items()}
+        loss_k, _, got = loss_and_grads(Model(cfg32), sparams, mb)
+        loss_p, _, want = loss_and_grads(Model(cfg32, use_kernel=False), sparams, mb)
+        grad_err = max(grad_err, leaf_errors(got, want))
+        loss_err = max(loss_err, abs(float(loss_k) - float(loss_p)) / abs(float(loss_p)))
+        del got, want
+    grad_counts = ops.launch_counts()
+    check(grad_counts["bsr_spmm"] == microbatches * n_proj
+          and grad_counts["bcsr_spmm"] == microbatches * n_proj, ("f32 step launches", grad_counts))
+    check(grad_err <= GRAD_RTOL and loss_err <= GRAD_RTOL,
+          ("sparse f32 gradients vs plain", grad_err, loss_err))
+
+    sopt = adamw(warmup_cosine(lr, 10, 100), state_dtype=torch.float32)
+    sstate0 = TrainState(sparams, sopt.init(checkpoint.leaves(sparams)))
+    sparse_step = make_train_step(smodel, sopt, microbatches=microbatches)
+    reset_transpose_sort_count()
+    sstate, slosses, snorms, sstep_ms, counts = run(sparse_step, sstate0)
+    sorts = transpose_sort_count()
+    per_step = {"bsr_spmm": microbatches * n_proj, "bcsr_spmm": microbatches * n_proj}
+    check({k: counts[k] for k in per_step} == {k: steps * v for k, v in per_step.items()}
+          and sum(counts.values()) == steps * sum(per_step.values()), ("launches", counts))
+    check(all(np.isfinite(slosses + snorms)), ("finite sparse loss", slosses, snorms))
+    check(int(sstate.opt.step) == steps, int(sstate.opt.step))
+    check(topology_unchanged(sparams, sstate.params), "topology changed")
+    smoved = [not torch.equal(a, b) for a, b in zip(checkpoint.leaves(sparams),
+                                                    checkpoint.leaves(sstate.params))
+              if a.is_floating_point()]
+    check(all(smoved), ("every float leaf moved", smoved.count(False)))
+    sparse_ms = statistics.median(sstep_ms[1:])
+    kernels = kernel_breakdown(lambda: sparse_step(sstate, first), 1)
+    spmm_ms = device_ms_per_call(lambda: sparse_step(sstate, first), 1, "spmm")
+    return {
+        "arch": arch, "params": n_params, "seq_len": seq_len, "global_batch": global_batch,
+        "microbatches": microbatches, "steps": steps, "tokens_per_step": tokens,
+        "optimizer": f"adamw(warmup_cosine({lr}, 10, 100), state_dtype=float32)",
+        "init_seconds": init_seconds, "dense": dense,
+        "bound_ms": bms, "bound_by": by, "bound": bound_info,
+        "sparse": {
+            "sparsity": dataclasses.asdict(scfg.sparsity), "projections": n_proj,
+            "first_step_f32": {"loss_rel_err": loss_err, "grad_max_rel_err": grad_err,
+                               "microbatches": microbatches,
+                               "columns_a_launch": rows * seq_len, "launches": grad_counts},
+            "losses": slosses, "grad_norms": snorms, "launches": counts,
+            "launches_per_step": per_step, "transpose_sorts_per_step": sorts / steps,
+            "step_ms": sparse_ms, "step_ms_all": sstep_ms,
+            "tokens_per_s": tokens / (sparse_ms / 1e3),
+            "step_kernels": kernels, "step_spmm_kernel_ms": spmm_ms,
+            "dense_step_ms": dense_ms,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        },
+    }
+
+
+def phase_launch_train(arch: str, steps: int, ckpt_interval: int, seed: int) -> dict:
+    """The entry point: ``repro_torch.launch.train.main`` on the default
+    device at ``--scale-down``, ``steps`` steps with checkpoints at each
+    chunk's end; then the run stopped at ``ckpt_interval`` (its last
+    checkpoint dropped) and resumed with ``--resume``: the resumed steps'
+    metrics must equal the uninterrupted run's bit for bit."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+
+    args = ["--arch", arch, "--scale-down", "--steps", str(steps),
+            "--ckpt-interval", str(ckpt_interval), "--seed", str(seed)]
+    with tempfile.TemporaryDirectory() as d:
+        full, stopped = os.path.join(d, "full"), os.path.join(d, "stopped")
+        ops.reset_launch_counts()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            hist = launch_train.main(args + ["--ckpt-dir", full])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        ckpts = sorted(os.listdir(full))
+        shutil.copytree(full, stopped)
+        for name in ckpts:
+            if int(name.split("_")[1]) > ckpt_interval:
+                shutil.rmtree(os.path.join(stopped, name))
+        resumed_out = io.StringIO()
+        with contextlib.redirect_stdout(resumed_out):
+            resumed = launch_train.main(args + ["--ckpt-dir", stopped, "--resume"])
+        ckpt_bytes = sum(os.path.getsize(os.path.join(full, ckpts[-1], f))
+                         for f in os.listdir(os.path.join(full, ckpts[-1])))
+    check([h["step"] for h in hist] == list(range(1, steps + 1)), "steps run")
+    check(all(np.isfinite([h["loss"], h["grad_norm"]]).all() for h in hist), "finite")
+    check(ckpts == [f"step_{s:08d}" for s in range(10, steps + 1, 10)], ckpts)
+    check(f"[train] resumed from step {ckpt_interval}" in resumed_out.getvalue(),
+          resumed_out.getvalue())
+    check(resumed == hist[ckpt_interval:], ("resumed metrics differ", resumed, hist))
+    return {"args": args, "lines": out.getvalue().splitlines(),
+            "resumed_lines": resumed_out.getvalue().splitlines(),
+            "losses": [h["loss"] for h in hist], "resumed_bit_identical": True,
+            "seconds": seconds, "checkpoints": ckpts, "checkpoint_bytes": ckpt_bytes,
+            "launches": launches, "device": str(torch.cuda.get_device_name(0))}
+
+
 def main() -> int:
     import torch
 
@@ -2723,6 +3253,12 @@ def main() -> int:
     llm_sparse = phase_llm_sparse(params=llm_params, **LLM_SPARSE)
     del llm_params
     emit({"phase": "llm-sparse", **llm_sparse})
+    model_train = phase_model_train(**MODEL_TRAIN)
+    emit({"phase": "model-train", **model_train})
+    llm_train = phase_llm_train(**LLM_TRAIN)
+    emit({"phase": "llm-train", **llm_train})
+    launch = phase_launch_train(**LAUNCH_TRAIN)
+    emit({"phase": "launch-train", **launch})
 
     by_phase = {"serve": serve["launches"], "layered": layered["launches"],
                 "tiled": tiled["launches"], "dense": dense["launches"],
@@ -2735,7 +3271,10 @@ def main() -> int:
                 "serve-tuned": served["launches"], "train-resilient": resilient["launches"],
                 "sharded": sharded["launches"], "sharded-train": sharded_train["launches"],
                 "fleet": fleet["launches"], "llm-serve": llm["launches"],
-                "model-mlp": mlp["launches"], "llm-sparse": llm_sparse["launches"]}
+                "model-mlp": mlp["launches"], "llm-sparse": llm_sparse["launches"],
+                "model-train": model_train["launches"],
+                "llm-train": llm_train["sparse"]["launches"],
+                "launch-train": launch["launches"]}
     checks = {name: "max|kernel - plain| <= 1e-5 |plain| + 1e-6 (f32 order)"
               for name in ("semiring_matmul", "bsr_spmm", "bcsr_spmm")}
     checks.update({name: "stack: <= 1e-4 max|plain|, each entry within 2x the f32 bound, "

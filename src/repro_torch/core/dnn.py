@@ -18,6 +18,7 @@ Weights are dense tensors, ELL-padded :class:`BlockSparseMatrix` or
 :class:`BlockCSRMatrix`. :func:`dnn_forward_resident` runs a whole stack
 as one fused kernel launch through the shared plan cache; ``mesh=`` on
 either forward runs it sharded (``repro_torch.plan.sharded``).
+:func:`dnn_forward_scan` runs a stacked homogeneous stack over one plan.
 
 Training: :func:`dnn_forward_trainable` runs each sparse layer through the
 differentiable SpMM wrappers (``repro_torch.kernels.autodiff``: the
@@ -180,6 +181,50 @@ def dnn_forward_resident(
         tuned = dataclasses.replace(tuned or TunedConfig(), **override)
     plan = default_cache().get(weights, biases, max(y0.shape[1], 1), tuned=tuned)
     return plan.forward(y0)
+
+
+def _scan_layers(stacked_weights: Weight, stacked_biases: torch.Tensor) -> tuple[tuple, tuple]:
+    """The stack's per-layer weight and bias views (``tree_index``), built
+    once per stack: cached on its tensors, so every call on one stack
+    hands the plan cache the same layer objects."""
+    from repro_torch.models.layers import tree_index
+    from repro_torch.tensor_cache import cached_on
+
+    tensors = ((stacked_weights,) if isinstance(stacked_weights, torch.Tensor)
+               else tuple(getattr(stacked_weights, f.name)
+                          for f in dataclasses.fields(stacked_weights)
+                          if isinstance(getattr(stacked_weights, f.name), torch.Tensor)))
+
+    def views():
+        n = stacked_biases.shape[0]
+        return (tuple(tree_index(stacked_weights, i) for i in range(n)),
+                tuple(stacked_biases[i] for i in range(n)))
+
+    return cached_on(tensors + (stacked_biases,), ("scan-layers",), views)
+
+
+def dnn_forward_scan(
+    stacked_weights: Weight,
+    stacked_biases: torch.Tensor,
+    y0: torch.Tensor,
+    *,
+    fused: bool = True,
+) -> torch.Tensor:
+    """Forward of a homogeneous stack, the reference's scanned forward.
+
+    ``stacked_weights``: a dense (L, m, m) tensor or a
+    :class:`BlockSparseMatrix` whose tensors carry a leading L axis
+    (:func:`stack_bsr`); ``stacked_biases`` (L, m). Layer i runs on
+    views of slice i (``models.layers.tree_index``), made once per stack.
+    ``fused=True`` runs them as one plan from the shared plan cache, as
+    :func:`dnn_forward_resident` does: one plan build (on the card, one
+    CUDA graph capture) for a stack, whatever its depth, where the
+    reference traces one layer body; ``fused=False`` the paper's three
+    calls a layer."""
+    weights, biases = _scan_layers(stacked_weights, stacked_biases)
+    if fused:
+        return dnn_forward_resident(weights, biases, y0)
+    return dnn_forward(weights, biases, y0, fused=False)
 
 
 def dnn_layer_trainable(

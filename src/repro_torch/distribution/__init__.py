@@ -1,9 +1,15 @@
-"""Sharding rules of the sparse stack (counterpart of ``repro.distribution``)."""
+"""Sharding rules and collectives (counterpart of ``repro.distribution``)."""
 
 from repro_torch.distribution.sharding import (  # noqa: F401
+    PartitionSpec,
     ShardingRules,
+    batch_pspecs,
+    cache_pspecs,
     mesh_shard_count,
+    param_pspecs,
     row_block_axes,
+    shardings_for,
 )
 
-__all__ = ["ShardingRules", "mesh_shard_count", "row_block_axes"]
+__all__ = ["PartitionSpec", "ShardingRules", "batch_pspecs", "cache_pspecs",
+           "mesh_shard_count", "param_pspecs", "row_block_axes", "shardings_for"]

@@ -1,5 +1,5 @@
-"""The row-block mesh of the sharded sparse stack — counterpart of
-``make_row_blocks_mesh`` in ``repro/launch/mesh.py``.
+"""Meshes — counterpart of ``repro/launch/mesh.py``: the row-block mesh of
+the sharded sparse stack and the model's local mesh.
 
 The reference's mesh is a ``jax.sharding.Mesh`` over N devices, and its
 sharded plans run one program on all of them (``shard_map``). The port
@@ -10,11 +10,11 @@ the port's counterpart of the reference's forced host devices
 (``XLA_FLAGS=--xla_force_host_platform_device_count=N``): the shard
 count is the mesh's, the hardware one card.
 
-A mesh over several distinct devices (peer copies or NCCL between cards)
-is refused: it cannot be tested on one card and waits for a four-chip
-slice (ROADMAP Queue 1 item 5). The reference's LLM meshes
-(``make_local_mesh``, ``make_production_mesh``) go with the LLM
-scaffolding (ROADMAP Queue 1 item 7).
+The model's mesh (``make_local_mesh``) is ``data`` × ``model`` over one
+card: ``data=1, model=1``. A mesh over several distinct devices (peer
+copies or NCCL between cards), a local mesh of more than one position
+and the reference's production mesh of 256 or 512 devices are refused:
+they need the multi-card mesh, which cannot be tested on one card.
 """
 
 from __future__ import annotations
@@ -25,6 +25,13 @@ import math
 import torch
 
 from repro_torch.device import resolve_device
+
+
+def several_devices(what: str) -> str:
+    """The refusal of ``what``, a mesh that needs more than one card."""
+    return (f"{what} is not supported yet: the port runs every position of a mesh on "
+            "one device, and a mesh across cards waits for the multi-card mesh "
+            "(peer copies or NCCL between cards)")
 
 
 def normalized_device(device) -> torch.device:
@@ -55,10 +62,8 @@ class Mesh:
                              f"{math.prod(self.axis_sizes)} positions")
         devices = tuple(normalized_device(d) for d in self.devices)
         if len(set(devices)) > 1:
-            raise ValueError(
-                f"a mesh over several devices ({sorted(set(map(str, devices)))}) is not "
-                "supported yet: the port runs every shard on one device, and a mesh "
-                "across cards waits for a four-chip slice (ROADMAP Queue 1 item 5)")
+            raise ValueError(several_devices(
+                f"a mesh over several devices ({sorted(set(map(str, devices)))})"))
         object.__setattr__(self, "devices", devices)
 
     @property
@@ -91,3 +96,24 @@ def make_row_blocks_mesh(shards: int | None = None, *, device=None) -> Mesh:
     if shards < 1:
         raise ValueError(f"shards must be >= 1, got {shards}")
     return Mesh(("row_blocks",), (shards,), (device,) * shards)
+
+
+def make_local_mesh(data: int | None = None, model: int = 1, *, device=None) -> Mesh:
+    """The model's ``("data", "model")`` mesh over the devices there are:
+    one, ``device`` (default: the GPU, raising if there is none).
+    ``data=None`` takes what ``model`` leaves of them. Anything but
+    ``data=1, model=1`` needs several cards and is refused."""
+    device = resolve_device(device)
+    if data is None:
+        data = 1 // model  # the reference's devices // model, over one device
+    if (data, model) != (1, 1):
+        raise ValueError(several_devices(f"a local mesh of data={data} x model={model}"))
+    return Mesh(("data", "model"), (1, 1), (device,))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production mesh, (16, 16) ``("data", "model")`` or
+    (2, 16, 16) with an outer ``"pod"`` axis: refused, its 256 or 512
+    devices need the multi-card mesh."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    raise ValueError(several_devices(f"the production mesh {shape}"))

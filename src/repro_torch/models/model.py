@@ -19,8 +19,9 @@ features).
 ``use_kernel`` is handed to every FFN ``linear``: ``None`` (default)
 runs sparse FFN weights on the SpMM kernels when the tensors are on the
 card, ``False`` on the plain products. The reference's distributed
-embedding lookup and sharding constraints are the identity and
-``table[ids]`` on one device, so the port has neither.
+embedding lookup and sharding constraints are ``table[ids]`` and the
+identity on the port's one-device mesh (``distribution.sharding``), so
+the model calls neither.
 """
 
 from __future__ import annotations

@@ -222,6 +222,45 @@ class BlockSparseMatrix:
             (bs_r, bs_c),
         )
 
+    @classmethod
+    def random(
+        cls,
+        generator: torch.Generator,
+        shape: Tuple[int, int],
+        block_shape: Tuple[int, int],
+        blocks_per_row: int,
+        *,
+        dtype: torch.dtype = torch.float32,
+        minval: float = -1.0,
+        maxval: float = 3.0,
+    ) -> "BlockSparseMatrix":
+        """Random topology and U[minval, maxval) values (the paper's §V-B
+        draws U[-1, 3)), on ``generator``'s device: exactly
+        ``blocks_per_row`` distinct block-columns a block-row, sorted, no
+        pad slot — the ELL-regular analogue of the paper's Bernoulli
+        sampling.
+
+        Drawn from a ``torch.Generator``, so the topology and values
+        differ from the reference's (``jax.random``) for any seed, by
+        design: a reference matrix is carried over by conversion
+        (``repro_torch.convert``), never regenerated."""
+        m, n = shape
+        bs_r, bs_c = block_shape
+        nrb, ncb = m // bs_r, n // bs_c
+        if blocks_per_row > ncb:
+            raise ValueError(f"blocks_per_row {blocks_per_row} > col blocks {ncb}")
+        device = generator.device
+        # per-row choice without replacement: argsort of uniforms
+        u = torch.rand((nrb, ncb), generator=generator, device=device)
+        col_idx = torch.argsort(u, dim=1)[:, :blocks_per_row].sort(dim=1).values
+        v = torch.rand((nrb, blocks_per_row, bs_r, bs_c), generator=generator,
+                       device=device, dtype=dtype)
+        top = torch.nextafter(torch.tensor(maxval, dtype=dtype),
+                              torch.tensor(minval, dtype=dtype)).item()
+        blocks = torch.clamp(v * (maxval - minval) + minval, max=top)  # stays below maxval
+        mask = torch.ones((nrb, blocks_per_row), dtype=torch.bool, device=device)
+        return cls(blocks, col_idx.to(torch.int32).contiguous(), mask, shape, block_shape)
+
     def transpose(self, *, pad_to: int | None = None) -> "BlockSparseMatrix":
         """Regroup the stored blocks by column, transposing each — no
         dense matrix is formed.

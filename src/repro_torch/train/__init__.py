@@ -1,6 +1,6 @@
-"""Training of the sparse MLP (counterpart of ``repro.train``): the
-optimizers, the sparse train step, checkpoints, the restart supervisor
-and resilient training."""
+"""Training (counterpart of ``repro.train``): the optimizers, the model
+API's train step, the sparse MLP's train step, checkpoints, the restart
+supervisor and resilient training."""
 
 from repro_torch.train import checkpoint  # noqa: F401
 from repro_torch.train.fault_tolerance import StragglerPolicy, Supervisor  # noqa: F401
@@ -15,4 +15,9 @@ from repro_torch.train.sparse import (  # noqa: F401
     grad_sparsity_preserved,
     init_sparse_mlp_state,
     make_sparse_train_step,
+)
+from repro_torch.train.trainer import (  # noqa: F401
+    TrainState,
+    init_train_state,
+    make_train_step,
 )

@@ -9,9 +9,10 @@
   it (a NamedTuple field by name, a tuple or list entry and a sparse
   matrix's tensors by index, a dict entry by key), and ``manifest.json``
   holds the step, the leaf count, the sorted keys and the caller's
-  metadata. A :class:`~repro_torch.train.sparse.SparseMLPState` is
-  written as the reference's tree of the same state: its optimizer
-  moments (flat lists here) are keyed like the parameters they follow,
+  metadata. A training state is written as the reference's tree of the
+  same state (:func:`state_tree`): its optimizer moments (flat lists
+  here) are keyed like the parameters they follow, ``opt//mu//<param
+  path>`` — for a :class:`~repro_torch.train.sparse.SparseMLPState`
   ``opt//mu//0//<layer>//<tensor>`` and ``opt//mu//1//<layer>``. Either
   package restores a checkpoint the other wrote.
 * Leaves keep their dtypes (int32 and bool topology included); bf16
@@ -35,9 +36,16 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from repro_torch.train.sparse import LEAF_FIELDS, SparseMLPState, state_from_tree, state_tree
+from repro_torch.sparse.bcsr import BlockCSRMatrix
+from repro_torch.sparse.bsr import BlockSparseMatrix
+from repro_torch.train.optimizer import OptState
 
 SEP = "//"
+
+LEAF_FIELDS = {  # a sparse matrix's tensors, in the reference's leaf order
+    BlockSparseMatrix: ("blocks", "col_idx", "block_mask"),
+    BlockCSRMatrix: ("values", "row_ptr", "row_id", "col_idx", "valid"),
+}
 
 
 def _children(node) -> list[tuple[str, Any]] | None:
@@ -48,7 +56,7 @@ def _children(node) -> list[tuple[str, Any]] | None:
         return [(str(i), getattr(node, f)) for i, f in enumerate(fields)]
     if isinstance(node, tuple) and hasattr(node, "_fields"):  # a NamedTuple
         return [(f, getattr(node, f)) for f in node._fields]
-    if isinstance(node, (tuple, list)):
+    if type(node) in (tuple, list):  # a subclass is a leaf, as in jax.tree_util
         return [(str(i), c) for i, c in enumerate(node)]
     if isinstance(node, dict):
         return [(str(k), node[k]) for k in sorted(node)]
@@ -67,12 +75,30 @@ def _rebuild(node, children: list) -> Any:
     return dict(zip(sorted(node), children))
 
 
-def _map_leaves(fn: Callable[[str, Any], Any], node, path: str = "") -> Any:
+def map_with_path(fn: Callable[[str, Any], Any], node, path: str = "") -> Any:
+    """``fn(path, leaf)`` over the leaves of ``node``, ``path`` the leaf's
+    key (names joined with ``//``); the results in ``node``'s structure."""
     kids = _children(node)
     if kids is None:
         return fn(path, node)
-    return _rebuild(node, [_map_leaves(fn, child, f"{path}{SEP}{k}" if path else k)
+    return _rebuild(node, [map_with_path(fn, child, f"{path}{SEP}{k}" if path else k)
                            for k, child in kids])
+
+
+def leaves(tree) -> list:
+    """The tensors of ``tree`` in ``jax.tree_util``'s leaf order: dict keys
+    sorted, sequence entries in order, a sparse matrix's tensors in its
+    ``tree_flatten`` order (values, then topology)."""
+    out: list = []
+    map_with_path(lambda _key, leaf: out.append(leaf), tree)
+    return out
+
+
+def with_leaves(like, new_leaves) -> Any:
+    """``like``'s structure (classes, static shapes) over ``new_leaves``, in
+    the order :func:`leaves` gives; the inverse of :func:`leaves`."""
+    it = iter(new_leaves)
+    return map_with_path(lambda _key, _leaf: next(it), like)
 
 
 def _host(leaf) -> np.ndarray:
@@ -84,8 +110,34 @@ def _host(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
-def _as_tree(state):
-    return state_tree(state) if isinstance(state, SparseMLPState) else state
+def state_tree(state):
+    """``state`` as the reference's tree of the same state, what a
+    checkpoint keys by: a training state's optimizer moments (flat lists
+    here) shaped like ``state.params``, the tree they follow, as the
+    reference's ``OptState`` holds them (index leaves as zeros of their
+    own dtype); a scalar moment (SGD's unused ``nu``) stays as it is.
+    Anything without an ``OptState`` under ``opt`` is its own tree. Works
+    on a tree of devices of the state's structure too."""
+    opt = getattr(state, "opt", None)
+    if not isinstance(opt, OptState):
+        return state
+
+    def shaped(moments):
+        return with_leaves(state.params, moments) if isinstance(moments, list) else moments
+
+    return state._replace(opt=opt._replace(mu=shaped(opt.mu), nu=shaped(opt.nu)))
+
+
+def state_from_tree(tree):
+    """Inverse of :func:`state_tree`."""
+    opt = getattr(tree, "opt", None)
+    if not isinstance(opt, OptState):
+        return tree
+
+    def flat(moments):
+        return moments if isinstance(moments, torch.Tensor) else leaves(moments)
+
+    return tree._replace(opt=opt._replace(mu=flat(opt.mu), nu=flat(opt.nu)))
 
 
 def _flatten(tree) -> dict[str, np.ndarray]:
@@ -95,7 +147,7 @@ def _flatten(tree) -> dict[str, np.ndarray]:
         flat[key] = _host(leaf)
         return leaf
 
-    _map_leaves(put, _as_tree(tree))
+    map_with_path(put, state_tree(tree))
     return flat
 
 
@@ -147,8 +199,8 @@ def restore(
         manifest = json.load(f)
     places: dict[str, torch.device] = {}
     if shardings is not None:
-        _map_leaves(lambda key, d: places.setdefault(key, torch.device(d)),
-                    _as_tree(shardings))
+        map_with_path(lambda key, d: places.setdefault(key, torch.device(d)),
+                    state_tree(shardings))
     with np.load(os.path.join(path, "arrays.npz")) as arrays:
 
         def load(key, leaf):
@@ -161,8 +213,8 @@ def restore(
                 return host.astype(leaf.dtype)
             return torch.from_numpy(host).to(places.get(key, leaf.device), leaf.dtype)
 
-        tree = _map_leaves(load, _as_tree(like))
-    return (state_from_tree(tree) if isinstance(like, SparseMLPState) else tree), manifest
+        tree = map_with_path(load, state_tree(like))
+    return state_from_tree(tree), manifest
 
 
 def retention(directory: str, *, keep_last: int = 3, keep_every: int = 0) -> None:

@@ -3,8 +3,8 @@
 AdamW with decoupled weight decay, global-norm gradient clipping and an
 optional lower-precision moment type (``state_dtype``); SGD with
 momentum; a linear-warmup cosine schedule. Each works on a flat list of
-parameter tensors (``repro_torch.train.sparse`` flattens a sparse stack
-into one) and returns new tensors, as the reference's pure updates do.
+parameter tensors (``repro_torch.train.checkpoint.leaves`` flattens a
+params tree or a sparse stack into one) and returns new tensors, as the reference's pure updates do.
 Tensors that are not floating point (a sparse weight's topology) are
 skipped by dtype: they pass through unchanged, whatever their gradient.
 

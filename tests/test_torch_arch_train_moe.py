@@ -1,0 +1,41 @@
+"""``tests/test_arch_smoke.py::test_train_step`` on the port for the
+MoE architectures at ``scaled_down()``: one AdamW step of
+``repro_torch.train.make_train_step`` from the reference's converted
+weights, finite, counted, params moved, and its loss and ``grad_norm``
+held to the reference's jitted step at f32 compute (loss within 1e-5,
+``grad_norm`` within 1e-4, relative). Split from the other archs so no
+file runs long under ``--dist loadfile``."""
+
+import pytest
+
+from repro_torch.train import checkpoint
+
+import _torch_train as tt
+
+ARCHS = ('deepseek-v2-236b', 'moonshot-v1-16b-a3b')
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_step(arch):
+    ref_model, model, jp, p = tt.models(arch)
+    host = tt.batch(model.cfg)
+    (_, jm), (state2, pm) = tt.steps(ref_model, model, jp, p, host, "adamw", lr=1e-3)
+    tt.assert_metrics_close(jm, pm)
+    assert int(state2.opt.step) == 1
+    moved = any(bool((a != b).any()) for a, b in zip(checkpoint.leaves(p),
+                                                     checkpoint.leaves(state2.params))
+                if a.is_floating_point())
+    assert moved
+
+
+def test_a_microbatched_moe_step_matches_the_reference_microbatched_step():
+    """MoE capacity follows the tokens of a call (``_group_size``), so a
+    microbatched step is held to the reference's microbatched step at the
+    same shapes: SGD (linear in the gradients), params within 1e-4 of each
+    leaf's max."""
+    ref_model, model, jp, p = tt.models("deepseek-v2-236b")
+    host = tt.batch(model.cfg, b=4)
+    (js, jm), (ps, pm) = tt.steps(ref_model, model, jp, p, host, "sgd", lr=1e-2, momentum=0.0,
+                                  microbatches=2)
+    tt.assert_metrics_close(jm, pm)
+    tt.assert_leaves_close(*tt.param_leaves(js, ps))

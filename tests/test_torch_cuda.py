@@ -584,7 +584,8 @@ def test_sparse_train_step_on_the_card_matches_plain(cuda):
     versions on the same card, on an ELL + block-CSR + dense stack."""
     from repro_torch.plan import build_plan
     from repro_torch.train import make_sparse_train_step, sgd
-    from repro_torch.train.sparse import flatten, init_sparse_mlp_state
+    from repro_torch.train.checkpoint import leaves
+    from repro_torch.train.sparse import init_sparse_mlp_state
 
     rng = np.random.default_rng(62)
     a = _weight(rng, 128, 128, 16, cuda)
@@ -608,8 +609,7 @@ def test_sparse_train_step_on_the_card_matches_plain(cuda):
     (kstate, kcounts), (pstate, pcounts) = states[True], states[False]
     assert kcounts["bsr_spmm"] == 3 and kcounts["bcsr_spmm"] == 6
     assert pcounts["bsr_spmm"] == pcounts["bcsr_spmm"] == 0
-    for got, want in zip(flatten(kstate.weights, kstate.biases),
-                         flatten(pstate.weights, pstate.biases)):
+    for got, want in zip(leaves(kstate.params), leaves(pstate.params)):
         if got.dtype.is_floating_point:
             torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
         else:
@@ -1111,3 +1111,126 @@ def test_a_scaled_down_engine_on_the_card_is_deterministic(cuda):
     first = torch.argmax(model.forward(engine.params, prompts)[:, -1], dim=-1)
     assert bool((out1[:, 0] == first).all())
     assert stats["cache_bytes"] > 0
+
+
+def _to_device(params, device):
+    """A params tree moved to ``device`` (sparse matrices through ``.to``)."""
+    from repro_torch.models.layers import tree_map
+
+    return tree_map(lambda leaf: leaf.to(device), params)
+
+
+def _sparse_ffn_model(arch: str):
+    """(model, plain model, params on the CPU) with sparse FFN weights at f32
+    compute: the paper's MLP, or scaled-down Llama with its FFNs pruned to
+    2 of 4 or 8 blocks of 16 x 16 a block-row."""
+    from repro_torch.configs import SparsityConfig, get_config, graphblas_mlp
+    from repro_torch.models import Model
+
+    if arch == "graphblas-mlp":
+        cfg = graphblas_mlp.make_config(m=256, num_layers=3, inverse_sparsity=4, block=32)
+    else:
+        cfg = dataclasses.replace(get_config(arch).scaled_down(), compute_dtype="float32",
+                                  sparsity=SparsityConfig((16, 16), blocks_per_row=2,
+                                                          targets=("ffn",)))
+    model = Model(cfg)
+    params = model.sparsify(model.init(torch.Generator().manual_seed(0), device="cpu"))
+    return model, Model(cfg, use_kernel=False), params
+
+
+def _train_batch(cfg, device):
+    rng = np.random.default_rng(2)
+    if cfg.input_mode == "tokens":
+        inputs = rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
+        labels = rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
+    else:
+        inputs = rng.random((8, cfg.d_model), dtype=np.float32)
+        labels = rng.integers(0, cfg.vocab_size, (8, 1)).astype(np.int32)
+    return {"inputs": torch.from_numpy(inputs).to(device),
+            "labels": torch.from_numpy(labels).to(device)}
+
+
+@pytest.mark.parametrize("arch", ["graphblas-mlp", "llama3.2-1b"])
+def test_a_sparse_ffn_model_train_step_on_the_card_matches_its_plain_step(cuda, arch):
+    """One SGD step of ``make_train_step`` with sparse FFN weights: on the
+    SpMM kernels forward and backward (a ``bsr_spmm`` a projection, a
+    ``bcsr_spmm`` dX for each whose input needs a gradient) against the
+    same step on the plain products, on the card: loss within 1e-5, each
+    gradient and updated leaf within 1e-4 of its max |plain|, topology
+    the same tensors."""
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.sparse.bsr import BlockSparseMatrix as BSR
+    from repro_torch.train import checkpoint, sgd
+    from repro_torch.train.trainer import TrainState, loss_and_grads, make_train_step
+
+    model, plain, params = _sparse_ffn_model(arch)
+    params = _to_device(params, cuda)
+    batch = _train_batch(model.cfg, cuda)
+    n_sparse = sum(leaf.blocks.shape[0] if leaf.blocks.dim() == 5 else 1
+                   for leaf in tree_leaves(params) if isinstance(leaf, BSR))
+    ops.reset_launch_counts()
+    loss, _, grads = loss_and_grads(model, params, batch)
+    counts = ops.launch_counts()
+    first_input_is_data = model.cfg.input_mode == "features"
+    assert counts["bsr_spmm"] == n_sparse
+    assert counts["bcsr_spmm"] == n_sparse - int(first_input_is_data)
+    want_loss, _, want = loss_and_grads(plain, params, batch)
+    assert abs(float(loss) - float(want_loss)) <= 1e-5 * abs(float(want_loss))
+    for g, w in zip(grads, want):
+        assert (g is None) == (w is None)
+        if w is not None:
+            assert float((g - w).abs().max()) <= 1e-4 * max(float(w.abs().max()), 1e-30)
+    opt = sgd(1e-2, momentum=0.0)
+    state = TrainState(params, opt.init(checkpoint.leaves(params)))
+    got_state, _ = make_train_step(model, opt)(state, batch)
+    want_state, _ = make_train_step(plain, opt)(state, batch)
+    for old, g, w in zip(checkpoint.leaves(params), checkpoint.leaves(got_state.params),
+                         checkpoint.leaves(want_state.params)):
+        if not old.is_floating_point():
+            assert g is old and w is old
+        else:
+            assert float((g - w).abs().max()) <= 1e-4 * max(float(w.abs().max()), 1e-30)
+
+
+def test_two_identical_model_train_steps_give_the_same_bits(cuda):
+    from repro_torch.train import adamw, checkpoint
+    from repro_torch.train.trainer import TrainState, make_train_step
+
+    model, _, params = _sparse_ffn_model("llama3.2-1b")
+    params = _to_device(params, cuda)
+    batch = _train_batch(model.cfg, cuda)
+    opt = adamw(1e-3)
+    state = TrainState(params, opt.init(checkpoint.leaves(params)))
+    step = make_train_step(model, opt, microbatches=2)
+    (a, ma), (b, mb) = step(state, batch), step(state, batch)
+    assert float(ma["loss"]) == float(mb["loss"])
+    assert float(ma["grad_norm"]) == float(mb["grad_norm"])
+    for x, y in zip(checkpoint.leaves(a), checkpoint.leaves(b)):
+        assert torch.equal(x, y)
+
+
+def test_ell_pad_slots_of_a_model_weight_get_zero_gradient_on_the_card(cuda):
+    """Pad slots (mask False, a zero block at column 0) of a sparse FFN
+    weight: the kernels' backward gives them exactly 0, and the stored
+    slots the plain products' gradient."""
+    from repro_torch.train import checkpoint
+    from repro_torch.train.trainer import loss_and_grads
+
+    model, plain, params = _sparse_ffn_model("graphblas-mlp")
+    w = params["stack"]["period"][0]["ffn"]["w"]
+    mask = w.block_mask.clone()
+    mask[:, ::3, -1] = False  # some block-rows' last slot becomes padding
+    blocks = torch.where(mask[..., None, None], w.blocks, torch.zeros(()))
+    col_idx = torch.where(mask, w.col_idx, torch.zeros((), dtype=w.col_idx.dtype))
+    params["stack"]["period"][0]["ffn"]["w"] = dataclasses.replace(
+        w, blocks=blocks, col_idx=col_idx.contiguous(), block_mask=mask)
+    params = _to_device(params, cuda)
+    batch = _train_batch(model.cfg, cuda)
+    leaves = checkpoint.leaves(params)
+    i = next(k for k, leaf in enumerate(leaves)
+             if leaf is params["stack"]["period"][0]["ffn"]["w"].blocks)
+    got = loss_and_grads(model, params, batch)[2][i]
+    want = loss_and_grads(plain, params, batch)[2][i]
+    pad = ~params["stack"]["period"][0]["ffn"]["w"].block_mask
+    assert int(pad.sum()) > 0 and bool((got[pad] == 0).all())
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())

@@ -292,3 +292,60 @@ def test_engine_serves_a_dense_stack_through_kernel_dense():
     assert stats["plan"]["route"] == "layered" and stats["kernel_launches"] == 4
     want = np.asarray(jdnn.dnn_forward([dense[id(x)] for x in jw], jb, jnp.asarray(y0)))
     np.testing.assert_allclose(out.numpy(), want, rtol=1e-5, atol=1e-6)
+
+
+def _scan_net(seed: int, L: int, m: int = 32, sparse: bool = True):
+    """The reference's ``test_dnn._mk_net`` stack: L layers of U[-1, 3)
+    weights (ELL, 2 of m/8 blocks a row, or dense) and U[0, 1) biases."""
+    import jax
+
+    keys = jax.random.split(jax.random.PRNGKey(seed), 2 * L)
+    if sparse:
+        ws = [JBSR.random(keys[2 * k], (m, m), (8, 8), blocks_per_row=2) for k in range(L)]
+    else:
+        ws = [jax.random.uniform(keys[2 * k], (m, m), minval=-1.0, maxval=3.0)
+              for k in range(L)]
+    bs = [jax.random.uniform(keys[2 * k + 1], (m,)) for k in range(L)]
+    return ws, bs
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["plan", "three-call"])
+@pytest.mark.parametrize("sparse", [False, True], ids=["dense", "bsr"])
+def test_scan_equals_loop(sparse, fused):
+    """``dnn_forward_scan`` over a stacked stack equals the layer loop and
+    the reference's scanned forward (its own tolerance)."""
+    from repro_torch.plan.cache import reset_default_cache
+
+    jws, jbs = _scan_net(8, L=5, sparse=sparse)
+    y0 = np.random.default_rng(9).random((32, 8), dtype=np.float32)
+    jstack = jdnn.stack_bsr(jws) if sparse else jnp.stack(jws)
+    want = np.asarray(jdnn.dnn_forward_scan(jstack, jnp.stack(jbs), jnp.asarray(y0)))
+    ws = [convert.layout(w) if sparse else t(np.array(w)) for w in jws]
+    bs = [convert.bias(b) for b in jbs]
+    stack = dnn.stack_bsr(ws) if sparse else torch.stack(ws)
+    reset_default_cache()
+    got = dnn.dnn_forward_scan(stack, torch.stack(bs), t(y0), fused=fused)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got.numpy(), dnn.dnn_forward(ws, bs, t(y0)).numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_scan_builds_one_plan_for_any_depth():
+    """The counterpart of the reference's "jits once for any depth": one
+    plan build and one executable for a stack, whatever its depth, reused
+    by every later call on it (the layer views are made once a stack)."""
+    from repro_torch.plan.cache import default_cache, reset_default_cache
+
+    y0 = t(np.random.default_rng(11).random((16, 4), dtype=np.float32))
+    for L in (2, 6):
+        reset_default_cache()
+        jws, jbs = _scan_net(10, L=L, m=16)
+        stack = dnn.stack_bsr([convert.layout(w) for w in jws])
+        biases = torch.stack([convert.bias(b) for b in jbs])
+        first = dnn.dnn_forward_scan(stack, biases, y0)
+        again = dnn.dnn_forward_scan(stack, biases, y0)
+        assert torch.equal(first, again)
+        cache = default_cache()
+        (plan,) = cache.plans()
+        assert cache.builds == 1 and cache.hits == 1 and plan.compile_count == 1
+        assert plan.n_layers == L

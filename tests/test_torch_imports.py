@@ -35,7 +35,9 @@ SLICE_MODULES = ("repro_torch.tune.table", "repro_torch.tune.sweep",
                  "repro_torch.models.layers", "repro_torch.models.attention",
                  "repro_torch.models.moe", "repro_torch.models.ssm",
                  "repro_torch.models.transformer", "repro_torch.models.model",
-                 "repro_torch.launch.serve")
+                 "repro_torch.launch.serve", "repro_torch.data.pipeline",
+                 "repro_torch.train.trainer", "repro_torch.launch.train",
+                 "repro_torch.distribution.collectives")
 
 
 def test_every_module_imports_without_jax():

@@ -134,7 +134,7 @@ def test_mesh_shape_and_refusals():
     mesh = _mesh(4)
     assert mesh.shape == {"row_blocks": 4} and mesh.size == 4
     assert mesh.device == torch.device("cpu")
-    with pytest.raises(ValueError, match="Queue 1 item 5"):
+    with pytest.raises(ValueError, match="multi-card mesh"):
         Mesh(("row_blocks",), (2,), (torch.device("cpu"), torch.device("meta")))
     with pytest.raises(ValueError, match="shards"):
         make_row_blocks_mesh(0, device="cpu")
@@ -492,7 +492,7 @@ def test_sharded_train_steps_match_unsharded_reference(tmp_path):
     # the state restores onto the devices ``shardings`` names: a tree of
     # the state's structure with device leaves
     checkpoint.save(str(tmp_path), 4, st)
-    shardings = checkpoint._map_leaves(lambda key, leaf: torch.device("cpu"), st)
+    shardings = checkpoint.map_with_path(lambda key, leaf: torch.device("cpu"), st)
     back, manifest = checkpoint.restore(str(tmp_path), st, shardings=shardings)
     assert manifest["step"] == 4
     for a, b in zip(back.weights, st.weights):

@@ -108,3 +108,34 @@ def test_convert_stacked_bsr_and_bias_keep_int_masks():
         assert torch.equal(getattr(stacked, name), getattr(ref, name)), name
     b = convert.bias(np.arange(6, dtype=np.float64).reshape(2, 3))
     assert b.dtype == torch.float32 and b.shape == (2, 3)
+
+
+@pytest.mark.parametrize("shape,block,bpr", [((64, 64), (8, 8), 3), ((32, 96), (16, 8), 12),
+                                             ((16, 16), (8, 8), 2)])
+def test_random_keeps_the_reference_contract(shape, block, bpr):
+    """``BlockSparseMatrix.random`` draws from a torch.Generator (values
+    unlike the reference's by design): exactly ``bpr`` distinct sorted
+    block-columns a block-row, no pad slot, values in U[-1, 3), the same
+    for the same seed."""
+    import jax
+
+    a = BlockSparseMatrix.random(torch.Generator().manual_seed(3), shape, block, bpr)
+    ref = JBSR.random(jax.random.key(3), shape, block, bpr)
+    assert tuple(a.blocks.shape) == ref.blocks.shape and a.col_idx.dtype == torch.int32
+    assert a.shape == shape and a.block_shape == block and a.max_blocks_per_row == bpr
+    cols = a.col_idx.numpy()
+    assert (np.diff(cols, axis=1) > 0).all() and cols.min() >= 0
+    assert cols.max() < shape[1] // block[1] and bool(a.block_mask.all())
+    assert float(a.blocks.min()) >= -1.0 and float(a.blocks.max()) < 3.0
+    a.validate()
+    b = BlockSparseMatrix.random(torch.Generator().manual_seed(3), shape, block, bpr)
+    assert torch.equal(a.blocks, b.blocks) and torch.equal(a.col_idx, b.col_idx)
+
+
+def test_random_value_range_dtype_and_refusal():
+    a = BlockSparseMatrix.random(torch.Generator().manual_seed(0), (64, 64), (8, 8), 8,
+                                 dtype=torch.bfloat16, minval=0.0, maxval=1.0)
+    assert a.dtype == torch.bfloat16 and float(a.blocks.min()) >= 0.0
+    assert float(a.blocks.max()) < 1.0
+    with pytest.raises(ValueError, match="blocks_per_row"):
+        BlockSparseMatrix.random(torch.Generator(), (64, 64), (8, 8), 9)

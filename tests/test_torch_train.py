@@ -32,6 +32,7 @@ from repro_torch.core import dnn, pruning
 from repro_torch.plan import build_plan
 from repro_torch.sparse import BlockCSRMatrix, BlockSparseMatrix
 from repro_torch.sparse.bcsr import reset_transpose_sort_count, transpose_sort_count
+from repro_torch.train import checkpoint
 from repro_torch.train import optimizer as popt
 from repro_torch.train import sparse as psparse
 
@@ -137,7 +138,7 @@ def test_sparse_train_step_matches_reference(opt):
         pstate, pm = pstep(pstate, pbatch)
         np.testing.assert_allclose(float(pm["loss"]), float(jm["loss"]), rtol=1e-5)
         np.testing.assert_allclose(float(pm["grad_norm"]), float(jm["grad_norm"]), rtol=1e-4)
-        _leaves_close(psparse.flatten(pstate.weights, pstate.biases),
+        _leaves_close(checkpoint.leaves(pstate.params),
                       (jstate.weights, jstate.biases), TRAIN_TOL)
         losses.append(float(pm["loss"]))
     assert losses[-1] < losses[0], losses

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's GraphChallenge, GraphBLAS, training, tuning,
-sharded, fleet and model-stack (LLM serving and training) paths on one GPU.
+sharded, fleet and model-stack (LLM serving and training) paths and its
+meta-device dry run on one GPU.
 
     python3 chip_smoke.py        # from the repository root, on a CUDA host
 
@@ -212,6 +213,29 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    and 20; the run stopped at 10 (its step-20 checkpoint dropped) and
    resumed with ``--resume`` gives the uninterrupted run's metrics for
    steps 11–20 bit for bit.
+25. dryrun — ``repro_torch.launch.dryrun`` held to the card (``DRYRUN``),
+   in a process of its own with ``expandable_segments``: one line per
+   record of every arch's ``decode_32k`` and ``long_500k`` on the
+   ``card`` and ``pod16x16`` meshes (``ok``, or ``skipped`` with the
+   assigned reason). Then the plan's ``fn`` (``launch.specs.make_plan``)
+   runs for real at full sequence length, random weights and tokens
+   from seeded generators: Gemma-3-4B ``long_500k`` at full size (a
+   cache filled with seeded values as by a prefill of S - 1 positions;
+   the donated decode equal to the out-of-place one bit for bit);
+   Llama-3.2-1B ``train_4k``, ``prefill_32k`` and ``decode_32k`` at the
+   largest batch whose dry-run peak fits the card's free memory less
+   1 GiB (train: the plan's 8 microbatches need an f32 accumulator
+   more, so one sequence in one microbatch, and two must not fit;
+   prefill: from a batch-1 trace, the cut traced beside its card run;
+   decode: from the full batch's trace, its cache a real prefill of
+   S - 1 positions of 2 prompts, tiled). Each held to the dry run
+   traced once at its cut batch: ``FlopCounterMode``'s FLOPs on the
+   card equal, ``max_memory_allocated`` over the call less what the
+   process held besides the arguments within 10%, a donated cache in
+   its own storages; train's loss and gradient norm finite; the same
+   donated decode at f32 compute within ``LLM_F32_TOL`` of the f32
+   prefill of S positions (the bf16 distances printed). Each cell's
+   time beside its roofline bound; no kernel launched.
 
 Every engine plan on the card captures its forward as a CUDA graph at
 its first panel (an eager warm-up, then the capture) and replays it for
@@ -225,7 +249,7 @@ same layer loop called eagerly through ``kernel_ops`` from this script,
 interleaved, five times each, beside the kernels' CUDA-event time
 (``host_share``).
 
-Launch counts are reset to 0 right before each of phases 3-24 and read
+Launch counts are reset to 0 right before each of phases 3-25 and read
 right after (for 8, 9, 17 and 22, around the train steps; for 23, around
 the sparse model's steps; for 18, around each run of the trace). The ``kernels`` line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}`` close the run. Numbers are this run's
@@ -353,6 +377,16 @@ LAUNCH_TRAIN = dict(arch="llama3.2-1b", steps=20, ckpt_interval=10, seed=MODEL_S
 # already differ by 1.2% of it at one position, 0.05 on logits up to ~5, so
 # its elementwise form cannot hold); f32 compute on the same weights: 1e-4
 LLM_TOL, LLM_F32_TOL = 2e-2, 1e-4
+# the dryrun phase: the dry run's records of every arch's decode_32k and
+# long_500k, then Llama-3.2-1B's prefill_32k, decode_32k and train_4k, each at
+# the largest batch whose dry-run peak fits the card's free memory less
+# DRYRUN_MARGIN_BYTES (kernel code loaded at first use), and Gemma-3-4B's
+# long_500k at full size, run on the card at full sequence length and held to
+# the dry run: FLOPs equal, peak within DRYRUN_PEAK_RTOL. decode_32k's cache is
+# a real prefill of S - 1 positions of DRYRUN["decode_rows"] prompts, tiled
+DRYRUN = dict(arch="llama3.2-1b", long_arch="gemma3-4b", decode_rows=2, seed=MODEL_SEED)
+DRYRUN_PEAK_RTOL = 0.10
+DRYRUN_MARGIN_BYTES = 2**30
 WIDTH_CLASSES = (64, 128, 256, 512)
 HOST_SHARE_REPEATS = 5  # captured and eager forwards, interleaved
 # the graphblas phase's adjacency: random_skewed(SKEWED_SEED, (m, m), (16, 16), blocks, skew)
@@ -3175,6 +3209,381 @@ def phase_launch_train(arch: str, steps: int, ckpt_interval: int, seed: int) -> 
             "launches": launches, "device": str(torch.cuda.get_device_name(0))}
 
 
+def dryrun_meta_record(arch: str, shape: str, global_batch: int | None,
+                       microbatches: int | None) -> dict:
+    """The dry run's record of one cell on the card's mesh, traced on
+    ``meta`` (run in a worker process beside the card's runs)."""
+    from repro_torch.launch import dryrun
+
+    (rec,) = dryrun.run_cell(arch, shape, meshes=("card",), global_batch=global_batch,
+                             microbatches=microbatches)
+    return rec
+
+
+def cache_ptrs(tree) -> list[int]:
+    from repro_torch.models.layers import tree_leaves
+
+    return [t.untyped_storage().data_ptr() for t in tree_leaves(tree)]
+
+
+def fixed_bytes(plan) -> int:
+    """The bytes of a serving plan that do not grow with the batch: the
+    parameters and the compute-dtype copy every call casts
+    (``models.model.cast_floating``)."""
+    import torch
+
+    from repro_torch.models.layers import tree_leaves
+
+    copy = torch.empty((), dtype=plan.model.compute_dtype).element_size()
+    return sum(t.nbytes + (t.numel() * copy if t.is_floating_point() else 0)
+               for t in tree_leaves(plan.args[0]))
+
+
+def largest_batch(rec: dict, fixed: int, limit: int) -> int:
+    """The largest batch whose peak, at the per-sequence bytes of ``rec``'s
+    trace above ``fixed``, stays within ``limit``."""
+    per_seq = (rec["memory"]["peak_per_device_bytes"] - fixed) / rec["global_batch"]
+    return int((limit - fixed) // per_seq)
+
+
+def next_batch_peak(rec: dict, fixed: int) -> float:
+    """``rec``'s peak one sequence up, at its own bytes per sequence."""
+    b = rec["global_batch"]
+    return rec["memory"]["peak_per_device_bytes"] * (b + 1) / b - fixed / b
+
+
+def card_measure(plan, args, *, donated: bool) -> tuple[dict, object]:
+    """``plan.fn`` on the card's ``args`` once under ``FlopCounterMode``: its
+    FLOPs, the peak the call adds to what the process held besides ``args``
+    (``max_memory_allocated`` after ``reset_peak_memory_stats``), its time
+    under the counter, and whether a donated cache kept its storages."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch import dryrun
+
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - dryrun.live_bytes(args, "cuda")
+    ptrs = cache_ptrs(args[2]) if donated else None
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as counter:
+        ms, out = synced_ms(lambda: plan.fn(*args))
+    res = {"global_batch": plan.cell.global_batch, "flops": counter.get_total_flops(),
+           "peak_bytes": torch.cuda.max_memory_allocated() - held, "counted_ms": ms}
+    if donated:
+        res["cache_in_place"] = cache_ptrs(out[1]) == ptrs
+        check(res["cache_in_place"], ("a donated cache moved", plan.name))
+    return res, out
+
+
+def hold_to_dryrun(res: dict, rec: dict) -> dict:
+    """A card run (``card_measure``) held to the dry run's record of the
+    same cell: FLOPs equal, peak within ``DRYRUN_PEAK_RTOL``."""
+    want = rec["memory"]["peak_per_device_bytes"]
+    res.update(dryrun_flops=rec["flops_per_device"], dryrun_peak_bytes=want,
+               peak_rel_err=res["peak_bytes"] / want - 1,
+               bound_ms=rec["roofline"]["step_time_lower_bound_s"] * 1e3,
+               bound_by=rec["roofline"]["dominant"], dryrun_trace_s=rec["trace_s"],
+               useful_flops_fraction=rec["useful_flops_fraction"])
+    check(res["flops"] == rec["flops_per_device"], ("FLOPs on the card vs the dry run", res))
+    check(abs(res["peak_rel_err"]) <= DRYRUN_PEAK_RTOL, ("peak on the card vs the dry run", res))
+    return res
+
+
+def card_run(plan, args, rec: dict, *, donated: bool) -> tuple[dict, object]:
+    """``card_measure`` and ``hold_to_dryrun`` of one call."""
+    res, out = card_measure(plan, args, donated=donated)
+    return hold_to_dryrun(res, rec), out
+
+
+def tile_rows(cache, rows, batch: int) -> None:
+    """``cache``'s ``batch`` rows copied from ``rows``' R rows in turn
+    (row b from row b mod R), one row at a time."""
+    from repro_torch.models.layers import tree_leaves
+
+    for dst, src in zip(tree_leaves(cache), tree_leaves(rows)):
+        if dst.shape == src.shape:
+            dst.copy_(src)
+            continue
+        dim = next(i for i, (a, b) in enumerate(zip(dst.shape, src.shape)) if a != b)
+        for b in range(batch):
+            dst.select(dim, b).copy_(src.select(dim, b % src.shape[dim]))
+
+
+def fill_cache(cache, filled: int, generator) -> None:
+    """``cache`` as a prefill of ``filled`` positions would leave its
+    shapes: seeded keys and values, every attention layer's positions
+    (a window layer's as its ring holds them)."""
+    import torch
+
+    from repro_torch.models import attention as attn
+    from repro_torch.train import checkpoint
+
+    def fill(path, t):
+        if path.endswith("positions"):
+            size = t.shape[-1]
+            pos = (attn._ring_positions(size, filled, t.device) if size < filled else
+                   torch.cat([torch.arange(filled, dtype=torch.int32, device=t.device),
+                              torch.full((size - filled,), -1, dtype=torch.int32,
+                                         device=t.device)]))
+            t.copy_(pos.expand(t.shape))
+        elif t.is_floating_point():
+            t.copy_(torch.randn(t.shape, generator=generator, device=t.device))
+
+    checkpoint.map_with_path(fill, cache)
+
+
+def dryrun_long(arch: str, rec: dict, seed: int) -> dict:
+    """``long_500k`` at full size on the card: a cache filled as by a
+    prefill of S - 1 positions, the out-of-place decode of position S - 1,
+    then the plan's donated decode on the same inputs: held to the dry run
+    (``card_run``) and to the out-of-place decode bit for bit."""
+    import torch
+
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models.layers import tree_leaves
+
+    dev = torch.device("cuda")
+    plan = specs.make_plan(arch, "long_500k", make_production_mesh(device="meta"))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params, token, cache, _ = dryrun.materialize(plan, device=dev, generator=gen)
+    s = plan.cell.seq_len
+    fill_cache(cache, s - 1, gen)
+    pos = torch.tensor(s - 1, dtype=torch.int32)
+    want, want_cache = plan.model.decode_step(params, token, cache, pos)
+    res, (got, got_cache) = card_run(plan, (params, token, cache, pos), rec, donated=True)
+    res["bitwise_equal_to_out_of_place"] = bool(
+        torch.equal(got, want) and all(torch.equal(a, b) for a, b in
+                                       zip(tree_leaves(got_cache), tree_leaves(want_cache))))
+    check(res["bitwise_equal_to_out_of_place"], "donated decode vs out-of-place, long_500k")
+    check(bool(torch.isfinite(got.float()).all()), "non-finite long_500k logits")
+    res["ms"] = statistics.median(synced_ms(lambda: plan.fn(params, token, cache, pos))[0]
+                                  for _ in range(3))
+    res["cache_bytes"] = sum(t.nbytes for t in tree_leaves(cache))
+    return res
+
+
+def dryrun_train(arch: str, limit: int, seed: int) -> dict:
+    """``train_4k`` on the card at the largest global batch, a multiple of
+    its microbatches, whose dry-run peak fits ``limit``. The plan's 8
+    microbatches hold at least what one microbatch of one sequence holds
+    and an f32 gradient accumulator besides (``trainer.make_train_step``):
+    where that does not fit, the cut is one sequence a microbatch, and two
+    sequences in two must not fit. Loss and gradient norm finite."""
+    import torch
+
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models.layers import tree_leaves
+
+    plan = specs.make_plan(arch, "train_4k", make_production_mesh(device="meta"),
+                           microbatches=1, global_batch=1)
+    rec = dryrun_meta_record(arch, "train_4k", 1, 1)
+    peak = rec["memory"]["peak_per_device_bytes"]
+    acc = sum(t.numel() * 4 for t in tree_leaves(plan.args[0].params)
+              if t.is_floating_point())
+    check(peak + acc > limit, "the plan's own microbatches may fit: trace them before cutting")
+    check(peak <= limit, ("train_4k fits at no batch", rec))
+    two = dryrun_meta_record(arch, "train_4k", 2, 2)
+    check(two["memory"]["peak_per_device_bytes"] > limit, ("two sequences fit", two))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    args = dryrun.materialize(plan, device="cuda", generator=gen)
+    res, (state, metrics) = card_run(plan, args, rec, donated=False)
+    res.update(microbatches=1, plan_microbatches=specs.DEFAULT_MICROBATCHES,
+               plan_microbatches_peak_at_least=peak + acc,
+               two_sequence_peak_bytes=two["memory"]["peak_per_device_bytes"],
+               loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]))
+    check(np.isfinite(res["loss"]) and np.isfinite(res["grad_norm"]), ("train_4k", res))
+    del state, metrics
+    res["ms"] = synced_ms(lambda: plan.fn(*args))[0]
+    return res
+
+
+def decode_vs_prefill(model, params, tokens, got, want, tile, pos) -> dict:
+    """decode_32k's logits against the S-position prefill's last ones. At
+    the plan's bf16 compute the two paths differ in their attention's
+    arithmetic (decode: bf16 scores and probabilities over the cache;
+    prefill: the streaming f32 online softmax), and at 32 768 positions
+    they lie further apart than ``LLM_TOL`` (``PERF.md`` §6): printed,
+    beside each one's distance from the f32 computation of the same
+    logits. Held:
+    the same donated decode path at f32 compute on the same weights,
+    within ``LLM_F32_TOL`` of the f32 prefill, on the first prompt."""
+    import dataclasses
+
+    from repro_torch.models import Model
+    from repro_torch.serve.engine import make_serve_fns
+
+    s = tokens.shape[1]
+    model32 = Model(dataclasses.replace(model.cfg, compute_dtype="float32"))
+    prefill32, decode32 = make_serve_fns(model32)
+    one = tokens[:1]
+    truth, _ = prefill32(params, one, model32.init_cache(1, s, device=one.device))
+    _, cache = prefill32(params, one[:, :s - 1], model32.init_cache(1, s, device=one.device))
+    dec32, _ = decode32(params, one[:, s - 1], cache, pos)
+    res = {"bf16_decode_vs_prefill_row_rel": row_rel(got, want[tile]),
+           "bf16_decode_vs_f32_row_rel": row_rel(got[:1], truth[:, -1]),
+           "bf16_prefill_vs_f32_row_rel": row_rel(want[:1], truth[:, -1]),
+           "f32_decode_vs_prefill_row_rel": row_rel(dec32, truth[:, -1]),
+           "tolerance": {"f32": LLM_F32_TOL}}
+    check(res["f32_decode_vs_prefill_row_rel"] <= LLM_F32_TOL, ("decode_32k vs prefill", res))
+    return res
+
+
+def dryrun_records() -> tuple[dict, float]:
+    """The dry run's records of every arch's ``decode_32k`` and
+    ``long_500k`` on the ``card`` and ``pod16x16`` meshes, each ``ok`` or
+    ``skipped`` with its assigned reason and printed on a line of its own,
+    and the seconds they took (run in a worker process)."""
+    from repro_torch.configs import ARCHS, SHAPE_CELLS, get_config
+    from repro_torch.launch import dryrun, specs
+
+    recs, t0 = {}, time.perf_counter()
+    for a in ARCHS:
+        for shape in ("decode_32k", "long_500k"):
+            for rec in dryrun.run_cell(a, shape, meshes=("card", "single")):
+                reason = specs.skip_reason(get_config(a), SHAPE_CELLS[shape])
+                check(rec["status"] == ("skipped" if reason else "ok"), rec)
+                recs[a, shape, rec["mesh"]] = rec
+                line = {k: rec.get(k) for k in ("arch", "shape", "mesh", "status", "chips",
+                                                "flops_per_device", "bytes_per_device",
+                                                "useful_flops_fraction", "trace_s")}
+                if rec["status"] == "ok":
+                    line.update(peak_per_device_bytes=rec["memory"]["peak_per_device_bytes"],
+                                bound_s=rec["roofline"]["step_time_lower_bound_s"],
+                                dominant=rec["roofline"]["dominant"])
+                emit({"dryrun_record": line})
+    return recs, time.perf_counter() - t0
+
+
+def dryrun_card(arch: str, long_arch: str, decode_rows: int, seed: int) -> dict:
+    """The ``dryrun`` phase, in a process of its own on the card (see
+    ``phase_dryrun``)."""
+    import concurrent.futures
+    import multiprocessing
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import make_production_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    # cuBLAS's workspaces first, so that no measured peak holds them
+    w = torch.ones((64, 64), device=dev)
+    _ = (w @ w, w.bfloat16() @ w.bfloat16())
+    torch.cuda.synchronize()
+    free, total = torch.cuda.mem_get_info()
+    limit = free - DRYRUN_MARGIN_BYTES
+    out = {"free_bytes": free, "total_bytes": total, "limit_bytes": limit,
+           "alloc_conf": os.environ.get("PYTORCH_CUDA_ALLOC_CONF")}
+    mesh = make_production_mesh(device="meta")
+    ops.reset_launch_counts()
+    # the records and the prefill's batch-1 trace run in two worker processes
+    # beside the card's runs
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=2, mp_context=multiprocessing.get_context("spawn")) as meta:
+        records = meta.submit(dryrun_records)
+        probe = meta.submit(dryrun_meta_record, arch, "prefill_32k", 1, None)
+        out["train_4k"] = dryrun_train(arch, limit, seed)
+        emit({"dryrun_cell": "train_4k", **out["train_4k"]})
+        torch.cuda.empty_cache()
+        recs, out["records_seconds"] = records.result()
+        out["records"] = len(recs)
+        out["long_500k"] = dryrun_long(long_arch, recs[long_arch, "long_500k", "card"], seed)
+        emit({"dryrun_cell": "long_500k", **out["long_500k"]})
+        torch.cuda.empty_cache()
+
+        # prefill_32k: the cut from the batch-1 trace, the estimate traced at
+        # the cut beside the card's run of it
+        full = specs.make_plan(arch, "prefill_32k", mesh)
+        fixed = fixed_bytes(full)
+        b1 = probe.result()
+        batch = min(largest_batch(b1, fixed, limit), full.cell.global_batch)
+        estimate = meta.submit(dryrun_meta_record, arch, "prefill_32k", batch, None)
+        plan = specs.make_plan(arch, "prefill_32k", mesh, global_batch=batch)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        args = dryrun.materialize(plan, device=dev, generator=gen)
+        res, (logits, _) = card_measure(plan, args, donated=True)
+        rec = estimate.result()
+        hold_to_dryrun(res, rec)
+        check(rec["memory"]["peak_per_device_bytes"] <= limit, ("prefill cut does not fit", rec))
+        check(next_batch_peak(rec, fixed) > limit, ("a larger prefill batch fits", rec))
+        # the counted call's time: the card, not the counter's host work, is
+        # the slower side at these shapes (a tile op moves ~2 GB)
+        res.update(ms=res["counted_ms"], fixed_bytes=fixed,
+                   batch_one_peak_bytes=b1["memory"]["peak_per_device_bytes"],
+                   next_batch_peak_bytes=next_batch_peak(rec, fixed))
+        out["prefill_32k"] = res
+        emit({"dryrun_cell": "prefill_32k", **res})
+        params, tokens = args[0], args[1][:decode_rows].clone()
+        want = logits[:decode_rows, -1].clone()
+        del args, logits
+        torch.cuda.empty_cache()
+
+        # decode_32k: the cut from the full batch's trace, a cache filled by a
+        # real prefill of S - 1 positions of ``decode_rows`` prompts, tiled
+        full = specs.make_plan(arch, "decode_32k", mesh)
+        fixed = fixed_bytes(full)
+        batch = min(largest_batch(recs[arch, "decode_32k", "card"], fixed, limit),
+                    full.cell.global_batch)
+        rec = dryrun_meta_record(arch, "decode_32k", batch, None)
+        check(rec["memory"]["peak_per_device_bytes"] <= limit, ("decode cut does not fit", rec))
+        check(next_batch_peak(rec, fixed) > limit, ("a larger decode batch fits", rec))
+        plan = specs.make_plan(arch, "decode_32k", mesh, global_batch=batch)
+        model, s = plan.model, plan.cell.seq_len
+        ms_prefill, (_, rows) = synced_ms(lambda: model.prefill(
+            params, tokens[:, :s - 1], model.init_cache(decode_rows, s, device=dev),
+            donate_cache=True))
+        cache = model.init_cache(batch, s, device=dev)
+        tile_rows(cache, rows, batch)
+        del rows
+        tile = torch.arange(batch, device=dev) % decode_rows
+        pos = torch.tensor(s - 1, dtype=torch.int32)
+        token = tokens[:, s - 1][tile]
+        res, (got, _) = card_run(plan, (params, token, cache, pos), rec, donated=True)
+        res.update(prefill_rows=decode_rows, prefill_rows_ms=ms_prefill,
+                   next_batch_peak_bytes=next_batch_peak(rec, fixed),
+                   ms=statistics.median(synced_ms(lambda: plan.fn(params, token, cache, pos))[0]
+                                        for _ in range(3)))
+        del cache
+        torch.cuda.empty_cache()
+        res.update(decode_vs_prefill(model, params, tokens, got, want, tile, pos))
+        out["decode_32k"] = res
+        emit({"dryrun_cell": "decode_32k", **res})
+    out["launches"] = ops.launch_counts()
+    check(not any(out["launches"].values()), ("the dry run's cells launch no kernel", out))
+    return out
+
+
+def phase_dryrun(arch: str, long_arch: str, decode_rows: int, seed: int) -> dict:
+    """The dry run held to the card (``dryrun_card``), in a process of its
+    own: its cells fill the card, so it starts from no allocation of the
+    earlier phases, and with ``expandable_segments`` so that a cell sized
+    to the free memory is not refused for the allocator's fragments."""
+    import concurrent.futures
+    import gc
+    import multiprocessing
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    saved = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:  # the worker starts, and takes the environment, at submit
+        with concurrent.futures.ProcessPoolExecutor(
+                max_workers=1, mp_context=multiprocessing.get_context("spawn")) as pool:
+            return pool.submit(dryrun_card, arch, long_arch, decode_rows, seed).result()
+    finally:
+        if saved is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = saved
+
+
 def main() -> int:
     import torch
 
@@ -3259,6 +3668,8 @@ def main() -> int:
     emit({"phase": "llm-train", **llm_train})
     launch = phase_launch_train(**LAUNCH_TRAIN)
     emit({"phase": "launch-train", **launch})
+    dry = phase_dryrun(**DRYRUN)
+    emit({"phase": "dryrun", "card": dev["nvidia_smi"], **dry})
 
     by_phase = {"serve": serve["launches"], "layered": layered["launches"],
                 "tiled": tiled["launches"], "dense": dense["launches"],
@@ -3274,7 +3685,7 @@ def main() -> int:
                 "model-mlp": mlp["launches"], "llm-sparse": llm_sparse["launches"],
                 "model-train": model_train["launches"],
                 "llm-train": llm_train["sparse"]["launches"],
-                "launch-train": launch["launches"]}
+                "launch-train": launch["launches"], "dryrun": dry["launches"]}
     checks = {name: "max|kernel - plain| <= 1e-5 |plain| + 1e-6 (f32 order)"
               for name in ("semiring_matmul", "bsr_spmm", "bcsr_spmm")}
     checks.update({name: "stack: <= 1e-4 max|plain|, each entry within 2x the f32 bound, "

@@ -14,7 +14,9 @@ The model's mesh (``make_local_mesh``) is ``data`` × ``model`` over one
 card: ``data=1, model=1``. A mesh over several distinct devices (peer
 copies or NCCL between cards), a local mesh of more than one position
 and the reference's production mesh of 256 or 512 devices are refused:
-they need the multi-card mesh, which cannot be tested on one card.
+they need the multi-card mesh, which cannot be tested on one card. The
+production mesh is made on the ``meta`` device only, shapes for the
+dry run.
 """
 
 from __future__ import annotations
@@ -111,9 +113,15 @@ def make_local_mesh(data: int | None = None, model: int = 1, *, device=None) -> 
     return Mesh(("data", "model"), (1, 1), (device,))
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
     """The reference's production mesh, (16, 16) ``("data", "model")`` or
-    (2, 16, 16) with an outer ``"pod"`` axis: refused, its 256 or 512
-    devices need the multi-card mesh."""
+    (2, 16, 16) with an outer ``"pod"`` axis. Only ``device="meta"`` is
+    taken: a shapes-only mesh, every position ``meta``, for the dry run
+    (``repro_torch.launch.dryrun``), which reads its ``shape``. On any
+    other device it is refused: its 256 or 512 devices need the
+    multi-card mesh."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
-    raise ValueError(several_devices(f"the production mesh {shape}"))
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if device is None or torch.device(device).type != "meta":
+        raise ValueError(several_devices(f"the production mesh {shape}"))
+    return Mesh(axes, shape, (torch.device("meta"),) * math.prod(shape))

@@ -10,9 +10,12 @@ tiles the causal / window mask leaves dead (``_attend_streaming``).
 
 Decode semantics: the KV cache is a fixed-size buffer (a ring buffer for
 windowed layers) with an explicit ``positions`` track; batch entries
-decode at a shared position. A full-attention layer writes a position
-past its buffer into the last slot, as the reference's
-``dynamic_update_slice`` clamps its start index. MLA decode uses the
+decode at a shared position. The cache writers work on a copy of each
+buffer they write by default; with ``donate=True`` they write into the
+caller's buffers and return them (the reference plans' donated cache,
+which XLA updates in place), with the same values. A full-attention
+layer writes a position past its buffer into the last slot, as the
+reference's ``dynamic_update_slice`` clamps its start index. MLA decode uses the
 absorbed formulation: only the (kv_lora + rope) latents are cached and
 the up-projections fold into the query and output sides.
 """
@@ -197,12 +200,14 @@ def cache_mask(positions_in_cache: torch.Tensor, pos: int, window: int = 0) -> t
     return m
 
 
-def _write_slot(buf: torch.Tensor, new: torch.Tensor, slot: int, dim: int) -> torch.Tensor:
-    """``buf`` with ``new`` (length 1 along ``dim``) written at ``slot``,
-    out of place; a slot past the end writes the last one (the
-    reference's ``dynamic_update_slice`` clamps its start index)."""
+def _write_slot(buf: torch.Tensor, new: torch.Tensor, slot: int, dim: int, *,
+                donate: bool = False) -> torch.Tensor:
+    """``buf`` with ``new`` (length 1 along ``dim``) written at ``slot``:
+    into ``buf`` itself when ``donate``, else into a copy; a slot past the
+    end writes the last one (the reference's ``dynamic_update_slice``
+    clamps its start index)."""
     slot = min(slot, buf.shape[dim] - 1)
-    out = buf.clone()
+    out = buf if donate else buf.clone()
     out.narrow(dim, slot, 1).copy_(new)
     return out
 
@@ -282,6 +287,7 @@ def prefill_gqa(
     window: int = 0,
     rope_theta: float = 0.0,
     q_chunk: int = 1024,
+    donate: bool = False,
 ) -> tuple[torch.Tensor, Params]:
     s = x.shape[1]
     theta = rope_theta or cfg.rope_theta
@@ -291,26 +297,31 @@ def prefill_gqa(
                         q_chunk=q_chunk)
     size = cache["k"].shape[1]
     if size >= s:
-        new_k, new_v = cache["k"].clone(), cache["v"].clone()
-        new_k[:, :s] = k.to(new_k.dtype)
-        new_v[:, :s] = v.to(new_v.dtype)
-        positions_c = cache["positions"].clone()
-        positions_c[:s] = torch.arange(s, dtype=torch.int32, device=x.device)
-        new_cache = {"k": new_k, "v": new_v, "positions": positions_c}
+        new_cache = _writable(cache, ("k", "v", "positions"), donate)
+        new_cache["k"][:, :s] = k.to(new_cache["k"].dtype)
+        new_cache["v"][:, :s] = v.to(new_cache["v"].dtype)
+        new_cache["positions"][:s] = torch.arange(s, dtype=torch.int32, device=x.device)
     else:  # ring buffer smaller than the prompt: keep the last `size`
+        ring = _ring_positions(size, s, x.device)
         new_cache = {
-            "k": _ring_fill(cache["k"], k, s),
-            "v": _ring_fill(cache["v"], v, s),
-            "positions": _ring_positions(size, s, x.device),
+            "k": _ring_fill(cache["k"], k, s, donate),
+            "v": _ring_fill(cache["v"], v, s, donate),
+            "positions": cache["positions"].copy_(ring) if donate else ring,
         }
     return torch.einsum("bshk,hkd->bsd", out, p["w_o"]), new_cache
 
 
-def _ring_fill(buf: torch.Tensor, seq: torch.Tensor, s: int) -> torch.Tensor:
+def _writable(cache: Params, names: tuple[str, ...], donate: bool) -> Params:
+    """The buffers ``names`` of ``cache`` to write a prefill into: the
+    caller's own when ``donate``, else copies."""
+    return {name: cache[name] if donate else cache[name].clone() for name in names}
+
+
+def _ring_fill(buf: torch.Tensor, seq: torch.Tensor, s: int, donate: bool) -> torch.Tensor:
     size = buf.shape[1]
     last = seq[:, s - size:]
     slots = torch.arange(s - size, s, device=buf.device) % size
-    out = buf.clone()
+    out = buf if donate else buf.clone()
     out[:, slots] = last.to(buf.dtype)
     return out
 
@@ -331,15 +342,16 @@ def decode_gqa(
     *,
     window: int = 0,
     rope_theta: float = 0.0,
+    donate: bool = False,
 ) -> tuple[torch.Tensor, Params]:
     theta = rope_theta or cfg.rope_theta
     positions = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
     q, k, v = _gqa_qkv(p, cfg, x, positions, theta)
     size = cache["k"].shape[1]
     slot = (pos % size) if window else pos
-    k_cache = _write_slot(cache["k"], k, slot, 1)
-    v_cache = _write_slot(cache["v"], v, slot, 1)
-    positions_c = _write_slot(cache["positions"], positions[0], slot, 0)
+    k_cache = _write_slot(cache["k"], k, slot, 1, donate=donate)
+    v_cache = _write_slot(cache["v"], v, slot, 1, donate=donate)
+    positions_c = _write_slot(cache["positions"], positions[0], slot, 0, donate=donate)
     mask = cache_mask(positions_c, pos, window)[None, None, :]  # (1,1,S)
     out = _attend(q, k_cache, v_cache, mask, scale=1.0 / math.sqrt(cfg.head_dim))
     out = torch.einsum("bshk,hkd->bsd", out, p["w_o"])
@@ -432,13 +444,14 @@ def prefill_mla(
     q_chunk: int = 1024,
     window: int = 0,
     rope_theta: float = 0.0,
+    donate: bool = False,
 ) -> tuple[torch.Tensor, Params]:
     s = x.shape[1]
     theta = rope_theta or cfg.rope_theta
     out = apply_mla(p, cfg, x, q_chunk=q_chunk, window=window, rope_theta=rope_theta)
     positions = torch.arange(s, device=x.device)[None, :]
     c_kv, k_rope = _mla_latents(p, cfg, x, positions, theta)
-    new_cache = {name: cache[name].clone() for name in ("c_kv", "k_rope", "positions")}
+    new_cache = _writable(cache, ("c_kv", "k_rope", "positions"), donate)
     new_cache["c_kv"][:, :s] = c_kv.to(new_cache["c_kv"].dtype)
     new_cache["k_rope"][:, :s] = k_rope.to(new_cache["k_rope"].dtype)
     new_cache["positions"][:s] = torch.arange(s, dtype=torch.int32, device=x.device)
@@ -454,6 +467,7 @@ def decode_mla(
     *,
     window: int = 0,
     rope_theta: float = 0.0,
+    donate: bool = False,
 ) -> tuple[torch.Tensor, Params]:
     """Absorbed-matrix MLA decode: scores and outputs computed against
     the cached latents; W_uk folds into q, W_uv into the output."""
@@ -463,9 +477,9 @@ def decode_mla(
     positions = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
     q_nope, q_rope = _mla_q(p, cfg, x, positions, theta)  # (B,1,H,·)
     c_kv_t, k_rope_t = _mla_latents(p, cfg, x, positions, theta)
-    c_kv = _write_slot(cache["c_kv"], c_kv_t, pos, 1)
-    k_rope = _write_slot(cache["k_rope"], k_rope_t, pos, 1)
-    positions_c = _write_slot(cache["positions"], positions[0], pos, 0)
+    c_kv = _write_slot(cache["c_kv"], c_kv_t, pos, 1, donate=donate)
+    k_rope = _write_slot(cache["k_rope"], k_rope_t, pos, 1, donate=donate)
+    positions_c = _write_slot(cache["positions"], positions[0], pos, 0, donate=donate)
     # absorb W_uk into the query: q_abs (B,1,H,kl); f32 (the reference's
     # promotion of its f32 query against the working-dtype weights)
     q_abs = torch.einsum("bthk,lhk->bthl", q_nope.float(), p["w_uk"].float())

@@ -10,6 +10,7 @@ config's layer pattern decides what gets built. Entry points:
   * ``init_cache(batch, cache_len)``  → decode cache tree
   * ``prefill(params, inputs, cache)``→ (logits, cache)
   * ``decode_step(params, tok, cache, pos)`` → (logits, cache)
+    (both out of place; ``donate_cache=True`` writes the cache in place)
 
 Input modes: ``tokens`` (int ids → embedding table), ``embeddings``
 (float (B,S,D) — the VLM/audio frontend stub) and ``features`` (the
@@ -150,25 +151,28 @@ class Model:
         return tfm.init_stack_cache(self.cfg, batch, cache_len, dtype or self.compute_dtype,
                                     resolve_device(device))
 
-    def prefill(self, params: Params, inputs: torch.Tensor,
-                cache: Params) -> tuple[torch.Tensor, Params]:
-        """Process the prompt, fill the cache; logits for the LAST position."""
+    def prefill(self, params: Params, inputs: torch.Tensor, cache: Params, *,
+                donate_cache: bool = False) -> tuple[torch.Tensor, Params]:
+        """Process the prompt, fill the cache; logits for the LAST position.
+        The caller's ``cache`` is left as it was, or, with
+        ``donate_cache=True``, written in place and returned (its own
+        tensors, the same values)."""
         params = cast_floating(params, self.compute_dtype)
         x = self._embed(params, inputs)
         x, cache = tfm.prefill_stack(params["stack"], self.cfg, x, cache,
-                                     use_kernel=self.use_kernel)
+                                     use_kernel=self.use_kernel, donate=donate_cache)
         return self._head(params, x[:, -1:]), cache
 
-    def decode_step(self, params: Params, token: torch.Tensor, cache: Params,
-                    pos) -> tuple[torch.Tensor, Params]:
+    def decode_step(self, params: Params, token: torch.Tensor, cache: Params, pos, *,
+                    donate_cache: bool = False) -> tuple[torch.Tensor, Params]:
         """One new token (B,) int (or (B,1,D) embeddings) at position
-        ``pos`` (an int or a 0-d tensor)."""
+        ``pos`` (an int or a 0-d tensor); ``donate_cache`` as ``prefill``."""
         params = cast_floating(params, self.compute_dtype)
         if token.dim() == 1:
             token = token[:, None]
         x = self._embed(params, token)
         x, cache = tfm.decode_stack(params["stack"], self.cfg, x, cache, int(pos),
-                                    use_kernel=self.use_kernel)
+                                    use_kernel=self.use_kernel, donate=donate_cache)
         return self._head(params, x)[:, 0], cache
 
     # ----------------------------- accounting -------------------------------

@@ -14,6 +14,11 @@ Three execution paths per layer, all cache-structure compatible:
   * ``prefill_layer`` — forward that also fills the decode cache
   * ``decode_layer``  — single-token step against the cache
 
+The cache paths return a new cache and leave the caller's as it was;
+with ``donate=True`` they write into the caller's tensors (a period
+layer's cache through its ``tree_index`` views of the stacked buffers)
+and return a tree of those same tensors, the same values.
+
 The paper's technique enters through ``ffn`` weights: any FFN projection
 may be sparse (``layers.linear`` dispatch, ``sparsify_stack``), and the
 ``relu_mlp`` layer kind *is* the paper's Fig. 4 layer. ``use_kernel``
@@ -178,6 +183,7 @@ def _mixer_with_cache(
     pos: int | None,
     *,
     decode: bool,
+    donate: bool,
 ) -> tuple[torch.Tensor, Params]:
     h = rms_norm(x, p["mixer_norm"], cfg.norm_eps)
     new = dict(cache)
@@ -186,20 +192,30 @@ def _mixer_with_cache(
         if decode:
             out, new["attn"] = attn.DECODE[kind](p["mixer"], cfg.attention, h, cache["attn"],
                                                  pos, window=spec.window,
-                                                 rope_theta=spec.rope_theta)
+                                                 rope_theta=spec.rope_theta, donate=donate)
         else:
             out, new["attn"] = attn.PREFILL[kind](p["mixer"], cfg.attention, h, cache["attn"],
                                                   window=spec.window,
-                                                  rope_theta=spec.rope_theta)
+                                                  rope_theta=spec.rope_theta, donate=donate)
     elif spec.mixer == "mamba":
         state = cache["mamba"] if decode else None
-        out, new["mamba"] = ssm.apply_mamba(p["mixer"], cfg.mamba, h, state)
+        out, state = ssm.apply_mamba(p["mixer"], cfg.mamba, h, state)
+        new["mamba"] = _store(cache["mamba"], state, donate)
     else:  # rwkv
         state = cache["rwkv"] if decode else None
-        out, new["rwkv"] = ssm.apply_rwkv_time_mix(p["mixer"], cfg.rwkv, h, state)
+        out, state = ssm.apply_rwkv_time_mix(p["mixer"], cfg.rwkv, h, state)
+        new["rwkv"] = _store(cache["rwkv"], state, donate)
     if cfg.post_norms:
         out = rms_norm(out, p["mixer_post_norm"], cfg.norm_eps)
     return x + out, new
+
+
+def _store(buf: Params, state: Params, donate: bool) -> Params:
+    """A recurrent layer's new ``state``, or, when ``donate``, the
+    caller's ``buf`` with the state's values copied into its tensors."""
+    if not donate:
+        return state
+    return {name: buf[name].copy_(value) for name, value in state.items()}
 
 
 def _ffn_with_cache(
@@ -210,6 +226,7 @@ def _ffn_with_cache(
     cache: Params,
     *,
     decode: bool,
+    donate: bool,
     use_kernel,
 ) -> tuple[torch.Tensor, Params]:
     new = dict(cache)
@@ -222,7 +239,8 @@ def _ffn_with_cache(
         out, _ = moe_mod.apply_moe(p["ffn"], cfg.moe, h, cfg.act, cfg.glu)
     else:  # rwkv_channel_mix (stateful token shift)
         state = cache["cmix"] if decode else None
-        out, new["cmix"] = ssm.apply_rwkv_channel_mix(p["ffn"], h, state)
+        out, state = ssm.apply_rwkv_channel_mix(p["ffn"], h, state)
+        new["cmix"] = _store(cache["cmix"], state, donate)
     if cfg.post_norms:
         out = rms_norm(out, p["ffn_post_norm"], cfg.norm_eps)
     return x + out, new
@@ -230,13 +248,14 @@ def _ffn_with_cache(
 
 def prefill_layer(
     p: Params, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor, cache: Params, *,
-    use_kernel: bool | None = None,
+    use_kernel: bool | None = None, donate: bool = False,
 ) -> tuple[torch.Tensor, Params]:
     new = cache
     if spec.mixer != "none":
-        x, new = _mixer_with_cache(p, cfg, spec, x, new, None, decode=False)
+        x, new = _mixer_with_cache(p, cfg, spec, x, new, None, decode=False, donate=donate)
     if spec.ffn != "none":
-        x, new = _ffn_with_cache(p, cfg, spec, x, new, decode=False, use_kernel=use_kernel)
+        x, new = _ffn_with_cache(p, cfg, spec, x, new, decode=False, donate=donate,
+                                 use_kernel=use_kernel)
     return x, new
 
 
@@ -249,12 +268,14 @@ def decode_layer(
     pos: int,
     *,
     use_kernel: bool | None = None,
+    donate: bool = False,
 ) -> tuple[torch.Tensor, Params]:
     new = cache
     if spec.mixer != "none":
-        x, new = _mixer_with_cache(p, cfg, spec, x, new, pos, decode=True)
+        x, new = _mixer_with_cache(p, cfg, spec, x, new, pos, decode=True, donate=donate)
     if spec.ffn != "none":
-        x, new = _ffn_with_cache(p, cfg, spec, x, new, decode=True, use_kernel=use_kernel)
+        x, new = _ffn_with_cache(p, cfg, spec, x, new, decode=True, donate=donate,
+                                 use_kernel=use_kernel)
     return x, new
 
 
@@ -301,9 +322,10 @@ def apply_stack(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
 
 
 def _stack_with_cache(step, p: Params, cfg: ModelConfig, x: torch.Tensor,
-                      cache: Params) -> tuple[torch.Tensor, Params]:
+                      cache: Params, donate: bool) -> tuple[torch.Tensor, Params]:
     """``step(layer_params, spec, x, layer_cache) -> (x, new_cache)`` over
-    head, the periods and tail; the period's new caches restacked."""
+    head, the periods and tail; the period's new caches restacked, or,
+    when ``donate``, written through the views into the stacked buffers."""
     new_head = []
     for lp, spec, c in zip(p["head"], cfg.head, cache["head"]):
         x, nc = step(lp, spec, x, c)
@@ -317,7 +339,8 @@ def _stack_with_cache(step, p: Params, cfg: ModelConfig, x: torch.Tensor,
                 x, nc = step(tree_index(lp, i), spec, x, tree_index(c, i))
                 new.append(nc)
             per_rep.append(new)
-        new_period = tree_stack(per_rep)
+        if not donate:
+            new_period = tree_stack(per_rep)
     new_tail = []
     for lp, spec, c in zip(p["tail"], cfg.tail, cache["tail"]):
         x, nc = step(lp, spec, x, c)
@@ -327,22 +350,22 @@ def _stack_with_cache(step, p: Params, cfg: ModelConfig, x: torch.Tensor,
 
 def prefill_stack(
     p: Params, cfg: ModelConfig, x: torch.Tensor, cache: Params, *,
-    use_kernel: bool | None = None,
+    use_kernel: bool | None = None, donate: bool = False,
 ) -> tuple[torch.Tensor, Params]:
     def step(lp, spec, x, c):
-        return prefill_layer(lp, cfg, spec, x, c, use_kernel=use_kernel)
+        return prefill_layer(lp, cfg, spec, x, c, use_kernel=use_kernel, donate=donate)
 
-    return _stack_with_cache(step, p, cfg, x, cache)
+    return _stack_with_cache(step, p, cfg, x, cache, donate)
 
 
 def decode_stack(
     p: Params, cfg: ModelConfig, x: torch.Tensor, cache: Params, pos: int, *,
-    use_kernel: bool | None = None,
+    use_kernel: bool | None = None, donate: bool = False,
 ) -> tuple[torch.Tensor, Params]:
     def step(lp, spec, x, c):
-        return decode_layer(lp, cfg, spec, x, c, pos, use_kernel=use_kernel)
+        return decode_layer(lp, cfg, spec, x, c, pos, use_kernel=use_kernel, donate=donate)
 
-    return _stack_with_cache(step, p, cfg, x, cache)
+    return _stack_with_cache(step, p, cfg, x, cache, donate)
 
 
 # ------------------------- the paper's technique -----------------------------

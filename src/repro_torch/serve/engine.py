@@ -466,3 +466,19 @@ class SparseDNNEngine:
             )
         self.submit(y0)
         return self.step()
+
+
+def make_serve_fns(model: Model):
+    """(prefill_fn, decode_fn) of the dry run's serving plans
+    (``repro_torch.launch.specs.make_plan``). The reference plan donates
+    the cache (``donate_argnums``, XLA updates it in place); here the
+    callee may overwrite it: each function writes the cache in place and
+    returns the same storages (``donate_cache=True``)."""
+
+    def prefill_fn(params, tokens, cache):
+        return model.prefill(params, tokens, cache, donate_cache=True)
+
+    def decode_fn(params, token, cache, pos):
+        return model.decode_step(params, token, cache, pos, donate_cache=True)
+
+    return prefill_fn, decode_fn

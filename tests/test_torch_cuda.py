@@ -1234,3 +1234,56 @@ def test_ell_pad_slots_of_a_model_weight_get_zero_gradient_on_the_card(cuda):
     pad = ~params["stack"]["period"][0]["ffn"]["w"].block_mask
     assert int(pad.sum()) > 0 and bool((got[pad] == 0).all())
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def test_a_donated_decode_writes_in_place_on_the_card(cuda):
+    """The serve fns' donated decode (``make_serve_fns``) on the card: the
+    out-of-place decode's logits and cache bit for bit, in the caller's
+    cache storages."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.serve.engine import make_serve_fns
+
+    model = Model(get_config("gemma3-4b").scaled_down())
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = model.init(gen, device=cuda)
+    toks = torch.randint(0, model.cfg.vocab_size, (2, 81), generator=gen, device=cuda,
+                         dtype=torch.int32)
+    prefill_fn, decode_fn = make_serve_fns(model)
+    _, cache = prefill_fn(params, toks[:, :80], model.init_cache(2, 96, device=cuda))
+    pos = torch.tensor(80, dtype=torch.int32)
+    want, want_cache = model.decode_step(params, toks[:, 80], cache, pos)
+    ptrs = [t.untyped_storage().data_ptr() for t in tree_leaves(cache)]
+    got, got_cache = decode_fn(params, toks[:, 80], cache, pos)
+    assert torch.equal(got, want)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(got_cache), tree_leaves(want_cache)))
+    assert [t.untyped_storage().data_ptr() for t in tree_leaves(got_cache)] == ptrs
+
+
+def test_a_small_cells_peak_and_flops_on_the_card_are_the_dry_runs(cuda):
+    """Llama-3.2-1B's ``decode_32k`` cut to 2 sequences: the FLOPs
+    ``FlopCounterMode`` counts on the card equal the meta trace's, and the
+    peak the call adds to what the process held besides its arguments lies
+    within 10% of the trace's."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import make_production_mesh
+
+    (rec,) = dryrun.run_cell("llama3.2-1b", "decode_32k", meshes=("card",), global_batch=2)
+    plan = specs.make_plan("llama3.2-1b", "decode_32k", make_production_mesh(device="meta"),
+                           global_batch=2)
+    args = dryrun.materialize(plan, device=cuda,
+                              generator=torch.Generator(device=cuda).manual_seed(0))
+    w = torch.ones((64, 64), device=cuda)
+    _ = (w @ w, w.bfloat16() @ w.bfloat16())  # cuBLAS's workspaces, outside the peak
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - dryrun.live_bytes(args, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as counter:
+        plan.fn(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    assert counter.get_total_flops() == rec["flops_per_device"]
+    assert abs(peak / rec["memory"]["peak_per_device_bytes"] - 1) <= 0.10

@@ -37,7 +37,8 @@ SLICE_MODULES = ("repro_torch.tune.table", "repro_torch.tune.sweep",
                  "repro_torch.models.transformer", "repro_torch.models.model",
                  "repro_torch.launch.serve", "repro_torch.data.pipeline",
                  "repro_torch.train.trainer", "repro_torch.launch.train",
-                 "repro_torch.distribution.collectives")
+                 "repro_torch.distribution.collectives", "repro_torch.launch.specs",
+                 "repro_torch.launch.dryrun")
 
 
 def test_every_module_imports_without_jax():

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's GraphChallenge, GraphBLAS, training, tuning,
 sharded, fleet and model-stack (LLM serving and training) paths and its
-meta-device dry run on one GPU.
+meta-device dry run on one GPU (the sharded phases also over one shard a
+card on a host with 4).
 
     python3 chip_smoke.py        # from the repository root, on a CUDA host
 
@@ -146,7 +147,21 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    steps whose losses are within 1e-5 of the unsharded differentiable
    plan's, launches per step (4 a layer forward, 4 a layer but the first
    backward), step times.
-18. fleet — the reference's fleet arm (``FLEET``): 3 replicas of
+18. sharded-cards — the ``sharded`` phase's network and inputs over one
+   card a shard (``cards_mesh``: ``make_row_blocks_mesh(devices=...)``
+   on a host with 4 cards, else every position on the one card,
+   ``"cards": 1``): route and level ``sharded``; each card's 120
+   ``bcsr_spmm`` launches a forward from the per-card counts; each
+   card's allocated memory holding its shards' sub-layouts; categories
+   equal to the one-card run's, the unsharded engine's and the oracle's;
+   one 512-column panel's output bit for bit the one-card 4-shard
+   route's; the bills summing to the unsharded bill. Prints edge·inputs/s,
+   each card's kernel time (CUDA events on the card), the host's time to
+   issue a layer and the exchange's share of it, and on several cards
+   whether they reach each other's memory and one band's copy rate.
+19. sharded-cards-train — ``sharded-train`` over the same mesh, with its
+   checks, and each card's launches.
+20. fleet — the reference's fleet arm (``FLEET``): 3 replicas of
    RadiX-net 1024 × 120, each its own plan cache, behind
    ``FleetFrontend`` on a ``VirtualClock``; a bursty trace at rate factor
    4 (8 s, seed 17, widths 4 and 24, classes 8 and 24, deadline 0.05 s,
@@ -156,7 +171,7 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    replays; the same trace with replica 0 lost at dispatch 100 drops no
    admitted job; every served job's categories in both runs against the
    numpy oracle.
-19. llm-serve — Llama-3.2-1B at its published dimensions (``LLM_SERVE``):
+21. llm-serve — Llama-3.2-1B at its published dimensions (``LLM_SERVE``):
    ``Model.init`` draws the 1.236e9 f32 parameters on the card from a
    seeded generator; ``Engine(batch_size=4, cache_len=128,
    temperature=0.0)`` casts its bf16 serving copy once; two ``generate``
@@ -169,19 +184,19 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    the step's kernel time (``torch.profiler``, kernel rows only), its
    bound (the serving copy and the cache read once), tokens/s and peak
    memory.
-20. model-mlp — the paper's MLP through ``Model`` (``MODEL_MLP``:
+22. model-mlp — the paper's MLP through ``Model`` (``MODEL_MLP``:
    ``graphblas_mlp.make_config(m=8192, num_layers=8, inverse_sparsity=16,
    block=128)``, 4 blocks of 128 × 128 a block-row): ``init``,
    ``sparsify``, ``forward`` on 64 U[0, 1) feature vectors: 8
    ``bsr_spmm`` launches, all at the re-tiled 64 × 64 blocks, the output
    against ``Model(cfg, use_kernel=False)`` on the same params by the
    stack criterion (``STACK_RTOL`` and ``f32_chain_bound``).
-21. llm-sparse — llm-serve's weights with every FFN projection
+23. llm-sparse — llm-serve's weights with every FFN projection
    block-pruned to 4 blocks of 128 × 128 a block-row (``SparsityConfig``,
    ``Model.sparsify``), cast to bf16: a 4 × 32 ``prefill`` launches 48
    ``bsr_spmm`` (3 a layer; bf16 operands read as f32 by ``linear``) and
    its logits match ``use_kernel=False`` within 2e-2.
-22. model-train — model-mlp's network trained through the model API
+24. model-train — model-mlp's network trained through the model API
    (``MODEL_TRAIN``): ``sparsify``, ``make_train_step`` with AdamW on one
    fixed batch of 64 U[0, 1) feature vectors, 20 steps: the loss falls by
    more than 0.2; a step launches 8 ``bsr_spmm`` (forward) and 7
@@ -193,7 +208,7 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    against the 1-microbatch one (the reference's tolerances); topology
    unchanged. Step, forward and backward ms, the step's kernel ms, the
    plain step's ms, transposes sorted a step.
-23. llm-train — Llama-3.2-1B at published width (``LLM_TRAIN``):
+25. llm-train — Llama-3.2-1B at published width (``LLM_TRAIN``):
    ``init_train_state`` on the card (4.94 GB of f32 weights), AdamW with
    ``warmup_cosine(3e-4, 10, 100)`` and f32 moments, ``SyntheticLM(vocab,
    128, 8)`` through a ``Prefetcher``, 2 microbatches, 5 steps; then the
@@ -208,12 +223,12 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    larger of 6 × params × tokens over the dense bf16 tensor-core peak and
    the optimizer's f32 passes over params, gradients and moments over the
    HBM rate.
-24. launch-train — ``repro_torch.launch.train.main`` on the default device
+26. launch-train — ``repro_torch.launch.train.main`` on the default device
    at ``--arch llama3.2-1b --scale-down``, 20 steps, checkpoints at steps 10
    and 20; the run stopped at 10 (its step-20 checkpoint dropped) and
    resumed with ``--resume`` gives the uninterrupted run's metrics for
    steps 11–20 bit for bit.
-25. dryrun — ``repro_torch.launch.dryrun`` held to the card (``DRYRUN``),
+27. dryrun — ``repro_torch.launch.dryrun`` held to the card (``DRYRUN``),
    in a process of its own with ``expandable_segments``: one line per
    record of every arch's ``decode_32k`` and ``long_500k`` on the
    ``card`` and ``pod16x16`` meshes (``ok``, or ``skipped`` with the
@@ -249,9 +264,9 @@ same layer loop called eagerly through ``kernel_ops`` from this script,
 interleaved, five times each, beside the kernels' CUDA-event time
 (``host_share``).
 
-Launch counts are reset to 0 right before each of phases 3-25 and read
-right after (for 8, 9, 17 and 22, around the train steps; for 23, around
-the sparse model's steps; for 18, around each run of the trace). The ``kernels`` line, the ``nvidia-smi`` line and, last,
+Launch counts are reset to 0 right before each of phases 3-27 and read
+right after (for 8, 9, 17, 19 and 24, around the train steps; for 25,
+around the sparse model's steps; for 20, around each run of the trace). The ``kernels`` line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}`` close the run. Numbers are this run's
 own; the bound of a kernel is max(bytes / 3.35 TB/s, ops / 67 TFLOP/s)
 (H100 SXM HBM3 rate and f32 CUDA-core peak at 700 W; the LLM train step's
@@ -328,8 +343,9 @@ TUNE_RADIX = dict(sizes=((1024, 0.3), (4096, 0.35)), layers=120, block=16, width
 RESILIENT = dict(neurons=1024, layers=120, columns=512, lr=0.02, steps=12, ckpt_interval=4,
                  nan_step=6, kill_step=8)
 # the sharded phases: RadiX-net 65536 × 120 (the largest official size) served
-# over a mesh of 4 shards on the one card, 8 192 inputs in 512-column panels
-# (16 timed panels a route).
+# over a mesh of 4 shards on the one card (and, in sharded-cards, on 4 cards
+# when the host has them), 8 192 inputs in 512-column panels (16 timed panels
+# a route).
 # At 0.3–0.4 input density no input of 16 survives to the last layer in the
 # oracle; 0.45 keeps 8 of 16, so the cell takes 0.45. The oracle runs on 64
 # columns (~120 × 65536 × 32 gathers a column), 8 processes of 8.
@@ -2132,7 +2148,10 @@ def phase_sharded(neurons, layers, shards, n_inputs, density, ref_cols) -> dict:
     card: route and level ``sharded``, ``bcsr_spmm`` launches counted as
     the captured graph's kernel nodes, per-shard nnz and bills, categories
     against the unsharded engine's on every input and the numpy oracle's
-    on ``ref_cols``; then a shard failure at dispatch 1."""
+    on ``ref_cols``; then a shard failure at dispatch 1. Returns what the
+    ``sharded-cards`` phase is held to (the weights, a panel and its
+    output, the categories, the oracle's and the unsharded bill), and
+    the phase's record."""
     import torch
 
     from repro_torch.data import radixnet as rx
@@ -2175,6 +2194,8 @@ def phase_sharded(neurons, layers, shards, n_inputs, density, ref_cols) -> dict:
     torch.cuda.synchronize()
     check(torch.equal(got, want), "a sharded replay gives the eager forward's bits")
     served = got[:, :ref_cols].clone()
+    one_card = {"panel": y.cpu(), "panel_out": got.cpu(), "categories": res.categories,
+                "unsharded_bill": unsharded_bill, "edge_inputs_per_sec": res.edge_inputs_per_sec}
     layer = sharded_layer_times(plan, y)
     layer_checks = sharded_layer_checks(plan, [relaid[id(w)] for w in weights], y)
     del relaid, got, want
@@ -2184,6 +2205,8 @@ def phase_sharded(neurons, layers, shards, n_inputs, density, ref_cols) -> dict:
     base = run_challenge(spec, n_inputs=n_inputs, density=density, engine=single)
     check(np.array_equal(res.categories, base.categories),
           ("sharded vs unsharded categories", len(res.categories), len(base.categories)))
+    one_card.update(unsharded_categories=base.categories,
+                    unsharded_edge_inputs_per_sec=base.edge_inputs_per_sec)
     del single
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2192,6 +2215,7 @@ def phase_sharded(neurons, layers, shards, n_inputs, density, ref_cols) -> dict:
     got_cats = res.categories[res.categories < ref_cols]
     check(0 < len(ref_cats) < ref_cols, ("nondegenerate answer set", len(ref_cats)))
     check(np.array_equal(got_cats, ref_cats), (got_cats, ref_cats))
+    one_card.update(ref_cats=ref_cats, weights=weights, biases=biases)
     # the served values on the oracle's columns, by the stack criterion:
     # both are f32 evaluations, each within e of the exact forward
     check(bool(torch.isfinite(served).all()) and np.isfinite(ref_y).all(), "finite values")
@@ -2216,7 +2240,7 @@ def phase_sharded(neurons, layers, shards, n_inputs, density, ref_cols) -> dict:
     check(np.array_equal(deg.categories, res.categories), "categories after the demotion")
     check([(e.level, e.healthy, e.step) for e in faulted.ladder.events]
           == [("sharded", False, 1)], faulted.ladder.describe())
-    return {
+    return one_card, {
         "spec": [neurons, layers], "shards": shards, "n_inputs": n_inputs, "density": density,
         "routes": list(res.routes), "levels": list(res.levels), "steps": res.steps,
         "width_classes": list(res.width_classes), "launches": counts, **captured,
@@ -2248,12 +2272,14 @@ def sharded_relu_masks(plan, y0) -> list:
     return masks
 
 
-def phase_sharded_train(neurons, layers, columns, steps, lr, shards) -> dict:
+def phase_sharded_train(neurons, layers, columns, steps, lr, shards, *, cards=False) -> dict:
     """train-radixnet's network, every layer block-CSR, through a
     differentiable sharded plan: the first step's gradients against the
     plain versions on the sharded kernels' ReLU masks, the same bits on
     two backward passes, then ``steps`` SGD steps against the unsharded
-    differentiable plan's losses, launches per step, step times."""
+    differentiable plan's losses, launches per step (and per card),
+    step times. ``cards``: over :func:`cards_mesh` (one shard a card)
+    instead of ``shards`` positions on the one card."""
     import torch
 
     from repro_torch.core import dnn
@@ -2276,8 +2302,8 @@ def phase_sharded_train(neurons, layers, columns, steps, lr, shards) -> dict:
     y0 = torch.from_numpy(rx.radixnet_input_panel(neurons, columns, density=0.3, seed=0)).to(dev)
     targets = torch.rand((neurons, columns), generator=gen, device=dev)
     t0 = time.perf_counter()
-    plan = build_sharded_plan(weights, biases, columns, make_row_blocks_mesh(shards),
-                              differentiable=True)
+    mesh = cards_mesh(shards) if cards else make_row_blocks_mesh(shards)
+    plan = build_sharded_plan(weights, biases, columns, mesh, differentiable=True)
     plan_seconds = time.perf_counter() - t0
     check(plan.imbalance() <= 1.10, plan.imbalance())
 
@@ -2317,12 +2343,17 @@ def phase_sharded_train(neurons, layers, columns, steps, lr, shards) -> dict:
     per_step = shards * layers + shards * (layers - 1)
     check(counts == {**dict.fromkeys(ops.KERNELS, 0), "bcsr_spmm": steps * per_step},
           ("launches", counts))
+    by_card = card_launches(plan)
+    check(all(by_card[str(d)] == steps * per_step // shards * plan.shard_devices.count(d)
+              for d in plan.cards), ("launches by card", by_card))
     check(all(np.isfinite(losses)) and losses[-1] < losses[0], ("loss falls", losses))
     unsharded, u_times = train(build_plan(weights, biases, columns, differentiable=True))
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, unsharded))
     check(loss_rel <= 1e-5, ("sharded vs unsharded losses", losses, unsharded))
     return {
         "spec": [neurons, layers], "shards": shards, "columns": columns,
+        "cards": len(plan.cards), "devices": plan.describe()["devices"],
+        "launches_by_card": by_card,
         "optimizer": f"sgd(lr={lr}, momentum=0.9)", "plan_seconds": plan_seconds,
         "nnz_per_shard": list(plan.nnz_per_shard()), "imbalance": plan.imbalance(),
         "losses": losses, "unsharded_losses": unsharded, "loss_rel_err": loss_rel,
@@ -2334,6 +2365,190 @@ def phase_sharded_train(neurons, layers, columns, steps, lr, shards) -> dict:
                                                   "backward": shards * (layers - 1)},
         "step_ms": 1e3 * statistics.median(times[1:]), "step_ms_all": [1e3 * t for t in times],
         "unsharded_step_ms": 1e3 * statistics.median(u_times[1:]),
+    }
+
+
+def cards_mesh(shards: int):
+    """One shard a card over the first ``shards`` cards when the host has
+    that many; else every position on the one card (the same code, with
+    every peer copy a slice)."""
+    import torch
+
+    from repro_torch.launch.mesh import make_row_blocks_mesh
+
+    if torch.cuda.device_count() >= shards > 1:
+        return make_row_blocks_mesh(devices=[f"cuda:{i}" for i in range(shards)])
+    return make_row_blocks_mesh(shards)
+
+
+def card_launches(plan) -> dict:
+    """``bcsr_spmm`` launches counted on each of the plan's cards."""
+    from repro_torch.kernels import ops
+
+    return {str(d): ops.launch_counts(d)["bcsr_spmm"] for d in plan.cards}
+
+
+def sync_cards(plan) -> None:
+    import torch
+
+    for d in plan.cards:
+        torch.cuda.synchronize(d)
+
+
+def cards_layer_times(plan, y, reps: int = 5) -> dict:
+    """The heaviest sparse layer of a sharded plan, eager: each card's
+    ``bcsr_spmm`` time (CUDA events on the card, behind a sleep kernel so
+    the host's launches on the other cards are hidden), and on the host
+    clock (all cards synchronised) the shards' launches alone against the
+    whole layer with its exchange: the band sums and the peer copies."""
+    import torch
+
+    i, lp = max(enumerate(plan.layers), key=lambda e: sum(e[1].nnz_per_shard))
+    panels = plan.scatter(y)
+    plan.layer_partials(i, panels)
+    per_card = {str(d): [] for d in plan.cards}
+    for _ in range(reps):
+        sync_cards(plan)
+        marks = {}
+        for d in plan.cards:
+            with torch.cuda.device(d):
+                torch.cuda._sleep(20_000_000)
+                marks[d] = (torch.cuda.Event(enable_timing=True),
+                            torch.cuda.Event(enable_timing=True))
+                marks[d][0].record()
+        plan.layer_partials(i, panels)
+        for d in plan.cards:
+            with torch.cuda.device(d):
+                marks[d][1].record()
+        sync_cards(plan)
+        for d, (a, b) in marks.items():
+            per_card[str(d)].append(a.elapsed_time(b))
+
+    def host_ms(fn) -> float:
+        fn()
+        sync_cards(plan)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        sync_cards(plan)
+        return 1e3 * (time.perf_counter() - t0) / reps
+
+    partials_ms = host_ms(lambda: plan.layer_partials(i, panels))
+    layer_ms = host_ms(lambda: plan._layer(i, panels, plan.cards))
+    enqueue = []  # the host's time to issue a layer, the cards still busy
+    for _ in range(reps):
+        sync_cards(plan)
+        t0 = time.perf_counter()
+        plan._layer(i, panels, plan.cards)
+        enqueue.append(1e3 * (time.perf_counter() - t0))
+    sync_cards(plan)
+    return {"layer": i, "nnz_per_shard": list(lp.nnz_per_shard),
+            "card_spmm_ms": {d: statistics.median(t) for d, t in per_card.items()},
+            "host_partials_ms": partials_ms, "host_layer_ms": layer_ms,
+            "host_enqueue_ms": statistics.median(enqueue),
+            "exchange_share": 1.0 - partials_ms / layer_ms, **peer_copy_rate(plan, y)}
+
+
+def peer_copy_rate(plan, y, reps: int = 10) -> dict:
+    """Whether each card reaches the others' memory directly, and the rate
+    of one band's copy from the last card to the home card (host clock
+    around ``reps`` copies, both cards synchronised); {} on one card."""
+    import torch
+
+    from repro_torch.distribution import peer
+
+    if len(plan.cards) == 1:
+        return {}
+    src, dst = plan.cards[-1], plan.device
+    band = y[plan.bands(0)[-1]].to(src)
+    out = torch.empty_like(band, device=dst)
+    peer.copy_into(out, band)
+    sync_cards(plan)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        peer.copy_into(out, band)
+    sync_cards(plan)
+    seconds = (time.perf_counter() - t0) / reps
+    return {"peer_access": [[torch.cuda.can_device_access_peer(a, b) if a != b else True
+                             for b in plan.cards] for a in plan.cards],
+            "band_copy_bytes": band.numel() * 4, "band_copy_ms": 1e3 * seconds,
+            "band_copy_gb_per_s": band.numel() * 4 / seconds / 1e9}
+
+
+def phase_sharded_cards(neurons, layers, shards, n_inputs, density, ref_cols, one_card) -> dict:
+    """``run_challenge`` of the ``sharded`` phase's network and inputs over
+    :func:`cards_mesh` (one shard a card on a host with ``shards`` cards):
+    route and level ``sharded``; on every card its shards' 120
+    ``bcsr_spmm`` launches a forward, from the per-card counts; every
+    card's allocated memory holds its shards' sub-layouts; categories
+    equal to the one-card ``sharded`` run's, the unsharded engine's and
+    the numpy oracle's (``one_card``, from :func:`phase_sharded`); one
+    panel's output bit-identical to the one-card 4-shard route's; the
+    per-shard bills summing to the unsharded bill. Prints edge·inputs/s,
+    each card's kernel time and the exchange's share of a layer."""
+    import torch
+
+    from repro_torch.data import radixnet as rx
+    from repro_torch.kernels import ops
+    from repro_torch.serve import SparseDNNEngine, run_challenge
+
+    spec = rx.RadixNetSpec(neurons, layers)
+    mesh = cards_mesh(shards)
+    engine = SparseDNNEngine(one_card["weights"], one_card["biases"], batch_align=32,
+                             mesh=mesh)
+    for d in mesh.cards:
+        torch.cuda.reset_peak_memory_stats(d)
+    ops.reset_launch_counts()
+    res = run_challenge(spec, n_inputs=n_inputs, density=density, engine=engine)
+    counts = ops.launch_counts()
+    (plan,) = engine.plan_cache.plans()
+    by_card = card_launches(plan)
+    sync_cards(plan)
+    check(res.routes == ("sharded",) and res.levels == ("sharded",), (res.routes, res.levels))
+    check(res.served == n_inputs, res.served)
+    check(counts == {**dict.fromkeys(ops.KERNELS, 0),
+                     "bcsr_spmm": plan.calls * plan.kernel_launches}, ("launches", counts))
+    check(all(by_card[str(d)] == plan.calls * layers * plan.shard_devices.count(d)
+              for d in plan.cards), ("launches by card", by_card, plan.calls))
+    shard_bytes = {str(d): 0 for d in plan.cards}
+    seen = set()
+    for lp in plan.layers:
+        if id(lp.sharded) not in seen:
+            seen.add(id(lp.sharded))
+            for local, d in zip(lp.shards, plan.shard_devices):
+                check(local.values.device == d, ("shard off its card", local.values.device, d))
+                shard_bytes[str(d)] += sum(t.numel() * t.element_size() for t in (
+                    local.values, local.row_ptr, local.row_id, local.col_idx, local.valid))
+    memory = {str(d): torch.cuda.memory_allocated(d) for d in plan.cards}
+    check(all(memory[d] >= shard_bytes[d] for d in memory), ("memory", memory, shard_bytes))
+    peak_gb = {str(d): torch.cuda.max_memory_allocated(d) / 1e9 for d in plan.cards}
+    check(np.array_equal(res.categories, one_card["categories"]), "categories vs one card")
+    check(np.array_equal(res.categories, one_card["unsharded_categories"]),
+          "categories vs the unsharded engine")
+    check(np.array_equal(res.categories[res.categories < ref_cols], one_card["ref_cats"]),
+          "categories vs the oracle")
+    check(plan.grid_steps == sum(plan.grid_steps_per_shard) == one_card["unsharded_bill"],
+          ("bills", plan.grid_steps_per_shard, one_card["unsharded_bill"]))
+    y = one_card["panel"].to(plan.device)
+    got = plan.forward(y)
+    check(torch.equal(got.cpu(), one_card["panel_out"]),
+          "a panel's output is the one-card 4-shard route's, bit for bit")
+    layer = cards_layer_times(plan, y)
+    desc = plan.describe()
+    return {
+        "spec": [neurons, layers], "shards": shards, "cards": len(plan.cards),
+        "devices": desc["devices"], "bands": desc["bands"], "n_inputs": n_inputs,
+        "routes": list(res.routes), "levels": list(res.levels), "steps": res.steps,
+        "executable": desc["executable"], "eager_because": desc["eager_because"],
+        "launches": counts, "launches_by_card": by_card, "forwards": plan.calls,
+        "shard_bytes_by_card": shard_bytes, "memory_allocated_by_card": memory,
+        "peak_memory_gb_by_card": peak_gb,
+        "grid_steps_per_shard": list(plan.grid_steps_per_shard),
+        "seconds": res.seconds, "edge_inputs_per_sec": res.edge_inputs_per_sec,
+        "one_card_edge_inputs_per_sec": one_card["edge_inputs_per_sec"],
+        "unsharded_edge_inputs_per_sec": one_card["unsharded_edge_inputs_per_sec"],
+        "layer": layer, "bit_identical_panel": True,
+        "categories": int(len(res.categories)), "reference_columns": ref_cols,
     }
 
 
@@ -3649,10 +3864,15 @@ def main() -> int:
     emit({"phase": "serve-tuned", **served})
     resilient = phase_train_resilient(**RESILIENT)
     emit({"phase": "train-resilient", **resilient})
-    sharded = phase_sharded(**SHARDED)
+    one_card, sharded = phase_sharded(**SHARDED)
     emit({"phase": "sharded", **sharded})
     sharded_train = phase_sharded_train(**SHARDED_TRAIN)
     emit({"phase": "sharded-train", **sharded_train})
+    cards = phase_sharded_cards(one_card=one_card, **SHARDED)
+    del one_card
+    emit({"phase": "sharded-cards", **cards})
+    cards_train = phase_sharded_train(**SHARDED_TRAIN, cards=True)
+    emit({"phase": "sharded-cards-train", **cards_train})
     fleet = phase_fleet(**FLEET)
     emit({"phase": "fleet", **fleet})
     llm, llm_params = phase_llm_serve(**LLM_SERVE)
@@ -3681,6 +3901,8 @@ def main() -> int:
                 "serve-bf16": bf16["launches"], "tune": tune["launches"],
                 "serve-tuned": served["launches"], "train-resilient": resilient["launches"],
                 "sharded": sharded["launches"], "sharded-train": sharded_train["launches"],
+                "sharded-cards": cards["launches"],
+                "sharded-cards-train": cards_train["launches"],
                 "fleet": fleet["launches"], "llm-serve": llm["launches"],
                 "model-mlp": mlp["launches"], "llm-sparse": llm_sparse["launches"],
                 "model-train": model_train["launches"],

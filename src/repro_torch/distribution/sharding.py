@@ -16,12 +16,15 @@ sequence indices and a sparse matrix's tensors by index
 (``repro_torch.train.checkpoint``'s order), so a sparse FFN weight's
 tensors match no rule and are replicated in both packages.
 
-On the port's mesh, one device (``repro_torch.launch.mesh``), a spec
-places nothing: :func:`shardings_for` maps every leaf to that device,
-and :func:`constrain`, :func:`constrain_like_params` and
-:func:`embed_lookup` are the identity and ``table[ids]`` inside an
-:func:`activate` scope as outside it. Specs across several cards, and
-the collectives between them, wait for the multi-card mesh.
+For the model API the port's mesh is one device (``repro_torch.launch.mesh``),
+and a spec places nothing: :func:`shardings_for` maps every leaf to that
+device (a multi-card mesh's home card), and :func:`constrain`,
+:func:`constrain_like_params` and :func:`embed_lookup` are the identity
+and ``table[ids]`` inside an :func:`activate` scope as outside it. The
+model API's specs across several cards, and the collectives between
+them, wait for the model API on several cards. The sparse stack does run
+across cards: :func:`shard_device` says where shard s runs and
+:func:`row_bands` which rows each position owns in the shard-order sum.
 """
 
 from __future__ import annotations
@@ -350,3 +353,25 @@ def mesh_shard_count(mesh, rules: ShardingRules | None = None) -> int:
     for a in row_block_axes(mesh, rules):
         n *= mesh.shape[a]
     return n
+
+
+def shard_device(mesh, s: int, rules: ShardingRules | None = None) -> torch.device:
+    """The device shard ``s`` runs on: the mesh's one device, or on a
+    multi-card mesh position ``s``'s card (there the shard axes must span
+    every position, one shard a card)."""
+    if len(set(mesh.devices)) == 1:
+        return mesh.device
+    n = mesh_shard_count(mesh, rules)
+    if n != len(mesh.devices):
+        raise ValueError(f"{n} row-block shards over a mesh of {len(mesh.devices)} cards: "
+                         "a multi-card mesh runs one shard a card")
+    return mesh.devices[s]
+
+
+def row_bands(n_row_blocks: int, n_bands: int) -> tuple[tuple[int, int], ...]:
+    """The ``[start, stop)`` row blocks each of ``n_bands`` positions owns
+    in a sharded layer's shard-order sum: contiguous, near-equal, every
+    row block in exactly one band (a band is empty when there are more
+    positions than row blocks)."""
+    return tuple((c * n_row_blocks // n_bands, (c + 1) * n_row_blocks // n_bands)
+                 for c in range(n_bands))

@@ -187,22 +187,23 @@ def bcsr_spmm_cuda(
          f"at most {SMEM_LIMIT_BYTES} bytes of shared memory a CTA")
     tiles = -(-n // tile.cn)
     need(tiles <= 65535, "at most 65535 column tiles")
-    table = piece_table(a)
-    sid = kernel_semiring(semiring_name).id
-    lib = _build.load("bcsr_spmm", SIGNATURES)
-    out = torch.empty((m, n), dtype=torch.float32, device=b.device)
-    p = _build.pointer
-    partials = counters = None
-    if table.n_cut_rows:
-        partials = torch.empty((table.n_cut_pieces, tiles, bs_r, tile.cn),
-                               dtype=torch.float32, device=b.device)
-        counters = torch.zeros((table.n_cut_rows, tiles), dtype=torch.int32, device=b.device)
-    null = ctypes.c_void_p(0)
-    err = lib.bcsr_spmm_f32(
-        p(a.values), p(a.col_idx), p(a.valid), p(table.pieces), p(table.cuts), table.n_pieces,
-        p(b), p(bias), p(out), null if partials is None else p(partials),
-        null if counters is None else p(counters), bs_r, bs_c, n, tile.id,
-        int(fuse_bias_relu), sid, _build.stream_handle(b.device),
-    )
-    _build.check(lib, err, "bcsr_spmm")
+    with _build.on_card(b.device):
+        table = piece_table(a)
+        sid = kernel_semiring(semiring_name).id
+        lib = _build.load("bcsr_spmm", SIGNATURES)
+        out = torch.empty((m, n), dtype=torch.float32, device=b.device)
+        p = _build.pointer
+        partials = counters = None
+        if table.n_cut_rows:
+            partials = torch.empty((table.n_cut_pieces, tiles, bs_r, tile.cn),
+                                   dtype=torch.float32, device=b.device)
+            counters = torch.zeros((table.n_cut_rows, tiles), dtype=torch.int32, device=b.device)
+        null = ctypes.c_void_p(0)
+        err = lib.bcsr_spmm_f32(
+            p(a.values), p(a.col_idx), p(a.valid), p(table.pieces), p(table.cuts), table.n_pieces,
+            p(b), p(bias), p(out), null if partials is None else p(partials),
+            null if counters is None else p(counters), bs_r, bs_c, n, tile.id,
+            int(fuse_bias_relu), sid, _build.stream_handle(b.device),
+        )
+        _build.check(lib, err, "bcsr_spmm")
     return out

@@ -133,14 +133,15 @@ def bsr_spmm_cuda(
     need(tile.smem_bytes(bs_r, bs_c) <= SMEM_LIMIT_BYTES,
          f"at most {SMEM_LIMIT_BYTES} bytes of shared memory a CTA")
     need(-(-n // tile.cn) <= 65535, "at most 65535 column tiles")
-    sid = kernel_semiring(semiring_name).id
-    lib = _build.load("bsr_spmm", SIGNATURES)
-    out = torch.empty((m, n), dtype=torch.float32, device=b.device)
-    p = _build.pointer
-    err = lib.bsr_spmm_f32(
-        p(a.blocks), p(a.col_idx), p(a.block_mask), p(b), p(bias), p(out),
-        nrb, mbpr, bs_r, bs_c, n, tile.id, int(fuse_bias_relu), sid,
-        _build.stream_handle(b.device),
-    )
-    _build.check(lib, err, "bsr_spmm")
+    with _build.on_card(b.device):
+        sid = kernel_semiring(semiring_name).id
+        lib = _build.load("bsr_spmm", SIGNATURES)
+        out = torch.empty((m, n), dtype=torch.float32, device=b.device)
+        p = _build.pointer
+        err = lib.bsr_spmm_f32(
+            p(a.blocks), p(a.col_idx), p(a.block_mask), p(b), p(bias), p(out),
+            nrb, mbpr, bs_r, bs_c, n, tile.id, int(fuse_bias_relu), sid,
+            _build.stream_handle(b.device),
+        )
+        _build.check(lib, err, "bsr_spmm")
     return out

@@ -169,6 +169,16 @@ def require_aligned(kernel: str, *tensors) -> None:
             )
 
 
+def on_card(device):
+    """The context a launch runs in: ``device``'s card made the CUDA
+    runtime's current device. The ctypes launchers set a kernel's
+    shared-memory limit and launch on the current device, so operands on
+    another card need this guard (the stream alone names no device)."""
+    import torch
+
+    return torch.cuda.device(device)
+
+
 def pointer(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 

@@ -344,18 +344,19 @@ def fused_mlp_cuda(
     if not tiled:
         need(fused_mlp_smem_bytes(m, pdt, bs_r) <= SMEM_LIMIT_BYTES,
              f"a panel pair and weight rings within {SMEM_LIMIT_BYTES} B of shared memory")
-    geometry, _ = card_geometry(stacked_w, n, tiled=tiled, panel_dtype=pdt, device=y0.device)
-    lib = _build.load("fused_mlp", SIGNATURES)
-    out = torch.empty((m, n), dtype=torch.float32, device=y0.device)
-    p = _build.pointer
-    head = (p(stacked_w.blocks), p(stacked_w.col_idx), p(stacked_w.block_mask),
-            p(y0), p(stacked_b), p(out))
-    shape = (n_layers, nrb, mbpr, bs_r, n, int(pdt == torch.bfloat16))
-    stream = _build.stream_handle(y0.device)
-    if tiled:
-        scratch = torch.empty((2, m, n), dtype=pdt, device=y0.device)  # the ping-pong panel
-        err = lib.fused_mlp_tiled(*head, p(scratch), *shape, geometry.ctas, stream)
-    else:
-        err = lib.fused_mlp_resident(*head, *shape, geometry.cluster, stream)
-    _build.check(lib, err, "fused_mlp_tiled" if tiled else "fused_mlp_resident")
+    with _build.on_card(y0.device):
+        geometry, _ = card_geometry(stacked_w, n, tiled=tiled, panel_dtype=pdt, device=y0.device)
+        lib = _build.load("fused_mlp", SIGNATURES)
+        out = torch.empty((m, n), dtype=torch.float32, device=y0.device)
+        p = _build.pointer
+        head = (p(stacked_w.blocks), p(stacked_w.col_idx), p(stacked_w.block_mask),
+                p(y0), p(stacked_b), p(out))
+        shape = (n_layers, nrb, mbpr, bs_r, n, int(pdt == torch.bfloat16))
+        stream = _build.stream_handle(y0.device)
+        if tiled:
+            scratch = torch.empty((2, m, n), dtype=pdt, device=y0.device)  # the ping-pong panel
+            err = lib.fused_mlp_tiled(*head, p(scratch), *shape, geometry.ctas, stream)
+        else:
+            err = lib.fused_mlp_resident(*head, *shape, geometry.cluster, stream)
+        _build.check(lib, err, "fused_mlp_tiled" if tiled else "fused_mlp_resident")
     return out

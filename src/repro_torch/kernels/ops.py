@@ -15,8 +15,10 @@ wrappers re-tile a block shape their kernel cannot take,
 
 Each CUDA launch adds one to the wrapper's count in :func:`launch_counts`
 (and nothing else does), so a run can show which kernels it went
-through. A launch made while a CUDA graph is being captured does not
-run then: it goes into the capture's :class:`LaunchRecord`
+through; ``launch_counts(device=)`` splits the counts by card, so a run
+over a multi-card mesh can show each card ran its own shards. A launch
+made while a CUDA graph is being captured does not run then: it goes
+into the capture's :class:`LaunchRecord`
 (:func:`recording_launches`), and each replay of the graph adds that
 record to the counts (:func:`add_replayed`). The two SpMM wrappers are
 differentiable in ``plus_times`` (``kernels.autodiff``); the fused
@@ -51,6 +53,11 @@ _KERNEL_SYMBOLS = {"semiring_matmul_kernel": "semiring_matmul", "bsr_spmm_kernel
                    "fused_tiled_kernel": "fused_mlp_tiled_forward"}
 _launches = dict.fromkeys(KERNELS, 0)
 _launch_shapes: dict[str, set] = {name: set() for name in KERNELS}
+_device_launches: dict[str, dict[str, int]] = {}  # card → wrapper → launches
+
+
+def _zero_counts() -> dict[str, int]:
+    return dict.fromkeys(KERNELS, 0)
 
 
 @dataclasses.dataclass
@@ -58,19 +65,23 @@ class LaunchRecord:
     """The launches one CUDA graph capture recorded: per wrapper, how
     many, and the block shapes the SpMM launches took."""
 
-    counts: dict[str, int] = dataclasses.field(default_factory=lambda: dict.fromkeys(KERNELS, 0))
+    counts: dict[str, int] = dataclasses.field(default_factory=_zero_counts)
     shapes: dict[str, set] = dataclasses.field(
         default_factory=lambda: {name: set() for name in KERNELS})
+    by_device: dict[str, dict[str, int]] = dataclasses.field(default_factory=dict)
 
 
 _recording: LaunchRecord | None = None
 
 
-def _count(name: str, block_shape=None) -> None:
-    """One launch of ``name``: counted, or recorded when a capture is on."""
-    counts, shapes = ((_launches, _launch_shapes) if _recording is None
-                      else (_recording.counts, _recording.shapes))
+def _count(name: str, device: torch.device, block_shape=None) -> None:
+    """One launch of ``name`` on ``device``: counted, or recorded when a
+    capture is on."""
+    counts, shapes, by_device = ((_launches, _launch_shapes, _device_launches)
+                                 if _recording is None else
+                                 (_recording.counts, _recording.shapes, _recording.by_device))
     counts[name] += 1
+    by_device.setdefault(str(device), _zero_counts())[name] += 1
     if block_shape is not None:
         shapes[name].add(block_shape)
 
@@ -95,6 +106,10 @@ def add_replayed(record: LaunchRecord) -> None:
     for name, k in record.counts.items():
         _launches[name] += k
         _launch_shapes[name].update(record.shapes[name])
+    for device, counts in record.by_device.items():
+        mine = _device_launches.setdefault(device, _zero_counts())
+        for name, k in counts.items():
+            mine[name] += k
 
 
 def wrapper_of(kernel_name: str) -> str | None:
@@ -107,10 +122,16 @@ def wrapper_of(kernel_name: str) -> str | None:
     return None
 
 
-def launch_counts() -> dict[str, int]:
+def launch_counts(device=None) -> dict[str, int]:
     """CUDA launches per wrapper since the last reset (a graph replay
-    counts the launches its capture recorded)."""
-    return dict(_launches)
+    counts the launches its capture recorded): all of them, or those on
+    ``device``'s card (``"cuda"`` alone is the current card)."""
+    if device is None:
+        return dict(_launches)
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return dict(_device_launches.get(str(device), _zero_counts()))
 
 
 def launched_block_shapes() -> dict[str, list[tuple[int, int]]]:
@@ -123,6 +144,7 @@ def reset_launch_counts() -> None:
     for name in _launches:
         _launches[name] = 0
         _launch_shapes[name].clear()
+    _device_launches.clear()
 
 
 def _ceil_mult(size: int, base: int = 8) -> int:
@@ -204,7 +226,7 @@ def semiring_matmul(
             _contiguous16(ap), _contiguous16(bp), biasp.contiguous(),
             semiring_name=semiring_name, fuse_bias_relu=fuse_bias_relu,
         )
-        _count("semiring_matmul")
+        _count("semiring_matmul", bp.device)
     else:
         out = _smm.semiring_matmul_plain(ap, bp, biasp, semiring_name=semiring_name,
                                          fuse_bias_relu=fuse_bias_relu)
@@ -223,7 +245,7 @@ def _spmm(name, launch, plain, tile_for, a, b, bias, semiring_name, fuse_bias_re
     if bp.is_cuda:
         out = launch(a, _contiguous16(bp), bias.contiguous(), semiring_name=semiring_name,
                      fuse_bias_relu=fuse_bias_relu)
-        _count(name, a.block_shape)
+        _count(name, bp.device, a.block_shape)
     else:
         out = plain(a, bp, bias, semiring_name=semiring_name, fuse_bias_relu=fuse_bias_relu)
     return out[:, :n]
@@ -326,7 +348,7 @@ def _fused(name, tiled, stacked_w, stacked_b, y0, block_n, panel_dtype):
             stacked_w, stacked_b.contiguous(), yp.contiguous(),
             tiled=tiled, block_n=block_n, panel_dtype=panel_dtype,
         )
-        _count(name)
+        _count(name, yp.device)
     else:
         out = _fmlp.fused_mlp_plain(stacked_w, stacked_b, yp, panel_dtype=panel_dtype)
     return out[:, :n]

@@ -120,13 +120,14 @@ def semiring_matmul_cuda(
     _build.require_aligned("semiring_matmul", a, b)
     (_, gy), _ = launch_geometry(m, n)
     need(gy <= 65535, "at most 65535 column tiles")
-    sid = kernel_semiring(semiring_name).id
-    lib = _build.load("semiring_matmul", SIGNATURES)
-    out = torch.empty((m, n), dtype=torch.float32, device=b.device)
-    p = _build.pointer
-    err = lib.semiring_matmul_f32(
-        p(a), p(b), p(bias), p(out), m, n, k, tile_for(n).id,
-        int(fuse_bias_relu), sid, _build.stream_handle(b.device),
-    )
-    _build.check(lib, err, "semiring_matmul")
+    with _build.on_card(b.device):
+        sid = kernel_semiring(semiring_name).id
+        lib = _build.load("semiring_matmul", SIGNATURES)
+        out = torch.empty((m, n), dtype=torch.float32, device=b.device)
+        p = _build.pointer
+        err = lib.semiring_matmul_f32(
+            p(a), p(b), p(bias), p(out), m, n, k, tile_for(n).id,
+            int(fuse_bias_relu), sid, _build.stream_handle(b.device),
+        )
+        _build.check(lib, err, "semiring_matmul")
     return out

@@ -3,20 +3,27 @@ the sharded sparse stack and the model's local mesh.
 
 The reference's mesh is a ``jax.sharding.Mesh`` over N devices, and its
 sharded plans run one program on all of them (``shard_map``). The port
-runs the same S shards from one process on ONE device: a :class:`Mesh`
-names its axes and sizes like JAX's (``mesh.shape`` is a dict) and lists
-the device of each position, every position the same device. That is
-the port's counterpart of the reference's forced host devices
-(``XLA_FLAGS=--xla_force_host_platform_device_count=N``): the shard
-count is the mesh's, the hardware one card.
+runs the same S shards from one process. A :class:`Mesh` names its axes
+and sizes like JAX's (``mesh.shape`` is a dict) and lists the device of
+each position, in one of two forms:
+
+* every position the same device: the S shards run on one card (or the
+  CPU, as the tests do), the port's counterpart of the reference's
+  forced host devices (``XLA_FLAGS=--xla_force_host_platform_device_count=N``);
+* every position its own CUDA card (``make_row_blocks_mesh(devices=...)``
+  or, on a host with several cards, ``make_row_blocks_mesh()``): shard s
+  launches on card s, and the sharded plan moves partial panels between
+  the cards by peer copies (``repro_torch.distribution.peer``).
+
+A mix of the two is refused, and so is a mesh of more cards than the
+host has. ``Mesh.device`` is the home card, position 0, where a sharded
+engine's panels and answers live.
 
 The model's mesh (``make_local_mesh``) is ``data`` × ``model`` over one
-card: ``data=1, model=1``. A mesh over several distinct devices (peer
-copies or NCCL between cards), a local mesh of more than one position
-and the reference's production mesh of 256 or 512 devices are refused:
-they need the multi-card mesh, which cannot be tested on one card. The
-production mesh is made on the ``meta`` device only, shapes for the
-dry run.
+card: ``data=1, model=1``. A local mesh of more than one position and
+the reference's production mesh of 256 or 512 devices are refused: they
+need the model API on several cards. The production mesh is made on the
+``meta`` device only, shapes for the dry run.
 """
 
 from __future__ import annotations
@@ -30,10 +37,10 @@ from repro_torch.device import resolve_device
 
 
 def several_devices(what: str) -> str:
-    """The refusal of ``what``, a mesh that needs more than one card."""
-    return (f"{what} is not supported yet: the port runs every position of a mesh on "
-            "one device, and a mesh across cards waits for the multi-card mesh "
-            "(peer copies or NCCL between cards)")
+    """The refusal of ``what``, a model mesh that needs more than one card."""
+    return (f"{what} is not supported yet: only the sparse stack runs on a multi-card "
+            "mesh (make_row_blocks_mesh); the model API's data x model mesh across "
+            "cards waits for the model API on several cards")
 
 
 def normalized_device(device) -> torch.device:
@@ -47,7 +54,8 @@ def normalized_device(device) -> torch.device:
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """Named axes over a flat tuple of device positions, all one device."""
+    """Named axes over a flat tuple of device positions: all one device,
+    or each position its own CUDA card."""
 
     axis_names: tuple[str, ...]
     axis_sizes: tuple[int, ...]
@@ -63,9 +71,15 @@ class Mesh:
             raise ValueError(f"{len(self.devices)} devices for a mesh of "
                              f"{math.prod(self.axis_sizes)} positions")
         devices = tuple(normalized_device(d) for d in self.devices)
-        if len(set(devices)) > 1:
-            raise ValueError(several_devices(
-                f"a mesh over several devices ({sorted(set(map(str, devices)))})"))
+        distinct = set(devices)
+        if 1 < len(distinct) < len(devices):
+            raise ValueError(
+                f"a mesh mixing shared and distinct devices ({list(map(str, devices))}) is "
+                "refused: a multi-card mesh gives every position its own card")
+        if len(distinct) > 1 and any(d.type != "cuda" for d in devices):
+            raise ValueError(
+                f"a mesh over several devices ({sorted(map(str, distinct))}) is a "
+                "multi-card mesh: its positions must be distinct CUDA cards")
         object.__setattr__(self, "devices", devices)
 
     @property
@@ -79,25 +93,61 @@ class Mesh:
 
     @property
     def device(self) -> torch.device:
-        """The one device every position of the mesh runs on."""
+        """The home device, position 0's: every position's on a one-device
+        mesh, and where a multi-card mesh's panels and answers live."""
         return self.devices[0]
 
+    @property
+    def cards(self) -> tuple[torch.device, ...]:
+        """The distinct devices in position order: one for a one-device
+        mesh, one a position for a multi-card mesh."""
+        return tuple(dict.fromkeys(self.devices))
 
-def make_row_blocks_mesh(shards: int | None = None, *, device=None) -> Mesh:
+
+def require_cards(devices) -> None:
+    """Raise unless every CUDA device of ``devices`` is a card this host
+    has: a mesh never runs on fewer cards than it names."""
+    count = torch.cuda.device_count()
+    for d in devices:
+        if d.type == "cuda" and d.index >= count:
+            raise RuntimeError(f"the mesh names {d}, but this host has {count} CUDA "
+                               f"card{'s' * (count != 1)}")
+
+
+def make_row_blocks_mesh(shards: int | None = None, *, device=None, devices=None) -> Mesh:
     """1-D mesh over the ``row_blocks`` axis, the sparse stack's shard
     axis (``repro_torch.sparse.partition``, ``repro_torch.plan.sharded``).
 
-    Every one of the ``shards`` positions is ``device`` (default: the
-    GPU, raising if there is none; tests pass ``device="cpu"``).
-    ``shards=None`` takes ``torch.cuda.device_count()``, the reference's
-    "every visible device".
+    ``devices``: one CUDA card a position (``shards``, if given, must
+    count them). Otherwise every one of the ``shards`` positions is
+    ``device`` (default: the GPU, raising if there is none; tests pass
+    ``device="cpu"``). ``shards=None`` with neither takes every visible
+    card, one position each, the reference's "every visible device";
+    with ``device`` alone it takes ``torch.cuda.device_count()``
+    positions on it. A card the host does not have raises.
     """
-    device = resolve_device(device)
-    if shards is None:
-        shards = torch.cuda.device_count()
+    if devices is not None:
+        if device is not None:
+            raise ValueError("pass device (one device for every position) or devices "
+                             "(one card a position), not both")
+        devices = tuple(normalized_device(d) for d in devices)
+        if shards is not None and shards != len(devices):
+            raise ValueError(f"shards={shards} but {len(devices)} devices")
+        shards = len(devices)
+    elif shards is None and device is None:
+        resolve_device(None)  # raises without a GPU
+        devices = tuple(torch.device("cuda", i) for i in range(torch.cuda.device_count()))
+        shards = len(devices)
+    else:
+        device = resolve_device(device)
+        if shards is None:
+            shards = torch.cuda.device_count()
+        devices = (device,) * max(shards, 0)
     if shards < 1:
         raise ValueError(f"shards must be >= 1, got {shards}")
-    return Mesh(("row_blocks",), (shards,), (device,) * shards)
+    mesh = Mesh(("row_blocks",), (shards,), devices)
+    require_cards(mesh.cards)
+    return mesh
 
 
 def make_local_mesh(data: int | None = None, model: int = 1, *, device=None) -> Mesh:

@@ -10,7 +10,7 @@ card: every spec places its leaf on it), the microbatched train step,
 and-restart ``Supervisor`` run in chunks of 10 steps, a checkpoint at
 each chunk's end; ``--resume`` restarts from the newest checkpoint in
 ``--ckpt-dir``. ``--production-mesh`` is refused: its 256 devices need
-the multi-card mesh. The model is trained dense, as in the reference
+the model API on several cards. The model is trained dense, as in the reference
 (``Model.sparsify`` is not called).
 
 ``main(argv)`` returns each step's metrics as floats,

@@ -11,6 +11,10 @@ Counterpart of ``repro/plan/degrade.py``, with its three levels:
 3. ``layered``  — the per-layer kernel plan, the floor: it needs nothing
    but one device and always exists.
 
+On a multi-card mesh the ``sharded`` level runs across the cards; the
+levels below it run on the mesh's home card (``describe()["home_device"]``),
+where the engine's panels live.
+
 ``get_plan`` walks the levels top-down and returns the first that builds.
 A level whose build fails — a plan-build error, an injected fault — is
 marked unhealthy and the walk continues, so the panel that hit the
@@ -143,10 +147,15 @@ class DegradationLadder:
         raise AssertionError("unreachable: the layered floor returns or raises")
 
     def describe(self) -> dict:
-        return {
+        """The reference's keys; with a mesh also ``home_device``, the
+        card every level below ``sharded`` runs on."""
+        out = {
             "preferred": self.preferred_level,
             "current": self.levels()[0],
             "degraded": self.degraded,
             "health": dict(self._healthy),
             "events": [dataclasses.asdict(e) for e in self.events],
         }
+        if self.mesh is not None:
+            out["home_device"] = str(self.mesh.device)
+        return out

@@ -12,7 +12,10 @@ A :class:`ShardedStackPlan`:
   other rows 0), then sums the S partial panels in shard order
   (``z_0 + z_1 + …``, the same order on the CPU and on the card, no
   atomics), then ``relu(z + b)`` — the reference's ``psum`` and
-  post-collective epilogue;
+  post-collective epilogue. The sum is done band by band: position c
+  owns a band of row blocks (``distribution.sharding.row_bands``), sums
+  every shard's rows of it and applies the epilogue to it, and the bands
+  are gathered into the next panel on every card;
 * bills per shard: a shard's bill is its valid blocks × column tiles
   (the port's block-CSR rule), so the per-shard bills sum to the
   unsharded bill whatever the shard count (the reference's sum to it
@@ -25,11 +28,25 @@ A :class:`ShardedStackPlan`:
   ``bcsr_spmm`` on each shard's transpose, sorted once at build.
 
 The reference runs the shards as one SPMD program on a mesh of devices
-(``shard_map``); the port runs them from one process on the one device
-of its :class:`~repro_torch.launch.mesh.Mesh`. On the card ``forward``
-is captured as a CUDA graph at the first panel of each width class,
-after an eager warm-up, like :class:`~repro_torch.plan.StackPlan`;
-``forward_trainable`` runs eagerly.
+(``shard_map``); the port runs them from one process, on the one device
+of a one-device :class:`~repro_torch.launch.mesh.Mesh` or with shard s
+on card s of a multi-card mesh. There each shard's sub-layout (and
+backward transpose) is copied to its card once, at build; each card
+receives every shard's rows of its band by peer copy
+(``repro_torch.distribution.peer``), adds them in shard order and sends
+its finished band to every other card: the same elementwise adds in the
+same order as on one card, so the same bits. Dense layers run once, on
+the home card (position 0), and their panel is sent out. On one device
+the "peer copies" are slices, so the CPU runs the same code path.
+
+On a one-device mesh on the card ``forward`` is captured as a CUDA graph
+at the first panel of each width class, after an eager warm-up, like
+:class:`~repro_torch.plan.StackPlan`; on a multi-card mesh it runs
+eagerly (``eager_because``: a capture across cards is not yet shown to
+work). ``forward_trainable`` runs eagerly, through the same bands; the
+panel reaches the cards through one ``autograd.Function``
+(``distribution.peer.spread``) whose backward adds the cards' gradients
+in card order, so two backward passes give the same bits.
 
 Sharded plans live in the same :class:`repro_torch.plan.PlanCache` as
 single-device plans; :class:`repro_torch.plan.PlanKey` carries the mesh
@@ -47,7 +64,13 @@ from typing import Sequence
 import torch
 
 from repro_torch.core.dnn import Weight
-from repro_torch.distribution.sharding import mesh_shard_count, row_block_axes
+from repro_torch.distribution import peer
+from repro_torch.distribution.sharding import (
+    mesh_shard_count,
+    row_bands,
+    row_block_axes,
+    shard_device,
+)
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.plan import cost as _cost
 from repro_torch.plan import layout as _layout
@@ -64,7 +87,8 @@ from repro_torch.sparse.bsr import BlockSparseMatrix
 from repro_torch.sparse.partition import (
     ShardedBlockCSR,
     partition_block_csr,
-    shard_transpose_plan,
+    place_shard,
+    place_shard_transpose,
     stack_transpose_plans,
 )
 
@@ -73,7 +97,8 @@ def mesh_fingerprint(mesh, rules=None) -> str:
     """Cache-key component of a mesh's row-block sharding: the resolved
     shard axes, their sizes and the devices. Two meshes with the same
     fingerprint partition a stack identically and run on the same
-    device."""
+    devices (a mesh of four cards never shares a key with four positions
+    on one)."""
     axes = row_block_axes(mesh, rules)
     inner = ",".join(f"{a}={mesh.shape[a]}" for a in axes)
     devs = ",".join(str(d) for d in mesh.devices)
@@ -90,8 +115,8 @@ class ShardedLayerPlan:
     sharded: ShardedBlockCSR | None
     transpose: BcsrTransposePlan | None  # stacked per-shard plans
     grid_steps_per_shard: tuple[int, ...]  # at the plan's width
-    # each shard's sub-layout and backward transpose, as views built once:
-    # the launches' piece tables are cached on these tensors
+    # each shard's sub-layout and backward transpose on its card, placed
+    # once: the launches' piece tables are cached on these tensors
     shards: tuple[BlockCSRMatrix, ...] = ()
     shard_transposes: tuple[BcsrTransposePlan, ...] = ()
     nnz_per_shard: tuple[int, ...] = ()
@@ -116,6 +141,7 @@ class ShardedStackPlan(CapturedForward):
     weights: tuple  # per layer: ShardedBlockCSR, or the dense tensor
     biases: tuple
     source_weights: tuple  # the caller's objects — cache identity check
+    shard_devices: tuple = ()  # the device each shard launches on (and owns its band on)
     calls: int = 0
     replays: int = 0
     warmups: int = 0
@@ -123,8 +149,10 @@ class ShardedStackPlan(CapturedForward):
     _compiles: int = 0
     _captured: _Captured | None = dataclasses.field(default=None, repr=False)
     _bound: tuple | None = dataclasses.field(default=None, repr=False)
-    # the unused bias of the partial products, one per output row count
+    # the unused bias of the partial products, one per (output rows, card)
     _zeros: dict = dataclasses.field(default_factory=dict, repr=False)
+    # each band's bias rows on the band's card: (bias, version, rows)
+    _band_biases: dict = dataclasses.field(default_factory=dict, repr=False)
 
     route: str = _routes.ROUTE_SHARDED
     is_sharded: bool = True
@@ -135,7 +163,28 @@ class ShardedStackPlan(CapturedForward):
 
     @property
     def device(self) -> torch.device:
+        """The home device, where panels come in and answers go out."""
         return self.mesh.device
+
+    @property
+    def cards(self) -> tuple[torch.device, ...]:
+        """The distinct devices the plan runs on, home first."""
+        return tuple(dict.fromkeys((self.device, *self.shard_devices)))
+
+    @property
+    def eager_because(self) -> str | None:
+        if len(self.cards) > 1 and not self.differentiable:
+            return (f"a mesh over {len(self.cards)} cards: a CUDA graph capture across "
+                    "cards is not yet shown to work (a capture on the home card was "
+                    "invalidated: the other cards' streams never joined it), so the "
+                    "launches and peer copies run eagerly")
+        return super().eager_because
+
+    def bands(self, i: int) -> tuple[slice, ...]:
+        """The rows of sparse layer ``i``'s output each position owns in
+        the shard-order sum (``row_bands`` of its row blocks)."""
+        m, bs_r = self.layers[i].sharded.shape[0], self.layers[i].sharded.block_shape[0]
+        return tuple(slice(a * bs_r, b * bs_r) for a, b in row_bands(m // bs_r, self.n_shards))
 
     @property
     def in_rows(self) -> int:
@@ -210,6 +259,9 @@ class ShardedStackPlan(CapturedForward):
             "shard_pad_blocks": self.shard_pad_blocks(),
             "kernel_launches": self.kernel_launches,
             "kernel_launches_per_shard": self.kernel_launches_per_shard,
+            "devices": [str(d) for d in self.shard_devices],
+            "cards": len(self.cards),
+            "bands": self._describe_bands(),
             "compiles": self.compile_count,
             "calls": self.calls,
             "executable": "eager" if self.eager_because else "cuda-graph",
@@ -227,35 +279,98 @@ class ShardedStackPlan(CapturedForward):
                 *(w for lp, w in zip(self.layers, self.weights) if lp.kind == "dense"),
                 *self.biases)
 
-    def _zero_bias(self, rows: int) -> torch.Tensor:
-        if rows not in self._zeros:
-            self._zeros[rows] = torch.zeros((rows,), dtype=torch.float32, device=self.device)
-        return self._zeros[rows]
+    def _zero_bias(self, rows: int, device: torch.device) -> torch.Tensor:
+        key = (rows, device)
+        if key not in self._zeros:
+            self._zeros[key] = torch.zeros((rows,), dtype=torch.float32, device=device)
+        return self._zeros[key]
 
-    def layer_partials(self, i: int, y: torch.Tensor) -> list[torch.Tensor]:
-        """Sparse layer ``i``'s partial panels over ``y``: one ``bcsr_spmm``
-        per shard, without the epilogue (rows outside a shard come out 0)."""
+    def _band_bias(self, b: torch.Tensor, c: int, rows: slice) -> torch.Tensor:
+        """Band ``c``'s rows of the bias on its card (a slice on the bias's
+        own device; a copy kept per in-place version on another card)."""
+        device = self.shard_devices[c]
+        if device == b.device:
+            return b[rows]
+        hit = self._band_biases.get((id(b), c))
+        if hit is None or hit[0] is not b or hit[1] != b._version:
+            hit = (b, b._version, peer.to(b[rows], device))
+            self._band_biases[(id(b), c)] = hit
+        return hit[2]
+
+    def _describe_bands(self) -> list:
+        """The row blocks each position owns, of the first sparse layer."""
+        for i, lp in enumerate(self.layers):
+            if lp.kind == "bcsr":
+                bs_r = lp.sharded.block_shape[0]
+                return [[r.start // bs_r, r.stop // bs_r] for r in self.bands(i)]
+        return []
+
+    def scatter(self, y: torch.Tensor, cards=None) -> dict:
+        """The home panel ``y`` on every card of ``cards`` (default: all
+        the plan's), by card: ``{device: panel}``."""
+        return {card: peer.to(y, card) for card in (cards or self.cards)}
+
+    def layer_partials(self, i: int, y) -> list[torch.Tensor]:
+        """Sparse layer ``i``'s partial panels over ``y`` (the home panel,
+        or one panel a card, ``{device: panel}``): one ``bcsr_spmm`` per
+        shard on its card, without the epilogue (rows outside a shard come
+        out 0)."""
         lp = self.layers[i]
         if lp.kind != "bcsr":
             raise ValueError(f"layer {i} is {lp.kind}, not partitioned")
-        zeros = self._zero_bias(lp.shards[0].shape[0])
-        return [kernel_ops.bcsr_spmm(local, y, zeros) for local in lp.shards]
+        panels = y if isinstance(y, dict) else self.scatter(y)
+        rows = lp.shards[0].shape[0]
+        return [kernel_ops.bcsr_spmm(local, panels[dev], self._zero_bias(rows, dev))
+                for local, dev in zip(lp.shards, self.shard_devices)]
+
+    def _layer(self, i: int, panels: dict, cards) -> dict:
+        """Layer ``i`` over one panel a card → its output on every card of
+        ``cards``. A sparse layer: the shards' partial panels, each band
+        summed in shard order on its owner's card into ``relu(z + b)``,
+        the bands sent to the other cards. A dense layer: once, on the
+        home card, its panel sent out."""
+        lp, w, b = self.layers[i], self.weights[i], self.biases[i]
+        if lp.kind != "bcsr":
+            y = panels[self.device]
+            if lp.path == "kernel-dense":
+                out = kernel_ops.semiring_matmul(w, y, b, fuse_bias_relu=True)
+            else:
+                out = sparse_ops.dense_matmul_fused_relu(w, y, b)
+            return self.scatter(out, cards)
+        parts = self.layer_partials(i, panels)
+        outs = {card: torch.empty(parts[0].shape, dtype=torch.float32, device=card)
+                for card in cards}
+        bands = []
+        for c, (rows, owner) in enumerate(zip(self.bands(i), self.shard_devices)):
+            terms = [peer.to(part[rows], owner) for part in parts]
+            bands.append(sum_and_relu(terms, self._band_bias(b, c, rows),
+                                      out=outs[owner][rows] if owner in outs else None))
+        for rows, band in zip(self.bands(i), bands):
+            for card, out in outs.items():
+                if card != band.device:
+                    peer.copy_into(out[rows], band)
+        return outs
 
     def layer_forward(self, i: int, y: torch.Tensor) -> torch.Tensor:
-        """Layer ``i`` of the forward over ``y``: the partial panels summed
-        in shard order, then ``relu(z + b)``; a dense layer runs once."""
-        lp, w, b = self.layers[i], self.weights[i], self.biases[i]
-        if lp.kind == "bcsr":
-            return sum_and_relu(self.layer_partials(i, y), b)
-        if lp.path == "kernel-dense":
-            return kernel_ops.semiring_matmul(w, y, b, fuse_bias_relu=True)
-        return sparse_ops.dense_matmul_fused_relu(w, y, b)
+        """Layer ``i`` of the forward over the home panel ``y``: the partial
+        panels summed in shard order, then ``relu(z + b)``, on the home
+        device; a dense layer runs once."""
+        return self._layer(i, self.scatter(y), (self.device,))[self.device]
 
     def _run(self, y: torch.Tensor) -> torch.Tensor:
-        """The layer loop over a width-wide panel: what a capture records."""
+        """The layer loop over a width-wide panel: what a capture records.
+        Every card holds the panel between layers; the last layer's goes
+        home only."""
+        panels = self.scatter(y)
         for i in range(self.n_layers):
-            y = self.layer_forward(i, y)
-        return y
+            last = i == self.n_layers - 1
+            panels = self._layer(i, panels, (self.device,) if last else self.cards)
+        return panels[self.device]
+
+    @staticmethod
+    def _spread(bands, rows, cards) -> dict:
+        """``peer.spread`` by card (differentiable)."""
+        return dict(zip(cards, peer.spread(bands, rows, cards)))
 
     def forward_trainable(
         self,
@@ -268,9 +383,12 @@ class ShardedStackPlan(CapturedForward):
         """Differentiable sharded forward with the caller's (fresh) values.
         Each sparse layer's values re-shard through the frozen partition
         (one gather; its backward writes the cotangents back onto the
-        caller's layout), and the backward launches run per shard on the
-        cached transposes. ``use_kernel=False`` runs the plain unsharded
-        forms instead (the same math). Eager."""
+        caller's layout) and go to their shards' cards; the backward
+        launches run per shard on the cached transposes, on the shard's
+        card. The panel reaches the cards through ``peer.spread``, whose
+        backward adds the cards' gradients in card order.
+        ``use_kernel=False`` runs the plain unsharded forms instead (the
+        same math). Eager."""
         if not self.differentiable:
             raise ValueError(
                 "forward_trainable needs a differentiable plan; rebuild "
@@ -286,10 +404,13 @@ class ShardedStackPlan(CapturedForward):
             for w, b in zip(weights, biases):
                 y = _dnn.dnn_layer(w, y, b, fused=True)
             return y
-        y = y0
-        for lp, w, b in zip(self.layers, weights, biases):
+        home = self.device
+        panels = self._spread([y0], [slice(0, y0.shape[0])], self.cards)
+        for i, (lp, w, b) in enumerate(zip(self.layers, weights, biases)):
+            cards = (home,) if i == self.n_layers - 1 else self.cards
             if lp.kind != "bcsr":
-                y = sparse_ops.dense_matmul_fused_relu(w, y, b)
+                y = sparse_ops.dense_matmul_fused_relu(w, panels[home], b)
+                panels = self._spread([y], [slice(0, y.shape[0])], cards)
                 continue
             if not isinstance(w, BlockCSRMatrix):
                 raise ValueError(
@@ -297,19 +418,32 @@ class ShardedStackPlan(CapturedForward):
                     f"{lp.index} is {_layout.layer_layout(w)} (convert with "
                     "BlockCSRMatrix.from_bsr)")
             stacked = lp.sharded.rescatter_values(w.values)
-            y = sum_and_relu(
-                [kernel_ops.bcsr_spmm(dataclasses.replace(local, values=stacked[s]), y, None, tp)
-                 for s, (local, tp) in enumerate(zip(lp.shards, lp.shard_transposes))], b)
-        return y
+            parts = [kernel_ops.bcsr_spmm(
+                dataclasses.replace(local, values=peer.to(stacked[s], dev)), panels[dev], None,
+                tp) for s, (local, tp, dev) in enumerate(
+                    zip(lp.shards, lp.shard_transposes, self.shard_devices))]
+            rows = self.bands(i)
+            bands = [sum_and_relu([peer.to(part[r], owner) for part in parts],
+                                  peer.to(b[r], owner))
+                     for r, owner in zip(rows, self.shard_devices)]
+            panels = self._spread(bands, rows, cards)
+        return panels[home]
 
 
-def sum_and_relu(parts: list[torch.Tensor], b: torch.Tensor) -> torch.Tensor:
-    """``relu(z_0 + z_1 + … + b)``: the partial panels summed in shard
-    order, then the epilogue."""
-    z = parts[0]
-    for part in parts[1:]:
-        z = z + part
-    return sparse_ops.relu(z + b[:, None])
+def sum_and_relu(parts: list[torch.Tensor], b: torch.Tensor,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
+    """``relu(z_0 + z_1 + … + b)``: the partial panels (or one band of
+    their rows, and the bias's rows of it) summed in shard order, then
+    the epilogue; written into ``out`` when given (the same elementwise
+    ops, so the same bits; under autograd computed apart and copied in,
+    so the result stays differentiable)."""
+    z = peer.shard_order_sum(parts)
+    if out is not None and torch.is_grad_enabled() and (z.requires_grad or b.requires_grad):
+        return out.copy_(sparse_ops.relu(z + b[:, None]))  # autograd refuses ``out=``
+    if out is None:
+        return sparse_ops.relu(z + b[:, None])
+    torch.add(z, b[:, None], out=out)
+    return out.relu_()
 
 
 def build_sharded_plan(
@@ -333,7 +467,8 @@ def build_sharded_plan(
     unsharded (``semiring_matmul``, or the plain form when
     differentiable). ``use_resident=True`` is refused: the fused
     whole-stack kernels run one unsharded stack. The weights must be on
-    the mesh's device.
+    the mesh's (home) device; on a multi-card mesh each shard's
+    sub-layout is copied to its card here, once.
 
     ``donor``: a sharded plan of the same (stack, mesh,
     differentiability) at another width class; its partitions,
@@ -354,12 +489,13 @@ def build_sharded_plan(
         )
     for i, w in enumerate(weights):
         if w.device != mesh.device:
-            raise ValueError(f"layer {i}'s weight is on {w.device}, the mesh's shards on "
+            raise ValueError(f"layer {i}'s weight is on {w.device}, the mesh's home on "
                              f"{mesh.device}")
     if fingerprint is None:
         fingerprint = topology_fingerprint(weights)
     axes = row_block_axes(mesh)
     n_shards = mesh_shard_count(mesh)
+    devices = tuple(shard_device(mesh, s) for s in range(n_shards))
     mesh_fp = mesh_fingerprint(mesh)
     key = PlanKey(fingerprint, width, use_resident, differentiable=differentiable, mesh=mesh_fp)
     if donor is not None and (donor.key._replace(width=width) != key
@@ -391,8 +527,9 @@ def build_sharded_plan(
                     sharded = partition_block_csr(ew, n_shards)
                     tp = stack_transpose_plans(sharded) if differentiable else None
                     parts[id(w)] = (
-                        sharded, tp, tuple(sharded.shard(s) for s in range(n_shards)),
-                        () if tp is None else tuple(shard_transpose_plan(tp, s)
+                        sharded, tp, tuple(place_shard(sharded, s, devices[s])
+                                           for s in range(n_shards)),
+                        () if tp is None else tuple(place_shard_transpose(tp, s, devices[s])
                                                     for s in range(n_shards)),
                         tuple(int(n) for n in sharded.nnz_per_shard()))
                 bills[id(w)] = tuple(_cost.layer_grid_steps(local, width)
@@ -412,7 +549,8 @@ def build_sharded_plan(
         pool = donor.pool
     else:
         pool = (torch.cuda.graph_pool_handle()
-                if mesh.device.type == "cuda" and not differentiable else None)
+                if mesh.device.type == "cuda" and not differentiable
+                and len(set(mesh.devices)) == 1 else None)
     return ShardedStackPlan(
         key=key,
         mesh=mesh,
@@ -424,5 +562,6 @@ def build_sharded_plan(
         weights=tuple(exec_weights),
         biases=biases,
         source_weights=weights,
+        shard_devices=devices,
         pool=pool,
     )

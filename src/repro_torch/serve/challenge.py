@@ -78,7 +78,7 @@ def run_challenge(
     ``engine``: a prebuilt engine (with a fault injector, a shared plan
     cache, ...) that serves the spec's topology; it brings its own
     device. By default ``run_challenge`` builds one from ``radixnet_weights``
-    (``block_size``) on ``device`` (default: the mesh's device, else the
+    (``block_size``) on ``device`` (default: the mesh's home device, else the
     GPU, raising if there is none) with ``mesh`` (a
     :class:`repro_torch.launch.mesh.Mesh`: serve sharded), ``use_resident``,
     ``tuning_table`` (a hit on this spec's

@@ -141,9 +141,10 @@ class SparseDNNEngine:
     stack is eligible, True demands them, False forces the layered
     kernels. ``differentiable``: serve only routes autograd can go
     through (never the fused kernels; ``use_resident=True`` is refused).
-    ``mesh``: serve sharded over the mesh's shards, on the mesh's device
-    (``device`` defaults to it; ``use_resident=True`` is refused, and the
-    sharded level serves untuned). ``plan_cache``: the engine's own
+    ``mesh``: serve sharded over the mesh's shards, with panels and
+    answers on the mesh's home device (``device`` defaults to it;
+    ``use_resident=True`` is refused, and the sharded level serves
+    untuned). ``plan_cache``: the engine's own
     :class:`PlanCache` (max 16) unless one is shared. The fault-handling
     and tuning arguments are the reference's, with its defaults (module
     docstring).
@@ -429,6 +430,7 @@ class SparseDNNEngine:
             # sum to plan.grid_steps, the unsharded bill
             plan_stats["shards"] = plan.n_shards
             plan_stats["grid_steps_per_shard"] = list(plan.grid_steps_per_shard)
+            plan_stats["devices"] = [str(d) for d in plan.shard_devices]
         stats = {
             "batch": batch,
             "padded_batch": width,

@@ -17,6 +17,11 @@ partition is host numpy, the reference's own code, so every integer
 tensor (``row_ptr``, ``row_id``, ``col_idx``, ``valid``,
 ``gather_index``) equals the reference's.
 
+On a multi-card mesh shard ``s`` runs on card ``s``: :func:`place_shard`
+and :func:`place_shard_transpose` copy its sub-layout and its backward
+transpose there once, as contiguous tensors (the same integers), and on
+the partition's own device they stay views.
+
 A shard that receives no block (a very sparse or skewed topology) gets
 an empty sub-layout — one invalid padding slot, an all-zero ``row_ptr``
 — whose product is exactly zero.
@@ -223,3 +228,22 @@ def shard_transpose_plan(stacked: BcsrTransposePlan, s: int) -> BcsrTransposePla
     return BcsrTransposePlan(stacked.order[s], stacked.row_ptr[s], stacked.row_id[s],
                              stacked.col_idx[s], stacked.valid[s], stacked.shape,
                              stacked.block_shape)
+
+
+def place_shard(sharded: ShardedBlockCSR, s: int, device) -> BlockCSRMatrix:
+    """Shard ``s``'s sub-layout on ``device``: contiguous copies on another
+    card, the views of :meth:`ShardedBlockCSR.shard` on the partition's
+    own device. Made once a plan, so the piece tables cached on its
+    ``row_ptr`` hit at every launch."""
+    local = sharded.shard(s)
+    return local if torch.device(device) == sharded.device else local.to(device)
+
+
+def place_shard_transpose(stacked: BcsrTransposePlan, s: int, device) -> BcsrTransposePlan:
+    """Shard ``s``'s backward transpose on ``device``, as :func:`place_shard`."""
+    tp = shard_transpose_plan(stacked, s)
+    if torch.device(device) == stacked.order.device:
+        return tp
+    return dataclasses.replace(tp, **{f: getattr(tp, f).to(device)
+                                      for f in ("order", "row_ptr", "row_id", "col_idx",
+                                                "valid")})

@@ -1287,3 +1287,126 @@ def test_a_small_cells_peak_and_flops_on_the_card_are_the_dry_runs(cuda):
     peak = torch.cuda.max_memory_allocated() - held
     assert counter.get_total_flops() == rec["flops_per_device"]
     assert abs(peak / rec["memory"]["peak_per_device_bytes"] - 1) <= 0.10
+
+
+# --- the sharded stack across cards ------------------------------------------
+
+
+def _cards(n):
+    """The first ``n`` cards, skipping when the host has fewer."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} NVIDIA GPUs: this host has "
+                    f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def test_cards_a_launch_on_card_1_gives_card_0s_bits():
+    """With card 0 current, each kernel's wrapper on tensors of card 1
+    launches there (the shared-memory attribute, the fused kernels'
+    geometry and the stream are card 1's) and gives the bits of the same
+    launch on card 0; operands on two cards are refused."""
+    c0, c1 = _cards(2)
+    rng = np.random.default_rng(70)
+    w = _weight(rng, 1024, 1024, 16, "cpu")
+    csr = BlockCSRMatrix.from_bsr(w)
+    stacked = stack_bsr([w, w])
+    y = torch.from_numpy(rng.random((1024, 64), dtype=np.float32))
+    b = torch.full((1024,), 0.01)
+    calls = {
+        "bsr_spmm": lambda d: ops.bsr_spmm(w.to(d), y.to(d), b.to(d), fuse_bias_relu=True),
+        "bcsr_spmm": lambda d: ops.bcsr_spmm(csr.to(d), y.to(d), b.to(d), fuse_bias_relu=True),
+        "semiring_matmul": lambda d: ops.semiring_matmul(w.to_dense().to(d), y.to(d), b.to(d),
+                                                         fuse_bias_relu=True),
+        "fused_mlp_forward": lambda d: ops.fused_mlp_forward(
+            stacked.to(d), torch.stack([b, b]).to(d), y.to(d)),
+    }
+    torch.cuda.set_device(c0)
+    ops.reset_launch_counts()
+    for name, call in calls.items():
+        on0, on1 = call(c0), call(c1)
+        assert on1.device == c1 and torch.cuda.current_device() == 0
+        assert torch.equal(on0.cpu(), on1.cpu()), name
+    assert ops.launch_counts(c1) == ops.launch_counts(c0) == {
+        **dict.fromkeys(ops.KERNELS, 0), **dict.fromkeys(calls, 1)}
+    with pytest.raises(ValueError, match="contiguous tensors on"):
+        ops.bcsr_spmm(csr.to(c0), y.to(c1))
+
+
+def _radix_cards(layers=120):
+    from repro_torch.launch.mesh import make_row_blocks_mesh
+
+    cards = _cards(4)
+    weights, biases = rx.radixnet_weights(rx.RadixNetSpec(1024, layers), device=cards[0])
+    return weights, biases, make_row_blocks_mesh(devices=cards), cards
+
+
+def test_cards_a_4_card_forward_is_the_one_card_4_shard_route_bit_for_bit():
+    from repro_torch.launch.mesh import make_row_blocks_mesh
+    from repro_torch.plan import build_sharded_plan
+
+    weights, biases, mesh, cards = _radix_cards()
+    one = build_sharded_plan(weights, biases, 128, make_row_blocks_mesh(4, device=cards[0]))
+    plan = build_sharded_plan(weights, biases, 128, mesh)
+    desc = plan.describe()
+    assert desc["devices"] == [str(c) for c in cards] and desc["cards"] == 4
+    assert desc["executable"] == "eager" and "4 cards" in desc["eager_because"]
+    assert all(local.values.device == c for lp in plan.layers
+               for local, c in zip(lp.shards, cards))
+    y = torch.from_numpy(rx.radixnet_input_panel(1024, 128, density=0.3, seed=0)).to(cards[0])
+    want = [one.forward(y) for _ in range(2)][1]  # a replay of the captured graph
+    ops.reset_launch_counts()
+    got = plan.forward(y)
+    assert got.device == cards[0] and torch.equal(got, want)
+    for c in cards:
+        assert ops.launch_counts(c) == {**dict.fromkeys(ops.KERNELS, 0), "bcsr_spmm": 120}
+
+
+def test_cards_two_4_card_backward_passes_give_the_same_bits():
+    from repro_torch.core import dnn
+    from repro_torch.launch.mesh import make_row_blocks_mesh
+    from repro_torch.plan import build_sharded_plan
+
+    cards = _cards(4)
+    ws, bs, _ = _sharded_stack(cards[0])
+    plan = build_sharded_plan(ws, bs, 64, make_row_blocks_mesh(devices=cards),
+                              differentiable=True)
+    y = _panels(512, cards[0], 1)[0]
+    targets = torch.rand((512, 64), generator=torch.Generator(device=cards[0]).manual_seed(3),
+                         device=cards[0])
+    ops.reset_launch_counts()
+    runs = [dnn.dnn_value_and_grad(ws, bs, y, targets, plan=plan) for _ in range(2)]
+    for c in cards:  # forward a launch a layer, backward one a layer but the first
+        assert ops.launch_counts(c)["bcsr_spmm"] == 2 * (3 + 2)
+    (l1, (dw1, db1)), (l2, (dw2, db2)) = runs
+    assert torch.equal(l1, l2)
+    for a, b in zip(dw1, dw2):
+        assert torch.equal(a.values, b.values)
+    for a, b in zip(db1, db2):
+        assert torch.equal(a, b)
+    lone, (dwone, _) = dnn.dnn_value_and_grad(ws, bs, y, targets, plan=build_sharded_plan(
+        ws, bs, 64, make_row_blocks_mesh(4, device=cards[0]), differentiable=True))
+    assert torch.equal(l1, lone)  # the forward is the one-card route's, bit for bit
+    for a, b in zip(dw1, dwone):
+        torch.testing.assert_close(a.values, b.values, rtol=1e-5, atol=1e-6)
+
+
+def test_cards_a_shard_failure_on_4_cards_demotes_with_the_same_categories():
+    from repro_torch.serve import SparseDNNEngine
+    from repro_torch.testing import SITE_SHARD_FAILURE, FaultInjector
+
+    weights, biases, mesh, cards = _radix_cards(24)
+    inj = FaultInjector()
+    inj.schedule(SITE_SHARD_FAILURE, 1)
+    engine = SparseDNNEngine(weights, biases, batch_align=32, mesh=mesh, fault_injector=inj)
+    panel = rx.radixnet_input_panel(1024, 384, density=0.3, seed=0)
+    _, want = rx.radixnet_reference(rx.RadixNetSpec(1024, 24), panel)
+    levels, active = [], []
+    for i in range(3):
+        out, stats = engine.infer(torch.from_numpy(panel[:, 128 * i:128 * (i + 1)]).to(cards[0]))
+        assert out.device == cards[0]
+        levels.append(stats["plan"]["level"])
+        active.append((out > 0).any(dim=0).cpu().numpy())
+    assert levels == ["sharded", "layered", "layered"]
+    assert engine.ladder.describe()["home_device"] == str(cards[0])
+    np.testing.assert_array_equal(np.flatnonzero(np.concatenate(active)), want)

@@ -1,0 +1,174 @@
+#!/usr/bin/env python3
+"""Run ``chip_smoke.py``'s sharded phases, the one-card ones and the ones
+across cards, on a host with several GPUs, then try a CUDA graph capture
+of a sharded forward across the cards.
+
+    python3 tools/torch_cards_run.py    # from the repository root, on a 4-GPU host
+
+Phases, each one JSON line as in ``chip_smoke.py`` (any failed check
+raises, and the exit code is not 0): ``device`` (the kernels' build, and
+every card's ``nvidia-smi`` name and power limit), ``copy-modes``
+(below), ``sharded`` (RadiX-net
+65536 × 120 as 4 shards on card 0, the comparison), ``sharded-cards``
+(the same over one card a shard), ``sharded-train`` and
+``sharded-cards-train``. Then ``capture-across-cards``: RadiX-net 1024 ×
+120 over the cards, its forward recorded with ``torch.cuda.graph`` on
+card 0 after an eager warm-up: whether CUDA and PyTorch accept the
+capture, and, if they do, whether a replay gives the eager forward's
+bits. The other cards' streams are not forked from the capture stream,
+so this is the plain capture, not a capture made to span the cards.
+That probe is a measurement, not the serving path: a sharded plan on
+several cards runs eagerly (``ShardedStackPlan.eager_because``).
+
+``copy-modes`` times one layer of RadiX-net 65536 × 120 over the cards
+(4 shards, 512 columns) and a whole forward with two ways of copying
+between cards, in turns (A B B A, four rounds): ``plain``,
+``distribution.peer.copy_into`` as it is (PyTorch's cross-device
+``copy_`` on the cards' current streams), and ``stream-pairs``
+(:func:`stream_pair_copy`: a send and a receive stream for each pair of
+cards, each copy fenced on both sides from Python). The host clock runs
+around ``reps`` calls with every card synchronised before and after;
+the outputs of the two must be the same bits.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
+
+import chip_smoke as smoke  # noqa: E402  (the phases and their checks)
+
+
+def capture_across_cards(shards: int) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.data import radixnet as rx
+    from repro_torch.plan import build_sharded_plan
+
+    mesh = smoke.cards_mesh(shards)
+    weights, biases = rx.radixnet_weights(rx.RadixNetSpec(1024, 120), device=mesh.device)
+    plan = build_sharded_plan(weights, biases, 64, mesh)
+    y = torch.from_numpy(np.ascontiguousarray(
+        rx.radixnet_input_panel(1024, 64, density=0.3, seed=0))).to(mesh.device)
+    eager = plan._eager(y)
+    smoke.sync_cards(plan)
+    static_in = y.clone()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            static_out = plan._run(static_in)
+        graph.replay()
+        smoke.sync_cards(plan)
+    except Exception as e:  # noqa: BLE001 — the outcome is what this probe reports
+        return {"cards": len(plan.cards), "accepted": False,
+                "error": f"{type(e).__name__}: {e}"[:1000]}
+    return {"cards": len(plan.cards), "accepted": True,
+            "replay_bit_identical": bool(torch.equal(static_out, eager))}
+
+
+_pairs: dict = {}
+
+
+def stream_pair_copy(dst, src):
+    """``dst ← src`` between two cards on the pair's own streams: the send
+    stream waits for the source's producer, the receive stream for the
+    destination's allocation, the destination's stream for the copy."""
+    import torch
+
+    if dst.device == src.device:
+        return dst.copy_(src)
+    key = (src.device.index, dst.device.index)
+    if key not in _pairs:
+        _pairs[key] = (torch.cuda.Stream(src.device), torch.cuda.Stream(dst.device))
+    send, recv = _pairs[key]
+    send.wait_stream(torch.cuda.current_stream(src.device))
+    recv.wait_stream(torch.cuda.current_stream(dst.device))
+    with torch.cuda.stream(send), torch.cuda.stream(recv):
+        dst.copy_(src)
+    src.record_stream(send)
+    torch.cuda.current_stream(dst.device).wait_stream(recv)
+    return dst
+
+
+def copy_modes(neurons=65536, layers=120, shards=4, width=512, density=0.45,
+               rounds=4, reps=10) -> dict:
+    import statistics
+    import time
+
+    import numpy as np
+    import torch
+
+    from repro_torch.data import radixnet as rx
+    from repro_torch.distribution import peer
+    from repro_torch.plan import build_sharded_plan
+
+    mesh = smoke.cards_mesh(shards)
+    weights, biases = rx.radixnet_weights(rx.RadixNetSpec(neurons, layers), device=mesh.device)
+    plan = build_sharded_plan(weights, biases, width, mesh)
+    y = torch.from_numpy(np.ascontiguousarray(rx.radixnet_input_panel(
+        neurons, width, density=density, seed=0))).to(mesh.device)
+    i = max(range(plan.n_layers), key=lambda k: sum(plan.layers[k].nnz_per_shard))
+    panels = plan.scatter(y)
+    modes = {"plain": peer.copy_into, "stream-pairs": stream_pair_copy}
+
+    def host_ms(fn, n) -> float:
+        smoke.sync_cards(plan)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        smoke.sync_cards(plan)
+        return 1e3 * (time.perf_counter() - t0) / n
+
+    layer_ms = {m: [] for m in modes}
+    forward_ms = {m: [] for m in modes}
+    outs = {}
+    try:
+        for m in modes:  # warm-up, and each mode's output
+            peer.copy_into = modes[m]
+            plan._layer(i, panels, plan.cards)
+            outs[m] = plan._run(y).cpu()
+        for _ in range(rounds):
+            for m in ("plain", "stream-pairs", "stream-pairs", "plain"):
+                peer.copy_into = modes[m]
+                layer_ms[m].append(host_ms(lambda: plan._layer(i, panels, plan.cards), reps))
+                forward_ms[m].append(host_ms(lambda: plan._run(y), 2))
+    finally:
+        peer.copy_into = modes["plain"]
+    smoke.check(torch.equal(outs["plain"], outs["stream-pairs"]),
+                "the two copy modes give the same bits")
+    return {"spec": [neurons, layers], "cards": len(plan.cards), "width": width, "layer": i,
+            "order": "A B B A x %d, A = plain" % rounds,
+            "layer_ms": layer_ms, "forward_ms": forward_ms,
+            "layer_ms_median": {m: statistics.median(t) for m, t in layer_ms.items()},
+            "forward_ms_median": {m: statistics.median(t) for m, t in forward_ms.items()},
+            "same_bits": True}
+
+
+def main() -> int:
+    dev = smoke.phase_device()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=index,name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()
+    smoke.emit({"phase": "cards", "nvidia_smi": smi})
+    smoke.emit({"phase": "copy-modes", **copy_modes()})
+    one_card, sharded = smoke.phase_sharded(**smoke.SHARDED)
+    smoke.emit({"phase": "sharded", **sharded})
+    cards = smoke.phase_sharded_cards(one_card=one_card, **smoke.SHARDED)
+    del one_card
+    smoke.emit({"phase": "sharded-cards", **cards})
+    smoke.emit({"phase": "sharded-train", **smoke.phase_sharded_train(**smoke.SHARDED_TRAIN)})
+    smoke.emit({"phase": "sharded-cards-train",
+                **smoke.phase_sharded_train(**smoke.SHARDED_TRAIN, cards=True)})
+    smoke.emit({"phase": "capture-across-cards",
+                **capture_across_cards(smoke.SHARDED["shards"])})
+    print(dev["nvidia_smi"], flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

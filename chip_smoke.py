@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's GraphChallenge, GraphBLAS, training, tuning,
 sharded, fleet and model-stack (LLM serving and training) paths and its
-meta-device dry run on one GPU (the sharded phases also over one shard a
-card on a host with 4).
+meta-device dry run on one GPU (the sharded phases and the model's data
+mesh also over one position a card on a host with 4).
 
     python3 chip_smoke.py        # from the repository root, on a CUDA host
 
@@ -228,7 +228,27 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    and 20; the run stopped at 10 (its step-20 checkpoint dropped) and
    resumed with ``--resume`` gives the uninterrupted run's metrics for
    steps 11–20 bit for bit.
-27. dryrun — ``repro_torch.launch.dryrun`` held to the card (``DRYRUN``),
+27. llm-train-data — llm-train over the model's data mesh of 4 positions
+   (``LLM_TRAIN_DATA``, ``data_mesh``: one a card on a host with 4 cards,
+   else all 4 on card 0, ``"cards": 1``): the state placed by
+   ``param_pspecs``, each position its rows of each of 2 microbatches,
+   gradients added onto the owners in card order, 3 steps dense and 3 with
+   every FFN block-pruned. Held: the first step at f32 compute (SGD)
+   against the one-position step on the same global batch (loss and ce
+   within ``LOSS_RTOL``; each gradient, each updated leaf and
+   ``grad_norm`` within ``GRAD_RTOL`` of its leaf's max, chunk by chunk);
+   each position's stored bytes its chunks'; the leaves every position
+   holds whole the same bits after every step; every float leaf moved on
+   every position; each card's launches against the count from shapes
+   (48 ``bsr_spmm`` and 48 ``bcsr_spmm`` a microbatch a position on its
+   card); topology unchanged. Prints step ms on the host clock, each
+   card's device ms and peak memory, and the gather and reduce bytes and
+   ms.
+28. launch-train-data — launch-train over the same mesh (``--data 4``;
+   ``--device cuda`` on a host with fewer than 4 cards): 20 steps,
+   stopped at 10 and resumed bit for bit; the step-20 checkpoint restored
+   onto one position holds the 4 positions' leaves.
+29. dryrun — ``repro_torch.launch.dryrun`` held to the card (``DRYRUN``),
    in a process of its own with ``expandable_segments``: one line per
    record of every arch's ``decode_32k`` and ``long_500k`` on the
    ``card`` and ``pod16x16`` meshes (``ok``, or ``skipped`` with the
@@ -264,9 +284,9 @@ same layer loop called eagerly through ``kernel_ops`` from this script,
 interleaved, five times each, beside the kernels' CUDA-event time
 (``host_share``).
 
-Launch counts are reset to 0 right before each of phases 3-27 and read
-right after (for 8, 9, 17, 19 and 24, around the train steps; for 25,
-around the sparse model's steps; for 20, around each run of the trace). The ``kernels`` line, the ``nvidia-smi`` line and, last,
+Launch counts are reset to 0 right before each of phases 3-29 and read
+right after (for 8, 9, 17, 19 and 24, around the train steps; for 25 and
+27, around the sparse model's steps; for 20, around each run of the trace). The ``kernels`` line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}`` close the run. Numbers are this run's
 own; the bound of a kernel is max(bytes / 3.35 TB/s, ops / 67 TFLOP/s)
 (H100 SXM HBM3 rate and f32 CUDA-core peak at 700 W; the LLM train step's
@@ -387,6 +407,11 @@ MODEL_TRAIN = dict(m=8192, num_layers=8, inverse_sparsity=16, block=128, batch=6
 LLM_TRAIN = dict(arch="llama3.2-1b", seq_len=128, global_batch=8, microbatches=2, steps=5,
                  lr=3e-4, block=128, blocks_per_row=4, seed=MODEL_SEED)
 LAUNCH_TRAIN = dict(arch="llama3.2-1b", steps=20, ckpt_interval=10, seed=MODEL_SEED)
+# llm-train and launch-train over the model's data mesh of 4 positions (one a
+# card on a host with 4, else all on card 0), 3 steps each model
+LLM_TRAIN_DATA = dict(LLM_TRAIN, steps=3, positions=4)
+LAUNCH_TRAIN_DATA = dict(LAUNCH_TRAIN, positions=4)
+LOSS_RTOL = 1e-5  # f32 compute: the tests' loss tolerance (tests/_torch_train.py)
 # logits, per row: max|got - want| <= tol x max|want|. bf16 compute: 2e-2 (the
 # reference's decode/forward tolerance, tests/test_arch_smoke.py, taken against
 # the row's scale: at published width two bf16 forwards of 32 and 33 tokens
@@ -3424,6 +3449,417 @@ def phase_launch_train(arch: str, steps: int, ckpt_interval: int, seed: int) -> 
             "launches": launches, "device": str(torch.cuda.get_device_name(0))}
 
 
+def data_mesh(positions: int):
+    """The model's data mesh of ``positions``: one a card over the first
+    ``positions`` cards when the host has that many; else every position on
+    card 0 (the same code, every copy between positions on one device)."""
+    import torch
+
+    from repro_torch.launch.mesh import make_local_mesh
+
+    if torch.cuda.device_count() >= positions > 1:
+        return make_local_mesh(devices=[f"cuda:{i}" for i in range(positions)])
+    return make_local_mesh(positions, device="cuda")
+
+
+def sync_all() -> None:
+    import torch
+
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def placed_leaves(state) -> list:
+    """Every placed leaf of a training state: params and moments."""
+    from repro_torch.distribution.sharding import Placed
+    from repro_torch.train import checkpoint
+
+    return [x for x in checkpoint.leaves(checkpoint.state_tree(state)) if isinstance(x, Placed)]
+
+
+def stored_bytes(state, mesh) -> dict:
+    """Each position's bytes of the state (its chunks), held to be their own
+    storage, and each card's sum beside what the card has allocated."""
+    import torch
+
+    leaves = placed_leaves(state)
+    for x in leaves:
+        for c in x.chunks:
+            check(c.untyped_storage().nbytes() == c.numel() * c.element_size(),
+                  ("a chunk is a tensor of its own", tuple(c.shape)))
+    per_position = [sum(x.chunks[c].numel() * x.element_size() for x in leaves)
+                    for c in range(mesh.size)]
+    split = sum(x.numel() * x.element_size() for x in leaves if x.sharding.dim is not None)
+    whole = sum(x.numel() * x.element_size() for x in leaves if x.sharding.dim is None)
+    check(per_position == [split // mesh.size + whole] * mesh.size,
+          ("each position stores its chunks", per_position, split, whole))
+    per_card = {str(d): sum(b for b, dev in zip(per_position, mesh.devices) if dev == d)
+                for d in mesh.cards}
+    return {"per_position_gb": [b / 1e9 for b in per_position],
+            "per_card_gb": {d: b / 1e9 for d, b in per_card.items()},
+            "allocated_gb": {str(d): torch.cuda.memory_allocated(d) / 1e9 for d in mesh.cards}}
+
+
+def held_whole_same_bits(state) -> bool:
+    """Every leaf that each position holds whole is the same bits on all."""
+    import torch
+
+    return all(torch.equal(c.to(x.chunks[0].device), x.chunks[0]) for x in placed_leaves(state)
+               if x.sharding.dim is None for c in x.chunks[1:])
+
+
+def recording(optimizer):
+    """``optimizer`` whose update keeps the gradients it gets (one list of
+    chunks a position on a placed state)."""
+    from repro_torch.train.optimizer import Optimizer
+
+    seen: list = []
+
+    def update(grads, state, params, *, gnorm=None):
+        seen.append(grads)
+        return optimizer.update(grads, state, params, gnorm=gnorm)
+
+    return Optimizer(optimizer.init, update), seen
+
+
+def chunk_errors(owners, per_position: list, whole: list) -> float:
+    """The worst leaf's max |chunk - the whole's part| over the whole leaf's
+    max |whole| (float leaves), chunk by chunk on the chunk's card;
+    ``per_position[j]`` holds leaf j's chunks."""
+    import torch
+
+    worst = 0.0
+    for leaf, chunks, want in zip(owners, per_position, whole):
+        if want is None or not want.is_floating_point():
+            continue
+        scale = max(float(want.float().abs().max()), 1e-30)
+        for c, got in enumerate(chunks):
+            part = leaf.sharding.part(want, c).to(got.device)
+            check(bool(torch.isfinite(got).all()), "finite")
+            worst = max(worst, float((got.float() - part.float()).abs().max()) / scale)
+    return worst
+
+
+def first_step_against_one_position(model, params, batch, mesh, microbatches: int) -> dict:
+    """One SGD step of ``model`` (f32 compute) on the data mesh against the
+    one-position ``make_train_step`` from the same params and global batch:
+    loss and ce within ``LOSS_RTOL``, ``grad_norm``, every gradient and
+    every updated leaf within ``GRAD_RTOL`` of its leaf's max, compared
+    chunk by chunk on each position's card."""
+    import torch
+
+    from repro_torch.distribution.sharding import param_pspecs, place, shardings_for
+    from repro_torch.train import checkpoint, make_train_step, sgd
+    from repro_torch.train.optimizer import init_placed
+    from repro_torch.train.trainer import TrainState
+
+    opt = sgd(1e-2, momentum=0.0)
+    rec1, seen1 = recording(opt)
+    on_home = {k: v.to(mesh.device) for k, v in batch.items()}
+    s1, m1 = make_train_step(model, rec1, microbatches=microbatches)(
+        TrainState(params, opt.init(checkpoint.leaves(params))), on_home)
+    grads1, new1 = seen1[0], checkpoint.leaves(s1.params)
+    del s1, on_home
+    placed = place(params, shardings_for(None, mesh, param_pspecs(None, params, mesh)))
+    owners = checkpoint.leaves(placed)
+    rec4, seen4 = recording(opt)
+    s4, m4 = make_train_step(model, rec4, microbatches=microbatches)(
+        TrainState(placed, init_placed(opt, owners)), batch)
+    del placed
+    grads4 = [[per[j] for per in seen4] for j in range(len(owners))]
+    new4 = [list(x.chunks) for x in checkpoint.leaves(s4.params)]
+    grad_err = chunk_errors(owners, grads4, grads1)
+    param_err = chunk_errors(owners, new4, new1)
+    del grads1, grads4, new1, new4, s4, seen1, seen4
+    torch.cuda.empty_cache()
+    loss_err = abs(float(m4["loss"]) - float(m1["loss"])) / abs(float(m1["loss"]))
+    ce_err = abs(float(m4["ce"]) - float(m1["ce"])) / abs(float(m1["ce"]))
+    norm_err = abs(float(m4["grad_norm"]) - float(m1["grad_norm"])) / float(m1["grad_norm"])
+    check(loss_err <= LOSS_RTOL and ce_err <= LOSS_RTOL, ("loss on the mesh", loss_err, ce_err))
+    check(grad_err <= GRAD_RTOL and param_err <= GRAD_RTOL and norm_err <= GRAD_RTOL,
+          ("gradients and updated leaves on the mesh", grad_err, param_err, norm_err))
+    return {"loss": float(m4["loss"]), "one_position_loss": float(m1["loss"]),
+            "loss_rel_err": loss_err, "ce_rel_err": ce_err, "grad_norm_rel_err": norm_err,
+            "grad_max_rel_err": grad_err, "updated_leaf_max_rel_err": param_err,
+            "check": f"f32 compute, SGD 1e-2: loss and ce <= {LOSS_RTOL}, each float leaf's "
+                     f"gradient and update <= {GRAD_RTOL} of its max against one position"}
+
+
+def gather_reduce(state, mesh) -> dict:
+    """The step's two exchanges on their own, timed on the host clock with
+    every card synchronised: each card gathering every leaf whole, and one
+    microbatch's reduce (every position's whole gradient, here a stand-in
+    of the params' shapes, added onto the owners in card order). Bytes:
+    what crosses between cards, and what the gather and the reduce copy."""
+    from repro_torch.distribution.sharding import constrain_like_params
+    from repro_torch.train import checkpoint
+
+    owners = checkpoint.leaves(state.params)
+    n = mesh.size
+    leaf_bytes = [x.numel() * 4 for x in owners if x.is_floating_point()]
+    split = [x.numel() * 4 for x in owners if x.is_floating_point() and x.sharding.dim is not None]
+    whole = sum(leaf_bytes) - sum(split)
+    cards = len(mesh.cards)
+    sync_all()
+    t0 = time.perf_counter()
+    gathered = {d: [x.gather(d) for x in owners] for d in mesh.cards}
+    sync_all()
+    gather_ms = 1e3 * (time.perf_counter() - t0)
+    terms = [[g if g.is_floating_point() else None for g in gathered[d]] for d in mesh.devices]
+    sync_all()
+    t0 = time.perf_counter()
+    acc = None
+    for term in terms:
+        acc = constrain_like_params(term, owners=owners, into=acc)
+    sync_all()
+    reduce_ms = 1e3 * (time.perf_counter() - t0)
+    del gathered, terms, acc
+    return {"gather_ms": gather_ms, "reduce_ms_a_microbatch": reduce_ms,
+            "split_leaf_bytes": sum(split), "whole_leaf_bytes": whole,
+            "gather_bytes_between_cards": (n - 1) * sum(split) if cards > 1 else 0,
+            "gather_bytes_copied": cards * sum(split),
+            "reduce_bytes_between_cards_a_microbatch":
+                (n - 1) * (sum(split) + n * whole) if cards > 1 else 0,
+            "reduce_bytes_added_a_microbatch": n * (sum(split) + n * whole)}
+
+
+def device_ms_by_card(fn) -> dict | None:
+    """Device time (kernels and copies) on each card during one ``fn()``,
+    from a ``torch.profiler`` trace; None when the trace holds none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync_all()
+    per: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            key = f"cuda:{e.device_index}"
+            per[key] = per.get(key, 0.0) + e.time_range.elapsed_us() / 1e3
+    return per or None
+
+
+def data_steps(step_fn, state, data, steps: int, mesh) -> tuple:
+    """``steps`` steps of ``step_fn`` over ``data``'s batches through a
+    ``Prefetcher``, host batches (the step copies each position's rows to
+    its card), each timed on the host clock to every card's end of its
+    work; launches counted from 0 over the steps, per card; after each
+    step every leaf held whole must be the same bits on every position."""
+    import torch
+
+    from repro_torch.data import Prefetcher
+    from repro_torch.kernels import ops
+
+    prefetch = Prefetcher(data)
+    losses, norms, times, same = [], [], [], []
+    try:
+        ops.reset_launch_counts()
+        for _ in range(steps):
+            _, host = prefetch.next()
+            batch = {k: torch.from_numpy(v) for k, v in host.items()}
+            sync_all()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            sync_all()
+            times.append(1e3 * (time.perf_counter() - t0))
+            losses.append(float(metrics["loss"]))
+            norms.append(float(metrics["grad_norm"]))
+            same.append(held_whole_same_bits(state))
+        counts = {str(d): ops.launch_counts(d) for d in mesh.cards}
+        total = ops.launch_counts()
+    finally:
+        prefetch.close()
+    check(all(same), ("leaves held whole differ between positions", same))
+    check(all(np.isfinite(losses + norms)), ("finite loss and grad norm", losses, norms))
+    check(int(state.opt.step) == steps, int(state.opt.step))
+    return state, {"losses": losses, "grad_norms": norms, "step_ms": statistics.median(times[1:]),
+                   "step_ms_all": times, "launches_by_card": counts, "launches": total,
+                   "whole_leaves_same_bits_every_step": True}
+
+
+def moved(before, after) -> bool:
+    """Every float leaf of ``after`` differs from ``before`` on every position."""
+    import torch
+
+    from repro_torch.train import checkpoint
+
+    return all(not torch.equal(a, b) for x, y in zip(checkpoint.leaves(before),
+                                                     checkpoint.leaves(after))
+               if x.is_floating_point() for a, b in zip(x.chunks, y.chunks))
+
+
+def phase_llm_train_data(arch: str, seq_len: int, global_batch: int, microbatches: int,
+                         steps: int, lr: float, block: int, blocks_per_row: int, positions: int,
+                         seed: int) -> dict:
+    """llm-train over the data mesh (:func:`data_mesh`: one position a card on
+    a host with ``positions`` cards, else every position on card 0): the
+    state placed by ``param_pspecs``, each position its rows of each
+    microbatch, gradients added onto the owners in card order. Dense, then
+    every FFN block-pruned. Held: the first step against the one-position
+    step at f32 compute (:func:`first_step_against_one_position`), each
+    position's stored bytes its chunks', leaves held whole the same bits on
+    every position after each step, launches on each card against the count
+    from shapes, topology unchanged, finite losses."""
+    import torch
+
+    from repro_torch.configs import SparsityConfig, get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distribution.sharding import param_pspecs, place, shardings_for
+    from repro_torch.models import Model
+    from repro_torch.train import adamw, checkpoint
+    from repro_torch.train.optimizer import init_placed, warmup_cosine
+    from repro_torch.train.trainer import TrainState, make_train_step
+
+    mesh = data_mesh(positions)
+    cfg = get_config(arch)
+    model = Model(cfg)
+    opt = adamw(warmup_cosine(lr, 10, 100), state_dtype=torch.float32)
+    params0 = model.init(torch.Generator(device=mesh.device).manual_seed(seed),
+                         device=mesh.device)
+    data = SyntheticLM(cfg.vocab_size, seq_len, global_batch, seed=seed)
+    first = {k: torch.from_numpy(v) for k, v in data.batch(0).items()}
+    per_card = {str(d): sum(1 for x in mesh.devices if x == d) for d in mesh.cards}
+
+    def placed(params):
+        p = place(params, shardings_for(None, mesh, param_pspecs(cfg, params, mesh)))
+        return TrainState(p, init_placed(opt, checkpoint.leaves(p)))
+
+    def peaks() -> dict:
+        return {str(d): torch.cuda.max_memory_allocated(d) / 1e9 for d in mesh.cards}
+
+    def reset_peaks() -> None:
+        for d in mesh.cards:
+            torch.cuda.reset_peak_memory_stats(d)
+
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    dense_first = first_step_against_one_position(Model(f32), params0, first, mesh, microbatches)
+    state0 = placed(params0)
+    stored = stored_bytes(state0, mesh)
+    exchange = gather_reduce(state0, mesh)
+    step = make_train_step(model, opt, microbatches=microbatches)
+    reset_peaks()
+    state, dense = data_steps(step, state0, data, steps, mesh)
+    dense["peak_memory_gb"] = peaks()
+    check(sum(dense["launches"].values()) == 0, ("dense FFNs launch no kernel", dense["launches"]))
+    check(moved(state0.params, state.params), "every float leaf moved on every position")
+    dense["device_ms_by_card"] = device_ms_by_card(lambda: step(state, first))
+    dense["first_step_f32"] = dense_first
+    del state, state0
+
+    scfg = dataclasses.replace(cfg, sparsity=SparsityConfig(
+        (block, block), blocks_per_row=blocks_per_row, targets=("ffn",)))
+    smodel = Model(scfg)
+    sparams = smodel.sparsify(params0)
+    del params0
+    n_proj = sparse_projections(sparams)
+    check(n_proj == 3 * cfg.num_layers, n_proj)
+    sparse_first = first_step_against_one_position(
+        Model(dataclasses.replace(scfg, compute_dtype="float32")), sparams, first, mesh,
+        microbatches)
+    sstate0 = placed(sparams)
+    sstored = stored_bytes(sstate0, mesh)
+    sstep = make_train_step(smodel, opt, microbatches=microbatches)
+    reset_peaks()
+    sstate, sparse = data_steps(sstep, sstate0, data, steps, mesh)
+    sparse["peak_memory_gb"] = peaks()
+    a_card = {d: {"bsr_spmm": steps * microbatches * n_proj * k,
+                  "bcsr_spmm": steps * microbatches * n_proj * k} for d, k in per_card.items()}
+    got = {d: {k: c[k] for k in ("bsr_spmm", "bcsr_spmm")} for d, c in
+           sparse["launches_by_card"].items()}
+    check(got == a_card and sum(sparse["launches"].values())
+          == sum(sum(v.values()) for v in a_card.values()), ("launches on each card", got, a_card))
+    check(all(a is b for a, b in zip(checkpoint.leaves(sstate0.params),
+                                     checkpoint.leaves(sstate.params))
+              if not a.is_floating_point()), "topology changed")
+    check(moved(sstate0.params, sstate.params), "every float leaf moved on every position")
+    sparse["device_ms_by_card"] = device_ms_by_card(lambda: sstep(sstate, first))
+    sparse.update({"first_step_f32": sparse_first, "projections": n_proj,
+                   "launches_per_step_a_position": {"bsr_spmm": microbatches * n_proj,
+                                                    "bcsr_spmm": microbatches * n_proj},
+                   "stored": sstored})
+    tokens = seq_len * global_batch
+    return {"arch": arch, "mesh": dict(mesh.shape), "cards": len(mesh.cards),
+            "devices": [str(d) for d in mesh.devices], "seq_len": seq_len,
+            "global_batch": global_batch, "microbatches": microbatches, "steps": steps,
+            "tokens_per_step": tokens,
+            "optimizer": f"adamw(warmup_cosine({lr}, 10, 100), state_dtype=float32)",
+            "stored": stored, "exchange": exchange,
+            "dense": {**dense, "tokens_per_s": tokens / (dense["step_ms"] / 1e3)},
+            "sparse": {**sparse, "tokens_per_s": tokens / (sparse["step_ms"] / 1e3)}}
+
+
+def phase_launch_train_data(arch: str, steps: int, ckpt_interval: int, positions: int,
+                            seed: int) -> dict:
+    """The launcher over the data mesh: ``repro_torch.launch.train.main`` at
+    ``--scale-down --data positions`` (every card on a host with that many,
+    else ``--device cuda``: the positions on card 0), ``steps`` steps with
+    checkpoints at each chunk's end; the run stopped at ``ckpt_interval``
+    and resumed gives the same metrics bit for bit; the last checkpoint
+    restores onto one position with the leaves the positions hold."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import Model
+    from repro_torch.train import adamw, checkpoint
+    from repro_torch.train.trainer import init_train_state
+
+    args = ["--arch", arch, "--scale-down", "--steps", str(steps), "--data", str(positions),
+            "--ckpt-interval", str(ckpt_interval), "--seed", str(seed)]
+    if torch.cuda.device_count() < positions:
+        args += ["--device", "cuda"]
+    with tempfile.TemporaryDirectory() as d:
+        full, stopped = os.path.join(d, "full"), os.path.join(d, "stopped")
+        ops.reset_launch_counts()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            hist = launch_train.main(args + ["--ckpt-dir", full])
+        sync_all()
+        seconds = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        ckpts = sorted(os.listdir(full))
+        shutil.copytree(full, stopped)
+        for name in ckpts:
+            if int(name.split("_")[1]) > ckpt_interval:
+                shutil.rmtree(os.path.join(stopped, name))
+        resumed_out = io.StringIO()
+        with contextlib.redirect_stdout(resumed_out):
+            resumed = launch_train.main(args + ["--ckpt-dir", stopped, "--resume"])
+        model = Model(get_config(arch).scaled_down(max_seq_len=128))
+        opt = adamw(1e-3)
+        one, four = (
+            checkpoint.restore(full, init_train_state(
+                model, opt, torch.Generator(device=m.device).manual_seed(seed), mesh=m))[0]
+            for m in (data_mesh(1), data_mesh(positions)))
+        manifest = checkpoint.restore(full, four)[1]
+        mesh = data_mesh(positions)
+    check([h["step"] for h in hist] == list(range(1, steps + 1)), "steps run")
+    check(all(np.isfinite([h["loss"], h["grad_norm"]]).all() for h in hist), "finite")
+    check(ckpts == [f"step_{s:08d}" for s in range(10, steps + 1, 10)], ckpts)
+    check(f"mesh={dict(mesh.shape)}" in out.getvalue(), out.getvalue())
+    check(f"[train] resumed from step {ckpt_interval}" in resumed_out.getvalue(),
+          resumed_out.getvalue())
+    check(resumed == hist[ckpt_interval:], ("resumed metrics differ", resumed, hist))
+    check(manifest["step"] == steps, manifest["step"])
+    same = all(torch.equal(a.chunks[0], b.gather(a.device))
+               for a, b in zip(placed_leaves(one), placed_leaves(four)))
+    check(same, "the last checkpoint on one position holds the positions' leaves")
+    return {"args": args, "mesh": dict(mesh.shape), "cards": len(mesh.cards),
+            "lines": out.getvalue().splitlines(),
+            "resumed_lines": resumed_out.getvalue().splitlines(),
+            "losses": [h["loss"] for h in hist], "resumed_bit_identical": True,
+            "restored_on_one_position": True, "seconds": seconds, "checkpoints": ckpts,
+            "launches": launches}
+
+
 def dryrun_meta_record(arch: str, shape: str, global_batch: int | None,
                        microbatches: int | None) -> dict:
     """The dry run's record of one cell on the card's mesh, traced on
@@ -3888,6 +4324,10 @@ def main() -> int:
     emit({"phase": "llm-train", **llm_train})
     launch = phase_launch_train(**LAUNCH_TRAIN)
     emit({"phase": "launch-train", **launch})
+    llm_data = phase_llm_train_data(**LLM_TRAIN_DATA)
+    emit({"phase": "llm-train-data", **llm_data})
+    launch_data = phase_launch_train_data(**LAUNCH_TRAIN_DATA)
+    emit({"phase": "launch-train-data", **launch_data})
     dry = phase_dryrun(**DRYRUN)
     emit({"phase": "dryrun", "card": dev["nvidia_smi"], **dry})
 
@@ -3907,7 +4347,9 @@ def main() -> int:
                 "model-mlp": mlp["launches"], "llm-sparse": llm_sparse["launches"],
                 "model-train": model_train["launches"],
                 "llm-train": llm_train["sparse"]["launches"],
-                "launch-train": launch["launches"], "dryrun": dry["launches"]}
+                "launch-train": launch["launches"],
+                "llm-train-data": llm_data["sparse"]["launches"],
+                "launch-train-data": launch_data["launches"], "dryrun": dry["launches"]}
     checks = {name: "max|kernel - plain| <= 1e-5 |plain| + 1e-6 (f32 order)"
               for name in ("semiring_matmul", "bsr_spmm", "bcsr_spmm")}
     checks.update({name: "stack: <= 1e-4 max|plain|, each entry within 2x the f32 bound, "

@@ -18,7 +18,10 @@ returns the port's tensors on ``device``:
   class: its value leaf, with the topology of the port's primal (the
   reference's topology leaves are ``float0`` and carry nothing);
 * :func:`model_params` — a ``repro.models`` params tree (dicts and lists
-  of arrays, sparse FFN weights stacked or not) as the port's tree.
+  of arrays, sparse FFN weights stacked or not) as the port's tree;
+* :func:`train_state` — a ``repro.train`` ``TrainState`` (params and the
+  optimizer's step and moment trees) as the port's, on one device or
+  placed onto a data mesh by ``param_pspecs``.
 """
 
 from __future__ import annotations
@@ -106,3 +109,29 @@ def model_params(tree, *, device="cpu"):
     if isinstance(tree, (list, tuple)):
         return [model_params(v, device=device) for v in tree]
     return weight(tree, device=device)
+
+
+def train_state(state, *, device="cpu", mesh=None, rules=None):
+    """The reference's ``TrainState(params, OptState(step, mu, nu))`` as the
+    port's: params through :func:`model_params`, each moment tree as the
+    flat list of its leaves (``train.checkpoint.leaves`` order; a scalar
+    moment, SGD's unused ``nu``, as a host scalar) and the step as a host
+    int32 scalar. With ``mesh``: placed as ``trainer.state_shardings``
+    says (the weights carried across for the data mesh)."""
+    from repro_torch.distribution.sharding import place
+    from repro_torch.train.checkpoint import leaves
+    from repro_torch.train.optimizer import OptState
+    from repro_torch.train.trainer import TrainState, state_shardings
+
+    def moments(tree):
+        if isinstance(tree, (dict, list, tuple)):
+            return leaves(model_params(tree, device=device))
+        return torch.from_numpy(np.array(tree, dtype=np.float32))
+
+    opt = state.opt
+    out = TrainState(model_params(state.params, device=device),
+                     OptState(torch.tensor(int(np.asarray(opt.step)), dtype=torch.int32),
+                              moments(opt.mu), moments(opt.nu)))
+    if mesh is None:
+        return out
+    return place(out, state_shardings(None, out, mesh, rules))

@@ -17,8 +17,16 @@ int32, and the quantization error stays with the shard for the next
 step. ``torch.round`` and ``jnp.round`` both round half to even, so the
 int8 payloads equal the reference's exactly.
 
+On the model's data mesh the axis is the mesh's positions: with
+``mesh=``, :func:`compressed_psum_mean` and its tree form take one tensor
+(or tree) a position, each on its position's device, and give one back
+a position. The pmax is exact in any order, the int32 sum is added in
+card order on position 0's device, and every elementwise step is the
+leading-dim form's, so the two give the same bits.
+
 ``bucketed``: gradient leaves grouped into buckets of at most
-``bucket_bytes`` (the launch granularity of bucketed all-reduces).
+``bucket_bytes`` (the launch granularity of bucketed all-reduces); a
+placed tree's leaves count their whole bytes.
 """
 
 from __future__ import annotations
@@ -26,6 +34,8 @@ from __future__ import annotations
 from typing import Any, Sequence
 
 import torch
+
+from repro_torch.distribution import peer
 
 
 def _shards(x) -> torch.Tensor:
@@ -48,10 +58,15 @@ def quantize_int8(x: torch.Tensor | Sequence[torch.Tensor]) -> tuple[torch.Tenso
     return q, _per_shard(scale, x.shape[0])
 
 
-def compressed_psum_mean(x, err) -> tuple[torch.Tensor, torch.Tensor]:
+def compressed_psum_mean(x, err, *, mesh=None, axis: str = "data"):
     """Mean of S shards' ``x`` over int8 payloads, with error feedback:
     ``(mean (S, ...), new_err (S, ...))``; ``err`` is each shard's carried
-    quantization error (zeros at the first step)."""
+    quantization error (zeros at the first step). With ``mesh``: over the
+    mesh's positions along ``axis`` (it must span them), ``x`` and
+    ``err`` one tensor a position on its device; ``(means, new_errs)``
+    are lists of one a position."""
+    if mesh is not None:
+        return _positions_psum_mean(list(x), list(err), mesh, axis)
     x, err = _shards(x), _shards(err)
     n = x.shape[0]
     xe = x + err
@@ -63,13 +78,42 @@ def compressed_psum_mean(x, err) -> tuple[torch.Tensor, torch.Tensor]:
     return _per_shard(mean, n), new_err
 
 
-def compressed_psum_mean_tree(grads: Any, err_tree: Any) -> tuple[Any, Any]:
+def _positions_psum_mean(x: list, err: list, mesh, axis: str) -> tuple[list, list]:
+    devices = mesh.devices
+    n = len(devices)
+    if mesh.shape.get(axis) != n or len(x) != n or len(err) != n:
+        raise ValueError(f"one tensor a position of the {axis!r} axis, which must span the "
+                         f"mesh {mesh.shape}: got {len(x)} tensors and {len(err)} errors")
+    xe = [a + e for a, e in zip(x, err)]
+    home = devices[0]
+    amax = torch.stack([peer.to(torch.amax(torch.abs(v).reshape(-1)), home) for v in xe]).max()
+    scale = torch.clamp_min(amax / 127.0, 1e-30)  # the pmax, then the shared scale
+    new_err, payloads = [], []
+    for v, d in zip(xe, devices):
+        s = peer.to(scale, d)
+        q = torch.clamp(torch.round(v / s), -127, 127).to(torch.int8)
+        new_err.append(v - q.to(v.dtype) * s)
+        payloads.append(peer.to(q.to(torch.int32), home))
+    total = peer.shard_order_sum(payloads)  # the int32 psum, card order
+    mean = total.to(x[0].dtype) * (scale / n)
+    return [peer.copy_into(torch.empty_like(mean, device=d), mean) for d in devices], new_err
+
+
+def compressed_psum_mean_tree(grads: Any, err_tree: Any, *, mesh=None,
+                              axis: str = "data") -> tuple[Any, Any]:
     """:func:`compressed_psum_mean` leaf by leaf over a tree of per-shard
-    gradients (leaves (S, ...)); the error tree mirrors it."""
+    gradients (leaves (S, ...)); the error tree mirrors it. With
+    ``mesh``: ``grads`` and ``err_tree`` are sequences of one tree a
+    position, and so are the two results."""
     from repro_torch.train.checkpoint import leaves, with_leaves
 
-    out = [compressed_psum_mean(g, e) for g, e in zip(leaves(grads), leaves(err_tree))]
-    return with_leaves(grads, [m for m, _ in out]), with_leaves(grads, [e for _, e in out])
+    if mesh is None:
+        out = [compressed_psum_mean(g, e) for g, e in zip(leaves(grads), leaves(err_tree))]
+        return with_leaves(grads, [m for m, _ in out]), with_leaves(grads, [e for _, e in out])
+    per_leaf = [compressed_psum_mean(g, e, mesh=mesh, axis=axis)
+                for g, e in zip(zip(*map(leaves, grads)), zip(*map(leaves, err_tree)))]
+    return ([with_leaves(grads[c], [m[c] for m, _ in per_leaf]) for c in range(len(grads))],
+            [with_leaves(grads[c], [e[c] for _, e in per_leaf]) for c in range(len(grads))])
 
 
 def init_error_state(grads_like: Any) -> Any:

@@ -18,6 +18,12 @@ The sums are never NCCL's or ``torch.distributed``'s: their ring order
 gives other bits. Every sum across shards is written out in shard order
 (``plan.sharded.sum_and_relu``, :class:`_Spread`'s backward), the order
 of the one-card route, so the results are the same bits.
+
+The model API's data mesh moves whole leaves the same way
+(``repro_torch.train.trainer``): :func:`all_gather` puts a leaf's chunks
+together on one device in position order, and :func:`reduce_into` /
+:func:`reduce_scatter` add the positions' whole gradients onto the
+positions that own each chunk, in card order.
 """
 
 from __future__ import annotations
@@ -79,3 +85,40 @@ def spread(bands, rows, cards) -> tuple[torch.Tensor, ...]:
     card-order sum of the cards' gradients. One band of every row is a
     scatter of one panel to the cards."""
     return _Spread.apply(tuple(rows), tuple(torch.device(c) for c in cards), *bands)
+
+
+def all_gather(chunks, dim: int, device) -> torch.Tensor:
+    """The chunks of a leaf split along ``dim``, one a position, put
+    together on ``device`` in position order (exact); a single chunk on
+    ``device`` is returned as it is."""
+    device = torch.device(device)
+    if len(chunks) == 1 and chunks[0].device == device:
+        return chunks[0]
+    return torch.cat([to(c, device) for c in chunks], dim)
+
+
+def reduce_into(acc, term: torch.Tensor, sharding) -> list[torch.Tensor]:
+    """One position's whole gradient ``term`` added onto the owners: for
+    every position c, ``acc[c]`` plus c's part of ``term``
+    (``sharding.part``: its chunk, or the whole of a replicated leaf), in
+    f32 on c's device. ``acc=None`` starts the sums with copies of the
+    parts. Called for positions 0, 1, … in turn, it gives each owner the
+    card-order sum, with one position's gradient alive at a time."""
+    out = []
+    for c, device in enumerate(sharding.devices):
+        part = sharding.part(term, c)
+        if acc is None:
+            out.append(copy_into(torch.empty_like(part, dtype=torch.float32, device=device),
+                                 part))
+        else:
+            out.append(acc[c].add_(to(part, device).float()))
+    return out
+
+
+def reduce_scatter(terms, sharding) -> list[torch.Tensor]:
+    """Σ over positions of ``terms`` (one whole tensor a position), each
+    owner's part on its device, added in card order (:func:`reduce_into`)."""
+    acc = None
+    for term in terms:
+        acc = reduce_into(acc, term, sharding)
+    return acc

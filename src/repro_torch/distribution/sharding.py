@@ -16,14 +16,22 @@ sequence indices and a sparse matrix's tensors by index
 (``repro_torch.train.checkpoint``'s order), so a sparse FFN weight's
 tensors match no rule and are replicated in both packages.
 
-For the model API the port's mesh is one device (``repro_torch.launch.mesh``),
-and a spec places nothing: :func:`shardings_for` maps every leaf to that
-device (a multi-card mesh's home card), and :func:`constrain`,
-:func:`constrain_like_params` and :func:`embed_lookup` are the identity
-and ``table[ids]`` inside an :func:`activate` scope as outside it. The
-model API's specs across several cards, and the collectives between
-them, wait for the model API on several cards. The sparse stack does run
-across cards: :func:`shard_device` says where shard s runs and
+On the model's data mesh (``repro_torch.launch.mesh.make_local_mesh``,
+``model`` = 1) a spec places its leaf: :func:`shardings_for` gives each
+leaf a :class:`Sharding` (the reference's ``NamedSharding``) and
+:func:`place` stores it as a :class:`Placed` leaf, one chunk a position.
+A leaf whose spec puts ``data`` on dim d is N contiguous chunks along d,
+chunk c on position c's device; a leaf with no ``data`` axis (norms, a
+dim that does not divide, every tensor of a sparse FFN weight) is whole
+on every position. The batch's rows split over the positions as
+:func:`batch_pspecs` says (:func:`split_batch`), each position computes
+on the whole leaves (:meth:`Placed.gather`), and
+:func:`constrain_like_params` adds the positions' gradients onto the
+owners in card order. Within a position :func:`constrain` is the identity
+and :func:`embed_lookup` is ``table[ids]`` on the gathered table: the
+reference's vocab-parallel lookup gives the same rows. The ``model`` axis
+places nothing yet (the mesh refuses it). The sparse stack runs across
+cards too: :func:`shard_device` says where shard s runs and
 :func:`row_bands` which rows each position owns in the shard-order sum.
 """
 
@@ -31,9 +39,12 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 from typing import Any
 
 import torch
+
+from repro_torch.distribution import peer
 
 Params = dict[str, Any]
 
@@ -78,7 +89,8 @@ def active_rules() -> "ShardingRules | None":
 def constrain(x: torch.Tensor, logical: tuple) -> torch.Tensor:
     """``x`` pinned to the spec of ``logical`` on the active mesh: the spec
     is resolved (an unknown logical axis raises, as in the reference)
-    and ``x`` returned as it is, every position being one device."""
+    and ``x`` returned as it is: a position computes its own rows on
+    whole leaves."""
     if _ACTIVE:
         mesh, rules = _ACTIVE[-1]
         _resolve_spec(tuple(logical), tuple(x.shape), mesh, rules)
@@ -86,17 +98,30 @@ def constrain(x: torch.Tensor, logical: tuple) -> torch.Tensor:
 
 
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """The embedding rows of ``ids``: ``table[ids]``. The reference's
-    vocab-parallel lookup (a masked local take per vocab shard and a
-    psum) gives the same rows; on one device it is the gather itself."""
+    """The embedding rows of ``ids``: ``table[ids]`` on the whole table (on
+    the data mesh, a position's gathered copy). The reference's
+    vocab-parallel lookup (a masked local take per vocab shard and a psum
+    that adds each row to zeros) gives the same rows."""
     return table[ids.long()]
 
 
-def constrain_like_params(tree):
-    """A param-shaped tree (gradients) pinned to the parameter rules: the
-    identity on one device, where the reference's constraint that keeps
-    gradient accumulators sharded has nothing to shard."""
-    return tree
+def constrain_like_params(tree, *, owners=None, into=None):
+    """A param-shaped tree (gradients) pinned to the parameter rules.
+
+    Without ``owners``: the identity, a tree on one device (the
+    reference's constraint has nothing to shard there). With ``owners``
+    (the flat list of :class:`Placed` params the gradients follow),
+    ``tree`` is one position's whole gradients, a flat list of the same
+    order (None for an index leaf), and each leaf is added onto the
+    positions that own it (``peer.reduce_into``): ``into`` holds the
+    sums so far (None at the first position), and the new sums come
+    back. Called for the positions in order, each owner's chunk is the
+    card-order sum; a replicated leaf's sum is on every position."""
+    if owners is None:
+        return tree
+    into = into or [None] * len(owners)
+    return [None if g is None else peer.reduce_into(acc, g, leaf.sharding)
+            for g, acc, leaf in zip(tree, into, owners)]
 
 
 # ------------------------------ rules ----------------------------------------
@@ -326,13 +351,165 @@ def batch_pspecs(mesh, rules: ShardingRules | None = None) -> dict[str, Partitio
     return {"inputs": PartitionSpec(b, s), "labels": PartitionSpec(b, s)}
 
 
+def _positions(entry, mesh) -> int:
+    """How many positions a spec entry (an axis, a tuple of them, None)
+    splits its dim over."""
+    if entry is None:
+        return 1
+    return math.prod(mesh.shape[a] for a in (entry if isinstance(entry, tuple) else (entry,)))
+
+
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """Where a leaf lives on a mesh, the reference's ``NamedSharding``:
+    the mesh and the leaf's spec. :attr:`dim` is the dim split over the
+    mesh's positions (chunk c on position c's device), or None for a leaf
+    every position holds whole."""
+
+    mesh: Any
+    spec: PartitionSpec
+
+    @property
+    def devices(self) -> tuple[torch.device, ...]:
+        return self.mesh.devices
+
+    @property
+    def dim(self) -> int | None:
+        split = [d for d, entry in enumerate(self.spec) if _positions(entry, self.mesh) > 1]
+        if not split:
+            return None
+        n = math.prod(self.mesh.shape.values())
+        if len(split) > 1 or _positions(self.spec[split[0]], self.mesh) != n:
+            raise ValueError(f"{self.spec} splits a leaf over part of a mesh of shape "
+                             f"{self.mesh.shape}: only one dim split over every position "
+                             "is placed (the model axis is not placed yet)")
+        return split[0]
+
+    def part(self, x: torch.Tensor, c: int) -> torch.Tensor:
+        """Position ``c``'s part of the whole leaf ``x``: its chunk (a view),
+        or ``x`` for a leaf every position holds whole."""
+        dim = self.dim
+        if dim is None:
+            return x
+        size = x.shape[dim] // len(self.devices)
+        return x.narrow(dim, c * size, size)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Placed:
+    """A leaf stored on a mesh: ``chunks[c]`` is position c's, on its device
+    (:class:`Sharding`). Reports the whole leaf's shape, dtype and size, so
+    a placed tree reads like the tree it was placed from (parameter
+    counts, checkpoint templates, ``collectives.bucketed``)."""
+
+    chunks: tuple[torch.Tensor, ...]
+    sharding: Sharding
+
+    @property
+    def shape(self) -> torch.Size:
+        shape = list(self.chunks[0].shape)
+        dim = self.sharding.dim
+        if dim is not None:
+            shape[dim] = sum(c.shape[dim] for c in self.chunks)
+        return torch.Size(shape)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.chunks[0].dtype
+
+    @property
+    def ndim(self) -> int:
+        return self.chunks[0].ndim
+
+    @property
+    def device(self) -> torch.device:
+        """The home device, position 0's."""
+        return self.chunks[0].device
+
+    def numel(self) -> int:
+        return math.prod(self.shape)
+
+    def element_size(self) -> int:
+        return self.chunks[0].element_size()
+
+    def is_floating_point(self) -> bool:
+        return self.chunks[0].is_floating_point()
+
+    def gather(self, device) -> torch.Tensor:
+        """The whole leaf on ``device``: the chunks put together in position
+        order (``peer.all_gather``), or a leaf held whole: the copy of the
+        first position on ``device``, else position 0's copied there."""
+        device = torch.device(device)
+        if self.sharding.dim is not None:
+            return peer.all_gather(self.chunks, self.sharding.dim, device)
+        own = [c for c in self.chunks if c.device == device]
+        return own[0] if own else peer.to(self.chunks[0], device)
+
+    def map(self, fn) -> "Placed":
+        """``fn`` over each chunk, the same sharding."""
+        return Placed(tuple(fn(c) for c in self.chunks), self.sharding)
+
+
+def place_leaf(x: torch.Tensor, sharding: Sharding) -> Placed:
+    """``x`` stored as ``sharding`` says: each position's part copied onto
+    its device, a tensor of its own (positions sharing a device included)."""
+    return Placed(tuple(peer.copy_into(torch.empty(part.shape, dtype=x.dtype, device=device),
+                                       part)
+                        for device, part in ((d, sharding.part(x, c))
+                                             for c, d in enumerate(sharding.devices))),
+                  sharding)
+
+
 def shardings_for(tree, mesh, pspecs):
-    """Each spec of ``pspecs`` as where its leaf lives: the mesh's one
-    device (``Mesh.device``); the reference's ``NamedSharding`` tree."""
+    """Each spec of ``pspecs`` as a :class:`Sharding` on ``mesh``: the
+    reference's ``NamedSharding`` tree."""
     del tree
     from repro_torch.train.checkpoint import map_with_path
 
-    return map_with_path(lambda _path, _spec: mesh.device, pspecs)
+    return map_with_path(lambda _path, spec: Sharding(mesh, spec), pspecs)
+
+
+def place(tree, shardings):
+    """``tree`` stored as ``shardings`` (a tree of its structure) says, the
+    reference's ``jax.device_put``: each tensor leaf a :class:`Placed`,
+    a leaf whose sharding is None left as it is. A training state and its
+    shardings are matched by the checkpoint's keys
+    (``checkpoint.state_tree``)."""
+    from repro_torch.train.checkpoint import map_with_path, state_from_tree, state_tree
+
+    by_key: dict = {}
+    map_with_path(lambda key, s: by_key.setdefault(key, s), state_tree(shardings))
+    return state_from_tree(map_with_path(
+        lambda key, leaf: leaf if by_key[key] is None else place_leaf(leaf, by_key[key]),
+        state_tree(tree)))
+
+
+def split_batch(batch: dict, mesh, microbatches: int = 1,
+                rules: ShardingRules | None = None) -> list[list[dict]]:
+    """A global batch's rows as each microbatch's rows on each position:
+    ``out[i][c]`` holds views of the rows position ``c`` computes in
+    microbatch ``i``. Microbatch i is rows ``[i·B/k, (i+1)·B/k)``, as the
+    reference's ``split``, and position c takes the c-th of its N equal
+    parts, along the dim :func:`batch_pspecs` splits over the mesh's
+    positions. Raises when the rows do not split evenly."""
+    specs = batch_pspecs(mesh, rules)
+    n = len(mesh.devices)
+    out: list[list[dict]] = [[{} for _ in range(n)] for _ in range(microbatches)]
+    for key, x in batch.items():
+        spec = specs.get(key, specs["inputs"])
+        rows = x.shape[0]
+        if rows % microbatches or (rows // microbatches) % n:
+            raise ValueError(f"a global batch of {rows} rows does not split into "
+                             f"{microbatches} microbatches of {n} positions")
+        if n > 1 and (not len(spec) or _positions(spec[0], mesh) != n):
+            raise ValueError(f"batch spec {spec} does not split the rows over the mesh's "
+                             f"{n} positions")
+        per_mb = rows // microbatches
+        per_pos = per_mb // n
+        for i in range(microbatches):
+            for c in range(n):
+                out[i][c][key] = x.narrow(0, i * per_mb + c * per_pos, per_pos)
+    return out
 
 
 # ----------------------- sharded sparse weights ------------------------------

@@ -19,11 +19,15 @@ A mix of the two is refused, and so is a mesh of more cards than the
 host has. ``Mesh.device`` is the home card, position 0, where a sharded
 engine's panels and answers live.
 
-The model's mesh (``make_local_mesh``) is ``data`` × ``model`` over one
-card: ``data=1, model=1``. A local mesh of more than one position and
-the reference's production mesh of 256 or 512 devices are refused: they
-need the model API on several cards. The production mesh is made on the
-``meta`` device only, shapes for the dry run.
+The model's mesh (``make_local_mesh``) is ``data`` × ``model`` with
+``model = 1``: N positions of the ``data`` axis, one card each or all on
+one device. The model API trains data-parallel over it
+(``repro_torch.train.trainer``): the train state stored as
+``param_pspecs`` says, each position computing its rows. A ``model``
+axis past 1 (tensor and expert parallelism) and the reference's
+production mesh of 256 or 512 devices, whose ``model`` axis is 16, are
+refused: the model axis is the next slice. The production mesh is made
+on the ``meta`` device only, shapes for the dry run.
 """
 
 from __future__ import annotations
@@ -36,11 +40,12 @@ import torch
 from repro_torch.device import resolve_device
 
 
-def several_devices(what: str) -> str:
-    """The refusal of ``what``, a model mesh that needs more than one card."""
-    return (f"{what} is not supported yet: only the sparse stack runs on a multi-card "
-            "mesh (make_row_blocks_mesh); the model API's data x model mesh across "
-            "cards waits for the model API on several cards")
+def model_axis_refused(what: str) -> str:
+    """The refusal of ``what``, a model mesh whose ``model`` axis is past 1."""
+    return (f"{what} is not supported yet: the model API runs over the data axis only "
+            "(make_local_mesh(data=N), model=1); the model axis (tensor and expert "
+            "parallelism, a vocab-parallel embedding and head, a sharded loss) is the "
+            "next slice of the port")
 
 
 def normalized_device(device) -> torch.device:
@@ -150,17 +155,37 @@ def make_row_blocks_mesh(shards: int | None = None, *, device=None, devices=None
     return mesh
 
 
-def make_local_mesh(data: int | None = None, model: int = 1, *, device=None) -> Mesh:
-    """The model's ``("data", "model")`` mesh over the devices there are:
-    one, ``device`` (default: the GPU, raising if there is none).
-    ``data=None`` takes what ``model`` leaves of them. Anything but
-    ``data=1, model=1`` needs several cards and is refused."""
-    device = resolve_device(device)
-    if data is None:
-        data = 1 // model  # the reference's devices // model, over one device
-    if (data, model) != (1, 1):
-        raise ValueError(several_devices(f"a local mesh of data={data} x model={model}"))
-    return Mesh(("data", "model"), (1, 1), (device,))
+def make_local_mesh(data: int | None = None, model: int = 1, *, device=None,
+                    devices=None) -> Mesh:
+    """The model's ``("data", "model")`` mesh, ``model`` = 1.
+
+    ``devices``: one CUDA card a position (``data``, if given, must count
+    them). ``device``: ``data`` positions (default 1) all on it, the
+    port's counterpart of the reference's forced host devices; the tests
+    pass ``device="cpu"``. Neither: ``data`` cards, one a position, or
+    with ``data=None`` every visible card, as the reference's mesh takes
+    every device (raising without a GPU). A card the host does not have
+    raises; ``model > 1`` is refused (:func:`model_axis_refused`)."""
+    if model != 1:
+        raise ValueError(model_axis_refused(f"a local mesh of data={data} x model={model}"))
+    if devices is not None:
+        if device is not None:
+            raise ValueError("pass device (one device for every position) or devices "
+                             "(one card a position), not both")
+        devices = tuple(normalized_device(d) for d in devices)
+        if data is not None and data != len(devices):
+            raise ValueError(f"data={data} but {len(devices)} devices")
+    elif device is not None:
+        devices = (resolve_device(device),) * (1 if data is None else data)
+    else:
+        resolve_device(None)  # raises without a GPU
+        n = torch.cuda.device_count() if data is None else data
+        devices = tuple(torch.device("cuda", i) for i in range(n))
+    if len(devices) < 1:
+        raise ValueError(f"data must be >= 1, got {len(devices)}")
+    mesh = Mesh(("data", "model"), (len(devices), 1), devices)
+    require_cards(mesh.cards)
+    return mesh
 
 
 def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
@@ -168,10 +193,10 @@ def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
     (2, 16, 16) with an outer ``"pod"`` axis. Only ``device="meta"`` is
     taken: a shapes-only mesh, every position ``meta``, for the dry run
     (``repro_torch.launch.dryrun``), which reads its ``shape``. On any
-    other device it is refused: its 256 or 512 devices need the
-    multi-card mesh."""
+    other device it is refused: its ``model`` axis of 16 is the next
+    slice."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     if device is None or torch.device(device).type != "meta":
-        raise ValueError(several_devices(f"the production mesh {shape}"))
+        raise ValueError(model_axis_refused(f"the production mesh {shape}"))
     return Mesh(axes, shape, (torch.device("meta"),) * math.prod(shape))

@@ -1,16 +1,23 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch <id> ...``
 
 Counterpart of ``repro/launch/train.py`` with its flags, plus
-``--device`` (default: the card; without one the launcher raises rather
-than fall back to the CPU). The reference's driver loop: parameters and
-AdamW state (f32 moments, a warmup-cosine schedule) drawn from
-``--seed`` on the device, the model's local mesh and sharding rules (one
-card: every spec places its leaf on it), the microbatched train step,
-``SyntheticLM`` batches through a ``Prefetcher``, and the checkpoint-
-and-restart ``Supervisor`` run in chunks of 10 steps, a checkpoint at
-each chunk's end; ``--resume`` restarts from the newest checkpoint in
-``--ckpt-dir``. ``--production-mesh`` is refused: its 256 devices need
-the model API on several cards. The model is trained dense, as in the reference
+``--device`` and ``--data``. The reference's driver loop: parameters
+and AdamW state (f32 moments, a warmup-cosine schedule) drawn from
+``--seed``, placed on the model's local mesh by ``param_pspecs`` (the
+reference's ``device_put``), the microbatched train step, ``SyntheticLM``
+batches through a ``Prefetcher`` (each position's rows copied to its
+device), and the checkpoint-and-restart ``Supervisor`` run in chunks of
+10 steps, a checkpoint at each chunk's end; ``--resume`` restarts from
+the newest checkpoint in ``--ckpt-dir``, restored onto the mesh.
+
+The mesh is ``make_local_mesh(model=1)``: without ``--device``, every
+visible card a position of the ``data`` axis, as the reference's mesh
+takes every device (without a card the launcher raises rather than fall
+back to the CPU; ``--data N`` takes the first N cards); with
+``--device``, ``--data`` positions (default 1) all on that device, the
+port's counterpart of the reference's forced host devices.
+``--production-mesh`` is refused: its ``model`` axis of 16 is the next
+slice. The model is trained dense, as in the reference
 (``Model.sparsify`` is not called).
 
 ``main(argv)`` returns each step's metrics as floats,
@@ -26,18 +33,18 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.data import Prefetcher, SyntheticLM
-from repro_torch.device import resolve_device
-from repro_torch.distribution.sharding import (
-    ShardingRules,
-    param_pspecs,
-    shardings_for,
-)
+from repro_torch.distribution.sharding import ShardingRules
 from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
 from repro_torch.models.model import Model
 from repro_torch.train import adamw, checkpoint
 from repro_torch.train.fault_tolerance import StragglerPolicy, Supervisor
 from repro_torch.train.optimizer import warmup_cosine
-from repro_torch.train.trainer import TrainState, init_train_state, make_train_step
+from repro_torch.train.trainer import (
+    TrainState,
+    init_train_state,
+    make_train_step,
+    state_shardings,
+)
 
 
 def main(argv=None) -> list[dict]:
@@ -54,25 +61,28 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--production-mesh", action="store_true")
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--device", default=None, help="torch device (default: the card)")
+    ap.add_argument("--device", default=None,
+                    help="one torch device for every position (default: every card)")
+    ap.add_argument("--data", type=int, default=None,
+                    help="positions of the data axis: on --device (default 1), or cards")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.scale_down:
         cfg = cfg.scaled_down(max_seq_len=args.seq_len)
     model = Model(cfg)
     opt = adamw(warmup_cosine(args.lr, 10, args.steps), state_dtype=torch.float32)
     mesh = (make_production_mesh() if args.production_mesh
-            else make_local_mesh(model=1, device=device))
+            else make_local_mesh(args.data, model=1, device=args.device))
     rules = ShardingRules()
     print(f"[train] arch={cfg.name} mesh={dict(mesh.shape)} params=", end="")
 
-    state = init_train_state(model, opt, torch.Generator(device=device).manual_seed(args.seed),
-                             device=device)
+    state = init_train_state(model, opt,
+                             torch.Generator(device=mesh.device).manual_seed(args.seed),
+                             mesh=mesh, rules=rules)
     n_params = sum(leaf.numel() for leaf in checkpoint.leaves(state.params))
     print(f"{n_params/1e6:.1f}M")
-    shardings = shardings_for(None, mesh, param_pspecs(cfg, checkpoint.state_tree(state), mesh, rules))
+    shardings = state_shardings(cfg, state, mesh, rules)
     step_fn = make_train_step(model, opt, microbatches=args.microbatches)
 
     start_step = 0
@@ -89,7 +99,7 @@ def main(argv=None) -> list[dict]:
 
     def step(state, i):
         _, host_batch = prefetch.next()
-        batch = {k: torch.from_numpy(v).to(device) for k, v in host_batch.items()}
+        batch = {k: torch.from_numpy(v) for k, v in host_batch.items()}
         state, metrics = step_fn(state, batch)
         metrics_box.update({k: float(v) for k, v in metrics.items()})
         history.append({"step": i + 1, **metrics_box})

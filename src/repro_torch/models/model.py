@@ -21,8 +21,8 @@ features).
 runs sparse FFN weights on the SpMM kernels when the tensors are on the
 card, ``False`` on the plain products. The reference's distributed
 embedding lookup and sharding constraints are ``table[ids]`` and the
-identity on the port's one-device mesh (``distribution.sharding``), so
-the model calls neither.
+identity within a position of the port's data mesh
+(``distribution.sharding``), so the model calls neither.
 """
 
 from __future__ import annotations
@@ -138,10 +138,19 @@ class Model:
         return self._head(params, x), aux
 
     # ------------------------------- loss -----------------------------------
-    def loss(self, params: Params, batch: dict[str, torch.Tensor]) -> tuple[torch.Tensor, dict]:
-        """batch: {"inputs": tokens/embeddings, "labels": (B, S) int}."""
+    def loss(self, params: Params, batch: dict[str, torch.Tensor], *,
+             shares=None) -> tuple[torch.Tensor, dict]:
+        """batch: {"inputs": tokens/embeddings, "labels": (B, S) int}.
+
+        ``shares``: ``(ce share, aux share)``, device scalars, when
+        ``batch`` is one position's rows of a global batch on the data
+        mesh: the ce is weighted by the position's share of the unmasked
+        labels and the MoE aux loss by its share of the token groups, so
+        the positions' losses and metrics add up to the global ones."""
         logits, aux = self.forward_with_aux(params, batch["inputs"])
         ce = cross_entropy_loss(logits, batch["labels"], z_loss=1e-4)
+        if shares is not None:
+            ce, aux = shares[0] * ce, shares[1] * aux
         aux_w = self.cfg.moe.aux_loss_weight if self.cfg.moe else 0.0
         return ce + aux_w * aux, {"ce": ce, "moe_aux": aux}
 

@@ -19,10 +19,14 @@
   tensors, which numpy cannot hold, are stored as float32, exactly, and
   cast back to the template's dtype on restore.
 
-Restoring places each leaf on its template leaf's device, or on the
-device ``shardings=`` names for it: the reference's ``NamedSharding``
-leaves become ``torch.device`` leaves (a mesh of the port is one
-device, ``repro_torch.launch.mesh``).
+A placed state (the model's data mesh, ``distribution.sharding.Placed``
+leaves) is written whole: each leaf's chunks gathered to the host in
+position order, so a checkpoint does not depend on the mesh that wrote
+it. Restoring places each leaf as ``shardings=`` says (a tree of
+``distribution.sharding.Sharding`` leaves, the reference's
+``NamedSharding`` tree, or of devices; None keeps the template's
+place), or else as its template leaf lies: a placed leaf on its
+template's positions, a tensor on its template's device.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.distribution.sharding import Placed, Sharding, place_leaf
 from repro_torch.sparse.bcsr import BlockCSRMatrix
 from repro_torch.sparse.bsr import BlockSparseMatrix
 from repro_torch.train.optimizer import OptState
@@ -102,6 +107,8 @@ def with_leaves(like, new_leaves) -> Any:
 
 
 def _host(leaf) -> np.ndarray:
+    if isinstance(leaf, Placed):
+        leaf = leaf.gather("cpu")
     if isinstance(leaf, torch.Tensor):
         leaf = leaf.detach()
         if leaf.dtype == torch.bfloat16:
@@ -186,10 +193,12 @@ def restore(
 ) -> tuple[Any, dict]:
     """Restore the checkpoint at ``step`` (default: the latest) into the
     structure of ``like``; returns ``(state, manifest)``. Each leaf takes
-    its template leaf's dtype and device; a missing leaf raises KeyError,
-    a leaf of another shape ValueError. ``shardings``: a tree of
-    ``like``'s structure whose leaves are the devices to restore each
-    leaf onto (the reference's elastic restore onto the current mesh)."""
+    its template leaf's dtype and place (a placed template leaf's
+    sharding); a missing leaf raises KeyError, a leaf of another shape
+    ValueError. ``shardings``: a tree of ``like``'s structure whose
+    leaves say where to restore each leaf, a ``Sharding`` (placed on its
+    mesh) or a device (None: the template's place); the reference's
+    elastic restore onto the current mesh."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -197,10 +206,11 @@ def restore(
     path = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
-    places: dict[str, torch.device] = {}
+    places: dict = {}
     if shardings is not None:
-        map_with_path(lambda key, d: places.setdefault(key, torch.device(d)),
-                    state_tree(shardings))
+        map_with_path(lambda key, d: places.setdefault(
+            key, d if d is None or isinstance(d, Sharding) else torch.device(d)),
+            state_tree(shardings))
     with np.load(os.path.join(path, "arrays.npz")) as arrays:
 
         def load(key, leaf):
@@ -209,9 +219,14 @@ def restore(
             host = arrays[key]
             if tuple(host.shape) != tuple(leaf.shape):
                 raise ValueError(f"{key}: checkpoint shape {host.shape} != model {tuple(leaf.shape)}")
-            if not isinstance(leaf, torch.Tensor):
+            if not isinstance(leaf, (torch.Tensor, Placed)):
                 return host.astype(leaf.dtype)
-            return torch.from_numpy(host).to(places.get(key, leaf.device), leaf.dtype)
+            where = places.get(key)
+            if where is None:
+                where = leaf.sharding if isinstance(leaf, Placed) else leaf.device
+            if isinstance(where, Sharding):
+                return place_leaf(torch.from_numpy(host).to(leaf.dtype), where)
+            return torch.from_numpy(host).to(where, leaf.dtype)
 
         tree = map_with_path(load, state_tree(like))
     return state_from_tree(tree), manifest

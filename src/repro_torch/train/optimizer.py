@@ -11,6 +11,13 @@ skipped by dtype: they pass through unchanged, whatever their gradient.
 Not ``torch.optim``: the reference clips by the global norm of every
 float gradient and decays every float parameter, biases included, and
 these follow it step for step.
+
+On the model's data mesh the leaves are ``distribution.sharding.Placed``,
+one chunk a position: :func:`global_norm` of placed gradients is one
+scalar added in card order, and :func:`update_placed` runs the update
+position by position on the chunks with that one norm. The updates are
+elementwise, so a chunk's update is the whole update's slice, and the
+copies of a leaf every position holds stay the same bits.
 """
 
 from __future__ import annotations
@@ -33,8 +40,9 @@ class OptState(NamedTuple):
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     init: Callable[[Sequence[torch.Tensor]], OptState]
-    update: Callable[[Sequence, OptState, Sequence[torch.Tensor]], tuple[list, OptState]]
-    # update(grads, state, params) -> (new_params, new_state)
+    update: Callable[..., tuple[list, OptState]]
+    # update(grads, state, params, *, gnorm=None) -> (new_params, new_state);
+    # gnorm: the gradients' global norm when they are one position's chunks
 
 
 def _is_float(t: torch.Tensor) -> bool:
@@ -46,10 +54,27 @@ def _lr_at(lr, step: torch.Tensor) -> float:
     return float(lr(step)) if callable(lr) else float(lr)
 
 
-def global_norm(tensors: Sequence[torch.Tensor | None]) -> torch.Tensor:
-    """sqrt of the sum of squares of every floating-point tensor."""
-    sq = [torch.sum(t.float() ** 2) for t in tensors if t is not None and _is_float(t)]
-    return torch.sqrt(torch.stack(sq).sum()) if sq else torch.zeros(())
+def global_norm(tensors: Sequence) -> torch.Tensor:
+    """sqrt of the sum of squares of every floating-point tensor. Of
+    placed gradients (``Placed`` leaves): each position's sum of squares
+    over its own chunks, a leaf every position holds counted once (on
+    position 0), the positions' sums added in card order on position 0's
+    device; the same bits on one device or across cards."""
+    from repro_torch.distribution import peer
+    from repro_torch.distribution.sharding import Placed
+
+    live = [t for t in tensors if t is not None and t.is_floating_point()]
+    if not any(isinstance(t, Placed) for t in live):
+        sq = [torch.sum(t.float() ** 2) for t in live]
+        return torch.sqrt(torch.stack(sq).sum()) if sq else torch.zeros(())
+    devices = live[0].sharding.devices
+    sums = []
+    for c, device in enumerate(devices):
+        sq = [torch.sum(t.chunks[c].float() ** 2) for t in live
+              if c == 0 or t.sharding.dim is not None]
+        sums.append(peer.to(torch.stack(sq).sum() if sq else torch.zeros((), device=device),
+                            devices[0]))
+    return torch.sqrt(peer.shard_order_sum(sums))
 
 
 def adamw(
@@ -69,11 +94,12 @@ def adamw(
                              device=p.device) for p in params]
         return OptState(torch.zeros((), dtype=torch.int32), zeros, [z.clone() for z in zeros])
 
-    def update(grads, state: OptState, params):
+    def update(grads, state: OptState, params, *, gnorm=None):
         step = state.step + 1
         grads = [g.float() if g is not None and _is_float(g) else g for g in grads]
         if grad_clip_norm:
-            gnorm = global_norm(grads)
+            if gnorm is None:
+                gnorm = global_norm(grads)
             scale = torch.clamp(grad_clip_norm / (gnorm + 1e-9), max=1.0)
             grads = [g * scale.to(g.device) if g is not None and _is_float(g) else g
                      for g in grads]
@@ -102,7 +128,8 @@ def sgd(lr: float | Schedule, *, momentum: float = 0.9) -> Optimizer:
         return OptState(torch.zeros((), dtype=torch.int32),
                         [torch.zeros_like(p) for p in params], torch.zeros(()))
 
-    def update(grads, state: OptState, params):
+    def update(grads, state: OptState, params, *, gnorm=None):
+        del gnorm  # no clipping
         step = state.step + 1
         lr_t = _lr_at(lr, step)
         new_p, new_m = [], []
@@ -116,6 +143,53 @@ def sgd(lr: float | Schedule, *, momentum: float = 0.9) -> Optimizer:
         return new_p, OptState(step, new_m, state.nu)
 
     return Optimizer(init, update)
+
+
+def _chunks(leaves: Sequence, c: int) -> list:
+    """Position ``c``'s chunk of each placed leaf (None stays None)."""
+    return [None if x is None else x.chunks[c] for x in leaves]
+
+
+def _placed(per_position: list[list], like: Sequence) -> list:
+    """Per-position lists of chunks back into placed leaves of ``like``'s
+    shardings; a leaf whose chunks all come back as they were (topology)
+    is ``like``'s own."""
+    from repro_torch.distribution.sharding import Placed
+
+    return [x if all(a is b for a, b in zip(chunks, x.chunks)) else Placed(tuple(chunks),
+                                                                            x.sharding)
+            for x, chunks in zip(like, zip(*per_position))]
+
+
+def init_placed(optimizer: Optimizer, params: Sequence) -> OptState:
+    """``optimizer.init`` of placed params (a flat list of ``Placed``),
+    position by position: moments placed like the params, each made on
+    its position's device; SGD's unused scalar ``nu`` stays on the host."""
+    per = [optimizer.init(_chunks(params, c)) for c in range(len(params[0].chunks))]
+    nu = _placed([s.nu for s in per], params) if isinstance(per[0].nu, list) else per[0].nu
+    return OptState(per[0].step, _placed([s.mu for s in per], params), nu)
+
+
+def update_placed(optimizer: Optimizer, grads: Sequence, state: OptState,
+                  params: Sequence) -> tuple[list, OptState, torch.Tensor]:
+    """``optimizer.update`` of placed gradients, state and params: the
+    global norm once (:func:`global_norm`, card order), copied to every
+    position, then the update of each position's chunks with it. Returns
+    ``(new placed params, new state, the norm on position 0's device)``."""
+    from repro_torch.distribution import peer
+
+    gnorm = global_norm(grads)
+    devices = params[0].sharding.devices
+    per = []
+    for c, device in enumerate(devices):
+        nu = _chunks(state.nu, c) if isinstance(state.nu, list) else state.nu
+        per.append(optimizer.update(_chunks(grads, c), OptState(state.step, _chunks(state.mu, c),
+                                                                nu),
+                                    _chunks(params, c), gnorm=peer.to(gnorm, device)))
+    new_nu = (_placed([s.nu for _, s in per], params) if isinstance(state.nu, list)
+              else per[0][1].nu)
+    return (_placed([p for p, _ in per], params),
+            OptState(per[0][1].step, _placed([s.mu for _, s in per], params), new_nu), gnorm)
 
 
 def warmup_cosine(

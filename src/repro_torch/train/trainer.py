@@ -18,6 +18,29 @@ On the card a sparse FFN weight runs on the SpMM kernels forward and
 backward (``models.layers.linear`` → ``kernels.autodiff``): a
 ``bsr_spmm`` launch forward and, for an input that needs a gradient, a
 ``bcsr_spmm`` launch on the ELL transpose backward.
+
+On the model's data mesh (``launch.mesh.make_local_mesh(data=N)``) the
+state is placed (``init_train_state(..., mesh=)``, or
+``distribution.sharding.place`` with :func:`state_shardings`): each leaf
+stored as ``param_pspecs`` says, one chunk a position. The same
+``train_step`` then computes the reference's step as GSPMD runs it, from
+one process, in a fixed order:
+
+1. each device gathers every leaf whole once a step (positions on one
+   device share the copy);
+2. each position runs :func:`loss_and_grads` on its rows of each
+   microbatch (``sharding.split_batch``), its ce weighted by its share of
+   the microbatch's unmasked labels and its MoE aux loss by its share of
+   the token groups (1/N), so the positions' losses add up to the global
+   mean (a split whose MoE groups would cross positions is refused);
+3. each position's gradients are added onto the owners at once, in card
+   order (``sharding.constrain_like_params``), one position's whole
+   gradient alive at a time;
+4. the optimizer updates each position's chunks with one global norm
+   (``optimizer.update_placed``).
+
+So N positions on one device and N cards give the same bits, and one
+position gives the unplaced step's bits.
 """
 
 from __future__ import annotations
@@ -26,10 +49,24 @@ from typing import Any, NamedTuple
 
 import torch
 
-from repro_torch.distribution.sharding import constrain_like_params
+from repro_torch.distribution import peer
+from repro_torch.distribution.sharding import (
+    Placed,
+    constrain_like_params,
+    param_pspecs,
+    place,
+    shardings_for,
+    split_batch,
+)
 from repro_torch.models.model import Model
 from repro_torch.train import checkpoint
-from repro_torch.train.optimizer import Optimizer, OptState, global_norm
+from repro_torch.train.optimizer import (
+    Optimizer,
+    OptState,
+    global_norm,
+    init_placed,
+    update_placed,
+)
 
 
 class TrainState(NamedTuple):
@@ -38,28 +75,52 @@ class TrainState(NamedTuple):
 
 
 def init_train_state(model: Model, optimizer: Optimizer, generator: torch.Generator | None,
-                     *, device=None) -> TrainState:
-    """Params drawn from ``generator`` on ``device`` (``None``: the card)
-    and the optimizer's state over their leaves."""
-    params = model.init(generator, device=device)
-    return TrainState(params, optimizer.init(checkpoint.leaves(params)))
+                     *, device=None, mesh=None, rules=None) -> TrainState:
+    """Params drawn from ``generator`` on ``device`` (``None``: the card,
+    or the home device of ``mesh``) and the optimizer's state over their
+    leaves. With ``mesh``: the params placed by ``param_pspecs`` under
+    ``rules``, the moments made on each position like the chunk they
+    follow."""
+    if mesh is None:
+        params = model.init(generator, device=device)
+        return TrainState(params, optimizer.init(checkpoint.leaves(params)))
+    params = model.init(generator, device=mesh.device if device is None else device)
+    params = place(params, shardings_for(None, mesh, param_pspecs(model.cfg, params, mesh,
+                                                                  rules)))
+    return TrainState(params, init_placed(optimizer, checkpoint.leaves(params)))
+
+
+def state_shardings(cfg, state: TrainState, mesh, rules=None) -> TrainState:
+    """Where each leaf of a training state lives on ``mesh``: the params'
+    ``Sharding`` by ``param_pspecs``, each moment its param's, and None
+    (left on the host) for the step and SGD's unused scalar moment. The
+    ``shardings=`` of ``checkpoint.restore``."""
+    ps = shardings_for(None, mesh, param_pspecs(cfg, state.params, mesh, rules))
+    flat = checkpoint.leaves(ps)
+
+    def moments(m):
+        return list(flat) if isinstance(m, list) else None
+
+    return TrainState(ps, OptState(None, moments(state.opt.mu), moments(state.opt.nu)))
 
 
 def _is_float(leaf) -> bool:
     return leaf.is_floating_point()
 
 
-def loss_and_grads(model: Model, params, batch) -> tuple[torch.Tensor, dict, list]:
+def loss_and_grads(model: Model, params, batch, *, shares=None) -> tuple[torch.Tensor, dict,
+                                                                         list]:
     """``(loss, metrics, grads)`` of ``model.loss`` at ``params``: the
     counterpart of ``jax.value_and_grad(model.loss, has_aux=True,
     allow_int=True)``, with the gradients as the flat list of
     :func:`checkpoint.leaves` (``None`` for an index leaf, zeros for a
-    float leaf the loss does not reach)."""
+    float leaf the loss does not reach). ``shares``: ``model.loss``'s, a
+    position's shares of a global batch."""
     flat = [leaf.detach().requires_grad_() if _is_float(leaf) else leaf
             for leaf in checkpoint.leaves(params)]
     live = [leaf for leaf in flat if _is_float(leaf)]
     with torch.enable_grad():
-        loss, metrics = model.loss(checkpoint.with_leaves(params, flat), batch)
+        loss, metrics = model.loss(checkpoint.with_leaves(params, flat), batch, shares=shares)
         got = iter(torch.autograd.grad(loss, live, allow_unused=True))
     grads = []
     for leaf in flat:
@@ -68,13 +129,84 @@ def loss_and_grads(model: Model, params, batch) -> tuple[torch.Tensor, dict, lis
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
+def _check_moe_groups(cfg, rows: dict, n: int) -> None:
+    """Refuse a split whose positions' MoE token groups differ from the
+    global batch's: the groups would cross positions and route otherwise."""
+    if cfg.moe is None or n == 1:
+        return
+    from repro_torch.models.moe import _group_size
+
+    x = rows["inputs"]
+    tokens = x.shape[0] * (x.shape[1] if cfg.input_mode != "features" else 1)
+    if _group_size(tokens) != _group_size(tokens * n):
+        raise ValueError(
+            f"{tokens} tokens a position make MoE groups of {_group_size(tokens)}, the "
+            f"microbatch's {tokens * n} tokens groups of {_group_size(tokens * n)}: the "
+            "groups would cross positions; give each position a multiple of the group size")
+
+
+def _shares(labels: torch.Tensor, microbatches: int, n: int) -> torch.Tensor:
+    """(microbatches, n) ce shares: each position's unmasked labels over its
+    microbatch's (all 0 in a microbatch with none, whose ce is 0)."""
+    counts = (labels.reshape(microbatches, n, -1) >= 0).sum(-1).float()
+    return counts / torch.clamp_min(counts.sum(1, keepdim=True), 1.0)
+
+
+def _placed_step(model: Model, optimizer: Optimizer, microbatches: int, state: TrainState,
+                 batch) -> tuple[TrainState, dict]:
+    """The train step on a placed state (the module docstring's 1-4)."""
+    owners = checkpoint.leaves(state.params)
+    mesh = owners[0].sharding.mesh
+    devices, n = mesh.devices, len(mesh.devices)
+    split = split_batch(batch, mesh, microbatches)
+    _check_moe_groups(model.cfg, split[0][0], n)
+    shares = _shares(batch["labels"], microbatches, n)
+    # every position's rows and shares on its device before any work is queued
+    staged = [[({k: peer.to(v, d) for k, v in split[i][c].items()},
+                (peer.to(shares[i, c], d), 1.0 / n)) for c, d in enumerate(devices)]
+              for i in range(microbatches)]
+    whole = {d: checkpoint.with_leaves(state.params, [leaf.gather(d) for leaf in owners])
+             for d in mesh.cards}
+    acc, loss, metrics = None, None, None
+    for i in range(microbatches):
+        terms = []
+        for c, d in enumerate(devices):
+            rows, sh = staged[i][c]
+            loss_c, metrics_c, g = loss_and_grads(model, whole[d], rows, shares=sh)
+            acc = constrain_like_params(g, owners=owners, into=acc)
+            del g
+            terms.append((peer.to(loss_c, devices[0]),
+                          {k: peer.to(v, devices[0]) for k, v in metrics_c.items()}))
+        loss_i = peer.shard_order_sum([t[0] for t in terms])
+        metrics_i = {k: peer.shard_order_sum([t[1][k] for t in terms]) for k in terms[0][1]}
+        loss = loss_i if loss is None else loss + loss_i
+        metrics = metrics_i if metrics is None else {k: metrics[k] + metrics_i[k]
+                                                     for k in metrics}
+    del whole
+    grads = [None if a is None else Placed(tuple(a), leaf.sharding)
+             for a, leaf in zip(acc, owners)]
+    if microbatches > 1:
+        inv = 1.0 / microbatches
+        grads = [None if g is None else g.map(lambda x: x * inv) for g in grads]
+        loss, metrics = loss * inv, {k: v * inv for k, v in metrics.items()}
+    with torch.no_grad():
+        new_leaves, new_opt, gnorm = update_placed(optimizer, grads, state.opt, owners)
+    metrics = dict(metrics)
+    metrics["loss"] = loss
+    metrics["grad_norm"] = gnorm
+    return TrainState(checkpoint.with_leaves(state.params, new_leaves), new_opt), metrics
+
+
 def make_train_step(model: Model, optimizer: Optimizer, *, microbatches: int = 1):
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
     ``batch`` leaves are tensors with leading dim = global batch, on the
     params' device; with microbatching that dim must split evenly into
     ``microbatches`` chunks. ``metrics``: ``ce``, ``moe_aux``, ``loss``
-    and ``grad_norm`` (over float gradients) as device scalars.
+    and ``grad_norm`` (over float gradients) as device scalars. A placed
+    state (the data mesh) takes the batch on any device, the host
+    included; each position's rows go to its device, and the metrics
+    come back on the home device.
     """
 
     def single(params, batch):
@@ -103,6 +235,8 @@ def make_train_step(model: Model, optimizer: Optimizer, *, microbatches: int = 1
         return loss_sum * inv, {k: v * inv for k, v in metrics_sum.items()}, grads
 
     def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
+        if isinstance(checkpoint.leaves(state.params)[0], Placed):
+            return _placed_step(model, optimizer, microbatches, state, batch)
         if microbatches > 1:
             loss, metrics, grads = accumulated(state.params, batch)
         else:

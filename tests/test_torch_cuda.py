@@ -1410,3 +1410,122 @@ def test_cards_a_shard_failure_on_4_cards_demotes_with_the_same_categories():
     assert levels == ["sharded", "layered", "layered"]
     assert engine.ladder.describe()["home_device"] == str(cards[0])
     np.testing.assert_array_equal(np.flatnonzero(np.concatenate(active)), want)
+
+
+# --- the model API on a data mesh ---------------------------------------------
+
+
+def _data_mesh_model(sparse: bool):
+    """Scaled-down Llama-3.2-1B at f32 compute (every FFN block-sparse, 2
+    blocks of 16 a row, when ``sparse``), a seeded batch of 8 × 16 tokens."""
+    from repro_torch.configs import SparsityConfig, get_config
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(get_config("llama3.2-1b").scaled_down(), compute_dtype="float32")
+    if sparse:
+        cfg = dataclasses.replace(cfg, sparsity=SparsityConfig((16, 16), blocks_per_row=2,
+                                                               targets=("ffn",)))
+    rng = np.random.default_rng(80)
+    batch = {"inputs": torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, 16)).astype(np.int32)),
+             "labels": torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, 16)).astype(np.int32))}
+    batch["labels"][6:] = -1
+    return Model(cfg), batch
+
+
+def _data_step(model, batch, mesh, *, microbatches=2, params=None):
+    """One AdamW step on ``mesh`` from seeded weights (drawn on card 0):
+    (new state, metrics as floats, each card's launches)."""
+    from repro_torch.distribution.sharding import param_pspecs, place, shardings_for
+    from repro_torch.train import adamw, checkpoint, make_train_step
+    from repro_torch.train.optimizer import init_placed
+    from repro_torch.train.trainer import TrainState
+
+    if params is None:
+        params = model.init(torch.Generator(device="cuda:0").manual_seed(0), device="cuda:0")
+        if model.cfg.sparsity is not None:
+            params = model.sparsify(params)
+    opt = adamw(1e-3)
+    placed = place(params, shardings_for(None, mesh, param_pspecs(None, params, mesh)))
+    ops.reset_launch_counts()
+    state, metrics = make_train_step(model, opt, microbatches=microbatches)(
+        TrainState(placed, init_placed(opt, checkpoint.leaves(placed))), batch)
+    for d in mesh.cards:
+        torch.cuda.synchronize(d)
+    return state, {k: float(v) for k, v in metrics.items()}, \
+        {str(d): ops.launch_counts(d) for d in mesh.cards}
+
+
+def test_a_4_position_step_on_the_card_matches_one_position(cuda):
+    """4 positions on one card against one position, the sparse FFNs on the
+    SpMM kernels: loss within 1e-5, each updated leaf within 1e-4 of its
+    max; 4 positions × 2 microbatches × each projection's launches."""
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.train import checkpoint
+
+    model, batch = _data_mesh_model(sparse=True)
+    s4, m4, l4 = _data_step(model, batch, make_local_mesh(4, device="cuda"))
+    s1, m1, l1 = _data_step(model, batch, make_local_mesh(1, device="cuda"))
+    assert abs(m4["loss"] - m1["loss"]) <= 1e-5 * abs(m1["loss"])
+    n = 2 * 3 * model.cfg.num_layers
+    assert l1["cuda:0"]["bsr_spmm"] == l1["cuda:0"]["bcsr_spmm"] == n
+    assert l4["cuda:0"]["bsr_spmm"] == l4["cuda:0"]["bcsr_spmm"] == 4 * n
+    for a, b in zip(checkpoint.leaves(s4.params), checkpoint.leaves(s1.params)):
+        want = b.gather("cuda:0").float()
+        err = float((a.gather("cuda:0").float() - want).abs().max())
+        assert err <= 1e-4 * max(float(want.abs().max()), 1e-30)
+
+
+@pytest.mark.parametrize("sparse", [False, True])
+def test_cards_a_4_card_train_step_is_the_4_position_one_card_step_bit_for_bit(sparse):
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.train import checkpoint
+
+    cards = _cards(4)
+    model, batch = _data_mesh_model(sparse)
+    s1, m1, _ = _data_step(model, batch, make_local_mesh(4, device=cards[0]))
+    s4, m4, _ = _data_step(model, batch, make_local_mesh(devices=cards))
+    assert m1 == m4
+    for tree1, tree4 in ((s1.params, s4.params), (s1.opt.mu, s4.opt.mu), (s1.opt.nu, s4.opt.nu)):
+        for x, y in zip(checkpoint.leaves(tree1), checkpoint.leaves(tree4)):
+            assert [c.device for c in y.chunks] == cards
+            for a, b in zip(x.chunks, y.chunks):
+                assert torch.equal(a.to(b.device), b)
+
+
+def test_cards_the_sparse_models_launches_split_by_card():
+    from repro_torch.launch.mesh import make_local_mesh
+
+    cards = _cards(4)
+    model, batch = _data_mesh_model(sparse=True)
+    _, _, launches = _data_step(model, batch, make_local_mesh(devices=cards))
+    n = 2 * 3 * model.cfg.num_layers  # a position's projections, forward and dX, 2 microbatches
+    assert launches == {str(c): {**dict.fromkeys(ops.KERNELS, 0), "bsr_spmm": n, "bcsr_spmm": n}
+                        for c in cards}
+
+
+def test_cards_each_card_stores_its_chunks():
+    """Placing a state puts each position's chunks on its card and nothing
+    more: card c's allocation grows by its chunks' bytes (the allocator
+    rounds each block up to 512 bytes)."""
+    from repro_torch.distribution.sharding import param_pspecs, place, shardings_for
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.train import adamw, checkpoint
+    from repro_torch.train.optimizer import init_placed
+    from repro_torch.train.trainer import TrainState
+
+    cards = _cards(4)
+    mesh = make_local_mesh(devices=cards)
+    model, _ = _data_mesh_model(sparse=True)
+    params = model.sparsify(model.init(torch.Generator(device="cpu").manual_seed(0),
+                                       device="cpu"))
+    before = [torch.cuda.memory_allocated(c) for c in cards]
+    placed = place(params, shardings_for(None, mesh, param_pspecs(None, params, mesh)))
+    state = TrainState(placed, init_placed(adamw(1e-3), checkpoint.leaves(placed)))
+    leaves = [x for x in checkpoint.leaves(checkpoint.state_tree(state)) if hasattr(x, "chunks")]
+    assert any(x.sharding.dim is not None for x in leaves)
+    for i, c in enumerate(cards):
+        chunks = [x.chunks[i] for x in leaves]
+        assert all(ch.device == c for ch in chunks)
+        want = sum(ch.numel() * ch.element_size() for ch in chunks)
+        grew = torch.cuda.memory_allocated(c) - before[i]
+        assert want <= grew <= want + 512 * len(chunks), (c, want, grew)

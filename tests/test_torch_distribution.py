@@ -3,7 +3,7 @@
 test's fake mesh shapes (divisibility fallback, no axis reused, every
 leaf covered, the period axis never sharded) with the port's specs equal
 to the reference's for every arch; the one-device placement, lookup and
-constraint; the model meshes' refusals; and the collectives over S
+constraint; the model axis's refusals; and the collectives over S
 shards against the reference's own functions under
 ``jax.vmap(..., axis_name=...)``, int8 payloads exact."""
 
@@ -144,9 +144,13 @@ def test_shardings_put_every_leaf_on_the_mesh_device():
     mesh = make_local_mesh(device="cpu")
     assert mesh.shape == {"data": 1, "model": 1}
     places = sh.shardings_for(None, mesh, sh.param_pspecs(cfg, params, mesh))
-    devices = checkpoint.leaves(places)
-    assert len(devices) == len(checkpoint.leaves(params))
-    assert set(devices) == {torch.device("cpu")}
+    shardings = checkpoint.leaves(places)
+    assert len(shardings) == len(checkpoint.leaves(params))
+    assert {s.devices for s in shardings} == {(torch.device("cpu"),)}
+    assert {s.dim for s in shardings} == {None}  # one position: every leaf whole
+    placed = sh.place(params, places)
+    for leaf, want in zip(checkpoint.leaves(placed), checkpoint.leaves(params)):
+        assert len(leaf.chunks) == 1 and torch.equal(leaf.chunks[0], want)
 
 
 def test_embed_lookup_and_constrain_on_one_device():
@@ -172,8 +176,11 @@ def test_embed_lookup_and_constrain_on_one_device():
 
 
 def test_model_meshes_past_one_device_are_refused():
-    for kw in ({"data": 2}, {"model": 2}, {"data": 2, "model": 2}):
-        with pytest.raises(ValueError, match="multi-card mesh"):
+    """The model axis past 1 (the next slice) and the production mesh off
+    ``meta``; the data axis over positions is built (``test_torch_data_mesh.py``)."""
+    assert make_local_mesh(device="cpu", data=2).shape == {"data": 2, "model": 1}
+    for kw in ({"model": 2}, {"data": 2, "model": 2}):
+        with pytest.raises(ValueError, match="model axis .* is the next slice"):
             make_local_mesh(device="cpu", **kw)
     for multi_pod in (False, True):
         with pytest.raises(ValueError, match="production mesh"):

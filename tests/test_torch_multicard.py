@@ -78,8 +78,8 @@ def test_mixed_meshes_and_missing_cards_are_refused():
         make_row_blocks_mesh(3, devices=CARDS[:2])
     with pytest.raises(ValueError, match="not both"):
         make_row_blocks_mesh(device="cpu", devices=CARDS)
-    with pytest.raises(ValueError, match="model API on several cards"):
-        make_local_mesh(data=2, device="cpu")
+    with pytest.raises(ValueError, match="model axis .* is the next slice"):
+        make_local_mesh(data=2, model=2, device="cpu")
 
 
 @pytest.mark.parametrize("n_row_blocks, n_bands", [(64, 4), (64, 8), (7, 3), (2, 4), (1, 1)])

@@ -3,7 +3,7 @@
 across cards, on a host with several GPUs, then try a CUDA graph capture
 of a sharded forward across the cards.
 
-    python3 tools/torch_cards_run.py    # from the repository root, on a 4-GPU host
+    python3 tools/torch_cards_run.py [PHASE ...]   # from the repository root, on a 4-GPU host
 
 Phases, each one JSON line as in ``chip_smoke.py`` (any failed check
 raises, and the exit code is not 0): ``device`` (the kernels' build, and
@@ -19,6 +19,15 @@ bits. The other cards' streams are not forked from the capture stream,
 so this is the plain capture, not a capture made to span the cards.
 That probe is a measurement, not the serving path: a sharded plan on
 several cards runs eagerly (``ShardedStackPlan.eager_because``).
+
+The model's data mesh: ``data-cards-bits`` (one train step of
+Llama-3.2-1B at published width, dense and with every FFN block-pruned,
+2 microbatches of the launcher's batch, on 4 positions of card 0 and on
+4 cards: the same loss, metrics and every chunk of the new state bit for
+bit, and the sparse model's launches on each card), then
+``chip_smoke.py``'s ``llm-train-data`` and ``launch-train-data`` over
+the 4 cards. Naming phases runs those alone (``device`` and ``cards``
+always run first).
 
 ``copy-modes`` times one layer of RadiX-net 65536 × 120 over the cards
 (4 shards, 512 columns) and a whole forward with two ways of copying
@@ -149,23 +158,107 @@ def copy_modes(neurons=65536, layers=120, shards=4, width=512, density=0.45,
             "same_bits": True}
 
 
-def main() -> int:
+def data_cards_bits(arch="llama3.2-1b", seq_len=128, global_batch=8, microbatches=2,
+                    positions=4, block=128, blocks_per_row=4, seed=0) -> dict:
+    """One train step from the same weights and batch on ``positions``
+    positions of card 0 and on as many cards: metrics and every chunk of
+    the new state (params and moments) must be the same bits; the sparse
+    model's launches split by card."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import SparsityConfig, get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distribution.sharding import param_pspecs, place, shardings_for
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import Model
+    from repro_torch.train import adamw, checkpoint
+    from repro_torch.train.optimizer import init_placed, warmup_cosine
+    from repro_torch.train.trainer import TrainState, make_train_step
+
+    one = make_local_mesh(positions, device="cuda:0")
+    cards = make_local_mesh(devices=[f"cuda:{i}" for i in range(positions)])
+    cfg = get_config(arch)
+    batch = {k: torch.from_numpy(v) for k, v in
+             SyntheticLM(cfg.vocab_size, seq_len, global_batch, seed=seed).batch(0).items()}
+    params = Model(cfg).init(torch.Generator(device="cuda:0").manual_seed(seed), device="cuda:0")
+    out = {}
+    for name in ("dense", "sparse"):
+        model = Model(cfg)
+        if name == "sparse":
+            model = Model(dataclasses.replace(cfg, sparsity=SparsityConfig(
+                (block, block), blocks_per_row=blocks_per_row, targets=("ffn",))))
+            params = model.sparsify(params)
+        opt = adamw(warmup_cosine(3e-4, 10, 100), state_dtype=torch.float32)
+        step = make_train_step(model, opt, microbatches=microbatches)
+        runs = []
+        for mesh in (one, cards):
+            placed = place(params, shardings_for(None, mesh, param_pspecs(cfg, params, mesh)))
+            ops.reset_launch_counts()
+            state, metrics = step(TrainState(placed, init_placed(opt, checkpoint.leaves(placed))),
+                                  batch)
+            smoke.sync_all()
+            runs.append(({k: float(v) for k, v in metrics.items()}, state,
+                         {str(d): ops.launch_counts(d) for d in mesh.cards}))
+            del placed
+        (m1, s1, l1), (m4, s4, l4) = runs
+        leaves1, leaves4 = smoke.placed_leaves(s1), smoke.placed_leaves(s4)
+        same = m1 == m4 and len(leaves1) == len(leaves4) and all(
+            torch.equal(a.to(b.device), b) for x, y in zip(leaves1, leaves4)
+            for a, b in zip(x.chunks, y.chunks))
+        smoke.check(same, (name, "a step on 4 cards is the 4-position one-card step", m1, m4))
+        out[name] = {"metrics": m4, "same_bits": True, "leaves": len(leaves4),
+                     "launches_one_card": l1, "launches_by_card": l4}
+        if name == "sparse":
+            n = 3 * cfg.num_layers * microbatches
+            smoke.check(all(c["bsr_spmm"] == c["bcsr_spmm"] == n for c in l4.values())
+                        and all(c["bsr_spmm"] == positions * n for c in l1.values()),
+                        ("sparse launches by card", l1, l4))
+        del runs, s1, s4, leaves1, leaves4
+    return {"arch": arch, "positions": positions, "cards": len(cards.cards), **out}
+
+
+PHASES = ("copy-modes", "sharded", "sharded-cards", "sharded-train", "sharded-cards-train",
+          "capture-across-cards", "data-cards-bits", "llm-train-data", "launch-train-data")
+
+
+def main(argv=None) -> int:
+    chosen = list(sys.argv[1:] if argv is None else argv) or list(PHASES)
+    unknown = sorted(set(chosen) - set(PHASES))
+    if unknown:
+        raise SystemExit(f"unknown phases {unknown}; phases: {' '.join(PHASES)}")
     dev = smoke.phase_device()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=index,name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()
     smoke.emit({"phase": "cards", "nvidia_smi": smi})
-    smoke.emit({"phase": "copy-modes", **copy_modes()})
-    one_card, sharded = smoke.phase_sharded(**smoke.SHARDED)
-    smoke.emit({"phase": "sharded", **sharded})
-    cards = smoke.phase_sharded_cards(one_card=one_card, **smoke.SHARDED)
-    del one_card
-    smoke.emit({"phase": "sharded-cards", **cards})
-    smoke.emit({"phase": "sharded-train", **smoke.phase_sharded_train(**smoke.SHARDED_TRAIN)})
-    smoke.emit({"phase": "sharded-cards-train",
-                **smoke.phase_sharded_train(**smoke.SHARDED_TRAIN, cards=True)})
-    smoke.emit({"phase": "capture-across-cards",
-                **capture_across_cards(smoke.SHARDED["shards"])})
+    if "copy-modes" in chosen:
+        smoke.emit({"phase": "copy-modes", **copy_modes()})
+    if "sharded" in chosen or "sharded-cards" in chosen:
+        one_card, sharded = smoke.phase_sharded(**smoke.SHARDED)
+        smoke.emit({"phase": "sharded", **sharded})
+        if "sharded-cards" in chosen:
+            cards = smoke.phase_sharded_cards(one_card=one_card, **smoke.SHARDED)
+            smoke.emit({"phase": "sharded-cards", **cards})
+        del one_card
+    if "sharded-train" in chosen:
+        smoke.emit({"phase": "sharded-train", **smoke.phase_sharded_train(**smoke.SHARDED_TRAIN)})
+    if "sharded-cards-train" in chosen:
+        smoke.emit({"phase": "sharded-cards-train",
+                    **smoke.phase_sharded_train(**smoke.SHARDED_TRAIN, cards=True)})
+    if "capture-across-cards" in chosen:
+        smoke.emit({"phase": "capture-across-cards",
+                    **capture_across_cards(smoke.SHARDED["shards"])})
+    if "data-cards-bits" in chosen:
+        smoke.emit({"phase": "data-cards-bits", **data_cards_bits()})
+    if "llm-train-data" in chosen:
+        smoke.emit({"phase": "llm-train-data",
+                    **smoke.phase_llm_train_data(**smoke.LLM_TRAIN_DATA)})
+    if "launch-train-data" in chosen:
+        smoke.emit({"phase": "launch-train-data",
+                    **smoke.phase_launch_train_data(**smoke.LAUNCH_TRAIN_DATA)})
     print(dev["nvidia_smi"], flush=True)
     return 0
 

@@ -248,7 +248,28 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    ``--device cuda`` on a host with fewer than 4 cards): 20 steps,
    stopped at 10 and resumed bit for bit; the step-20 checkpoint restored
    onto one position holds the 4 positions' leaves.
-29. dryrun — ``repro_torch.launch.dryrun`` held to the card (``DRYRUN``),
+29. llm-train-model — llm-train over the model's 2 × 2 ``data`` × ``model``
+   mesh (``LLM_TRAIN_MODEL``, ``model_mesh``: one position a card on a
+   host with 4 cards, else all 4 on card 0, ``"cards": 1``): attention
+   heads, the FFN's hidden columns, the embedding's d and the head's vocab
+   split over ``model``, each group of 2 positions computing its rows with
+   ``tensor_parallel``'s fan-out, fan-in, gathers and reshard, 3 steps
+   dense and 3 with every FFN block-pruned (whole, on each group's home
+   card). Held: the first step at f32 compute (SGD) against the
+   one-position step (loss and ce within ``LOSS_RTOL``; each gradient,
+   each updated leaf and ``grad_norm`` within ``GRAD_RTOL`` of its leaf's
+   max, chunk by chunk); each position's stored bytes ``param_pspecs``'
+   chunk sizes; chunks held by several positions the same bits after
+   every step; every float leaf moved; each card's launches against the
+   count from shapes (48 ``bsr_spmm`` and 48 ``bcsr_spmm`` a microbatch a
+   group on its home card, none on the others); topology unchanged. Then
+   Moonlight-16B-A3B at published width cut to its dense first layer and
+   one MoE layer (1.3 B parameters), its 64 experts 32 a model position,
+   one step held the same way. Prints step ms on the host clock, each
+   card's device ms and peak memory, stored bytes, the groups' gather and
+   reduce bytes and ms, and the model axis's exchanges a step (bytes by
+   collective, and ms replayed on their own).
+30. dryrun — ``repro_torch.launch.dryrun`` held to the card (``DRYRUN``),
    in a process of its own with ``expandable_segments``: one line per
    record of every arch's ``decode_32k`` and ``long_500k`` on the
    ``card`` and ``pod16x16`` meshes (``ok``, or ``skipped`` with the
@@ -284,9 +305,9 @@ same layer loop called eagerly through ``kernel_ops`` from this script,
 interleaved, five times each, beside the kernels' CUDA-event time
 (``host_share``).
 
-Launch counts are reset to 0 right before each of phases 3-29 and read
-right after (for 8, 9, 17, 19 and 24, around the train steps; for 25 and
-27, around the sparse model's steps; for 20, around each run of the trace). The ``kernels`` line, the ``nvidia-smi`` line and, last,
+Launch counts are reset to 0 right before each of phases 3-30 and read
+right after (for 8, 9, 17, 19 and 24, around the train steps; for 25, 27
+and 29, around the sparse model's steps; for 20, around each run of the trace). The ``kernels`` line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}`` close the run. Numbers are this run's
 own; the bound of a kernel is max(bytes / 3.35 TB/s, ops / 67 TFLOP/s)
 (H100 SXM HBM3 rate and f32 CUDA-core peak at 700 W; the LLM train step's
@@ -411,6 +432,11 @@ LAUNCH_TRAIN = dict(arch="llama3.2-1b", steps=20, ckpt_interval=10, seed=MODEL_S
 # card on a host with 4, else all on card 0), 3 steps each model
 LLM_TRAIN_DATA = dict(LLM_TRAIN, steps=3, positions=4)
 LAUNCH_TRAIN_DATA = dict(LAUNCH_TRAIN, positions=4)
+# llm-train over the model's 2 x 2 data x model mesh (4 cards when the host has
+# them, else the 4 positions on card 0), 3 steps each model; then Moonlight's
+# MoE at published width cut to its dense first layer and one MoE layer
+LLM_TRAIN_MODEL = dict(LLM_TRAIN, steps=3, data=2, model=2, moe_arch="moonshot-v1-16b-a3b",
+                       moe_layers=2)
 LOSS_RTOL = 1e-5  # f32 compute: the tests' loss tolerance (tests/_torch_train.py)
 # logits, per row: max|got - want| <= tol x max|want|. bf16 compute: 2e-2 (the
 # reference's decode/forward tolerance, tests/test_arch_smoke.py, taken against
@@ -3489,10 +3515,9 @@ def stored_bytes(state, mesh) -> dict:
                   ("a chunk is a tensor of its own", tuple(c.shape)))
     per_position = [sum(x.chunks[c].numel() * x.element_size() for x in leaves)
                     for c in range(mesh.size)]
-    split = sum(x.numel() * x.element_size() for x in leaves if x.sharding.dim is not None)
-    whole = sum(x.numel() * x.element_size() for x in leaves if x.sharding.dim is None)
-    check(per_position == [split // mesh.size + whole] * mesh.size,
-          ("each position stores its chunks", per_position, split, whole))
+    want = sum(x.numel() * x.element_size() // split_ways(x) for x in leaves)
+    check(per_position == [want] * mesh.size,
+          ("each position stores its chunks, param_pspecs' sizes", per_position, want))
     per_card = {str(d): sum(b for b, dev in zip(per_position, mesh.devices) if dev == d)
                 for d in mesh.cards}
     return {"per_position_gb": [b / 1e9 for b in per_position],
@@ -3500,12 +3525,30 @@ def stored_bytes(state, mesh) -> dict:
             "allocated_gb": {str(d): torch.cuda.memory_allocated(d) / 1e9 for d in mesh.cards}}
 
 
+def split_ways(leaf) -> int:
+    """Over how many positions ``param_pspecs`` splits a placed leaf: its
+    ``data`` positions if it splits a dim over ``data``, times its
+    ``model`` positions if it splits one over ``model``."""
+    s = leaf.sharding
+    return ((s.data_size if s.data_dim is not None else 1)
+            * (s.model_size if s.model_dim is not None else 1))
+
+
+def copies_of(leaf, p: int) -> int:
+    """The first position holding the same chunk of ``leaf`` as position ``p``."""
+    s = leaf.sharding
+    c, m = divmod(p, s.model_size)
+    return ((0 if s.data_dim is None else c) * s.model_size
+            + (0 if s.model_dim is None else m))
+
+
 def held_whole_same_bits(state) -> bool:
-    """Every leaf that each position holds whole is the same bits on all."""
+    """Every chunk that several positions hold (a leaf whole along an axis)
+    is the same bits on all of them."""
     import torch
 
-    return all(torch.equal(c.to(x.chunks[0].device), x.chunks[0]) for x in placed_leaves(state)
-               if x.sharding.dim is None for c in x.chunks[1:])
+    return all(torch.equal(c.to(x.chunks[q].device), x.chunks[q]) for x in placed_leaves(state)
+               for p, c in enumerate(x.chunks) if (q := copies_of(x, p)) != p)
 
 
 def recording(optimizer):
@@ -3858,6 +3901,231 @@ def phase_launch_train_data(arch: str, steps: int, ckpt_interval: int, positions
             "losses": [h["loss"] for h in hist], "resumed_bit_identical": True,
             "restored_on_one_position": True, "seconds": seconds, "checkpoints": ckpts,
             "launches": launches}
+
+
+def model_mesh(data: int, model: int):
+    """The model's ``data`` × ``model`` mesh: one position a card over the
+    first ``data · model`` cards when the host has them; else every
+    position on card 0 (the same code, every exchange on one device)."""
+    import torch
+
+    from repro_torch.launch.mesh import make_local_mesh
+
+    n = data * model
+    if torch.cuda.device_count() >= n > 1:
+        return make_local_mesh(data=data, model=model,
+                               devices=[f"cuda:{i}" for i in range(n)])
+    return make_local_mesh(data=data, model=model, device="cuda")
+
+
+def group_exchange(state, mesh) -> dict:
+    """The step's exchanges across groups on their own, timed on the host
+    clock with every card synchronised: each group gathering its copies
+    (each position its model chunk of every leaf split over ``model``,
+    whole along ``data``; the home position every other leaf whole), and
+    one microbatch's reduce (each group's gradients, here stand-ins of the
+    copies' shapes, added onto the owners in card order). Bytes: what the
+    gather copies and what the reduce adds."""
+    from repro_torch.distribution.sharding import constrain_like_params
+    from repro_torch.train import checkpoint, trainer
+
+    owners = checkpoint.leaves(state.params)
+    sync_all()
+    t0 = time.perf_counter()
+    groups = trainer._group_params(state.params, owners, mesh)
+    sync_all()
+    gather_ms = 1e3 * (time.perf_counter() - t0)
+    own = {id(c) for x in owners for c in x.chunks}
+    copies = {id(t): t for g in groups for x in checkpoint.leaves(g)
+              for t in getattr(x, "chunks", (x,)) if id(t) not in own}
+    terms = [[x if x.is_floating_point() else None for x in checkpoint.leaves(g)]
+             for g in groups]
+    sync_all()
+    t0 = time.perf_counter()
+    acc = None
+    for term in terms:
+        acc = constrain_like_params(term, owners=owners, into=acc)
+    sync_all()
+    reduce_ms = 1e3 * (time.perf_counter() - t0)
+    added = sum(a.numel() * 4 for sums in acc if sums is not None for a in sums) * len(groups)
+    del groups, terms, acc
+    return {"gather_ms": gather_ms, "reduce_ms_a_microbatch": reduce_ms,
+            "gather_bytes_copied": sum(t.numel() * t.element_size() for t in copies.values()),
+            "reduce_bytes_added_a_microbatch": added}
+
+
+def exchanges_a_step(step_fn, state, batch) -> dict:
+    """The model axis's exchanges in one step (``tensor_parallel``): calls
+    and bytes moved between model positions, by collective, forward and
+    backward; and their time, each logged exchange replayed on its own on
+    fresh tensors of its shapes (forward and backward), host clock with
+    every card synchronised."""
+    from repro_torch.distribution import tensor_parallel as tp
+
+    tp.reset_exchange_counts()
+    with tp.logging_exchanges() as log:
+        step_fn(state, batch)
+    counts = tp.exchange_counts()
+    kinds = sorted({k for k, _ in log})
+    for kind in kinds:  # a warm-up of each kind
+        tp.replay(next(e for e in log if e[0] == kind))
+    sync_all()
+    ms = {}
+    for kind in kinds:
+        t0 = time.perf_counter()
+        for entry in log:
+            if entry[0] == kind:
+                tp.replay(entry)
+        sync_all()
+        ms[kind] = 1e3 * (time.perf_counter() - t0)
+    return {"counts": counts, "replayed_ms": ms,
+            "fan_out_fan_in_bytes": sum(counts.get(k, {}).get("bytes", 0)
+                                        for k in ("fan_out", "fan_in")),
+            "fan_out_fan_in_ms": sum(ms.get(k, 0.0) for k in ("fan_out", "fan_in")),
+            "all_bytes": sum(c["bytes"] for c in counts.values()),
+            "all_ms": sum(ms.values())}
+
+
+def phase_llm_train_model(arch: str, seq_len: int, global_batch: int, microbatches: int,
+                          steps: int, lr: float, block: int, blocks_per_row: int, data: int,
+                          model: int, moe_arch: str, moe_layers: int, seed: int) -> dict:
+    """llm-train over the model's ``data`` × ``model`` mesh (:func:`model_mesh`:
+    one position a card on a host with ``data · model`` cards, else every
+    position on card 0): heads, the FFN's hidden columns, the embedding's d
+    and the head's vocab split over ``model``, each group of ``model``
+    positions computing its rows together, gradients added onto the owners
+    in card order. Dense, then every FFN block-pruned (whole, on each
+    group's home card). Held: the first step at f32 compute against the
+    one-position step (:func:`first_step_against_one_position`), each
+    position's stored bytes ``param_pspecs``' chunk sizes, chunks held by
+    several positions the same bits after each step, launches on each card
+    against the count from shapes, topology unchanged, finite losses. Then
+    ``moe_arch`` at published width cut to ``moe_layers`` layers, one step,
+    its experts split over ``model``, held the same way."""
+    import torch
+
+    from repro_torch.configs import SparsityConfig, get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distribution.sharding import param_pspecs, place, shardings_for
+    from repro_torch.models import Model
+    from repro_torch.train import adamw, checkpoint
+    from repro_torch.train.optimizer import init_placed, warmup_cosine
+    from repro_torch.train.trainer import TrainState, make_train_step
+
+    mesh = model_mesh(data, model)
+    homes = mesh.devices[::model]
+    cfg = get_config(arch)
+    opt = adamw(warmup_cosine(lr, 10, 100), state_dtype=torch.float32)
+    params0 = Model(cfg).init(torch.Generator(device=mesh.device).manual_seed(seed),
+                              device=mesh.device)
+    stream = SyntheticLM(cfg.vocab_size, seq_len, global_batch, seed=seed)
+    first = {k: torch.from_numpy(v) for k, v in stream.batch(0).items()}
+
+    def placed(c, params):
+        p = place(params, shardings_for(None, mesh, param_pspecs(c, params, mesh)))
+        return TrainState(p, init_placed(opt, checkpoint.leaves(p)))
+
+    def peaks() -> dict:
+        return {str(d): torch.cuda.max_memory_allocated(d) / 1e9 for d in mesh.cards}
+
+    def reset_peaks() -> None:
+        for d in mesh.cards:
+            torch.cuda.reset_peak_memory_stats(d)
+
+    def split_leaves(state) -> list:
+        return [x for x in checkpoint.leaves(state.params) if x.sharding.model_dim is not None]
+
+    def run(c, params, label):
+        m = Model(c)
+        held = first_step_against_one_position(
+            Model(dataclasses.replace(c, compute_dtype="float32")), params, first, mesh,
+            microbatches)
+        state0 = placed(c, params)
+        check(len(split_leaves(state0)) > 0, (label, "leaves split over model"))
+        stored = stored_bytes(state0, mesh)
+        step = make_train_step(m, opt, microbatches=microbatches)
+        reset_peaks()
+        state, out = data_steps(step, state0, stream, steps, mesh)
+        out["peak_memory_gb"] = peaks()
+        check(moved(state0.params, state.params), (label, "every float leaf moved"))
+        check(all(a is b for a, b in zip(checkpoint.leaves(state0.params),
+                                         checkpoint.leaves(state.params))
+                  if not a.is_floating_point()), (label, "topology changed"))
+        out["device_ms_by_card"] = device_ms_by_card(lambda: step(state, first))
+        out["exchanges_a_step"] = exchanges_a_step(step, state, first)
+        out.update({"first_step_f32": held, "stored": stored,
+                    "split_leaves": len(split_leaves(state0))})
+        return state0, state, out
+
+    state0, state, dense = run(cfg, params0, "dense")
+    check(sum(dense["launches"].values()) == 0, ("dense FFNs launch no kernel", dense["launches"]))
+    dense["group_exchange"] = group_exchange(state0, mesh)
+    del state, state0
+
+    scfg = dataclasses.replace(cfg, sparsity=SparsityConfig(
+        (block, block), blocks_per_row=blocks_per_row, targets=("ffn",)))
+    sparams = Model(scfg).sparsify(params0)
+    del params0
+    n_proj = sparse_projections(sparams)
+    check(n_proj == 3 * cfg.num_layers, n_proj)
+    sstate0, sstate, sparse = run(scfg, sparams, "sparse")
+    del sparams
+    a_group = steps * microbatches * n_proj
+    want = {str(d): {"bsr_spmm": a_group * homes.count(d), "bcsr_spmm": a_group * homes.count(d)}
+            for d in mesh.cards}
+    got = {d: {k: c[k] for k in ("bsr_spmm", "bcsr_spmm")} for d, c in
+           sparse["launches_by_card"].items()}
+    check(got == want and sum(sparse["launches"].values())
+          == sum(sum(v.values()) for v in want.values()),
+          ("launches on each group's home card", got, want))
+    sparse.update({"projections": n_proj,
+                   "launches_per_step_a_group": {"bsr_spmm": microbatches * n_proj,
+                                                 "bcsr_spmm": microbatches * n_proj}})
+    del sstate, sstate0
+    torch.cuda.empty_cache()
+
+    mcfg = dataclasses.replace(get_config(moe_arch), num_layers=moe_layers)
+    mparams = Model(mcfg).init(torch.Generator(device=mesh.device).manual_seed(seed),
+                               device=mesh.device)
+    moe_params = sum(x.numel() for x in checkpoint.leaves(mparams))
+    mstream = SyntheticLM(mcfg.vocab_size, seq_len, global_batch, seed=seed)
+    mfirst = {k: torch.from_numpy(v) for k, v in mstream.batch(0).items()}
+    moe_held = first_step_against_one_position(
+        Model(dataclasses.replace(mcfg, compute_dtype="float32")), mparams, mfirst, mesh,
+        microbatches)
+    mstate0 = placed(mcfg, mparams)
+    del mparams
+    paths = checkpoint.leaves(checkpoint.map_with_path(lambda k, _: k, mstate0.params))
+    banks = [x for k, x in zip(paths, checkpoint.leaves(mstate0.params))
+             if k.split("//")[-2:-1] == ["ffn"] and x.ndim == 4]  # (layers, experts, ., .)
+    experts = [[c.shape[1] for c in x.chunks[:model]] for x in banks]
+    check(banks and all(e == [mcfg.moe.num_experts // model] * model for e in experts),
+          ("experts over model", experts))
+    mstored = stored_bytes(mstate0, mesh)
+    mstep = make_train_step(Model(mcfg), opt, microbatches=microbatches)
+    reset_peaks()
+    sync_all()
+    t0 = time.perf_counter()
+    mstate, mmetrics = mstep(mstate0, mfirst)
+    sync_all()
+    moe_ms = 1e3 * (time.perf_counter() - t0)
+    check(held_whole_same_bits(mstate) and moved(mstate0.params, mstate.params)
+          and np.isfinite(float(mmetrics["loss"])), "the MoE step")
+    moe = {"arch": moe_arch, "layers": moe_layers, "params": moe_params,
+           "experts_per_position": experts[0], "first_step_f32": moe_held,
+           "stored": mstored, "step_ms": moe_ms, "loss": float(mmetrics["loss"]),
+           "peak_memory_gb": peaks()}
+    del mstate, mstate0
+    torch.cuda.empty_cache()
+    tokens = seq_len * global_batch
+    return {"arch": arch, "mesh": dict(mesh.shape), "cards": len(mesh.cards),
+            "devices": [str(d) for d in mesh.devices], "homes": [str(d) for d in homes],
+            "seq_len": seq_len, "global_batch": global_batch, "microbatches": microbatches,
+            "steps": steps, "tokens_per_step": tokens,
+            "optimizer": f"adamw(warmup_cosine({lr}, 10, 100), state_dtype=float32)",
+            "dense": {**dense, "tokens_per_s": tokens / (dense["step_ms"] / 1e3)},
+            "sparse": {**sparse, "tokens_per_s": tokens / (sparse["step_ms"] / 1e3)},
+            "moe": moe}
 
 
 def dryrun_meta_record(arch: str, shape: str, global_batch: int | None,
@@ -4328,6 +4596,8 @@ def main() -> int:
     emit({"phase": "llm-train-data", **llm_data})
     launch_data = phase_launch_train_data(**LAUNCH_TRAIN_DATA)
     emit({"phase": "launch-train-data", **launch_data})
+    llm_model = phase_llm_train_model(**LLM_TRAIN_MODEL)
+    emit({"phase": "llm-train-model", **llm_model})
     dry = phase_dryrun(**DRYRUN)
     emit({"phase": "dryrun", "card": dev["nvidia_smi"], **dry})
 
@@ -4349,7 +4619,8 @@ def main() -> int:
                 "llm-train": llm_train["sparse"]["launches"],
                 "launch-train": launch["launches"],
                 "llm-train-data": llm_data["sparse"]["launches"],
-                "launch-train-data": launch_data["launches"], "dryrun": dry["launches"]}
+                "launch-train-data": launch_data["launches"],
+                "llm-train-model": llm_model["sparse"]["launches"], "dryrun": dry["launches"]}
     checks = {name: "max|kernel - plain| <= 1e-5 |plain| + 1e-6 (f32 order)"
               for name in ("semiring_matmul", "bsr_spmm", "bcsr_spmm")}
     checks.update({name: "stack: <= 1e-4 max|plain|, each entry within 2x the f32 bound, "

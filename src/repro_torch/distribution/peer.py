@@ -19,11 +19,13 @@ gives other bits. Every sum across shards is written out in shard order
 (``plan.sharded.sum_and_relu``, :class:`_Spread`'s backward), the order
 of the one-card route, so the results are the same bits.
 
-The model API's data mesh moves whole leaves the same way
+The model API's mesh moves leaves the same way
 (``repro_torch.train.trainer``): :func:`all_gather` puts a leaf's chunks
 together on one device in position order, and :func:`reduce_into` /
-:func:`reduce_scatter` add the positions' whole gradients onto the
-positions that own each chunk, in card order.
+:func:`reduce_scatter` add each group's gradients onto the positions
+that own each chunk, in card order. Within a group the model code's
+collectives (``repro_torch.distribution.tensor_parallel``) are built on
+:func:`copy_into`, :func:`to` and :func:`shard_order_sum`.
 """
 
 from __future__ import annotations
@@ -98,12 +100,13 @@ def all_gather(chunks, dim: int, device) -> torch.Tensor:
 
 
 def reduce_into(acc, term: torch.Tensor, sharding) -> list[torch.Tensor]:
-    """One position's whole gradient ``term`` added onto the owners: for
-    every position c, ``acc[c]`` plus c's part of ``term``
-    (``sharding.part``: its chunk, or the whole of a replicated leaf), in
-    f32 on c's device. ``acc=None`` starts the sums with copies of the
-    parts. Called for positions 0, 1, … in turn, it gives each owner the
-    card-order sum, with one position's gradient alive at a time."""
+    """One group's gradient ``term`` added onto the owners: for every
+    position c, ``acc[c]`` plus c's part of ``term`` (``sharding.part``:
+    its chunk of a whole tensor, or of the group's model chunks when
+    ``term`` is their sequence; the whole of a replicated leaf), in f32 on
+    c's device. ``acc=None`` starts the sums with copies of the parts.
+    Called for groups 0, 1, … in turn, it gives each owner the card-order
+    sum, with one group's gradient alive at a time."""
     out = []
     for c, device in enumerate(sharding.devices):
         part = sharding.part(term, c)

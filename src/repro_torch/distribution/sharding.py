@@ -16,21 +16,31 @@ sequence indices and a sparse matrix's tensors by index
 (``repro_torch.train.checkpoint``'s order), so a sparse FFN weight's
 tensors match no rule and are replicated in both packages.
 
-On the model's data mesh (``repro_torch.launch.mesh.make_local_mesh``,
-``model`` = 1) a spec places its leaf: :func:`shardings_for` gives each
-leaf a :class:`Sharding` (the reference's ``NamedSharding``) and
-:func:`place` stores it as a :class:`Placed` leaf, one chunk a position.
-A leaf whose spec puts ``data`` on dim d is N contiguous chunks along d,
-chunk c on position c's device; a leaf with no ``data`` axis (norms, a
-dim that does not divide, every tensor of a sparse FFN weight) is whole
-on every position. The batch's rows split over the positions as
-:func:`batch_pspecs` says (:func:`split_batch`), each position computes
-on the whole leaves (:meth:`Placed.gather`), and
-:func:`constrain_like_params` adds the positions' gradients onto the
-owners in card order. Within a position :func:`constrain` is the identity
-and :func:`embed_lookup` is ``table[ids]`` on the gathered table: the
-reference's vocab-parallel lookup gives the same rows. The ``model`` axis
-places nothing yet (the mesh refuses it). The sparse stack runs across
+On the model's mesh (``repro_torch.launch.mesh.make_local_mesh``, ``data``
+× ``model``, position ``c·M + m``) a spec places its leaf:
+:func:`shardings_for` gives each leaf a :class:`Sharding` (the
+reference's ``NamedSharding``) and :func:`place` stores it as a
+:class:`Placed` leaf, one chunk a position. A spec splits at most one dim
+over ``data`` (D contiguous chunks, chunk c at data index c) and one over
+``model`` (M chunks, chunk m at model index m): heads, the FFN's hidden
+dim, the MoE's experts, the embedding's d and the head's vocab go over
+``model``, d_model-like dims over ``data``. A dim that does not divide,
+norms, the router and every tensor of a sparse FFN weight are whole
+along that axis. A spec the placement cannot honour (one dim over both
+axes, an axis the mesh does not have) raises.
+
+The batch's rows split over ``data`` only (:func:`split_batch`): the M
+positions of a data index, its group, share their rows. A group computes
+its rows together (``repro_torch.train.trainer``): each position's copy of
+a leaf is its ``model`` chunk, whole along the ``data``-split dim
+(:meth:`Placed.gather` with ``m``), and a leaf the spec does not split
+over ``model`` is whole on the group's home position; the model code runs
+the collectives that GSPMD inserts at the reference's ``constrain``
+points (``repro_torch.distribution.tensor_parallel``), and
+:func:`constrain_like_params` adds each group's gradients onto the owners
+in card order, per ``model`` chunk. Outside a group :func:`constrain` is
+the identity and :func:`embed_lookup` is ``table[ids]``: the reference's
+vocab-parallel lookup gives the same rows. The sparse stack runs across
 cards too: :func:`shard_device` says where shard s runs and
 :func:`row_bands` which rows each position owns in the shard-order sum.
 """
@@ -39,6 +49,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
 from typing import Any
 
@@ -89,8 +100,9 @@ def active_rules() -> "ShardingRules | None":
 def constrain(x: torch.Tensor, logical: tuple) -> torch.Tensor:
     """``x`` pinned to the spec of ``logical`` on the active mesh: the spec
     is resolved (an unknown logical axis raises, as in the reference)
-    and ``x`` returned as it is: a position computes its own rows on
-    whole leaves."""
+    and ``x`` returned as it is. On the model's mesh the layout changes
+    where the model code calls ``tensor_parallel``'s collectives, not
+    here."""
     if _ACTIVE:
         mesh, rules = _ACTIVE[-1]
         _resolve_spec(tuple(logical), tuple(x.shape), mesh, rules)
@@ -98,10 +110,11 @@ def constrain(x: torch.Tensor, logical: tuple) -> torch.Tensor:
 
 
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """The embedding rows of ``ids``: ``table[ids]`` on the whole table (on
-    the data mesh, a position's gathered copy). The reference's
-    vocab-parallel lookup (a masked local take per vocab shard and a psum
-    that adds each row to zeros) gives the same rows."""
+    """The embedding rows of ``ids``: ``table[ids]`` on the whole table (a
+    group's table split over ``model`` goes through
+    ``tensor_parallel.embed_lookup``). The reference's vocab-parallel
+    lookup (a masked local take per vocab shard and a psum that adds each
+    row to zeros) gives the same rows."""
     return table[ids.long()]
 
 
@@ -111,16 +124,18 @@ def constrain_like_params(tree, *, owners=None, into=None):
     Without ``owners``: the identity, a tree on one device (the
     reference's constraint has nothing to shard there). With ``owners``
     (the flat list of :class:`Placed` params the gradients follow),
-    ``tree`` is one position's whole gradients, a flat list of the same
-    order (None for an index leaf), and each leaf is added onto the
-    positions that own it (``peer.reduce_into``): ``into`` holds the
-    sums so far (None at the first position), and the new sums come
-    back. Called for the positions in order, each owner's chunk is the
-    card-order sum; a replicated leaf's sum is on every position."""
+    ``tree`` is one group's gradients, a flat list of the same order
+    (None for an index leaf; a leaf split over ``model`` as the group's M
+    chunks, ``tensor_parallel.Split``, each whole along ``data``), and
+    each leaf is added onto the positions that own it
+    (``peer.reduce_into``): ``into`` holds the sums so far (None at the
+    first group), and the new sums come back. Called for the groups in
+    order, each owner's chunk is the card-order sum; a leaf whole along an
+    axis has the same sum on every position of that axis."""
     if owners is None:
         return tree
     into = into or [None] * len(owners)
-    return [None if g is None else peer.reduce_into(acc, g, leaf.sharding)
+    return [None if g is None else peer.reduce_into(acc, getattr(g, "chunks", g), leaf.sharding)
             for g, acc, leaf in zip(tree, into, owners)]
 
 
@@ -354,17 +369,21 @@ def batch_pspecs(mesh, rules: ShardingRules | None = None) -> dict[str, Partitio
 def _positions(entry, mesh) -> int:
     """How many positions a spec entry (an axis, a tuple of them, None)
     splits its dim over."""
-    if entry is None:
-        return 1
-    return math.prod(mesh.shape[a] for a in (entry if isinstance(entry, tuple) else (entry,)))
+    return math.prod(mesh.shape[a] for a in _axis_names(entry))
+
+
+def _axis_names(entry) -> tuple:
+    return () if entry is None else (entry if isinstance(entry, tuple) else (entry,))
 
 
 @dataclasses.dataclass(frozen=True)
 class Sharding:
     """Where a leaf lives on a mesh, the reference's ``NamedSharding``:
-    the mesh and the leaf's spec. :attr:`dim` is the dim split over the
-    mesh's positions (chunk c on position c's device), or None for a leaf
-    every position holds whole."""
+    the mesh and the leaf's spec. :attr:`data_dim` is the dim split over
+    the ``data`` positions (D chunks), :attr:`model_dim` the dim split
+    over ``model`` (M chunks); position ``c·M + m`` holds chunk (c, m).
+    On a mesh without a ``model`` axis, or with ``model`` = 1, every
+    axis but ``model`` counts as ``data``."""
 
     mesh: Any
     spec: PartitionSpec
@@ -374,30 +393,79 @@ class Sharding:
         return self.mesh.devices
 
     @property
-    def dim(self) -> int | None:
-        split = [d for d, entry in enumerate(self.spec) if _positions(entry, self.mesh) > 1]
-        if not split:
-            return None
-        n = math.prod(self.mesh.shape.values())
-        if len(split) > 1 or _positions(self.spec[split[0]], self.mesh) != n:
-            raise ValueError(f"{self.spec} splits a leaf over part of a mesh of shape "
-                             f"{self.mesh.shape}: only one dim split over every position "
-                             "is placed (the model axis is not placed yet)")
-        return split[0]
+    def model_size(self) -> int:
+        return self.mesh.shape.get("model", 1)
 
-    def part(self, x: torch.Tensor, c: int) -> torch.Tensor:
-        """Position ``c``'s part of the whole leaf ``x``: its chunk (a view),
-        or ``x`` for a leaf every position holds whole."""
-        dim = self.dim
+    @property
+    def data_size(self) -> int:
+        return len(self.mesh.devices) // self.model_size
+
+    @functools.cached_property
+    def _split(self) -> tuple[int | None, int | None]:
+        data_dim = model_dim = None
+        for d, entry in enumerate(self.spec):
+            names = tuple(a for a in _axis_names(entry) if self.mesh.shape[a] > 1)
+            if not names:
+                continue
+            if names == ("model",):
+                model_dim = d
+            elif "model" not in names and math.prod(self.mesh.shape[a] for a in names) \
+                    == self.data_size and data_dim is None:
+                data_dim = d
+            else:
+                raise ValueError(f"{self.spec} splits dim {d} over {names} on a mesh of shape "
+                                 f"{self.mesh.shape}: a placed leaf splits one dim over every "
+                                 "data position and one over the model axis")
+        return data_dim, model_dim
+
+    @property
+    def data_dim(self) -> int | None:
+        return self._split[0]
+
+    @property
+    def model_dim(self) -> int | None:
+        return self._split[1]
+
+    @property
+    def dim(self) -> int | None:
+        """The one dim the leaf is split along (over ``data`` or ``model``),
+        or None for a leaf every position holds whole; a leaf split along
+        two dims raises (read :attr:`data_dim` and :attr:`model_dim`)."""
+        data_dim, model_dim = self._split
+        if data_dim is not None and model_dim is not None:
+            raise ValueError(f"{self.spec} splits two dims: read data_dim and model_dim")
+        return model_dim if data_dim is None else data_dim
+
+    def data_part(self, x: torch.Tensor, c: int) -> torch.Tensor:
+        """Data index ``c``'s chunk of ``x``, whole along ``data`` (a view),
+        or ``x`` for a leaf whole along ``data``."""
+        dim = self.data_dim
         if dim is None:
             return x
-        size = x.shape[dim] // len(self.devices)
+        size = x.shape[dim] // self.data_size
         return x.narrow(dim, c * size, size)
+
+    def model_part(self, x: torch.Tensor, m: int) -> torch.Tensor:
+        """Model index ``m``'s chunk of ``x`` (a view), or ``x``."""
+        dim = self.model_dim
+        if dim is None:
+            return x
+        size = x.shape[dim] // self.model_size
+        return x.narrow(dim, m * size, size)
+
+    def part(self, x, p: int) -> torch.Tensor:
+        """Position ``p``'s part: its chunk of the whole leaf ``x`` (a view),
+        or, for ``x`` a sequence of the M model chunks (a group's), its data
+        chunk of chunk ``p mod M``. A leaf every position holds whole: ``x``."""
+        c, m = divmod(p, self.model_size)
+        if isinstance(x, (tuple, list)):
+            return self.data_part(x[m], c)
+        return self.data_part(self.model_part(x, m), c)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Placed:
-    """A leaf stored on a mesh: ``chunks[c]`` is position c's, on its device
+    """A leaf stored on a mesh: ``chunks[p]`` is position p's, on its device
     (:class:`Sharding`). Reports the whole leaf's shape, dtype and size, so
     a placed tree reads like the tree it was placed from (parameter
     counts, checkpoint templates, ``collectives.bucketed``)."""
@@ -408,9 +476,12 @@ class Placed:
     @property
     def shape(self) -> torch.Size:
         shape = list(self.chunks[0].shape)
-        dim = self.sharding.dim
-        if dim is not None:
-            shape[dim] = sum(c.shape[dim] for c in self.chunks)
+        s = self.sharding
+        data_dim, model_dim = s._split
+        if data_dim is not None:
+            shape[data_dim] *= s.data_size
+        if model_dim is not None:
+            shape[model_dim] *= s.model_size
         return torch.Size(shape)
 
     @property
@@ -435,15 +506,26 @@ class Placed:
     def is_floating_point(self) -> bool:
         return self.chunks[0].is_floating_point()
 
-    def gather(self, device) -> torch.Tensor:
-        """The whole leaf on ``device``: the chunks put together in position
-        order (``peer.all_gather``), or a leaf held whole: the copy of the
-        first position on ``device``, else position 0's copied there."""
+    def gather(self, device, m: int | None = None) -> torch.Tensor:
+        """The leaf on ``device``, put together in position order
+        (``peer.all_gather``): with ``m``, model index m's chunk, whole along
+        ``data`` (a group position's copy); without, the whole leaf. A part
+        held whole is the copy of the first position on ``device`` that
+        holds it, else the first such position's copied there."""
         device = torch.device(device)
-        if self.sharding.dim is not None:
-            return peer.all_gather(self.chunks, self.sharding.dim, device)
-        own = [c for c in self.chunks if c.device == device]
-        return own[0] if own else peer.to(self.chunks[0], device)
+        s = self.sharding
+        data_dim, model_dim = s._split
+        if m is None and model_dim is not None:
+            return peer.all_gather([self.gather(device, k) for k in range(s.model_size)],
+                                   model_dim, device)
+        ms = s.model_size
+        holders = [self.chunks[c * ms + (m or 0)] for c in range(s.data_size)]
+        if data_dim is not None:
+            return peer.all_gather(holders, data_dim, device)
+        if m is None:
+            holders = list(self.chunks)
+        own = [h for h in holders if h.device == device]
+        return own[0] if own else peer.to(holders[0], device)
 
     def map(self, fn) -> "Placed":
         """``fn`` over each chunk, the same sharding."""
@@ -455,8 +537,8 @@ def place_leaf(x: torch.Tensor, sharding: Sharding) -> Placed:
     its device, a tensor of its own (positions sharing a device included)."""
     return Placed(tuple(peer.copy_into(torch.empty(part.shape, dtype=x.dtype, device=device),
                                        part)
-                        for device, part in ((d, sharding.part(x, c))
-                                             for c, d in enumerate(sharding.devices))),
+                        for device, part in ((d, sharding.part(x, p))
+                                             for p, d in enumerate(sharding.devices))),
                   sharding)
 
 
@@ -486,14 +568,16 @@ def place(tree, shardings):
 
 def split_batch(batch: dict, mesh, microbatches: int = 1,
                 rules: ShardingRules | None = None) -> list[list[dict]]:
-    """A global batch's rows as each microbatch's rows on each position:
-    ``out[i][c]`` holds views of the rows position ``c`` computes in
-    microbatch ``i``. Microbatch i is rows ``[i·B/k, (i+1)·B/k)``, as the
-    reference's ``split``, and position c takes the c-th of its N equal
-    parts, along the dim :func:`batch_pspecs` splits over the mesh's
-    positions. Raises when the rows do not split evenly."""
+    """A global batch's rows as each microbatch's rows on each data index:
+    ``out[i][c]`` holds views of the rows data index ``c`` (its group of
+    ``model`` positions) computes in microbatch ``i``. Microbatch i is rows
+    ``[i·B/k, (i+1)·B/k)``, as the reference's ``split``, and data index c
+    takes the c-th of its D equal parts, along the dim
+    :func:`batch_pspecs` splits over the data positions (``model`` takes
+    no part: the batch lives on ``("pod", "data")``). Raises when the rows
+    do not split evenly."""
     specs = batch_pspecs(mesh, rules)
-    n = len(mesh.devices)
+    n = len(mesh.devices) // mesh.shape.get("model", 1)
     out: list[list[dict]] = [[{} for _ in range(n)] for _ in range(microbatches)]
     for key, x in batch.items():
         spec = specs.get(key, specs["inputs"])
@@ -503,7 +587,7 @@ def split_batch(batch: dict, mesh, microbatches: int = 1,
                              f"{microbatches} microbatches of {n} positions")
         if n > 1 and (not len(spec) or _positions(spec[0], mesh) != n):
             raise ValueError(f"batch spec {spec} does not split the rows over the mesh's "
-                             f"{n} positions")
+                             f"{n} data positions")
         per_mb = rows // microbatches
         per_pos = per_mb // n
         for i in range(microbatches):

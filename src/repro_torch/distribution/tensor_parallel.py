@@ -1,0 +1,352 @@
+"""The model axis within one group of positions — the port's counterpart of
+what GSPMD inserts at the reference's ``constrain`` points
+(``repro/models/attention.py``, ``moe.py``, ``model.py``,
+``repro/distribution/sharding.py``).
+
+On the model's mesh (``launch.mesh.make_local_mesh(data=D, model=M)``)
+the M positions of a data index form a group that computes its rows
+together (``train.trainer``). The group's copy of a leaf the spec splits
+over ``model`` is a :class:`Split`: its M chunks, chunk m on position m's
+device, each whole along ``data``. A leaf the spec does not split is a
+tensor on the group's home device (model position 0), where the
+activations between layers live, and a layer whose weights are whole
+(a block-sparse FFN, a dim that does not divide) runs there, once a
+group.
+
+The model code moves activations with five differentiable collectives,
+each an autograd Function built on ``peer.copy_into``/``peer.to`` and
+``peer.shard_order_sum``:
+
+* :func:`fan_out` — a tensor copied to the M devices; backward adds the M
+  gradients in model order on the source (an explicit sum: autograd's
+  own accumulation of a tensor used on several cards adds in whatever
+  order the cards' worker threads finish);
+* :func:`fan_in` — M partials added in model order onto one device (the
+  reference's all-reduce of a row-parallel product); backward hands each
+  partial the gradient;
+* :func:`all_gather` — chunks concatenated in model order (exact);
+  backward splits the gradient;
+* :func:`scatter` — a tensor's M chunks, each to its device (exact);
+  backward concatenates the gradients;
+* :func:`reshard` — chunks split along one dim resplit along another
+  (the tied table from d over ``model`` to vocab over ``model``, exact
+  both ways).
+
+Every sum is written out in model order, never NCCL's, so M positions on
+one device and M cards give the same bits. :func:`exchange_counts`
+reports the bytes each collective moves between model positions
+(forward and backward; model position 0 is the group's home), counted
+whether or not the positions share a device, and
+:func:`logging_exchanges` records each call's shapes so a caller can
+replay a step's exchanges on their own (:func:`replay`).
+
+The model axis covers GQA attention, dense and MoE FFNs, the paper's
+MLP, the embedding and the head; :func:`refuse_unported` refuses the
+mixers whose tensor parallelism is a later slice.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+
+import torch
+
+from repro_torch.distribution import peer
+
+NEXT_SLICE = ("tensor parallelism for MLA, Mamba and RWKV-6 mixers is the next slice of "
+              "the port")
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Split:
+    """A group's copy of a leaf split over ``model``: ``chunks[m]`` on
+    model position m's device, split along ``dim``. Reads like the whole
+    leaf (shape, dtype) and indexes like it along a leading layer dim, which
+    is never split (a period's stacked leaves)."""
+
+    chunks: tuple[torch.Tensor, ...]
+    dim: int
+
+    @property
+    def devices(self) -> tuple[torch.device, ...]:
+        return tuple(c.device for c in self.chunks)
+
+    @property
+    def shape(self) -> torch.Size:
+        shape = list(self.chunks[0].shape)
+        shape[self.dim] = sum(c.shape[self.dim] for c in self.chunks)
+        return torch.Size(shape)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.chunks[0].dtype
+
+    @property
+    def ndim(self) -> int:
+        return self.chunks[0].ndim
+
+    def is_floating_point(self) -> bool:
+        return self.chunks[0].is_floating_point()
+
+    def map(self, fn) -> "Split":
+        return Split(tuple(fn(c) for c in self.chunks), self.dim)
+
+    def to(self, dtype: torch.dtype) -> "Split":
+        return self.map(lambda c: c.to(dtype))
+
+    def __getitem__(self, i: int) -> "Split":
+        if not isinstance(i, int) or self.dim == 0:
+            raise IndexError(f"a Split along dim {self.dim} indexes its leading dim only")
+        return Split(tuple(c[i] for c in self.chunks), self.dim - 1)
+
+
+# ------------------------------ accounting -----------------------------------
+
+_COUNTS: dict[str, dict[str, int]] = {}
+_LOG: list | None = None
+
+
+def _count(kind: str, nbytes: int) -> None:
+    c = _COUNTS.setdefault(kind, {"calls": 0, "bytes": 0})
+    c["calls"] += 1
+    c["bytes"] += nbytes
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+def reset_exchange_counts() -> None:
+    _COUNTS.clear()
+
+
+def exchange_counts() -> dict[str, dict[str, int]]:
+    """Per collective, its calls (forward and backward) and the bytes they
+    moved from one position to another since the last reset."""
+    return {k: dict(v) for k, v in _COUNTS.items()}
+
+
+@contextlib.contextmanager
+def logging_exchanges():
+    """Records each forward call's kind and shapes in the yielded list
+    (entries for :func:`replay`)."""
+    global _LOG
+    prev, _LOG = _LOG, []
+    try:
+        yield _LOG
+    finally:
+        _LOG = prev
+
+
+def _log(kind: str, **meta) -> None:
+    if _LOG is not None:
+        _LOG.append((kind, meta))
+
+
+# ------------------------------ collectives ----------------------------------
+
+
+class _FanOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, devices):
+        ctx.home = x.device
+        _count("fan_out", _nbytes(x) * (len(devices) - 1))
+        return tuple(x.view_as(x) if d == x.device else peer.to(x, d) for d in devices)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        live = [g for g in grads if g is not None]
+        _count("fan_out", sum(_nbytes(g) for g in grads[1:] if g is not None))
+        total = peer.shard_order_sum([peer.to(g, ctx.home) for g in live]) if live else None
+        return total, None
+
+
+def fan_out(x: torch.Tensor, devices) -> tuple[torch.Tensor, ...]:
+    """``x`` on each of ``devices`` (a view where it lies already); its
+    backward adds the devices' gradients in their order on ``x``'s device."""
+    devices = tuple(torch.device(d) for d in devices)
+    _log("fan_out", shape=tuple(x.shape), dtype=x.dtype, home=x.device, devices=devices)
+    return _FanOut.apply(x, devices)
+
+
+class _FanIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, device, *partials):
+        ctx.devices = [p.device for p in partials]
+        _count("fan_in", sum(_nbytes(p) for p in partials[1:]))
+        return peer.shard_order_sum([peer.to(p, device) for p in partials])
+
+    @staticmethod
+    def backward(ctx, g):
+        _count("fan_in", _nbytes(g) * (len(ctx.devices) - 1))
+        return (None, *(peer.to(g, d) for d in ctx.devices))
+
+
+def fan_in(partials, device) -> torch.Tensor:
+    """Σ ``partials`` in their order on ``device``; the backward hands each
+    partial the gradient on its own device."""
+    device = torch.device(device)
+    _log("fan_in", shapes=[tuple(p.shape) for p in partials], dtype=partials[0].dtype,
+         home=device, devices=tuple(p.device for p in partials))
+    return _FanIn.apply(device, *partials)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, dim, device, *chunks):
+        ctx.dim, ctx.devices = dim, [c.device for c in chunks]
+        ctx.sizes = [c.shape[dim] for c in chunks]
+        _count("all_gather", sum(_nbytes(c) for c in chunks[1:]))
+        return torch.cat([peer.to(c, device) for c in chunks], dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        pieces = g.split(ctx.sizes, ctx.dim)
+        _count("all_gather", sum(_nbytes(p) for p in pieces[1:]))
+        return (None, None, *(peer.to(p, d) for p, d in zip(pieces, ctx.devices)))
+
+
+def all_gather(chunks, dim: int, device) -> torch.Tensor:
+    """The chunks concatenated along ``dim`` in their order on ``device``;
+    the backward sends each chunk its slice of the gradient."""
+    device = torch.device(device)
+    dim = dim % chunks[0].ndim
+    _log("all_gather", shapes=[tuple(c.shape) for c in chunks], dtype=chunks[0].dtype,
+         home=device, devices=tuple(c.device for c in chunks), dim=dim)
+    return _AllGather.apply(dim, device, *chunks)
+
+
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, devices):
+        ctx.dim, ctx.home = dim, x.device
+        pieces = x.chunk(len(devices), dim)
+        ctx.shapes = [p.shape for p in pieces]
+        _count("scatter", sum(_nbytes(p) for p in pieces[1:]))
+        return tuple(p if d == x.device else peer.to(p, d) for p, d in zip(pieces, devices))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        _count("scatter", sum(_nbytes(g) for g in grads[1:] if g is not None))
+        parts = [torch.zeros(s, dtype=g.dtype, device=ctx.home) if g is None else
+                 peer.to(g, ctx.home) for s, g in zip(ctx.shapes, grads)]
+        return torch.cat(parts, ctx.dim), None, None
+
+
+def scatter(x: torch.Tensor, dim: int, devices) -> tuple[torch.Tensor, ...]:
+    """``x``'s M equal chunks along ``dim``, chunk m on ``devices[m]``; the
+    backward concatenates the gradients on ``x``'s device."""
+    devices = tuple(torch.device(d) for d in devices)
+    if x.shape[dim] % len(devices):
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split over {len(devices)}")
+    _log("scatter", shape=tuple(x.shape), dtype=x.dtype, home=x.device, devices=devices, dim=dim)
+    return _Scatter.apply(x, dim, devices)
+
+
+def _resplit(chunks, devices, whole_dim: int, split_dim: int):
+    """Chunk ``m`` of the result: every chunk's m-th slice along
+    ``split_dim``, concatenated along ``whole_dim`` on ``devices[m]``."""
+    size = chunks[0].shape[split_dim] // len(devices)
+    moved = sum(_nbytes(c) // len(devices) for c in chunks) * (len(devices) - 1)
+    return moved, tuple(
+        torch.cat([peer.to(c.narrow(split_dim, m * size, size), d) for c in chunks], whole_dim)
+        for m, d in enumerate(devices))
+
+
+class _Reshard(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, src_dim, dst_dim, *chunks):
+        ctx.src_dim, ctx.dst_dim = src_dim, dst_dim
+        ctx.devices = [c.device for c in chunks]
+        moved, out = _resplit(chunks, ctx.devices, src_dim, dst_dim)
+        _count("reshard", moved)
+        return out
+
+    @staticmethod
+    def backward(ctx, *grads):
+        moved, out = _resplit(grads, ctx.devices, ctx.dst_dim, ctx.src_dim)
+        _count("reshard", moved)
+        return (None, None, *out)
+
+
+def reshard(chunks, src_dim: int, dst_dim: int) -> tuple[torch.Tensor, ...]:
+    """Chunks of one tensor split along ``src_dim`` (chunk m on its device)
+    as its chunks split along ``dst_dim``, chunk m on the same device;
+    the backward resplits the gradients back (both exact)."""
+    if chunks[0].shape[dst_dim] % len(chunks):
+        raise ValueError(f"dim {dst_dim} of {tuple(chunks[0].shape)} does not split over "
+                         f"{len(chunks)}")
+    _log("reshard", shapes=[tuple(c.shape) for c in chunks], dtype=chunks[0].dtype,
+         devices=tuple(c.device for c in chunks), src_dim=src_dim, dst_dim=dst_dim)
+    return _Reshard.apply(src_dim, dst_dim, *chunks)
+
+
+def embed_lookup(table: Split, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` for a table split along d over ``model``: each
+    position looks its chunk's columns up, and the rows are concatenated in
+    model order on ``ids``' device (exact)."""
+    rows = [c[peer.to(ids, c.device).long()] for c in table.chunks]
+    return all_gather(rows, -1, ids.device)
+
+
+def replay(entry) -> None:
+    """One logged exchange (:func:`logging_exchanges`) run forward and
+    backward on fresh tensors of its shapes, devices and dtype."""
+    kind, meta = entry
+    dtype = meta["dtype"]
+
+    def fresh(shape, device):
+        return torch.ones(shape, dtype=dtype, device=device, requires_grad=True)
+
+    if kind == "fan_out":
+        outs = fan_out(fresh(meta["shape"], meta["home"]), meta["devices"])
+    elif kind == "scatter":
+        outs = scatter(fresh(meta["shape"], meta["home"]), meta["dim"], meta["devices"])
+    elif kind == "fan_in":
+        outs = (fan_in([fresh(s, d) for s, d in zip(meta["shapes"], meta["devices"])],
+                       meta["home"]),)
+    elif kind == "all_gather":
+        outs = (all_gather([fresh(s, d) for s, d in zip(meta["shapes"], meta["devices"])],
+                           meta["dim"], meta["home"]),)
+    else:
+        outs = reshard([fresh(s, d) for s, d in zip(meta["shapes"], meta["devices"])],
+                       meta["src_dim"], meta["dst_dim"])
+    torch.autograd.backward(outs, [torch.ones_like(o) for o in outs])
+
+
+# -------------------------------- refusals -----------------------------------
+
+
+def unported_mixers(cfg) -> list[str]:
+    """The layer kinds of ``cfg`` the model axis does not take yet."""
+    kinds = []
+    for spec in cfg.layer_specs():
+        if spec.mixer == "attn" and cfg.attention.kind != "gqa":
+            kinds.append(f"{cfg.attention.kind} attention")
+        elif spec.mixer in ("mamba", "rwkv"):
+            kinds.append(spec.mixer)
+        if spec.ffn == "rwkv_channel_mix":
+            kinds.append("rwkv channel mix")
+    return sorted(set(kinds))
+
+
+def refuse_unported(cfg, mesh) -> None:
+    """Raise when ``mesh`` has a ``model`` axis past 1 and ``cfg`` has a
+    mixer the model axis does not take yet (MLA, Mamba, RWKV-6): it is not
+    run replicated instead."""
+    if cfg is None or mesh.shape.get("model", 1) == 1:
+        return
+    kinds = unported_mixers(cfg)
+    if kinds:
+        raise ValueError(f"{cfg.name} on a mesh of model={mesh.shape['model']}: its "
+                         f"{', '.join(kinds)} layers do not run over the model axis; "
+                         f"{NEXT_SLICE}")
+
+
+def refuse_serving(w) -> None:
+    """Raise for a group's split weight on a serving path: the cache's
+    layout over ``model`` is a later slice."""
+    if isinstance(w, Split):
+        raise ValueError("serving over a model mesh (prefill and decode with the cache over "
+                         "model) is a later slice of the port; serve on one device")

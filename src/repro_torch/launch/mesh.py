@@ -19,15 +19,17 @@ A mix of the two is refused, and so is a mesh of more cards than the
 host has. ``Mesh.device`` is the home card, position 0, where a sharded
 engine's panels and answers live.
 
-The model's mesh (``make_local_mesh``) is ``data`` × ``model`` with
-``model = 1``: N positions of the ``data`` axis, one card each or all on
-one device. The model API trains data-parallel over it
+The model's mesh (``make_local_mesh``) is ``data`` × ``model``: D × M
+positions in row-major order, as ``jax.make_mesh((D, M), ...)`` orders
+devices (position ``c·M + m`` is data index c, model index m), one card
+each or all on one device. The model API trains over it
 (``repro_torch.train.trainer``): the train state stored as
-``param_pspecs`` says, each position computing its rows. A ``model``
-axis past 1 (tensor and expert parallelism) and the reference's
-production mesh of 256 or 512 devices, whose ``model`` axis is 16, are
-refused: the model axis is the next slice. The production mesh is made
-on the ``meta`` device only, shapes for the dry run.
+``param_pspecs`` says, each data index's group of M positions computing
+its rows with heads, hidden columns, experts and vocab split over the
+group (``repro_torch.distribution.tensor_parallel``). The reference's
+production mesh of 256 or 512 devices is built one card a position
+when the host has them, and on the ``meta`` device (shapes for the dry
+run) anywhere.
 """
 
 from __future__ import annotations
@@ -38,14 +40,6 @@ import math
 import torch
 
 from repro_torch.device import resolve_device
-
-
-def model_axis_refused(what: str) -> str:
-    """The refusal of ``what``, a model mesh whose ``model`` axis is past 1."""
-    return (f"{what} is not supported yet: the model API runs over the data axis only "
-            "(make_local_mesh(data=N), model=1); the model axis (tensor and expert "
-            "parallelism, a vocab-parallel embedding and head, a sharded loss) is the "
-            "next slice of the port")
 
 
 def normalized_device(device) -> torch.device:
@@ -109,14 +103,24 @@ class Mesh:
         return tuple(dict.fromkeys(self.devices))
 
 
+def missing_cards(indices) -> str | None:
+    """What a mesh over the CUDA cards ``indices`` lacks on this host
+    (None: nothing)."""
+    count = torch.cuda.device_count()
+    missing = [i for i in indices if i >= count]
+    if not missing:
+        return None
+    names = f"cuda:{missing[0]}" + (f" … cuda:{missing[-1]}" if len(missing) > 1 else "")
+    return (f"the mesh names {names} ({len(missing)} card{'s' * (len(missing) != 1)} "
+            f"missing), but this host has {count} CUDA card{'s' * (count != 1)}")
+
+
 def require_cards(devices) -> None:
     """Raise unless every CUDA device of ``devices`` is a card this host
     has: a mesh never runs on fewer cards than it names."""
-    count = torch.cuda.device_count()
-    for d in devices:
-        if d.type == "cuda" and d.index >= count:
-            raise RuntimeError(f"the mesh names {d}, but this host has {count} CUDA "
-                               f"card{'s' * (count != 1)}")
+    missing = missing_cards([d.index for d in devices if d.type == "cuda"])
+    if missing:
+        raise RuntimeError(missing)
 
 
 def make_row_blocks_mesh(shards: int | None = None, *, device=None, devices=None) -> Mesh:
@@ -157,46 +161,56 @@ def make_row_blocks_mesh(shards: int | None = None, *, device=None, devices=None
 
 def make_local_mesh(data: int | None = None, model: int = 1, *, device=None,
                     devices=None) -> Mesh:
-    """The model's ``("data", "model")`` mesh, ``model`` = 1.
+    """The model's ``("data", "model")`` mesh of ``data`` × ``model``
+    positions, position ``c·model + m`` at data index c and model index m.
 
-    ``devices``: one CUDA card a position (``data``, if given, must count
-    them). ``device``: ``data`` positions (default 1) all on it, the
-    port's counterpart of the reference's forced host devices; the tests
-    pass ``device="cpu"``. Neither: ``data`` cards, one a position, or
-    with ``data=None`` every visible card, as the reference's mesh takes
-    every device (raising without a GPU). A card the host does not have
-    raises; ``model > 1`` is refused (:func:`model_axis_refused`)."""
-    if model != 1:
-        raise ValueError(model_axis_refused(f"a local mesh of data={data} x model={model}"))
+    ``devices``: one CUDA card a position, in that order (``data``, if
+    given, must make their count with ``model``). ``device``: the
+    positions (``data`` default 1) all on it, the port's counterpart of
+    the reference's forced host devices; the tests pass ``device="cpu"``.
+    Neither: ``data × model`` cards, one a position, or with
+    ``data=None`` every visible card over ``model``, as the reference's
+    mesh takes every device (raising without a GPU). A card the host does
+    not have raises."""
+    if model < 1:
+        raise ValueError(f"model must be >= 1, got {model}")
     if devices is not None:
         if device is not None:
             raise ValueError("pass device (one device for every position) or devices "
                              "(one card a position), not both")
         devices = tuple(normalized_device(d) for d in devices)
-        if data is not None and data != len(devices):
-            raise ValueError(f"data={data} but {len(devices)} devices")
+        if data is not None and data * model != len(devices):
+            raise ValueError(f"data={data} but {len(devices)} devices"
+                             + (f" for model={model}" if model > 1 else ""))
     elif device is not None:
-        devices = (resolve_device(device),) * (1 if data is None else data)
+        devices = (resolve_device(device),) * ((1 if data is None else data) * model)
     else:
         resolve_device(None)  # raises without a GPU
-        n = torch.cuda.device_count() if data is None else data
-        devices = tuple(torch.device("cuda", i) for i in range(n))
-    if len(devices) < 1:
-        raise ValueError(f"data must be >= 1, got {len(devices)}")
-    mesh = Mesh(("data", "model"), (len(devices), 1), devices)
+        n = torch.cuda.device_count() // model if data is None else data
+        devices = tuple(torch.device("cuda", i) for i in range(n * model))
+    if len(devices) < 1 or len(devices) % model:
+        raise ValueError(f"{len(devices)} devices do not make a mesh of model={model}")
+    mesh = Mesh(("data", "model"), (len(devices) // model, model), devices)
     require_cards(mesh.cards)
     return mesh
 
 
 def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
     """The reference's production mesh, (16, 16) ``("data", "model")`` or
-    (2, 16, 16) with an outer ``"pod"`` axis. Only ``device="meta"`` is
-    taken: a shapes-only mesh, every position ``meta``, for the dry run
-    (``repro_torch.launch.dryrun``), which reads its ``shape``. On any
-    other device it is refused: its ``model`` axis of 16 is the next
-    slice."""
+    (2, 16, 16) with an outer ``"pod"`` axis. ``device="meta"``: a
+    shapes-only mesh, every position ``meta``, for the dry run
+    (``repro_torch.launch.dryrun``), which reads its ``shape``. Otherwise
+    one CUDA card a position, refused on a host without its 256 (or 512)
+    cards, naming the missing ones."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    if device is None or torch.device(device).type != "meta":
-        raise ValueError(model_axis_refused(f"the production mesh {shape}"))
-    return Mesh(axes, shape, (torch.device("meta"),) * math.prod(shape))
+    n = math.prod(shape)
+    if device is not None and torch.device(device).type == "meta":
+        return Mesh(axes, shape, (torch.device("meta"),) * n)
+    if device is not None and torch.device(device).type != "cuda":
+        raise ValueError(f"the production mesh {shape} is one CUDA card a position "
+                         f"(or meta), not {device}")
+    missing = missing_cards(range(n))
+    if missing:
+        raise ValueError(f"the production mesh {shape}: {missing}")
+    return Mesh(axes, shape, tuple(torch.device("cuda", i) for i in range(n)))

@@ -16,8 +16,9 @@ takes every device (without a card the launcher raises rather than fall
 back to the CPU; ``--data N`` takes the first N cards); with
 ``--device``, ``--data`` positions (default 1) all on that device, the
 port's counterpart of the reference's forced host devices.
-``--production-mesh`` is refused: its ``model`` axis of 16 is the next
-slice. The model is trained dense, as in the reference
+``--production-mesh`` takes the reference's 16 × 16 mesh, one card a
+position, and is refused on a host without its 256 cards. The model is
+trained dense, as in the reference
 (``Model.sparsify`` is not called).
 
 ``main(argv)`` returns each step's metrics as floats,

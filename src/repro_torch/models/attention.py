@@ -28,6 +28,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import AttentionConfig
+from repro_torch.distribution import tensor_parallel as tp
 from repro_torch.models.layers import Init, dense_init, init_rms_norm, rms_norm, rounded
 
 Params = dict[str, Any]
@@ -257,6 +258,9 @@ def apply_gqa(
     rope_theta: float = 0.0,
     q_chunk: int = 1024,
 ) -> torch.Tensor:
+    if isinstance(p["w_q"], tp.Split):
+        return _apply_gqa_split(p, cfg, x, window=window, rope_theta=rope_theta,
+                                q_chunk=q_chunk)
     s = x.shape[1]
     theta = rope_theta or cfg.rope_theta
     positions = torch.arange(s, device=x.device)[None, :]
@@ -264,6 +268,53 @@ def apply_gqa(
     out = attend_causal(q, k, v, window=window, scale=1.0 / math.sqrt(cfg.head_dim),
                         q_chunk=q_chunk)
     return torch.einsum("bshk,hkd->bsd", out, p["w_o"])
+
+
+def kv_heads_of(h: int, hkv: int, m: int, positions: int) -> tuple[int, list[int]]:
+    """The KV heads model position ``m`` of ``positions`` attends with when
+    its query heads are ``[m·h/M, (m+1)·h/M)`` and the KV heads are whole
+    (``hkv`` does not split): the reference repeats KV to ``h`` heads
+    before it splits them, so query head j reads KV head ``j // (h/hkv)``.
+    Returns (the first KV head, how many of the position's query heads read
+    each KV head from there on)."""
+    per, group = h // positions, h // hkv
+    heads = [j // group for j in range(m * per, (m + 1) * per)]
+    return heads[0], [heads.count(i) for i in range(heads[0], heads[-1] + 1)]
+
+
+def _apply_gqa_split(p: Params, cfg: AttentionConfig, x: torch.Tensor, *, window: int,
+                     rope_theta: float, q_chunk: int) -> torch.Tensor:
+    """GQA with its query heads split over ``model`` (a group's
+    ``tensor_parallel.Split`` weights): ``w_q``/``w_k``/``w_v`` and their
+    biases column-parallel, ``w_o`` row-parallel. Each position computes
+    its query heads' attention and its partial output projection; the
+    partials are added in model order on ``x``'s device. KV heads that do
+    not split are whole: each position takes the ones its query heads
+    read (:func:`kv_heads_of`), repeated as the reference repeats them."""
+    devices = p["w_q"].devices
+    n = len(devices)
+    theta = rope_theta or cfg.rope_theta
+    whole = {k: tp.fan_out(w, devices) for k, w in p.items()
+             if k != "w_o" and not isinstance(w, tp.Split)}
+    xs = tp.fan_out(x, devices)
+    partials = []
+    for m, d in enumerate(devices):
+        pm = {k: whole[k][m] if k in whole else w.chunks[m] for k, w in p.items()}
+        counts = None
+        if not isinstance(p["w_k"], tp.Split):
+            lo, counts = kv_heads_of(cfg.num_heads, cfg.num_kv_heads, m, n)
+            for k, dim in (("w_k", 1), ("w_v", 1), ("b_k", 0), ("b_v", 0)):
+                if k in pm:
+                    pm[k] = pm[k].narrow(dim, lo, len(counts))
+        positions = torch.arange(x.shape[1], device=d)[None, :]
+        q, k, v = _gqa_qkv(pm, cfg, xs[m], positions, theta)
+        if counts is not None and len(counts) != q.shape[2]:
+            k, v = (torch.cat([t[:, :, i:i + 1].expand(-1, -1, c, -1)
+                               for i, c in enumerate(counts)], dim=2) for t in (k, v))
+        out = attend_causal(q, k, v, window=window, scale=1.0 / math.sqrt(cfg.head_dim),
+                            q_chunk=q_chunk)
+        partials.append(torch.einsum("bshk,hkd->bsd", out, pm["w_o"]))
+    return tp.fan_in(partials, x.device)
 
 
 def init_gqa_cache(
@@ -289,6 +340,7 @@ def prefill_gqa(
     q_chunk: int = 1024,
     donate: bool = False,
 ) -> tuple[torch.Tensor, Params]:
+    tp.refuse_serving(p["w_q"])
     s = x.shape[1]
     theta = rope_theta or cfg.rope_theta
     positions = torch.arange(s, device=x.device)[None, :]
@@ -344,6 +396,7 @@ def decode_gqa(
     rope_theta: float = 0.0,
     donate: bool = False,
 ) -> tuple[torch.Tensor, Params]:
+    tp.refuse_serving(p["w_q"])
     theta = rope_theta or cfg.rope_theta
     positions = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
     q, k, v = _gqa_qkv(p, cfg, x, positions, theta)

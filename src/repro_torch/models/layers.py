@@ -23,6 +23,8 @@ from typing import Any, Callable
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distribution import peer
+from repro_torch.distribution import tensor_parallel as tp
 from repro_torch.sparse import ops as sparse_ops
 from repro_torch.sparse.bcsr import BlockCSRMatrix
 from repro_torch.sparse.bsr import BlockSparseMatrix
@@ -255,12 +257,40 @@ def init_ffn(rng: Init, d_model: int, d_ff: int, glu: bool, dtype=torch.float32)
 
 def apply_ffn(p: Params, x: torch.Tensor, act: str, glu: bool, *,
               use_kernel: bool | None = None) -> torch.Tensor:
+    """The FFN; with its weights split over ``model`` (a group's
+    ``tensor_parallel.Split``), ``w_in``/``w_gate`` column-parallel and
+    ``w_out`` row-parallel: ``x`` fanned out, each position's partial
+    product fanned in on ``x``'s device. A sparse FFN is whole and runs
+    where ``x`` is."""
+    return row_parallel(_ffn, p, x, act, glu, use_kernel=use_kernel)
+
+
+def _ffn(p: Params, x: torch.Tensor, act: str, glu: bool, *,
+         use_kernel: bool | None = None) -> torch.Tensor:
     h = linear(p["w_in"], x, use_kernel=use_kernel)
     if glu:
         h = activation(linear(p["w_gate"], x, use_kernel=use_kernel), act) * h
     else:
         h = activation(h, act)
     return linear(p["w_out"], h, use_kernel=use_kernel)
+
+
+def row_parallel(body: Callable, p: Params, x: torch.Tensor, *args, **kw) -> torch.Tensor:
+    """``body(p, x, ...)`` for params whose leaves are all split over
+    ``model`` (column-parallel in, row-parallel out): ``x`` fanned out to
+    the positions, each position's ``body`` on its chunks, the partials
+    added in model order on ``x``'s device (``tensor_parallel.fan_in``).
+    Params held whole: ``body`` once, where ``x`` is."""
+    split = [isinstance(w, tp.Split) for w in p.values()]
+    if not any(split):
+        return body(p, x, *args, **kw)
+    if not all(split):
+        raise ValueError(f"an FFN split over model in part ({sorted(p)}): its weights share "
+                         "the hidden dim")
+    devices = next(iter(p.values())).devices
+    xs = tp.fan_out(x, devices)
+    return tp.fan_in([body({k: w.chunks[m] for k, w in p.items()}, xs[m], *args, **kw)
+                      for m in range(len(devices))], x.device)
 
 
 def sparsify_ffn(
@@ -291,6 +321,35 @@ def cross_entropy_loss(
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.clamp_min(0).long()[..., None])[..., 0]
     nll = lse - gold
+    if z_loss:
+        nll = nll + z_loss * lse**2
+    mask = (labels >= 0).float()
+    return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+
+
+def vocab_parallel_cross_entropy(chunks, labels: torch.Tensor, *,
+                                 z_loss: float = 0.0) -> torch.Tensor:
+    """:func:`cross_entropy_loss` of logits split over the vocab, chunk m
+    (vocab ``[m·V/M, (m+1)·V/M)``) on model position m's device, the loss
+    on ``labels``' device. Each position computes its chunk's max, its sum
+    of exponentials and its gold logit where it owns the label; the global
+    max is exact (the maximum of the maxima), the sums and golds are added
+    in model order (``tensor_parallel.fan_in``), and ``z_loss`` uses the
+    combined log-sum-exp."""
+    home = labels.device
+    size = chunks[0].shape[-1]
+    logits = [c.float() for c in chunks]
+    with torch.no_grad():
+        top = torch.stack([peer.to(torch.amax(lg, dim=-1), home) for lg in logits]).amax(0)
+    label = labels.clamp_min(0).long()
+    sums, golds = [], []
+    for m, lg in enumerate(logits):
+        local = peer.to(label, lg.device) - m * size
+        sums.append(torch.sum(torch.exp(lg - peer.to(top, lg.device)[..., None]), dim=-1))
+        gold = torch.gather(lg, -1, local.clamp(0, size - 1)[..., None])[..., 0]
+        golds.append(torch.where((local >= 0) & (local < size), gold, 0.0))
+    lse = top + torch.log(tp.fan_in(sums, home))
+    nll = lse - tp.fan_in(golds, home)
     if z_loss:
         nll = nll + z_loss * lse**2
     mask = (labels >= 0).float()

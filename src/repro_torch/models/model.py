@@ -19,10 +19,17 @@ features).
 
 ``use_kernel`` is handed to every FFN ``linear``: ``None`` (default)
 runs sparse FFN weights on the SpMM kernels when the tensors are on the
-card, ``False`` on the plain products. The reference's distributed
-embedding lookup and sharding constraints are ``table[ids]`` and the
-identity within a position of the port's data mesh
-(``distribution.sharding``), so the model calls neither.
+card, ``False`` on the plain products.
+
+A group of the model's mesh (``train.trainer``) passes params whose
+leaves split over ``model`` are ``distribution.tensor_parallel.Split``s:
+the embedding's d chunks (the lookup concatenates each position's
+columns, exact), the head's vocab chunks (an untied ``lm_head``'s own; a
+tied table resharded from d to vocab over ``model``, as the reference's
+``constrain(w, ("tp", None))``), and the logits stay split into the
+vocab-parallel cross entropy (``layers.vocab_parallel_cross_entropy``);
+``forward`` gathers them. Everything else of the reference's
+distributed lookup and constraints is ``table[ids]`` and the identity.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.distribution import tensor_parallel as tp
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (
     SPARSE,
@@ -45,6 +53,7 @@ from repro_torch.models.layers import (
     rms_norm,
     tree_leaves,
     tree_map,
+    vocab_parallel_cross_entropy,
 )
 
 Params = dict[str, Any]
@@ -111,27 +120,49 @@ class Model:
     def _embed(self, params: Params, inputs: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         if cfg.input_mode == "tokens":
-            x = params["embed"][inputs.long()]
+            table = params["embed"]
+            x = (tp.embed_lookup(table, inputs) if isinstance(table, tp.Split)
+                 else table[inputs.long()])
         elif cfg.input_mode == "embeddings":
             x = inputs  # (B, S, D) float stub frontend
         else:  # features — the paper's MLP operates on (B, m)
             x = inputs[:, None, :] if inputs.dim() == 2 else inputs
         return x.to(self.compute_dtype)
 
-    def _head(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+    def _head(self, params: Params, x: torch.Tensor):
+        """The logits, or, when the head is split over ``model``, their
+        vocab chunks (a ``tensor_parallel.Split`` along the last dim)."""
         cfg = self.cfg
         if cfg.input_mode == "features":
             return x  # output features ARE the logits (vocab = m)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        w = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+        if isinstance(w, tp.Split):
+            if cfg.tie_embeddings:  # the table d over model → vocab over model
+                if w.shape[0] % len(w.chunks):
+                    return torch.einsum("bsd,vd->bsv", x, tp.all_gather(w.chunks, 1, x.device))
+                chunks = tp.reshard(w.chunks, 1, 0)
+            else:
+                chunks = w.chunks
+            xs = tp.fan_out(x, w.devices)
+            spec = "bsd,vd->bsv" if cfg.tie_embeddings else "bsd,dv->bsv"
+            return tp.Split(tuple(torch.einsum(spec, xm, c.to(x.dtype))
+                                  for xm, c in zip(xs, chunks)), 2)
         if cfg.tie_embeddings:
-            return torch.einsum("bsd,vd->bsv", x, params["embed"].to(x.dtype))
-        return torch.einsum("bsd,dv->bsv", x, params["lm_head"].to(x.dtype))
+            return torch.einsum("bsd,vd->bsv", x, w.to(x.dtype))
+        return torch.einsum("bsd,dv->bsv", x, w.to(x.dtype))
 
     def forward(self, params: Params, inputs: torch.Tensor) -> torch.Tensor:
         return self.forward_with_aux(params, inputs)[0]
 
     def forward_with_aux(self, params: Params,
                          inputs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        logits, aux = self._logits(params, inputs)
+        if isinstance(logits, tp.Split):
+            logits = tp.all_gather(logits.chunks, 2, inputs.device)
+        return logits, aux
+
+    def _logits(self, params: Params, inputs: torch.Tensor):
         params = cast_floating(params, self.compute_dtype)
         x = self._embed(params, inputs)
         x, aux = tfm.apply_stack(params["stack"], self.cfg, x, use_kernel=self.use_kernel)
@@ -147,8 +178,11 @@ class Model:
         mesh: the ce is weighted by the position's share of the unmasked
         labels and the MoE aux loss by its share of the token groups, so
         the positions' losses and metrics add up to the global ones."""
-        logits, aux = self.forward_with_aux(params, batch["inputs"])
-        ce = cross_entropy_loss(logits, batch["labels"], z_loss=1e-4)
+        logits, aux = self._logits(params, batch["inputs"])
+        if isinstance(logits, tp.Split):
+            ce = vocab_parallel_cross_entropy(logits.chunks, batch["labels"], z_loss=1e-4)
+        else:
+            ce = cross_entropy_loss(logits, batch["labels"], z_loss=1e-4)
         if shares is not None:
             ce, aux = shares[0] * ce, shares[1] * aux
         aux_w = self.cfg.moe.aux_loss_weight if self.cfg.moe else 0.0

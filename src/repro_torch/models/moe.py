@@ -2,6 +2,14 @@
 routing with GShard-style dense dispatch/combine (capacity-bounded),
 shared experts, Switch aux loss.
 
+On the model's mesh the expert banks are split over ``model`` (experts
+``[m·E/M, (m+1)·E/M)`` on position m): the router, the dispatch and the
+combine run once a group on its home device, each position runs its
+experts on its slice of the dispatched tokens (``tensor_parallel.scatter``),
+and the experts' outputs are concatenated back in model order (exact)
+before the combine. The reference all-reduces the combine over ``model``
+instead; the shared experts follow the FFN's column/row-parallel split.
+
 The dispatch is expressed as einsums over a (groups, tokens, experts,
 capacity) one-hot tensor, as the reference computes it. Tokens over
 capacity are dropped (the residual passes them through). Capacity
@@ -18,7 +26,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
-from repro_torch.models.layers import Init, activation, dense_init
+from repro_torch.distribution import tensor_parallel as tp
+from repro_torch.models.layers import Init, activation, dense_init, row_parallel
 
 Params = dict[str, Any]
 
@@ -111,18 +120,36 @@ def apply_moe(
     aux = e * torch.mean(torch.sum(density * mean_prob, dim=-1))
 
     xe = torch.einsum("gsd,gsec->egcd", x, dispatch.to(x.dtype))  # tokens → experts
+    banks = {k: p[k] for k in ("w_in", "w_gate", "w_out") if k in p}
+    if isinstance(p["w_in"], tp.Split):
+        # experts over model: each position runs its experts' slice of xe, and
+        # their outputs come back whole (exact) for the combine, once a group
+        devices = p["w_in"].devices
+        xes = tp.scatter(xe, 0, devices)
+        ye = tp.all_gather([_experts({k: w.chunks[m] for k, w in banks.items()}, xes[m], act,
+                                     glu) for m in range(len(devices))], 0, xe.device)
+    else:
+        ye = _experts(banks, xe, act, glu)
+    y = torch.einsum("egcd,gsec->gsd", ye, combine.to(x.dtype))  # experts → tokens
+
+    if "shared" in p:
+        y = y + row_parallel(_shared, p["shared"], x, act)
+    return y.reshape(b, s0, d), aux
+
+
+def _experts(p: Params, xe: torch.Tensor, act: str, glu: bool) -> torch.Tensor:
+    """Each expert's FFN on its tokens: ``xe`` (E, G, C, D) → (E, G, C, D)."""
     h = torch.einsum("egcd,edf->egcf", xe, p["w_in"])
     if glu:
         gate = torch.einsum("egcd,edf->egcf", xe, p["w_gate"])
         h = activation(gate, act) * h
     else:
         h = activation(h, act)
-    ye = torch.einsum("egcf,efd->egcd", h, p["w_out"])
-    y = torch.einsum("egcd,gsec->gsd", ye, combine.to(x.dtype))  # experts → tokens
+    return torch.einsum("egcf,efd->egcd", h, p["w_out"])
 
-    if "shared" in p:
-        sp = p["shared"]
-        hs = torch.einsum("gsd,df->gsf", x, sp["w_in"])
-        hs = activation(torch.einsum("gsd,df->gsf", x, sp["w_gate"]), act) * hs
-        y = y + torch.einsum("gsf,fd->gsd", hs, sp["w_out"])
-    return y.reshape(b, s0, d), aux
+
+def _shared(sp: Params, x: torch.Tensor, act: str) -> torch.Tensor:
+    """The shared experts, a GLU FFN over every token."""
+    hs = torch.einsum("gsd,df->gsf", x, sp["w_in"])
+    hs = activation(torch.einsum("gsd,df->gsf", x, sp["w_gate"]), act) * hs
+    return torch.einsum("gsf,fd->gsd", hs, sp["w_out"])

@@ -7,7 +7,10 @@ period position's leaves are stacked on a leading ``n_periods`` axis (a
 sparse FFN weight as a stacked :class:`BlockSparseMatrix`, index and mask
 tensors included). The reference scans the period; the port loops over
 it in Python and runs layer ``i`` on views of slice ``i``
-(``tree_index``). ``remat`` has no meaning here and is ignored.
+(``tree_index``). ``remat`` has no meaning here and is ignored. On the
+model's mesh a group's leaves split over ``model`` are
+``tensor_parallel.Split``s, split on a dim after the stacked layer dim
+(which is never split), so ``tree_index`` takes each position's slice i.
 
 Three execution paths per layer, all cache-structure compatible:
   * ``apply_layer``   — forward without a cache; returns (x, aux_loss)
@@ -32,6 +35,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.distribution import tensor_parallel as tp
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
@@ -92,8 +96,19 @@ def init_layer(rng: Init, cfg: ModelConfig, spec: LayerSpec, dtype=torch.float32
 
 
 def _relu_mlp(f: Params, x: torch.Tensor, use_kernel) -> torch.Tensor:
-    """The paper's Fig. 4 layer: max(x W + b, 0)."""
-    return torch.clamp_min(linear(f["w"], x, use_kernel=use_kernel) + f["b"], 0.0)
+    """The paper's Fig. 4 layer: max(x W + b, 0). With ``w`` and ``b``
+    split over ``model`` (output columns), each position computes its
+    columns, ReLU is local, and the next layer's input is their
+    concatenation in model order on ``x``'s device. A sparse ``w`` is
+    whole and runs where ``x`` is, with ``b`` gathered there."""
+    w, b = f["w"], f["b"]
+    if isinstance(w, tp.Split):
+        xs = tp.fan_out(x, w.devices)
+        return tp.all_gather([_relu_mlp({"w": w.chunks[m], "b": b.chunks[m]}, xs[m], use_kernel)
+                              for m in range(len(xs))], -1, x.device)
+    if isinstance(b, tp.Split):
+        b = tp.all_gather(b.chunks, 0, x.device)
+    return torch.clamp_min(linear(w, x, use_kernel=use_kernel) + b, 0.0)
 
 
 def _apply_mixer(p: Params, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor) -> torch.Tensor:

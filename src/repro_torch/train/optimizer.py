@@ -12,12 +12,13 @@ Not ``torch.optim``: the reference clips by the global norm of every
 float gradient and decays every float parameter, biases included, and
 these follow it step for step.
 
-On the model's data mesh the leaves are ``distribution.sharding.Placed``,
-one chunk a position: :func:`global_norm` of placed gradients is one
-scalar added in card order, and :func:`update_placed` runs the update
-position by position on the chunks with that one norm. The updates are
-elementwise, so a chunk's update is the whole update's slice, and the
-copies of a leaf every position holds stay the same bits.
+On the model's mesh the leaves are ``distribution.sharding.Placed``, one
+chunk a position: :func:`global_norm` of placed gradients is one scalar
+added in card order, each distinct chunk counted once, and
+:func:`update_placed` runs the update position by position on the chunks
+with that one norm. The updates are elementwise, so a chunk's update is
+the whole update's slice, and the copies of a leaf held whole along an
+axis (over ``data``, ``model`` or both) stay the same bits.
 """
 
 from __future__ import annotations
@@ -57,8 +58,9 @@ def _lr_at(lr, step: torch.Tensor) -> float:
 def global_norm(tensors: Sequence) -> torch.Tensor:
     """sqrt of the sum of squares of every floating-point tensor. Of
     placed gradients (``Placed`` leaves): each position's sum of squares
-    over its own chunks, a leaf every position holds counted once (on
-    position 0), the positions' sums added in card order on position 0's
+    over its own chunks, each distinct chunk counted once (a leaf whole
+    along ``data`` on data index 0, one whole along ``model`` on model
+    index 0), the positions' sums added in card order on position 0's
     device; the same bits on one device or across cards."""
     from repro_torch.distribution import peer
     from repro_torch.distribution.sharding import Placed
@@ -68,10 +70,13 @@ def global_norm(tensors: Sequence) -> torch.Tensor:
         sq = [torch.sum(t.float() ** 2) for t in live]
         return torch.sqrt(torch.stack(sq).sum()) if sq else torch.zeros(())
     devices = live[0].sharding.devices
+    m_size = live[0].sharding.model_size
     sums = []
-    for c, device in enumerate(devices):
-        sq = [torch.sum(t.chunks[c].float() ** 2) for t in live
-              if c == 0 or t.sharding.dim is not None]
+    for p, device in enumerate(devices):
+        c, m = divmod(p, m_size)
+        sq = [torch.sum(t.chunks[p].float() ** 2) for t in live
+              if (c == 0 or t.sharding.data_dim is not None)
+              and (m == 0 or t.sharding.model_dim is not None)]
         sums.append(peer.to(torch.stack(sq).sum() if sq else torch.zeros((), device=device),
                             devices[0]))
     return torch.sqrt(peer.shard_order_sum(sums))

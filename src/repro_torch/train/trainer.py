@@ -19,28 +19,37 @@ backward (``models.layers.linear`` → ``kernels.autodiff``): a
 ``bsr_spmm`` launch forward and, for an input that needs a gradient, a
 ``bcsr_spmm`` launch on the ELL transpose backward.
 
-On the model's data mesh (``launch.mesh.make_local_mesh(data=N)``) the
-state is placed (``init_train_state(..., mesh=)``, or
+On the model's mesh (``launch.mesh.make_local_mesh(data=D, model=M)``)
+the state is placed (``init_train_state(..., mesh=)``, or
 ``distribution.sharding.place`` with :func:`state_shardings`): each leaf
-stored as ``param_pspecs`` says, one chunk a position. The same
-``train_step`` then computes the reference's step as GSPMD runs it, from
-one process, in a fixed order:
+stored as ``param_pspecs`` says, one chunk a position. The M positions of
+a data index form its group. The same ``train_step`` then computes the
+reference's step as GSPMD runs it, from one process, in a fixed order:
 
-1. each device gathers every leaf whole once a step (positions on one
-   device share the copy);
-2. each position runs :func:`loss_and_grads` on its rows of each
-   microbatch (``sharding.split_batch``), its ce weighted by its share of
-   the microbatch's unmasked labels and its MoE aux loss by its share of
-   the token groups (1/N), so the positions' losses add up to the global
-   mean (a split whose MoE groups would cross positions is refused);
-3. each position's gradients are added onto the owners at once, in card
-   order (``sharding.constrain_like_params``), one position's whole
-   gradient alive at a time;
+1. each group gathers its leaves once a step: each position its ``model``
+   chunk of every leaf split over ``model``, whole along ``data``
+   (``tensor_parallel.Split``), and the group's home position (model
+   index 0) every other leaf whole (positions on one device share the
+   copy);
+2. for each data index in order, its group runs :func:`loss_and_grads`
+   once on its rows of each microbatch (``sharding.split_batch``): heads,
+   hidden columns, experts and vocab on their positions, the collectives
+   of ``distribution.tensor_parallel`` in the forward and autograd
+   through them, layers whose weights are whole once on the home device.
+   Its ce is weighted by its share of the microbatch's unmasked labels and
+   its MoE aux loss by its share of the token groups (1/D), so the groups'
+   losses add up to the global mean (a split whose MoE groups would cross
+   data indices is refused);
+3. each group's gradients are added onto the owners at once, in card
+   order, per ``model`` chunk (``sharding.constrain_like_params``), one
+   group's gradients alive at a time;
 4. the optimizer updates each position's chunks with one global norm
    (``optimizer.update_placed``).
 
-So N positions on one device and N cards give the same bits, and one
-position gives the unplaced step's bits.
+So D × M positions on one device and D × M cards give the same bits, and
+``model`` = 1 gives the data mesh's step, one position the unplaced
+step's bits. On ``model`` > 1 a config with an MLA, Mamba or RWKV-6 mixer
+is refused (``tensor_parallel.refuse_unported``).
 """
 
 from __future__ import annotations
@@ -50,6 +59,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.distribution import peer
+from repro_torch.distribution import tensor_parallel as tp
 from repro_torch.distribution.sharding import (
     Placed,
     constrain_like_params,
@@ -84,6 +94,7 @@ def init_train_state(model: Model, optimizer: Optimizer, generator: torch.Genera
     if mesh is None:
         params = model.init(generator, device=device)
         return TrainState(params, optimizer.init(checkpoint.leaves(params)))
+    tp.refuse_unported(model.cfg, mesh)
     params = model.init(generator, device=mesh.device if device is None else device)
     params = place(params, shardings_for(None, mesh, param_pspecs(model.cfg, params, mesh,
                                                                   rules)))
@@ -95,6 +106,7 @@ def state_shardings(cfg, state: TrainState, mesh, rules=None) -> TrainState:
     ``Sharding`` by ``param_pspecs``, each moment its param's, and None
     (left on the host) for the step and SGD's unused scalar moment. The
     ``shardings=`` of ``checkpoint.restore``."""
+    tp.refuse_unported(cfg, mesh)
     ps = shardings_for(None, mesh, param_pspecs(cfg, state.params, mesh, rules))
     flat = checkpoint.leaves(ps)
 
@@ -115,17 +127,26 @@ def loss_and_grads(model: Model, params, batch, *, shares=None) -> tuple[torch.T
     allow_int=True)``, with the gradients as the flat list of
     :func:`checkpoint.leaves` (``None`` for an index leaf, zeros for a
     float leaf the loss does not reach). ``shares``: ``model.loss``'s, a
-    position's shares of a global batch."""
-    flat = [leaf.detach().requires_grad_() if _is_float(leaf) else leaf
-            for leaf in checkpoint.leaves(params)]
-    live = [leaf for leaf in flat if _is_float(leaf)]
+    group's shares of a global batch. A leaf split over ``model``
+    (``tensor_parallel.Split``) gets its gradient as a ``Split`` of its
+    chunks' gradients, each on its chunk's device."""
+    def fresh(t):
+        return t.detach().requires_grad_()
+
+    flat = [(leaf.map(fresh) if isinstance(leaf, tp.Split) else fresh(leaf))
+            if _is_float(leaf) else leaf for leaf in checkpoint.leaves(params)]
+    live = [t for leaf in flat if _is_float(leaf)
+            for t in (leaf.chunks if isinstance(leaf, tp.Split) else (leaf,))]
     with torch.enable_grad():
         loss, metrics = model.loss(checkpoint.with_leaves(params, flat), batch, shares=shares)
         got = iter(torch.autograd.grad(loss, live, allow_unused=True))
-    grads = []
-    for leaf in flat:
-        g = next(got) if _is_float(leaf) else None
-        grads.append(torch.zeros_like(leaf) if g is None and _is_float(leaf) else g)
+
+    def grad(t):
+        g = next(got)
+        return torch.zeros_like(t) if g is None else g
+
+    grads = [(leaf.map(grad) if isinstance(leaf, tp.Split) else grad(leaf))
+             if _is_float(leaf) else None for leaf in flat]
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
@@ -152,37 +173,65 @@ def _shares(labels: torch.Tensor, microbatches: int, n: int) -> torch.Tensor:
     return counts / torch.clamp_min(counts.sum(1, keepdim=True), 1.0)
 
 
+def _group_params(state_params, owners: list, mesh) -> list:
+    """Each group's params tree (the module docstring's step 1): a leaf
+    split over ``model`` as a ``Split`` of its positions' chunks, every
+    other leaf whole on the group's home device. Copies are shared between
+    groups whose positions share a device."""
+    m_size = mesh.shape.get("model", 1)
+    copies: dict = {}
+
+    def copy(j, device, m=None):
+        key = (j, device, m)
+        if key not in copies:
+            copies[key] = owners[j].gather(device, m)
+        return copies[key]
+
+    trees = []
+    for c in range(len(mesh.devices) // m_size):
+        group = mesh.devices[c * m_size:(c + 1) * m_size]
+        leaves = []
+        for j, leaf in enumerate(owners):
+            dim = leaf.sharding.model_dim
+            leaves.append(copy(j, group[0]) if dim is None else
+                          tp.Split(tuple(copy(j, d, m) for m, d in enumerate(group)), dim))
+        trees.append(checkpoint.with_leaves(state_params, leaves))
+    return trees
+
+
 def _placed_step(model: Model, optimizer: Optimizer, microbatches: int, state: TrainState,
                  batch) -> tuple[TrainState, dict]:
     """The train step on a placed state (the module docstring's 1-4)."""
     owners = checkpoint.leaves(state.params)
     mesh = owners[0].sharding.mesh
-    devices, n = mesh.devices, len(mesh.devices)
+    tp.refuse_unported(model.cfg, mesh)
+    m_size = mesh.shape.get("model", 1)
+    homes = mesh.devices[::m_size]
+    n = len(homes)
     split = split_batch(batch, mesh, microbatches)
     _check_moe_groups(model.cfg, split[0][0], n)
     shares = _shares(batch["labels"], microbatches, n)
-    # every position's rows and shares on its device before any work is queued
+    # every group's rows and shares on its home device before any work is queued
     staged = [[({k: peer.to(v, d) for k, v in split[i][c].items()},
-                (peer.to(shares[i, c], d), 1.0 / n)) for c, d in enumerate(devices)]
+                (peer.to(shares[i, c], d), 1.0 / n)) for c, d in enumerate(homes)]
               for i in range(microbatches)]
-    whole = {d: checkpoint.with_leaves(state.params, [leaf.gather(d) for leaf in owners])
-             for d in mesh.cards}
+    groups = _group_params(state.params, owners, mesh)
     acc, loss, metrics = None, None, None
     for i in range(microbatches):
         terms = []
-        for c, d in enumerate(devices):
+        for c in range(n):
             rows, sh = staged[i][c]
-            loss_c, metrics_c, g = loss_and_grads(model, whole[d], rows, shares=sh)
+            loss_c, metrics_c, g = loss_and_grads(model, groups[c], rows, shares=sh)
             acc = constrain_like_params(g, owners=owners, into=acc)
             del g
-            terms.append((peer.to(loss_c, devices[0]),
-                          {k: peer.to(v, devices[0]) for k, v in metrics_c.items()}))
+            terms.append((peer.to(loss_c, homes[0]),
+                          {k: peer.to(v, homes[0]) for k, v in metrics_c.items()}))
         loss_i = peer.shard_order_sum([t[0] for t in terms])
         metrics_i = {k: peer.shard_order_sum([t[1][k] for t in terms]) for k in terms[0][1]}
         loss = loss_i if loss is None else loss + loss_i
         metrics = metrics_i if metrics is None else {k: metrics[k] + metrics_i[k]
                                                      for k in metrics}
-    del whole
+    del groups
     grads = [None if a is None else Placed(tuple(a), leaf.sharding)
              for a, leaf in zip(acc, owners)]
     if microbatches > 1:

@@ -1529,3 +1529,48 @@ def test_cards_each_card_stores_its_chunks():
         want = sum(ch.numel() * ch.element_size() for ch in chunks)
         grew = torch.cuda.memory_allocated(c) - before[i]
         assert want <= grew <= want + 512 * len(chunks), (c, want, grew)
+
+
+def test_a_model_mesh_sparse_step_launches_the_spmm_kernels_on_each_group_home_card(cuda):
+    """A 2 × 2 mesh on one card: each group runs its block-sparse FFNs once,
+    on its home card (card 0 for both), 2 groups × 2 microbatches × each
+    projection's forward and dX launches; against one position, the loss
+    within 1e-5 and each updated leaf within 1e-4 of its max."""
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.train import checkpoint
+
+    model, batch = _data_mesh_model(sparse=True)
+    s4, m4, l4 = _data_step(model, batch, make_local_mesh(2, model=2, device="cuda"))
+    s1, m1, _ = _data_step(model, batch, make_local_mesh(1, device="cuda"))
+    assert abs(m4["loss"] - m1["loss"]) <= 1e-5 * abs(m1["loss"])
+    n = 2 * 3 * model.cfg.num_layers
+    assert l4["cuda:0"]["bsr_spmm"] == l4["cuda:0"]["bcsr_spmm"] == 2 * n
+    assert any(x.sharding.model_dim is not None for x in checkpoint.leaves(s4.params))
+    for a, b in zip(checkpoint.leaves(s4.params), checkpoint.leaves(s1.params)):
+        want = b.gather("cuda:0").float()
+        err = float((a.gather("cuda:0").float() - want).abs().max())
+        assert err <= 1e-4 * max(float(want.abs().max()), 1e-30)
+
+
+@pytest.mark.parametrize("sparse", [False, True])
+def test_cards_a_2x2_model_mesh_step_is_the_2x2_one_card_step_bit_for_bit(sparse):
+    """The 2 × 2 ``data`` × ``model`` step on 4 cards (groups on cards 0-1
+    and 2-3) against the same mesh on card 0: the same metrics and every
+    chunk of the new state bit for bit; a sparse model's launches on the
+    groups' home cards, 0 and 2, only."""
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.train import checkpoint
+
+    cards = _cards(4)
+    model, batch = _data_mesh_model(sparse)
+    s1, m1, _ = _data_step(model, batch, make_local_mesh(2, model=2, device=cards[0]))
+    s4, m4, l4 = _data_step(model, batch, make_local_mesh(2, model=2, devices=cards))
+    assert m1 == m4
+    for tree1, tree4 in ((s1.params, s4.params), (s1.opt.mu, s4.opt.mu), (s1.opt.nu, s4.opt.nu)):
+        for x, y in zip(checkpoint.leaves(tree1), checkpoint.leaves(tree4)):
+            assert [c.device for c in y.chunks] == cards
+            for a, b in zip(x.chunks, y.chunks):
+                assert torch.equal(a.to(b.device), b)
+    n = 2 * 3 * model.cfg.num_layers if sparse else 0
+    assert {d: (c["bsr_spmm"], c["bcsr_spmm"]) for d, c in l4.items()} == {
+        str(c): (n, n) if i % 2 == 0 else (0, 0) for i, c in enumerate(cards)}

@@ -239,8 +239,10 @@ def test_the_local_mesh_and_its_refusals():
     mesh = four_positions()
     assert mesh.shape == {"data": 4, "model": 1} and mesh.cards == (torch.device("cpu"),)
     assert make_local_mesh(device="cpu").shape == {"data": 1, "model": 1}
-    with pytest.raises(ValueError, match="model axis .* is the next slice"):
-        make_local_mesh(data=2, model=2, device="cpu")
+    grid = make_local_mesh(data=2, model=2, device="cpu")
+    assert grid.shape == {"data": 2, "model": 2} and grid.devices == (torch.device("cpu"),) * 4
+    with pytest.raises(ValueError, match="data=2 but 2 devices for model=2"):
+        make_local_mesh(2, model=2, devices=["cuda:0", "cuda:1"])
     with pytest.raises(ValueError, match="data=3 but 2 devices"):
         make_local_mesh(3, devices=["cuda:0", "cuda:1"])
     with pytest.raises(RuntimeError, match="this host has|CUDA"):

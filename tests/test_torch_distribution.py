@@ -176,15 +176,27 @@ def test_embed_lookup_and_constrain_on_one_device():
 
 
 def test_model_meshes_past_one_device_are_refused():
-    """The model axis past 1 (the next slice) and the production mesh off
-    ``meta``; the data axis over positions is built (``test_torch_data_mesh.py``)."""
+    """What the model axis refuses: MLA, Mamba and RWKV-6 mixers on
+    ``model`` > 1 (the next slice), and the production mesh on a host
+    without its cards. ``data`` × ``model`` meshes build
+    (``test_torch_model_mesh.py`` trains on them)."""
+    from repro_torch.train import sgd
+    from repro_torch.train.trainer import init_train_state
+
     assert make_local_mesh(device="cpu", data=2).shape == {"data": 2, "model": 1}
     for kw in ({"model": 2}, {"data": 2, "model": 2}):
-        with pytest.raises(ValueError, match="model axis .* is the next slice"):
-            make_local_mesh(device="cpu", **kw)
+        mesh = make_local_mesh(device="cpu", **kw)
+        assert mesh.shape == {"data": kw.get("data", 1), "model": 2}
+        for arch in ("deepseek-v2-236b", "jamba-v0.1-52b", "rwkv6-3b"):
+            model = Model(get_config(arch).scaled_down())
+            with pytest.raises(ValueError, match="is the next slice"):
+                init_train_state(model, sgd(1e-2), torch.Generator().manual_seed(0), mesh=mesh)
+        init_train_state(Model(get_config("llama3.2-1b").scaled_down()), sgd(1e-2),
+                         torch.Generator().manual_seed(0), mesh=mesh)
     for multi_pod in (False, True):
-        with pytest.raises(ValueError, match="production mesh"):
+        with pytest.raises(ValueError, match=r"production mesh .*cuda:\d+ … cuda:\d+"):
             make_production_mesh(multi_pod=multi_pod)
+    assert make_production_mesh(device="meta").shape == {"data": 16, "model": 16}
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             make_local_mesh()  # entry points default to the card

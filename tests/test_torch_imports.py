@@ -38,7 +38,8 @@ SLICE_MODULES = ("repro_torch.tune.table", "repro_torch.tune.sweep",
                  "repro_torch.launch.serve", "repro_torch.data.pipeline",
                  "repro_torch.train.trainer", "repro_torch.launch.train",
                  "repro_torch.distribution.collectives", "repro_torch.launch.specs",
-                 "repro_torch.launch.dryrun", "repro_torch.distribution.peer")
+                 "repro_torch.launch.dryrun", "repro_torch.distribution.peer",
+                 "repro_torch.distribution.tensor_parallel")
 
 
 def test_every_module_imports_without_jax():

@@ -78,8 +78,10 @@ def test_mixed_meshes_and_missing_cards_are_refused():
         make_row_blocks_mesh(3, devices=CARDS[:2])
     with pytest.raises(ValueError, match="not both"):
         make_row_blocks_mesh(device="cpu", devices=CARDS)
-    with pytest.raises(ValueError, match="model axis .* is the next slice"):
-        make_local_mesh(data=2, model=2, device="cpu")
+    with pytest.raises(ValueError, match="4 devices do not make a mesh of model=3"):
+        make_local_mesh(model=3, devices=CARDS)
+    with pytest.raises(RuntimeError, match="this host has"):
+        make_local_mesh(data=1, model=len(too_many), devices=too_many)
 
 
 @pytest.mark.parametrize("n_row_blocks, n_bands", [(64, 4), (64, 8), (7, 3), (2, 4), (1, 1)])

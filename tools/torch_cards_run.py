@@ -26,8 +26,11 @@ Llama-3.2-1B at published width, dense and with every FFN block-pruned,
 4 cards: the same loss, metrics and every chunk of the new state bit for
 bit, and the sparse model's launches on each card), then
 ``chip_smoke.py``'s ``llm-train-data`` and ``launch-train-data`` over
-the 4 cards. Naming phases runs those alone (``device`` and ``cards``
-always run first).
+the 4 cards. The model axis: ``model-cards-bits`` (the same step on the
+2 × 2 ``data`` × ``model`` mesh, on card 0 and on 4 cards, the same bits;
+the sparse model's launches on each group's home card), then
+``chip_smoke.py``'s ``llm-train-model`` over the 4 cards. Naming phases
+runs those alone (``device`` and ``cards`` always run first).
 
 ``copy-modes`` times one layer of RadiX-net 65536 × 120 over the cards
 (4 shards, 512 columns) and a whole forward with two ways of copying
@@ -159,11 +162,12 @@ def copy_modes(neurons=65536, layers=120, shards=4, width=512, density=0.45,
 
 
 def data_cards_bits(arch="llama3.2-1b", seq_len=128, global_batch=8, microbatches=2,
-                    positions=4, block=128, blocks_per_row=4, seed=0) -> dict:
-    """One train step from the same weights and batch on ``positions``
-    positions of card 0 and on as many cards: metrics and every chunk of
-    the new state (params and moments) must be the same bits; the sparse
-    model's launches split by card."""
+                    positions=4, block=128, blocks_per_row=4, seed=0, model_axis=1) -> dict:
+    """One train step from the same weights and batch on a mesh of
+    ``positions`` positions (``positions / model_axis`` × ``model_axis``)
+    on card 0 and on as many cards: metrics and every chunk of the new
+    state (params and moments) must be the same bits; the sparse model's
+    launches split by card (each group's on its home card)."""
     import dataclasses
 
     import torch
@@ -178,8 +182,10 @@ def data_cards_bits(arch="llama3.2-1b", seq_len=128, global_batch=8, microbatche
     from repro_torch.train.optimizer import init_placed, warmup_cosine
     from repro_torch.train.trainer import TrainState, make_train_step
 
-    one = make_local_mesh(positions, device="cuda:0")
-    cards = make_local_mesh(devices=[f"cuda:{i}" for i in range(positions)])
+    data = positions // model_axis
+    one = make_local_mesh(data, model=model_axis, device="cuda:0")
+    cards = make_local_mesh(data, model=model_axis,
+                            devices=[f"cuda:{i}" for i in range(positions)])
     cfg = get_config(arch)
     batch = {k: torch.from_numpy(v) for k, v in
              SyntheticLM(cfg.vocab_size, seq_len, global_batch, seed=seed).batch(0).items()}
@@ -213,15 +219,18 @@ def data_cards_bits(arch="llama3.2-1b", seq_len=128, global_batch=8, microbatche
                      "launches_one_card": l1, "launches_by_card": l4}
         if name == "sparse":
             n = 3 * cfg.num_layers * microbatches
-            smoke.check(all(c["bsr_spmm"] == c["bcsr_spmm"] == n for c in l4.values())
-                        and all(c["bsr_spmm"] == positions * n for c in l1.values()),
+            homes = cards.devices[::model_axis]
+            smoke.check(all(c["bsr_spmm"] == c["bcsr_spmm"] == n * homes.count(torch.device(d))
+                            for d, c in l4.items())
+                        and all(c["bsr_spmm"] == data * n for c in l1.values()),
                         ("sparse launches by card", l1, l4))
         del runs, s1, s4, leaves1, leaves4
-    return {"arch": arch, "positions": positions, "cards": len(cards.cards), **out}
+    return {"arch": arch, "mesh": dict(cards.shape), "cards": len(cards.cards), **out}
 
 
 PHASES = ("copy-modes", "sharded", "sharded-cards", "sharded-train", "sharded-cards-train",
-          "capture-across-cards", "data-cards-bits", "llm-train-data", "launch-train-data")
+          "capture-across-cards", "data-cards-bits", "llm-train-data", "launch-train-data",
+          "model-cards-bits", "llm-train-model")
 
 
 def main(argv=None) -> int:
@@ -259,6 +268,11 @@ def main(argv=None) -> int:
     if "launch-train-data" in chosen:
         smoke.emit({"phase": "launch-train-data",
                     **smoke.phase_launch_train_data(**smoke.LAUNCH_TRAIN_DATA)})
+    if "model-cards-bits" in chosen:
+        smoke.emit({"phase": "model-cards-bits", **data_cards_bits(model_axis=2)})
+    if "llm-train-model" in chosen:
+        smoke.emit({"phase": "llm-train-model",
+                    **smoke.phase_llm_train_model(**smoke.LLM_TRAIN_MODEL)})
     print(dev["nvidia_smi"], flush=True)
     return 0
 

@@ -265,10 +265,22 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    group on its home card, none on the others); topology unchanged. Then
    Moonlight-16B-A3B at published width cut to its dense first layer and
    one MoE layer (1.3 B parameters), its 64 experts 32 a model position,
-   one step held the same way. Prints step ms on the host clock, each
-   card's device ms and peak memory, stored bytes, the groups' gather and
-   reduce bytes and ms, and the model axis's exchanges a step (bytes by
-   collective, and ms replayed on their own).
+   one step held the same way. Then the other mixers at published width
+   (``MIXER_CUTS``): DeepSeek-V2 cut to its dense first layer (MLA over
+   heads), Jamba to one Mamba layer with its dense FFN (``di`` over
+   ``model``, ``in_proj``'s ``[x_in | z]`` regrouped), RWKV-6 to 8 of its
+   32 layers (time mix over heads, channel mix over ``d_ff``), each one
+   f32-compute step held against the one-position step as above (RWKV-6,
+   ``MIXER_HELD_IN_F64``: held so in f64, and at f32 its loss held and
+   its gradients measured beside the data mesh's own spread), then one
+   step at the config's compute dtype; and Jamba's layer again with
+   its FFN pruned to 4 blocks of 128 × 128 a row, whole on each group's
+   home card, its ``bsr_spmm``/``bcsr_spmm`` launches held to the count
+   from shapes and added to this phase's. Prints step ms on the host
+   clock, each card's device ms and peak memory, stored bytes, the
+   groups' gather and reduce bytes and ms, and the model axis's exchanges
+   a step (bytes by collective, Mamba's ``in_proj`` regroup its own line,
+   and ms replayed on their own).
 30. dryrun — ``repro_torch.launch.dryrun`` held to the card (``DRYRUN``),
    in a process of its own with ``expandable_segments``: one line per
    record of every arch's ``decode_32k`` and ``long_500k`` on the
@@ -307,7 +319,8 @@ interleaved, five times each, beside the kernels' CUDA-event time
 
 Launch counts are reset to 0 right before each of phases 3-30 and read
 right after (for 8, 9, 17, 19 and 24, around the train steps; for 25, 27
-and 29, around the sparse model's steps; for 20, around each run of the trace). The ``kernels`` line, the ``nvidia-smi`` line and, last,
+and 29, around the sparse model's steps, in 29 also around the pruned
+Jamba layer's step; for 20, around each run of the trace). The ``kernels`` line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}`` close the run. Numbers are this run's
 own; the bound of a kernel is max(bytes / 3.35 TB/s, ops / 67 TFLOP/s)
 (H100 SXM HBM3 rate and f32 CUDA-core peak at 700 W; the LLM train step's
@@ -321,6 +334,7 @@ under the other semirings, whose zero is not 0.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -435,8 +449,22 @@ LAUNCH_TRAIN_DATA = dict(LAUNCH_TRAIN, positions=4)
 # llm-train over the model's 2 x 2 data x model mesh (4 cards when the host has
 # them, else the 4 positions on card 0), 3 steps each model; then Moonlight's
 # MoE at published width cut to its dense first layer and one MoE layer
+# then the other mixers at published width, cut in depth to fit one card with
+# every position's state: one f32 step each held against one position, one step
+# timed; Jamba's layer again with its FFN pruned (the SpMM kernels on each
+# group's home card)
+MIXER_CUTS = {"deepseek-v2-236b": dict(num_layers=1),  # its dense first layer (MLA)
+              "jamba-v0.1-52b": dict(num_layers=1, period=1),  # a Mamba layer, dense FFN
+              "rwkv6-3b": dict(num_layers=8)}
+# RWKV-6's f32 gradients on the card move by 3.9e-4 (1 layer) and 4.5e-3 (8
+# layers) of a leaf's max between one position and the data mesh, which splits
+# nothing over model, and lie 1.3e-7 apart in f64 (tools/torch_rwkv_spread.py;
+# PERF.md, PR 26): its f32 arithmetic amplifies rounding with depth. So its
+# first step is held in f64 (f64_casts), and at f32 its loss is held and its
+# gradients measured beside the data mesh's own spread
+MIXER_HELD_IN_F64 = ("rwkv6-3b",)
 LLM_TRAIN_MODEL = dict(LLM_TRAIN, steps=3, data=2, model=2, moe_arch="moonshot-v1-16b-a3b",
-                       moe_layers=2)
+                       moe_layers=2, mixers=MIXER_CUTS, pruned_mixer="jamba-v0.1-52b")
 LOSS_RTOL = 1e-5  # f32 compute: the tests' loss tolerance (tests/_torch_train.py)
 # logits, per row: max|got - want| <= tol x max|want|. bf16 compute: 2e-2 (the
 # reference's decode/forward tolerance, tests/test_arch_smoke.py, taken against
@@ -3573,7 +3601,7 @@ def chunk_errors(owners, per_position: list, whole: list) -> float:
 
     worst = 0.0
     for leaf, chunks, want in zip(owners, per_position, whole):
-        if want is None or not want.is_floating_point():
+        if want is None or not want.is_floating_point() or want.numel() == 0:
             continue
         scale = max(float(want.float().abs().max()), 1e-30)
         for c, got in enumerate(chunks):
@@ -3583,12 +3611,16 @@ def chunk_errors(owners, per_position: list, whole: list) -> float:
     return worst
 
 
-def first_step_against_one_position(model, params, batch, mesh, microbatches: int) -> dict:
+def first_step_against_one_position(model, params, batch, mesh, microbatches: int, *,
+                                    hold_grads: bool = True, on_host: bool = False) -> dict:
     """One SGD step of ``model`` (f32 compute) on the data mesh against the
     one-position ``make_train_step`` from the same params and global batch:
     loss and ce within ``LOSS_RTOL``, ``grad_norm``, every gradient and
     every updated leaf within ``GRAD_RTOL`` of its leaf's max, compared
-    chunk by chunk on each position's card."""
+    chunk by chunk on each position's card. ``hold_grads=False``: the
+    gradient, update and norm errors are measured and not held.
+    ``on_host``: the one-position step's gradients and leaves wait on the
+    host while the mesh steps."""
     import torch
 
     from repro_torch.distribution.sharding import param_pspecs, place, shardings_for
@@ -3603,6 +3635,11 @@ def first_step_against_one_position(model, params, batch, mesh, microbatches: in
         TrainState(params, opt.init(checkpoint.leaves(params))), on_home)
     grads1, new1 = seen1[0], checkpoint.leaves(s1.params)
     del s1, on_home
+    if on_host:
+        grads1 = [None if g is None else g.cpu() for g in grads1]
+        new1 = [x.cpu() for x in new1]
+        seen1.clear()
+        torch.cuda.empty_cache()
     placed = place(params, shardings_for(None, mesh, param_pspecs(None, params, mesh)))
     owners = checkpoint.leaves(placed)
     rec4, seen4 = recording(opt)
@@ -3619,13 +3656,15 @@ def first_step_against_one_position(model, params, batch, mesh, microbatches: in
     ce_err = abs(float(m4["ce"]) - float(m1["ce"])) / abs(float(m1["ce"]))
     norm_err = abs(float(m4["grad_norm"]) - float(m1["grad_norm"])) / float(m1["grad_norm"])
     check(loss_err <= LOSS_RTOL and ce_err <= LOSS_RTOL, ("loss on the mesh", loss_err, ce_err))
-    check(grad_err <= GRAD_RTOL and param_err <= GRAD_RTOL and norm_err <= GRAD_RTOL,
+    check(not hold_grads or (grad_err <= GRAD_RTOL and param_err <= GRAD_RTOL
+                             and norm_err <= GRAD_RTOL),
           ("gradients and updated leaves on the mesh", grad_err, param_err, norm_err))
     return {"loss": float(m4["loss"]), "one_position_loss": float(m1["loss"]),
             "loss_rel_err": loss_err, "ce_rel_err": ce_err, "grad_norm_rel_err": norm_err,
             "grad_max_rel_err": grad_err, "updated_leaf_max_rel_err": param_err,
             "check": f"f32 compute, SGD 1e-2: loss and ce <= {LOSS_RTOL}, each float leaf's "
-                     f"gradient and update <= {GRAD_RTOL} of its max against one position"}
+                     f"gradient and update <= {GRAD_RTOL} of its max against one position"
+                     + ("" if hold_grads else " (gradients and updates measured, not held)")}
 
 
 def gather_reduce(state, mesh) -> dict:
@@ -3722,14 +3761,15 @@ def data_steps(step_fn, state, data, steps: int, mesh) -> tuple:
 
 
 def moved(before, after) -> bool:
-    """Every float leaf of ``after`` differs from ``before`` on every position."""
+    """Every float leaf of ``after`` differs from ``before`` on every
+    position (a leaf of no elements, a period repeated 0 times, aside)."""
     import torch
 
     from repro_torch.train import checkpoint
 
     return all(not torch.equal(a, b) for x, y in zip(checkpoint.leaves(before),
                                                      checkpoint.leaves(after))
-               if x.is_floating_point() for a, b in zip(x.chunks, y.chunks))
+               if x.is_floating_point() and x.numel() for a, b in zip(x.chunks, y.chunks))
 
 
 def phase_llm_train_data(arch: str, seq_len: int, global_batch: int, microbatches: int,
@@ -3986,9 +4026,117 @@ def exchanges_a_step(step_fn, state, batch) -> dict:
             "all_ms": sum(ms.values())}
 
 
+@contextlib.contextmanager
+def f64_casts():
+    """The model's f32 casts (``Tensor.float()``: the WKV, the norms, the
+    softmax, the cross entropy) made f64 inside the block, so a model at
+    f64 compute runs every op in f64 (its gradients still accumulate in
+    f32 where the trainer says so)."""
+    import torch
+
+    float32 = torch.Tensor.float
+    torch.Tensor.float = lambda self, *a, **k: self.double()
+    try:
+        yield
+    finally:
+        torch.Tensor.float = float32
+
+
+def cut_config(arch: str, num_layers: int, period: int | None = None):
+    """``arch``'s published config cut to ``num_layers`` layers (and its
+    period to its first ``period`` layers): widths unchanged."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if period is not None:
+        cfg = dataclasses.replace(cfg, period=cfg.period[:period])
+    return dataclasses.replace(cfg, num_layers=num_layers)
+
+
+def mixer_on_model_mesh(cfg, mesh, opt, *, seq_len: int, global_batch: int,
+                        microbatches: int, seed: int, params=None,
+                        held_in_f64: bool = False) -> tuple[dict, object]:
+    """One model of ``cfg`` on the model's mesh: its first step at f32
+    compute held against the one-position step
+    (:func:`first_step_against_one_position`; with ``held_in_f64``, held
+    so in f64, :func:`f64_casts`, and at f32 the loss held and the
+    gradients measured, as they are for the data mesh of the same groups,
+    ``model`` = 1, against one position), then one step of ``opt`` at
+    the config's compute dtype, timed on the host clock with every card
+    synchronised, launches counted from 0 over it; every float leaf moved,
+    chunks held by several positions the same bits; each card's device
+    ms, stored bytes and peak, the model axis's exchanges a step. Returns
+    (the record, the params)."""
+    import torch
+
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distribution.sharding import param_pspecs, place, shardings_for
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+    from repro_torch.train import checkpoint
+    from repro_torch.train.optimizer import init_placed
+    from repro_torch.train.trainer import TrainState, make_train_step
+
+    if params is None:
+        params = Model(cfg).init(torch.Generator(device=mesh.device).manual_seed(seed),
+                                 device=mesh.device)
+    stream = SyntheticLM(cfg.vocab_size, seq_len, global_batch, seed=seed)
+    first = {k: torch.from_numpy(v) for k, v in stream.batch(0).items()}
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    held = first_step_against_one_position(Model(f32), params, first, mesh, microbatches,
+                                           hold_grads=not held_in_f64)
+    if held_in_f64:
+        held["data_mesh_against_one_position"] = first_step_against_one_position(
+            Model(f32), params, first, model_mesh(mesh.shape["data"], 1), microbatches,
+            hold_grads=False)
+        f64 = dataclasses.replace(cfg, compute_dtype="float64", param_dtype="float64")
+        with f64_casts():
+            p64 = checkpoint.with_leaves(params, [x.double() if x.is_floating_point() else x
+                                                  for x in checkpoint.leaves(params)])
+            held["float64"] = first_step_against_one_position(Model(f64), p64, first, mesh,
+                                                              microbatches, on_host=True)
+        del p64
+        torch.cuda.empty_cache()
+    placed = place(params, shardings_for(None, mesh, param_pspecs(cfg, params, mesh)))
+    state0 = TrainState(placed, init_placed(opt, checkpoint.leaves(placed)))
+    del placed
+    owners = checkpoint.leaves(state0.params)
+    paths = checkpoint.leaves(checkpoint.map_with_path(lambda k, _: k, state0.params))
+    split = sorted({k.split("//")[-1] for k, x in zip(paths, owners)
+                    if x.sharding.model_dim is not None and "//mixer//" in k})
+    check(split, (cfg.name, "mixer leaves split over model"))
+    stored = stored_bytes(state0, mesh)
+    step = make_train_step(Model(cfg), opt, microbatches=microbatches)
+    for d in mesh.cards:
+        torch.cuda.reset_peak_memory_stats(d)
+    sync_all()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, metrics = step(state0, first)
+    sync_all()
+    step_ms = 1e3 * (time.perf_counter() - t0)
+    launches = {str(d): ops.launch_counts(d) for d in mesh.cards}
+    total = ops.launch_counts()
+    peak = {str(d): torch.cuda.max_memory_allocated(d) / 1e9 for d in mesh.cards}
+    check(held_whole_same_bits(state) and moved(state0.params, state.params)
+          and np.isfinite(float(metrics["loss"])), (cfg.name, "the step"))
+    del state0
+    rec = {"arch": cfg.name, "layers": cfg.num_layers, "compute_dtype": cfg.compute_dtype,
+           "params": sum(x.numel() for x in checkpoint.leaves(params)),
+           "mixer_leaves_split": split, "first_step_f32": held, "stored": stored,
+           "step_ms": step_ms, "loss": float(metrics["loss"]), "peak_memory_gb": peak,
+           "launches_by_card": launches, "launches": total,
+           "device_ms_by_card": device_ms_by_card(lambda: step(state, first)),
+           "exchanges_a_step": exchanges_a_step(step, state, first)}
+    del state
+    torch.cuda.empty_cache()
+    return rec, params
+
+
 def phase_llm_train_model(arch: str, seq_len: int, global_batch: int, microbatches: int,
                           steps: int, lr: float, block: int, blocks_per_row: int, data: int,
-                          model: int, moe_arch: str, moe_layers: int, seed: int) -> dict:
+                          model: int, moe_arch: str, moe_layers: int, mixers: dict,
+                          pruned_mixer: str, seed: int) -> dict:
     """llm-train over the model's ``data`` × ``model`` mesh (:func:`model_mesh`:
     one position a card on a host with ``data · model`` cards, else every
     position on card 0): heads, the FFN's hidden columns, the embedding's d
@@ -4001,7 +4149,11 @@ def phase_llm_train_model(arch: str, seq_len: int, global_batch: int, microbatch
     several positions the same bits after each step, launches on each card
     against the count from shapes, topology unchanged, finite losses. Then
     ``moe_arch`` at published width cut to ``moe_layers`` layers, one step,
-    its experts split over ``model``, held the same way."""
+    its experts split over ``model``, held the same way. Then each of
+    ``mixers`` (arch: its cut, :func:`cut_config`) through
+    :func:`mixer_on_model_mesh`, and ``pruned_mixer``'s cut again with its
+    FFNs block-pruned, the SpMM launches of its timed step held to the
+    count from shapes on each group's home card."""
     import torch
 
     from repro_torch.configs import SparsityConfig, get_config
@@ -4117,6 +4269,40 @@ def phase_llm_train_model(arch: str, seq_len: int, global_batch: int, microbatch
            "peak_memory_gb": peaks()}
     del mstate, mstate0
     torch.cuda.empty_cache()
+
+    run = dict(seq_len=seq_len, global_batch=global_batch, microbatches=microbatches, seed=seed)
+    mixer_runs = {}
+    for name, cut in mixers.items():
+        c = cut_config(name, **cut)
+        rec, mixer_params = mixer_on_model_mesh(c, mesh, opt,
+                                                held_in_f64=name in MIXER_HELD_IN_F64, **run)
+        rec["cut"] = cut
+        if name == pruned_mixer:
+            pcfg = dataclasses.replace(c, sparsity=SparsityConfig(
+                (block, block), blocks_per_row=blocks_per_row, targets=("ffn",)))
+            pparams = Model(pcfg).sparsify(mixer_params)
+            n_pruned = sparse_projections(pparams)
+            check(n_pruned == 3 * pcfg.num_layers, n_pruned)
+            pruned, _ = mixer_on_model_mesh(pcfg, mesh, opt, params=pparams, **run)
+            del pparams
+            a_group = microbatches * n_pruned
+            want = {str(d): {"bsr_spmm": a_group * homes.count(d),
+                             "bcsr_spmm": a_group * homes.count(d)} for d in mesh.cards}
+            got = {d: {k: n[k] for k in ("bsr_spmm", "bcsr_spmm")}
+                   for d, n in pruned["launches_by_card"].items()}
+            check(got == want and sum(pruned["launches"].values())
+                  == sum(sum(v.values()) for v in want.values()),
+                  ("the pruned FFN's launches on each group's home card", got, want))
+            pruned.update({"cut": cut, "projections": n_pruned,
+                           "pruned": f"{blocks_per_row} blocks of {block} x {block} a row"})
+            rec["pruned_ffn"] = pruned
+        else:
+            check(sum(rec["launches"].values()) == 0, (name, "no kernel", rec["launches"]))
+        del mixer_params
+        mixer_runs[name] = rec
+    launches = dict(sparse["launches"])
+    for k, n in mixer_runs[pruned_mixer]["pruned_ffn"]["launches"].items():
+        launches[k] = launches.get(k, 0) + n
     tokens = seq_len * global_batch
     return {"arch": arch, "mesh": dict(mesh.shape), "cards": len(mesh.cards),
             "devices": [str(d) for d in mesh.devices], "homes": [str(d) for d in homes],
@@ -4125,7 +4311,7 @@ def phase_llm_train_model(arch: str, seq_len: int, global_batch: int, microbatch
             "optimizer": f"adamw(warmup_cosine({lr}, 10, 100), state_dtype=float32)",
             "dense": {**dense, "tokens_per_s": tokens / (dense["step_ms"] / 1e3)},
             "sparse": {**sparse, "tokens_per_s": tokens / (sparse["step_ms"] / 1e3)},
-            "moe": moe}
+            "moe": moe, "mixers": mixer_runs, "launches": launches}
 
 
 def dryrun_meta_record(arch: str, shape: str, global_batch: int | None,
@@ -4620,7 +4806,7 @@ def main() -> int:
                 "launch-train": launch["launches"],
                 "llm-train-data": llm_data["sparse"]["launches"],
                 "launch-train-data": launch_data["launches"],
-                "llm-train-model": llm_model["sparse"]["launches"], "dryrun": dry["launches"]}
+                "llm-train-model": llm_model["launches"], "dryrun": dry["launches"]}
     checks = {name: "max|kernel - plain| <= 1e-5 |plain| + 1e-6 (f32 order)"
               for name in ("semiring_matmul", "bsr_spmm", "bcsr_spmm")}
     checks.update({name: "stack: <= 1e-4 max|plain|, each entry within 2x the f32 bound, "

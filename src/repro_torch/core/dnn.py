@@ -44,6 +44,50 @@ from repro_torch.sparse.bsr import BlockSparseMatrix
 Weight = Union[torch.Tensor, BlockSparseMatrix, BlockCSRMatrix]
 
 
+# Aliases of ``repro_torch.plan`` (the layout heuristic, the cost model and
+# the route tree live there, one implementation); imports deferred to call
+# time, as the reference's, since ``plan`` imports this package.
+
+
+def __getattr__(name: str):
+    if name == "ELL_WASTE_THRESHOLD":
+        from repro_torch.plan import layout as _plan_layout
+
+        return _plan_layout.ELL_WASTE_THRESHOLD
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def preferred_layout(w: BlockSparseMatrix) -> str:
+    """``"ell"`` or ``"bcsr"`` — alias of
+    :func:`repro_torch.plan.layout.preferred_layout`."""
+    from repro_torch.plan import layout as _plan_layout
+
+    return _plan_layout.preferred_layout(w)
+
+
+def to_preferred_layout(w: Weight) -> Weight:
+    """Alias of :func:`repro_torch.plan.layout.to_preferred_layout`."""
+    from repro_torch.plan import layout as _plan_layout
+
+    return _plan_layout.to_preferred_layout(w)
+
+
+def layer_grid_steps(w: Weight, n: int, *, block_n: int = DEFAULT_BLOCK_N) -> int:
+    """One forward layer's bill on an (·, n) panel (alias of
+    :func:`repro_torch.plan.cost.layer_grid_steps`)."""
+    from repro_torch.plan import cost as _plan_cost
+
+    return _plan_cost.layer_grid_steps(w, n, block_n=block_n)
+
+
+def resident_eligible(weights: Sequence[Weight], *, block_n: int = DEFAULT_BLOCK_N) -> bool:
+    """Can this stack run through the single-call resident kernel? (Alias
+    of :func:`repro_torch.plan.routes.resident_eligible`.)"""
+    from repro_torch.plan import routes as _plan_routes
+
+    return _plan_routes.resident_eligible(weights, block_n=block_n)
+
+
 def dnn_grid_steps(
     weights: Sequence[Weight], n: int, *, block_n: int = DEFAULT_BLOCK_N
 ) -> int:

@@ -135,8 +135,16 @@ LOR_LAND = Semiring("lor_land", torch.logical_or, torch.logical_and, 0.0, 1.0,
 XOR_AND = Semiring("xor_and", torch.logical_xor, torch.logical_and, 0.0, 1.0, _parity)
 """GF(2) — finite-field semiring from paper §II-C."""
 
-LOG_PLUS = Semiring("log_plus", torch.logaddexp, torch.add, -INF, 0.0,
-                    _all_dims(torch.logsumexp))
+def logsumexp_reduce(x: torch.Tensor, dim=None, keepdim: bool = False) -> torch.Tensor:
+    """``log_plus``'s ⊕-reduce: ``logsumexp`` along ``dim`` (every dim for
+    None), the reference's public name."""
+    if dim is None:
+        out = torch.logsumexp(x.reshape(-1), 0)
+        return out.reshape((1,) * x.ndim) if keepdim else out
+    return torch.logsumexp(x, dim, keepdim=keepdim)
+
+
+LOG_PLUS = Semiring("log_plus", torch.logaddexp, torch.add, -INF, 0.0, logsumexp_reduce)
 """Log-probability semiring (smooth max-plus)."""
 
 REGISTRY: dict[str, Semiring] = {

@@ -13,7 +13,7 @@ activations between layers live, and a layer whose weights are whole
 (a block-sparse FFN, a dim that does not divide) runs there, once a
 group.
 
-The model code moves activations with five differentiable collectives,
+The model code moves activations with six differentiable collectives,
 each an autograd Function built on ``peer.copy_into``/``peer.to`` and
 ``peer.shard_order_sum``:
 
@@ -30,7 +30,10 @@ each an autograd Function built on ``peer.copy_into``/``peer.to`` and
   backward concatenates the gradients;
 * :func:`reshard` — chunks split along one dim resplit along another
   (the tied table from d over ``model`` to vocab over ``model``, exact
-  both ways).
+  both ways);
+* :func:`regroup` — chunks of a tensor made of equal parts (Mamba's
+  ``[x_in | z]``), split contiguously, as chunks holding each position's
+  slice of every part (an exact all-to-all both ways).
 
 Every sum is written out in model order, never NCCL's, so M positions on
 one device and M cards give the same bits. :func:`exchange_counts`
@@ -40,9 +43,10 @@ whether or not the positions share a device, and
 :func:`logging_exchanges` records each call's shapes so a caller can
 replay a step's exchanges on their own (:func:`replay`).
 
-The model axis covers GQA attention, dense and MoE FFNs, the paper's
-MLP, the embedding and the head; :func:`refuse_unported` refuses the
-mixers whose tensor parallelism is a later slice.
+The model axis covers every layer kind of the train step: GQA and MLA
+attention, Mamba, RWKV-6's time and channel mix, dense and MoE FFNs, the
+paper's MLP, the embedding and the head. :func:`refuse_serving` refuses
+prefill and decode with split weights (:data:`NEXT_SLICE`).
 """
 
 from __future__ import annotations
@@ -54,8 +58,8 @@ import torch
 
 from repro_torch.distribution import peer
 
-NEXT_SLICE = ("tensor parallelism for MLA, Mamba and RWKV-6 mixers is the next slice of "
-              "the port")
+NEXT_SLICE = ("serving over a model mesh (prefill and decode with the cache over model) is "
+              "the next slice of the port")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -147,12 +151,23 @@ def _log(kind: str, **meta) -> None:
 # ------------------------------ collectives ----------------------------------
 
 
+def _to(x: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``x`` for a position on ``device``, laid out as ``peer.to`` lays out
+    a copy on another device (contiguous): a view of ``x`` where it lies
+    already, or a contiguous copy of it there. A kernel may sum in another
+    order for other strides, and M positions on one device must give M
+    cards' bits."""
+    if x.device != device:
+        return peer.to(x, device)
+    return x.view_as(x) if x.is_contiguous() else x.contiguous()
+
+
 class _FanOut(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, devices):
         ctx.home = x.device
         _count("fan_out", _nbytes(x) * (len(devices) - 1))
-        return tuple(x.view_as(x) if d == x.device else peer.to(x, d) for d in devices)
+        return tuple(_to(x, d) for d in devices)
 
     @staticmethod
     def backward(ctx, *grads):
@@ -163,7 +178,8 @@ class _FanOut(torch.autograd.Function):
 
 
 def fan_out(x: torch.Tensor, devices) -> tuple[torch.Tensor, ...]:
-    """``x`` on each of ``devices`` (a view where it lies already); its
+    """``x`` on each of ``devices`` (where it lies already, a view of it, or a
+    contiguous copy when it is not contiguous: :func:`_to`); its
     backward adds the devices' gradients in their order on ``x``'s device."""
     devices = tuple(torch.device(d) for d in devices)
     _log("fan_out", shape=tuple(x.shape), dtype=x.dtype, home=x.device, devices=devices)
@@ -180,7 +196,7 @@ class _FanIn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         _count("fan_in", _nbytes(g) * (len(ctx.devices) - 1))
-        return (None, *(peer.to(g, d) for d in ctx.devices))
+        return (None, *(_to(g, d) for d in ctx.devices))
 
 
 def fan_in(partials, device) -> torch.Tensor:
@@ -204,7 +220,7 @@ class _AllGather(torch.autograd.Function):
     def backward(ctx, g):
         pieces = g.split(ctx.sizes, ctx.dim)
         _count("all_gather", sum(_nbytes(p) for p in pieces[1:]))
-        return (None, None, *(peer.to(p, d) for p, d in zip(pieces, ctx.devices)))
+        return (None, None, *(_to(p, d) for p, d in zip(pieces, ctx.devices)))
 
 
 def all_gather(chunks, dim: int, device) -> torch.Tensor:
@@ -224,7 +240,7 @@ class _Scatter(torch.autograd.Function):
         pieces = x.chunk(len(devices), dim)
         ctx.shapes = [p.shape for p in pieces]
         _count("scatter", sum(_nbytes(p) for p in pieces[1:]))
-        return tuple(p if d == x.device else peer.to(p, d) for p, d in zip(pieces, devices))
+        return tuple(_to(p, d) for p, d in zip(pieces, devices))
 
     @staticmethod
     def backward(ctx, *grads):
@@ -282,6 +298,65 @@ def reshard(chunks, src_dim: int, dst_dim: int) -> tuple[torch.Tensor, ...]:
     return _Reshard.apply(src_dim, dst_dim, *chunks)
 
 
+def _move_pieces(tensors, devices, dim: int, parts: int, source):
+    """Tensor ``i`` of the result, on ``devices[i]``: its ``parts`` slots
+    concatenated along ``dim``, slot ``k`` being piece ``q`` (of ``parts``
+    equal pieces along ``dim``) of ``tensors[j]``, ``(j, q) = source(i,
+    k)``. Also returns the bytes of the pieces that change position."""
+    width = tensors[0].shape[dim] // parts
+    pieces = [t.split(width, dim) for t in tensors]
+    moved, out = 0, []
+    for i, d in enumerate(devices):
+        got = []
+        for k in range(parts):
+            j, q = source(i, k)
+            if j != i:
+                moved += _nbytes(pieces[j][q])
+            got.append(peer.to(pieces[j][q], d))
+        out.append(torch.cat(got, dim))
+    return moved, tuple(out)
+
+
+class _Regroup(torch.autograd.Function):
+    """Piece ``r`` of chunk ``m`` is global slice ``f = parts·m + r``: part
+    ``f // M``, slice ``f % M``. Chunk ``o`` of the result holds slice
+    ``o`` of each part, in part order."""
+
+    @staticmethod
+    def forward(ctx, dim, parts, *chunks):
+        ctx.dim, ctx.parts = dim, parts
+        ctx.devices = [c.device for c in chunks]
+        n = len(chunks)
+        moved, out = _move_pieces(chunks, ctx.devices, dim, parts,
+                                  lambda o, part: divmod(part * n + o, parts))
+        _count("regroup", moved)
+        return out
+
+    @staticmethod
+    def backward(ctx, *grads):
+        n, parts = len(grads), ctx.parts
+        moved, out = _move_pieces(grads, ctx.devices, ctx.dim, parts,
+                                  lambda m, r: divmod(parts * m + r, n)[::-1])
+        _count("regroup", moved)
+        return (None, None, *out)
+
+
+def regroup(chunks, dim: int, parts: int) -> tuple[torch.Tensor, ...]:
+    """Chunks (chunk m on its device) of a tensor made of ``parts`` equal
+    parts along ``dim`` and split contiguously along it over ``model``, as
+    M chunks of the same size: chunk m, on the same device, the
+    concatenation of slice m of every part (Mamba's ``in_proj`` product
+    ``[x_in | z]`` as each position's ``[x_in_m | z_m]``). Exact both
+    ways; a piece that stays on its position is not counted."""
+    dim = dim % chunks[0].ndim
+    if chunks[0].shape[dim] % parts:
+        raise ValueError(f"chunks of {tuple(chunks[0].shape)} along dim {dim} do not hold "
+                         f"{parts} parts that split over {len(chunks)}")
+    _log("regroup", shapes=[tuple(c.shape) for c in chunks], dtype=chunks[0].dtype,
+         devices=tuple(c.device for c in chunks), dim=dim, parts=parts)
+    return _Regroup.apply(dim, parts, *chunks)
+
+
 def embed_lookup(table: Split, ids: torch.Tensor) -> torch.Tensor:
     """``table[ids]`` for a table split along d over ``model``: each
     position looks its chunk's columns up, and the rows are concatenated in
@@ -309,6 +384,9 @@ def replay(entry) -> None:
     elif kind == "all_gather":
         outs = (all_gather([fresh(s, d) for s, d in zip(meta["shapes"], meta["devices"])],
                            meta["dim"], meta["home"]),)
+    elif kind == "regroup":
+        outs = regroup([fresh(s, d) for s, d in zip(meta["shapes"], meta["devices"])],
+                       meta["dim"], meta["parts"])
     else:
         outs = reshard([fresh(s, d) for s, d in zip(meta["shapes"], meta["devices"])],
                        meta["src_dim"], meta["dst_dim"])
@@ -318,35 +396,8 @@ def replay(entry) -> None:
 # -------------------------------- refusals -----------------------------------
 
 
-def unported_mixers(cfg) -> list[str]:
-    """The layer kinds of ``cfg`` the model axis does not take yet."""
-    kinds = []
-    for spec in cfg.layer_specs():
-        if spec.mixer == "attn" and cfg.attention.kind != "gqa":
-            kinds.append(f"{cfg.attention.kind} attention")
-        elif spec.mixer in ("mamba", "rwkv"):
-            kinds.append(spec.mixer)
-        if spec.ffn == "rwkv_channel_mix":
-            kinds.append("rwkv channel mix")
-    return sorted(set(kinds))
-
-
-def refuse_unported(cfg, mesh) -> None:
-    """Raise when ``mesh`` has a ``model`` axis past 1 and ``cfg`` has a
-    mixer the model axis does not take yet (MLA, Mamba, RWKV-6): it is not
-    run replicated instead."""
-    if cfg is None or mesh.shape.get("model", 1) == 1:
-        return
-    kinds = unported_mixers(cfg)
-    if kinds:
-        raise ValueError(f"{cfg.name} on a mesh of model={mesh.shape['model']}: its "
-                         f"{', '.join(kinds)} layers do not run over the model axis; "
-                         f"{NEXT_SLICE}")
-
-
 def refuse_serving(w) -> None:
     """Raise for a group's split weight on a serving path: the cache's
-    layout over ``model`` is a later slice."""
+    layout over ``model`` is the next slice."""
     if isinstance(w, Split):
-        raise ValueError("serving over a model mesh (prefill and decode with the cache over "
-                         "model) is a later slice of the port; serve on one device")
+        raise ValueError(f"{NEXT_SLICE}; serve on one device")

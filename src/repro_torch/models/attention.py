@@ -435,13 +435,20 @@ def linear_(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.einsum("...i,io->...o", x, w)
 
 
-def _mla_q(p, cfg, x, positions, theta):
+def _mla_cq(p, x):
+    return rms_norm(linear_(p["w_dq"], x), p["q_norm"])
+
+
+def _mla_q_heads(w_uq, cfg, cq, positions, theta):
     dn = cfg.qk_nope_head_dim
-    cq = rms_norm(linear_(p["w_dq"], x), p["q_norm"])
-    q = torch.einsum("bsl,lhk->bshk", cq, p["w_uq"])
+    q = torch.einsum("bsl,lhk->bshk", cq, w_uq)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = apply_rope(q_rope, positions, theta)
     return q_nope, q_rope
+
+
+def _mla_q(p, cfg, x, positions, theta):
+    return _mla_q_heads(p["w_uq"], cfg, _mla_cq(p, x), positions, theta)
 
 
 def _mla_latents(p, cfg, x, positions, theta):
@@ -450,6 +457,25 @@ def _mla_latents(p, cfg, x, positions, theta):
     c_kv = rms_norm(ckv_full[..., :kl], p["kv_norm"])
     k_rope = apply_rope(ckv_full[..., kl:][:, :, None, :], positions, theta)[:, :, 0]
     return c_kv, k_rope
+
+
+def _mla_heads(w: Params, cfg: AttentionConfig, cq, c_kv, k_rope, positions, theta,
+               q_chunk: int) -> torch.Tensor:
+    """The attention of the heads ``w`` holds (``w_uq``, ``w_uk``, ``w_uv``,
+    ``w_o``: every head, or one model position's) from the shared latents,
+    through their rows of the output projection."""
+    b, s, _ = cq.shape
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    q_nope, q_rope = _mla_q_heads(w["w_uq"], cfg, cq, positions, theta)
+    k_nope = torch.einsum("bsl,lhk->bshk", c_kv, w["w_uk"])
+    v = torch.einsum("bsl,lhk->bshk", c_kv, w["w_uv"])
+    k = torch.cat([k_nope, k_rope[:, :, None].expand(b, s, k_nope.shape[2], dr)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    out = attend_causal(q, k, v, scale=1.0 / math.sqrt(dn + dr), q_chunk=q_chunk)
+    return torch.einsum("bshk,hkd->bsd", out, w["w_o"])
+
+
+_MLA_HEADS = ("w_uq", "w_uk", "w_uv", "w_o")
 
 
 def apply_mla(
@@ -462,18 +488,36 @@ def apply_mla(
     rope_theta: float = 0.0,
 ) -> torch.Tensor:
     del window  # MLA archs here are full-attention
-    b, s, _ = x.shape
+    if isinstance(p["w_uq"], tp.Split):
+        return _apply_mla_split(p, cfg, x, q_chunk=q_chunk, rope_theta=rope_theta)
     theta = rope_theta or cfg.rope_theta
-    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
-    positions = torch.arange(s, device=x.device)[None, :]
-    q_nope, q_rope = _mla_q(p, cfg, x, positions, theta)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
     c_kv, k_rope = _mla_latents(p, cfg, x, positions, theta)
-    k_nope = torch.einsum("bsl,lhk->bshk", c_kv, p["w_uk"])
-    v = torch.einsum("bsl,lhk->bshk", c_kv, p["w_uv"])
-    k = torch.cat([k_nope, k_rope[:, :, None].expand(b, s, cfg.num_heads, dr)], dim=-1)
-    q = torch.cat([q_nope, q_rope], dim=-1)
-    out = attend_causal(q, k, v, scale=1.0 / math.sqrt(dn + dr), q_chunk=q_chunk)
-    return torch.einsum("bshk,hkd->bsd", out, p["w_o"])
+    return _mla_heads(p, cfg, _mla_cq(p, x), c_kv, k_rope, positions, theta, q_chunk)
+
+
+def _apply_mla_split(p: Params, cfg: AttentionConfig, x: torch.Tensor, *, q_chunk: int,
+                     rope_theta: float) -> torch.Tensor:
+    """MLA with its heads split over ``model`` (a group's
+    ``tensor_parallel.Split`` weights): ``w_uq``/``w_uk``/``w_uv`` over
+    heads, ``w_o`` row-parallel. The down-projections and their norms are
+    whole: ``cq``, ``c_kv`` and the ``k_rope`` every head shares are
+    computed once on ``x``'s device and fanned out (their gradients come
+    back as model-order sums); each position attends with its heads, and
+    the partial output projections are added in model order on ``x``'s
+    device. Heads that do not divide over ``model`` leave these leaves
+    whole, and :func:`apply_mla` runs where ``x`` is."""
+    devices = p["w_uq"].devices
+    theta = rope_theta or cfg.rope_theta
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    c_kv, k_rope = _mla_latents(p, cfg, x, positions, theta)
+    shared = [tp.fan_out(t, devices) for t in (_mla_cq(p, x), c_kv, k_rope)]
+    partials = []
+    for m, d in enumerate(devices):
+        w = {k: p[k].chunks[m] for k in _MLA_HEADS}
+        positions = torch.arange(x.shape[1], device=d)[None, :]
+        partials.append(_mla_heads(w, cfg, *(t[m] for t in shared), positions, theta, q_chunk))
+    return tp.fan_in(partials, x.device)
 
 
 def init_mla_cache(
@@ -499,6 +543,7 @@ def prefill_mla(
     rope_theta: float = 0.0,
     donate: bool = False,
 ) -> tuple[torch.Tensor, Params]:
+    tp.refuse_serving(p["w_uq"])
     s = x.shape[1]
     theta = rope_theta or cfg.rope_theta
     out = apply_mla(p, cfg, x, q_chunk=q_chunk, window=window, rope_theta=rope_theta)
@@ -525,6 +570,7 @@ def decode_mla(
     """Absorbed-matrix MLA decode: scores and outputs computed against
     the cached latents; W_uk folds into q, W_uv into the output."""
     del window
+    tp.refuse_serving(p["w_uq"])
     theta = rope_theta or cfg.rope_theta
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     positions = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)

@@ -12,6 +12,13 @@ rescaling stays inside f32 range (e^{5·16} ≈ 5.5e34 < f32 max).
 
 Decode paths carry O(1) state: (wkv state, token shift) for RWKV;
 (conv tap, ssm state) for Mamba.
+
+On the model's mesh a group's weights split over ``model`` are
+``tensor_parallel.Split``s, and each mixer has a split forward (train
+step only; serving with split weights is refused): Mamba over its inner
+channels ``di``, RWKV-6's time mix over heads (``w_r``/``w_g``
+column-parallel, the rest whole on the home device) and its channel mix
+over ``d_ff``.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MambaConfig, RWKVConfig
+from repro_torch.distribution import tensor_parallel as tp
 from repro_torch.models.layers import (
     Init,
     dense_init,
@@ -144,13 +152,37 @@ def wkv_step(
     return out, h_new
 
 
+def _heads(a: torch.Tensor, hd: int) -> torch.Tensor:
+    """(B, S, H·hd) → (B, H, S, hd)."""
+    b, s, d = a.shape
+    return a.reshape(b, s, d // hd, hd).transpose(1, 2)
+
+
+def _rwkv_logw(p: Params, xw: torch.Tensor) -> torch.Tensor:
+    return -torch.exp(p["w0"] + torch.tanh(xw @ p["decay_w1"]) @ p["decay_w2"])
+
+
+def _rwkv_gated(out: torch.Tensor, ln_x: torch.Tensor, g: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+    """The per-head group norm of ``out`` (B, S, H, V), its heads flattened
+    and gated by ``g``."""
+    b, s = out.shape[:2]
+    out = rms_norm(out, ln_x)  # per-head group norm
+    return out.reshape(b, s, -1).to(dtype) * g
+
+
 def apply_rwkv_time_mix(
     p: Params,
     cfg: RWKVConfig,
     x: torch.Tensor,
     state: Params | None = None,
-) -> tuple[torch.Tensor, Params]:
-    """state (decode): {"shift": (B,D), "wkv": (B,H,K,V)}; None → zeros."""
+) -> tuple[torch.Tensor, Params | None]:
+    """state (decode): {"shift": (B,D), "wkv": (B,H,K,V)}; None → zeros.
+    With ``w_r``/``w_g`` split over ``model``: the split forward, no state."""
+    if isinstance(p["w_r"], tp.Split):
+        if state is not None:
+            tp.refuse_serving(p["w_r"])
+        return _apply_rwkv_time_mix_split(p, cfg, x), None
     b, s, d = x.shape
     hd = cfg.head_dim
     h = d // hd
@@ -158,14 +190,11 @@ def apply_rwkv_time_mix(
     xprev = _token_shift(x, prev)
     xw, xk, xv, xr, xg = _ddlerp(p, x, xprev)
 
-    def heads(a):
-        return a.reshape(b, s, h, hd).transpose(1, 2)
-
-    r = heads(xr @ p["w_r"])
-    k = heads(xk @ p["w_k"])
-    v = heads(xv @ p["w_v"])
+    r = _heads(xr @ p["w_r"], hd)
+    k = _heads(xk @ p["w_k"], hd)
+    v = _heads(xv @ p["w_v"], hd)
     g = silu(xg @ p["w_g"])
-    logw = heads(-torch.exp(p["w0"] + torch.tanh(xw @ p["decay_w1"]) @ p["decay_w2"]))
+    logw = _heads(_rwkv_logw(p, xw), hd)
 
     h0 = (state["wkv"] if state is not None
           else torch.zeros((b, h, hd, hd), dtype=torch.float32, device=x.device))
@@ -176,10 +205,52 @@ def apply_rwkv_time_mix(
     else:
         out, h_fin = wkv_chunked(r, k, v, logw, p["bonus_u"], h0)
         out = out.transpose(1, 2)  # (B,S,H,V)
-    out = rms_norm(out, p["ln_x"])  # per-head group norm
-    out = out.reshape(b, s, d).to(x.dtype) * g
+    out = _rwkv_gated(out, p["ln_x"], g, x.dtype)
     out = out @ p["w_o"]
     return out, {"shift": x[:, -1], "wkv": h_fin}
+
+
+def _wkv_gated(r, k, v, logw, u, ln_x, g, dtype) -> torch.Tensor:
+    """The chunked WKV of the heads given, from a zero state, through the
+    group norm and the gate: (B, S, H·V)."""
+    b, h, _, hd = r.shape
+    h0 = torch.zeros((b, h, hd, v.shape[-1]), dtype=torch.float32, device=r.device)
+    out, _ = wkv_chunked(r, k, v, logw, u, h0)
+    return _rwkv_gated(out.transpose(1, 2), ln_x, g, dtype)
+
+
+def _apply_rwkv_time_mix_split(p: Params, cfg: RWKVConfig, x: torch.Tensor) -> torch.Tensor:
+    """The time mix with ``w_r``/``w_g`` split over ``model`` (output
+    columns; every other leaf whole on ``x``'s device, where the token
+    shift, the mix, ``k``, ``v``, the decay and ``w_o`` run once). The mixed
+    streams for r and g are fanned out and each position computes its
+    columns. When the columns fall on head boundaries (``d/M`` a multiple
+    of ``head_dim``), ``k``, ``v`` and the decay are scattered by heads,
+    ``bonus_u`` and ``ln_x`` fanned out (``bonus_u`` narrowed to the
+    position's heads), each position runs the WKV of its heads, and the
+    gated outputs are gathered in model order for ``w_o``. Otherwise r and
+    g are gathered (exact) and the mixer runs where ``x`` is."""
+    hd = cfg.head_dim
+    devices = p["w_r"].devices
+    n = len(devices)
+    xw, xk, xv, xr, xg = _ddlerp(p, x, _token_shift(x, None))
+    k = _heads(xk @ p["w_k"], hd)
+    v = _heads(xv @ p["w_v"], hd)
+    logw = _heads(_rwkv_logw(p, xw), hd)
+    xrs, xgs = tp.fan_out(xr, devices), tp.fan_out(xg, devices)
+    rs = [xrs[m] @ p["w_r"].chunks[m] for m in range(n)]
+    gs = [xgs[m] @ p["w_g"].chunks[m] for m in range(n)]
+    if (x.shape[-1] // n) % hd:  # the column split cuts a head
+        r = _heads(tp.all_gather(rs, -1, x.device), hd)
+        g = silu(tp.all_gather(gs, -1, x.device))
+        out = _wkv_gated(r, k, v, logw, p["bonus_u"], p["ln_x"], g, x.dtype)
+        return out @ p["w_o"]
+    ks, vs, ws = (tp.scatter(t, 1, devices) for t in (k, v, logw))
+    us, lns = tp.fan_out(p["bonus_u"], devices), tp.fan_out(p["ln_x"], devices)
+    per = k.shape[1] // n
+    outs = [_wkv_gated(_heads(rs[m], hd), ks[m], vs[m], ws[m], us[m].narrow(0, m * per, per),
+                       lns[m], silu(gs[m]), x.dtype) for m in range(n)]
+    return tp.all_gather(outs, -1, x.device) @ p["w_o"]
 
 
 def init_rwkv_channel_mix(rng: Init, d_model: int, d_ff: int, dtype=torch.float32) -> Params:
@@ -194,15 +265,41 @@ def init_rwkv_channel_mix(rng: Init, d_model: int, d_ff: int, dtype=torch.float3
 
 def apply_rwkv_channel_mix(
     p: Params, x: torch.Tensor, state: Params | None = None
-) -> tuple[torch.Tensor, Params]:
+) -> tuple[torch.Tensor, Params | None]:
+    """With ``w_k``/``w_v`` split over ``model``: the split forward, no
+    state."""
+    if isinstance(p["w_k"], tp.Split):
+        if state is not None:
+            tp.refuse_serving(p["w_k"])
+        return _apply_rwkv_channel_mix_split(p, x), None
     prev = state["shift"] if state is not None else None
     xprev = _token_shift(x, prev)
     xk = x + (xprev - x) * p["mu_k"]
     xr = x + (xprev - x) * p["mu_r"]
-    k = F.relu(xk @ p["w_k"])
-    k = k * k  # squared ReLU
-    out = sigmoid(xr @ p["w_r"]) * (k @ p["w_v"])
+    out = sigmoid(xr @ p["w_r"]) * _squared_relu_mlp(xk, p["w_k"], p["w_v"])
     return out, {"shift": x[:, -1]}
+
+
+def _squared_relu_mlp(xk: torch.Tensor, w_k: torch.Tensor, w_v: torch.Tensor) -> torch.Tensor:
+    k = F.relu(xk @ w_k)
+    k = k * k  # squared ReLU
+    return k @ w_v
+
+
+def _apply_rwkv_channel_mix_split(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """The channel mix with ``w_k`` column-parallel and ``w_v``
+    row-parallel over ``model`` (``d_ff`` split): the shifted mix fanned
+    out, each position's partial ``k @ w_v`` added in model order on
+    ``x``'s device, where the whole ``w_r``'s sigmoid gate multiplies the
+    sum."""
+    xprev = _token_shift(x, None)
+    xk = x + (xprev - x) * p["mu_k"]
+    xr = x + (xprev - x) * p["mu_r"]
+    w_k, w_v = p["w_k"], p["w_v"]
+    xks = tp.fan_out(xk, w_k.devices)
+    kv = tp.fan_in([_squared_relu_mlp(xks[m], w_k.chunks[m], w_v.chunks[m])
+                    for m in range(len(xks))], x.device)
+    return sigmoid(xr @ p["w_r"]) * kv
 
 
 # =============================== Mamba-1 =====================================
@@ -295,31 +392,29 @@ def apply_mamba(
     cfg: MambaConfig,
     x: torch.Tensor,
     state: Params | None = None,
-) -> tuple[torch.Tensor, Params]:
-    """state (decode): {"conv": (B, d_conv-1, di), "ssm": (B, di, N)}."""
-    b, s, d = x.shape
-    di = cfg.expand * d
-    xz = x @ p["in_proj"]
+) -> tuple[torch.Tensor, Params | None]:
+    """state (decode): {"conv": (B, d_conv-1, di), "ssm": (B, di, N)}.
+    With its weights split over ``model``: the split forward, no state."""
+    if isinstance(p["in_proj"], tp.Split):
+        if state is not None:
+            tp.refuse_serving(p["in_proj"])
+        return _apply_mamba_split(p, cfg, x), None
+    return _mamba_after_in_proj(x @ p["in_proj"], p, cfg, state)
+
+
+def _mamba_after_in_proj(xz: torch.Tensor, p: Params, cfg: MambaConfig,
+                         state: Params | None) -> tuple[torch.Tensor, Params]:
+    """Mamba from its ``in_proj`` product ``xz = [x_in | z]`` on whole
+    weights (``p["in_proj"]`` is not read)."""
+    b, s, two_di = xz.shape
+    di = two_di // 2
     x_in, z = xz[..., :di], xz[..., di:]
     tap = state["conv"] if state is not None else None
-    x_c = silu(_causal_conv(x_in, p["conv_w"], p["conv_b"], tap))
-    proj = x_c @ p["x_proj"]
-    dt_rank = p["dt_proj"].shape[0]
-    n = cfg.d_state
-    dt_raw, bm, cm = (proj[..., :dt_rank], proj[..., dt_rank:dt_rank + n],
-                      proj[..., dt_rank + n:])
-    delta = softplus(dt_raw @ p["dt_proj"] + p["dt_bias"])
-    a = -torch.exp(p["A_log"])
+    x_c = _mamba_conv(x_in, p, tap)
     h0 = (state["ssm"] if state is not None
-          else torch.zeros((b, di, n), dtype=torch.float32, device=x.device))
-    if s == 1 and state is not None:
-        y, h_fin = mamba_step(x_c[:, 0].float(), delta[:, 0].float(), a, bm[:, 0].float(),
-                              cm[:, 0].float(), h0)
-        y = y[:, None]
-    else:
-        y, h_fin = mamba_scan_chunked(x_c, delta, a, bm, cm, h0)
-    y = y.to(x.dtype) + p["D"] * x_c
-    y = y * silu(z)
+          else torch.zeros((b, di, cfg.d_state), dtype=torch.float32, device=xz.device))
+    y, h_fin = _mamba_gated(x_c @ p["x_proj"], x_c, z, p, cfg, h0,
+                            step=s == 1 and state is not None)
     out = y @ p["out_proj"]
     k1 = cfg.d_conv - 1
     if tap is not None:
@@ -329,3 +424,78 @@ def apply_mamba(
     else:
         new_tap = F.pad(x_in, (0, 0, k1 - s, 0))
     return out, {"conv": new_tap, "ssm": h_fin}
+
+
+def _mamba_conv(x_in: torch.Tensor, p: Params, tap: torch.Tensor | None) -> torch.Tensor:
+    return silu(_causal_conv(x_in, p["conv_w"], p["conv_b"], tap))
+
+
+def _mamba_gated(proj, x_c, z, p: Params, cfg: MambaConfig, h0, *, step: bool = False):
+    """The per-channel rest of Mamba for the channels ``p`` holds (every
+    one, or one model position's), from ``proj = x_c @ x_proj`` (whole):
+    the discretisation, the scan from ``h0``, ``D``'s skip and the ``z``
+    gate → (y, the scan's last state)."""
+    dt_rank = p["dt_proj"].shape[0]
+    n = cfg.d_state
+    dt_raw, bm, cm = (proj[..., :dt_rank], proj[..., dt_rank:dt_rank + n],
+                      proj[..., dt_rank + n:])
+    delta = softplus(dt_raw @ p["dt_proj"] + p["dt_bias"])
+    a = -torch.exp(p["A_log"])
+    if step:
+        y, h_fin = mamba_step(x_c[:, 0].float(), delta[:, 0].float(), a, bm[:, 0].float(),
+                              cm[:, 0].float(), h0)
+        y = y[:, None]
+    else:
+        y, h_fin = mamba_scan_chunked(x_c, delta, a, bm, cm, h0)
+    y = y.to(x_c.dtype) + p["D"] * x_c
+    return y * silu(z), h_fin
+
+
+_MAMBA_CHANNELS = ("conv_w", "conv_b", "x_proj", "dt_proj", "dt_bias", "A_log", "D",
+                   "out_proj")
+
+
+def mamba_channels(p: Params, x: torch.Tensor) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """Each model position's ``(x_in, z)`` of Mamba's ``in_proj`` split
+    over ``model``: ``x`` fanned out, each position's product with its
+    contiguous chunk of the ``2·di`` columns, then regrouped
+    (``tensor_parallel.regroup``, counted as ``"regroup"``) so position m
+    holds channels ``[m·di/M, (m+1)·di/M)`` of both ``x_in`` and ``z``."""
+    w = p["in_proj"]
+    xs = tp.fan_out(x, w.devices)
+    halves = tp.regroup([xm @ c for xm, c in zip(xs, w.chunks)], -1, 2)
+    return [tuple(h.chunk(2, -1)) for h in halves]
+
+
+def _apply_mamba_split(p: Params, cfg: MambaConfig, x: torch.Tensor) -> torch.Tensor:
+    """Mamba with ``di`` split over ``model`` (a group's
+    ``tensor_parallel.Split`` weights): ``in_proj``, ``dt_proj`` and the
+    per-channel leaves column-parallel, ``x_proj`` and ``out_proj``
+    row-parallel. Each position takes its ``x_in`` and ``z`` channels
+    (:func:`mamba_channels`) and runs the conv; the ``x_proj`` partials
+    (``dt_raw``, ``B``, ``C``) are added in model order on ``x``'s device
+    and fanned back out; each position discretises and scans its channels
+    (state ``(B, di/M, N)``), and the ``out_proj`` partials are added in
+    model order on ``x``'s device. When ``di`` does not divide over
+    ``model`` (the channel leaves whole) but ``2·di`` does, the ``in_proj``
+    columns are gathered (exact) and the layer runs where ``x`` is."""
+    b, _, d = x.shape
+    di = cfg.expand * d
+    if not isinstance(p["conv_w"], tp.Split):
+        w = p["in_proj"]
+        xs = tp.fan_out(x, w.devices)
+        xz = tp.all_gather([xm @ c for xm, c in zip(xs, w.chunks)], -1, x.device)
+        return _mamba_after_in_proj(xz, p, cfg, None)[0]
+    devices = p["in_proj"].devices
+    n = len(devices)
+    pm = [{k: p[k].chunks[m] for k in _MAMBA_CHANNELS} for m in range(n)]
+    channels = mamba_channels(p, x)
+    x_c = [_mamba_conv(x_in, pm[m], None) for m, (x_in, _) in enumerate(channels)]
+    proj = tp.fan_in([xc @ w["x_proj"] for xc, w in zip(x_c, pm)], x.device)
+    projs = tp.fan_out(proj, devices)
+    partials = []
+    for m, d in enumerate(devices):
+        h0 = torch.zeros((b, di // n, cfg.d_state), dtype=torch.float32, device=d)
+        y, _ = _mamba_gated(projs[m], x_c[m], channels[m][1], pm[m], cfg, h0)
+        partials.append(y @ pm[m]["out_proj"])
+    return tp.fan_in(partials, x.device)

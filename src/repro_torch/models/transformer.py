@@ -11,6 +11,9 @@ it in Python and runs layer ``i`` on views of slice ``i``
 model's mesh a group's leaves split over ``model`` are
 ``tensor_parallel.Split``s, split on a dim after the stacked layer dim
 (which is never split), so ``tree_index`` takes each position's slice i.
+Every mixer and FFN has a split forward for the train step
+(``attention``, ``ssm``, ``moe``, ``layers``); the cache paths refuse
+split weights.
 
 Three execution paths per layer, all cache-structure compatible:
   * ``apply_layer``   — forward without a cache; returns (x, aux_loss)
@@ -49,6 +52,7 @@ from repro_torch.models.layers import (
     rms_norm,
     sparsify_ffn,
     tree_index,
+    tree_leaves,
     tree_map,
     tree_stack,
 )
@@ -189,6 +193,13 @@ def init_layer_cache(
     return c
 
 
+def _refuse_split(p: Params) -> None:
+    """Serving with a group's split weights is refused (the cache's
+    layout over ``model`` is the next slice)."""
+    for leaf in tree_leaves(p):
+        tp.refuse_serving(leaf)
+
+
 def _mixer_with_cache(
     p: Params,
     cfg: ModelConfig,
@@ -200,6 +211,7 @@ def _mixer_with_cache(
     decode: bool,
     donate: bool,
 ) -> tuple[torch.Tensor, Params]:
+    _refuse_split(p["mixer"])
     h = rms_norm(x, p["mixer_norm"], cfg.norm_eps)
     new = dict(cache)
     if spec.mixer == "attn":
@@ -244,6 +256,7 @@ def _ffn_with_cache(
     donate: bool,
     use_kernel,
 ) -> tuple[torch.Tensor, Params]:
+    _refuse_split(p["ffn"])
     new = dict(cache)
     if spec.ffn == "relu_mlp":
         return _relu_mlp(p["ffn"], x, use_kernel), new

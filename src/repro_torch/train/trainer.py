@@ -48,8 +48,9 @@ reference's step as GSPMD runs it, from one process, in a fixed order:
 
 So D × M positions on one device and D × M cards give the same bits, and
 ``model`` = 1 gives the data mesh's step, one position the unplaced
-step's bits. On ``model`` > 1 a config with an MLA, Mamba or RWKV-6 mixer
-is refused (``tensor_parallel.refuse_unported``).
+step's bits. Every mixer the configs name runs split over ``model``: GQA
+and MLA over heads, Mamba over its inner channels, RWKV-6's time mix over
+heads and its channel mix over ``d_ff``.
 """
 
 from __future__ import annotations
@@ -94,7 +95,6 @@ def init_train_state(model: Model, optimizer: Optimizer, generator: torch.Genera
     if mesh is None:
         params = model.init(generator, device=device)
         return TrainState(params, optimizer.init(checkpoint.leaves(params)))
-    tp.refuse_unported(model.cfg, mesh)
     params = model.init(generator, device=mesh.device if device is None else device)
     params = place(params, shardings_for(None, mesh, param_pspecs(model.cfg, params, mesh,
                                                                   rules)))
@@ -106,7 +106,6 @@ def state_shardings(cfg, state: TrainState, mesh, rules=None) -> TrainState:
     ``Sharding`` by ``param_pspecs``, each moment its param's, and None
     (left on the host) for the step and SGD's unused scalar moment. The
     ``shardings=`` of ``checkpoint.restore``."""
-    tp.refuse_unported(cfg, mesh)
     ps = shardings_for(None, mesh, param_pspecs(cfg, state.params, mesh, rules))
     flat = checkpoint.leaves(ps)
 
@@ -204,7 +203,6 @@ def _placed_step(model: Model, optimizer: Optimizer, microbatches: int, state: T
     """The train step on a placed state (the module docstring's 1-4)."""
     owners = checkpoint.leaves(state.params)
     mesh = owners[0].sharding.mesh
-    tp.refuse_unported(model.cfg, mesh)
     m_size = mesh.shape.get("model", 1)
     homes = mesh.devices[::m_size]
     n = len(homes)

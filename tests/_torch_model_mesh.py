@@ -23,6 +23,7 @@ import _torch_mesh as dm
 import _torch_train as tt
 
 MOE_ARCH = dm.MOE_ARCH
+MAMBA_ARCH = "jamba-v0.1-52b"
 DENSE_MLP_ID = "graphblas-mlp"
 
 
@@ -33,7 +34,43 @@ def _kv_split(cfg):
                                                                   num_kv_heads=2))
 
 
-VARIANTS = {None: lambda cfg: cfg, "kv-split": _kv_split}
+def _mla_heads4(cfg):
+    """4 MLA heads (the scaled-down DeepSeek-V2 has 2, which stay whole on
+    ``model`` = 4), so the heads split over 4 positions."""
+    return dataclasses.replace(cfg, attention=dataclasses.replace(cfg.attention, num_heads=4))
+
+
+def _rwkv_cut_heads(cfg):
+    """RWKV-6 heads of 32 at d 64: on ``model`` = 4 the column split of
+    ``w_r``/``w_g`` (16 columns a position) cuts a head."""
+    return dataclasses.replace(cfg, rwkv=dataclasses.replace(cfg.rwkv, head_dim=32))
+
+
+def _mamba_sparse_ffn(cfg):
+    """Jamba cut to its first period layer (Mamba and a dense FFN), the FFN
+    block-pruned to 2 blocks of 16 × 16 a row: the split Mamba beside the
+    block-sparse FFN, whole on the home device."""
+    from repro.configs import base as ref_base
+    from repro_torch.configs import base
+
+    kind = (ref_base if isinstance(cfg, ref_base.ModelConfig) else base).SparsityConfig
+    return dataclasses.replace(cfg, num_layers=1, period=cfg.period[:1],
+                               sparsity=kind((16, 16), blocks_per_row=2, targets=("ffn",)))
+
+
+def _pad_slots(jp):
+    """Zero 3 of the 4 input blocks of the first 16 hidden units in the
+    period's ``w_in`` before pruning: block-row 0 of its output-major form
+    keeps one live block, so its ELL row gets a pad slot."""
+    ffn = jp["stack"]["period"][0]["ffn"]
+    ffn["w_in"] = ffn["w_in"].at[:, 16:, :16].set(0.0)
+    return jp
+
+
+# a variant's change to the reference's dense params before pruning
+BEFORE_PRUNING = {"mamba-sparse-ffn": _pad_slots}
+VARIANTS = {None: lambda cfg: cfg, "kv-split": _kv_split, "mla-heads4": _mla_heads4,
+            "rwkv-cut-heads": _rwkv_cut_heads, "mamba-sparse-ffn": _mamba_sparse_ffn}
 
 
 def grid(data: int, model: int):
@@ -58,7 +95,8 @@ def models(arch: str, variant: str | None = None):
     if ref_cfg.sparsity is None:  # jitted: the same draws, faster than op by op
         jp = jax.jit(ref_model.init)(jax.random.key(0))
     else:  # pruning reads values
-        jp = tt.tm.ref_params(ref_model)
+        jp = ref_model.sparsify(BEFORE_PRUNING.get(variant, lambda x: x)(
+            ref_model.init(jax.random.key(0))))
     return ref_model, model, jp, convert.model_params(jp, device="cpu")
 
 
@@ -154,3 +192,59 @@ def split_fraction(leaf) -> int:
     s = leaf.sharding
     return (s.data_size if s.data_dim is not None else 1) * \
         (s.model_size if s.model_dim is not None else 1)
+
+
+def group_params(arch: str, variant: str | None, data: int, model_axis: int) -> list:
+    """Each group's params tree on a ``data`` × ``model_axis`` mesh of the
+    CPU (``trainer._group_params``), from the converted weights."""
+    from repro_torch.train import trainer
+
+    _, _, _, p = models(arch, variant)
+    mesh = grid(data, model_axis)
+    placed = sh.place(p, sh.shardings_for(None, mesh, sh.param_pspecs(None, p, mesh)))
+    return trainer._group_params(placed, checkpoint.leaves(placed), mesh)
+
+
+def assert_split_as_the_reference(arch: str, variant: str | None, data: int,
+                                  model_axis: int) -> int:
+    """Every leaf the reference's ``param_pspecs`` splits over ``model`` is
+    a ``tensor_parallel.Split`` in each group, along the spec's dim, chunk m
+    the whole leaf's slice m (the reference's chunk sizes); every other
+    leaf is one tensor. Returns how many leaves are split."""
+    from repro.distribution import sharding as jsh
+    from repro_torch.distribution import tensor_parallel as tp
+
+    _, _, jp, p = models(arch, variant)
+    specs = jax.tree.leaves(jsh.param_pspecs(None, jp, grid(data, model_axis),
+                                             jsh.ShardingRules()),
+                            is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
+    whole = checkpoint.leaves(p)
+    split = 0
+    for group in group_params(arch, variant, data, model_axis):
+        leaves = checkpoint.leaves(group)
+        assert len(specs) == len(leaves) == len(whole)
+        for leaf, want, spec in zip(leaves, whole, specs):
+            axes = tuple(spec)
+            if "model" not in axes:
+                assert not isinstance(leaf, tp.Split)
+                continue
+            dim = axes.index("model")
+            size = want.shape[dim] // model_axis
+            assert isinstance(leaf, tp.Split) and leaf.dim == dim
+            assert [c.shape[dim] for c in leaf.chunks] == [size] * model_axis
+            for m, c in enumerate(leaf.chunks):
+                assert torch.equal(c, want.narrow(dim, m * size, size))
+            split += 1
+    return split
+
+
+def mamba_channels_per_call(data: int, model_axis: int, variant: str | None = None):
+    """(the channels of each ``ssm._mamba_gated`` call during the mesh step
+    of ``MAMBA_ARCH`` held to the reference, the new placed state)."""
+    from unittest import mock
+
+    from repro_torch.models import ssm
+
+    with mock.patch.object(ssm, "_mamba_gated", wraps=ssm._mamba_gated) as spy:
+        state = check_against_the_reference(MAMBA_ARCH, data, model_axis, 1, variant)
+    return [c.args[3]["D"].shape[-1] for c in spy.call_args_list], state

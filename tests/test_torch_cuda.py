@@ -1432,9 +1432,10 @@ def _data_mesh_model(sparse: bool):
     return Model(cfg), batch
 
 
-def _data_step(model, batch, mesh, *, microbatches=2, params=None):
-    """One AdamW step on ``mesh`` from seeded weights (drawn on card 0):
-    (new state, metrics as floats, each card's launches)."""
+def _data_step(model, batch, mesh, *, microbatches=2, params=None, opt=None):
+    """One step of ``opt`` (AdamW 1e-3 by default) on ``mesh`` from seeded
+    weights (drawn on card 0): (new state, metrics as floats, each card's
+    launches)."""
     from repro_torch.distribution.sharding import param_pspecs, place, shardings_for
     from repro_torch.train import adamw, checkpoint, make_train_step
     from repro_torch.train.optimizer import init_placed
@@ -1444,7 +1445,7 @@ def _data_step(model, batch, mesh, *, microbatches=2, params=None):
         params = model.init(torch.Generator(device="cuda:0").manual_seed(0), device="cuda:0")
         if model.cfg.sparsity is not None:
             params = model.sparsify(params)
-    opt = adamw(1e-3)
+    opt = opt or adamw(1e-3)
     placed = place(params, shardings_for(None, mesh, param_pspecs(None, params, mesh)))
     ops.reset_launch_counts()
     state, metrics = make_train_step(model, opt, microbatches=microbatches)(
@@ -1574,3 +1575,69 @@ def test_cards_a_2x2_model_mesh_step_is_the_2x2_one_card_step_bit_for_bit(sparse
     n = 2 * 3 * model.cfg.num_layers if sparse else 0
     assert {d: (c["bsr_spmm"], c["bcsr_spmm"]) for d, c in l4.items()} == {
         str(c): (n, n) if i % 2 == 0 else (0, 0) for i, c in enumerate(cards)}
+
+
+# --- MLA, Mamba and RWKV-6 on the model axis -----------------------------------
+
+MIXER_ARCHS = ("deepseek-v2-236b", "jamba-v0.1-52b", "rwkv6-3b")
+
+
+def _mixer_model(arch: str):
+    """A scaled-down arch at f32 compute and a seeded batch of 8 rows (128
+    tokens a row for a MoE arch, so each group keeps the 256-token MoE
+    groups of the 2 × 2 mesh's microbatches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(get_config(arch).scaled_down(), compute_dtype="float32")
+    s = 128 if cfg.moe is not None else 16
+    rng = np.random.default_rng(81)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, s)).astype(np.int32))
+             for k in ("inputs", "labels")}
+    batch["labels"][6:] = -1
+    return Model(cfg), batch
+
+
+@pytest.mark.parametrize("arch", MIXER_ARCHS)
+def test_a_model_mesh_mixer_step_on_the_card_matches_the_data_mesh(cuda, arch):
+    """The 2 × 2 mesh on one card with MLA, Mamba or RWKV-6 split over
+    ``model`` against the data mesh of the same groups (2 × 1: the same
+    rows in each product, no model split): the loss within 1e-5, each leaf
+    updated by SGD (its gradient's image; AdamW's first step is ~lr·sign(g))
+    within 1e-4 of its max. Against one position RWKV-6's f32 gradients
+    move by ~1e-3 on the card with the rows a product takes together,
+    with or without the model split."""
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.train import checkpoint, sgd
+
+    model, batch = _mixer_model(arch)
+    opt = sgd(1e-2, momentum=0.0)
+    s4, m4, _ = _data_step(model, batch, make_local_mesh(2, model=2, device="cuda"), opt=opt)
+    s1, m1, _ = _data_step(model, batch, make_local_mesh(2, model=1, device="cuda"), opt=opt)
+    assert abs(m4["loss"] - m1["loss"]) <= 1e-5 * abs(m1["loss"])
+    assert any(x.sharding.model_dim is not None for x in checkpoint.leaves(s4.params))
+    for a, b in zip(checkpoint.leaves(s4.params), checkpoint.leaves(s1.params)):
+        want = b.gather("cuda:0").float()
+        if want.numel():
+            err = float((a.gather("cuda:0").float() - want).abs().max())
+            assert err <= 1e-4 * max(float(want.abs().max()), 1e-30)
+
+
+@pytest.mark.parametrize("arch", MIXER_ARCHS)
+def test_cards_a_2x2_mixer_step_is_the_2x2_one_card_step_bit_for_bit(arch):
+    """MLA, Mamba or RWKV-6 split over ``model`` on 4 cards (groups on cards
+    0-1 and 2-3) against the same mesh on card 0: the same metrics and
+    every chunk of the new state bit for bit."""
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.train import checkpoint
+
+    cards = _cards(4)
+    model, batch = _mixer_model(arch)
+    s1, m1, _ = _data_step(model, batch, make_local_mesh(2, model=2, device=cards[0]))
+    s4, m4, _ = _data_step(model, batch, make_local_mesh(2, model=2, devices=cards))
+    assert m1 == m4
+    for tree1, tree4 in ((s1.params, s4.params), (s1.opt.mu, s4.opt.mu), (s1.opt.nu, s4.opt.nu)):
+        for x, y in zip(checkpoint.leaves(tree1), checkpoint.leaves(tree4)):
+            assert [c.device for c in y.chunks] == cards
+            for a, b in zip(x.chunks, y.chunks):
+                assert torch.equal(a.to(b.device), b)

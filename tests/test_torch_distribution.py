@@ -176,23 +176,31 @@ def test_embed_lookup_and_constrain_on_one_device():
 
 
 def test_model_meshes_past_one_device_are_refused():
-    """What the model axis refuses: MLA, Mamba and RWKV-6 mixers on
-    ``model`` > 1 (the next slice), and the production mesh on a host
-    without its cards. ``data`` × ``model`` meshes build
-    (``test_torch_model_mesh.py`` trains on them)."""
-    from repro_torch.train import sgd
+    """What the model axis still refuses: serving with a group's split
+    weights (prefill and decode over a model mesh are the next slice) and
+    the production mesh on a host without its cards. Every arch's train
+    state builds on ``data`` × ``model`` meshes, its leaves split over
+    ``model`` (MLA, Mamba and RWKV-6 included: ``test_torch_model_mesh*.py``
+    trains on them)."""
+    from repro_torch.train import sgd, trainer
     from repro_torch.train.trainer import init_train_state
 
     assert make_local_mesh(device="cpu", data=2).shape == {"data": 2, "model": 1}
+    ids = torch.from_numpy(np.random.default_rng(7).integers(0, 512, (2, 5)).astype(np.int32))
     for kw in ({"model": 2}, {"data": 2, "model": 2}):
         mesh = make_local_mesh(device="cpu", **kw)
         assert mesh.shape == {"data": kw.get("data", 1), "model": 2}
-        for arch in ("deepseek-v2-236b", "jamba-v0.1-52b", "rwkv6-3b"):
+        for arch in ("deepseek-v2-236b", "jamba-v0.1-52b", "rwkv6-3b", "llama3.2-1b"):
             model = Model(get_config(arch).scaled_down())
-            with pytest.raises(ValueError, match="is the next slice"):
-                init_train_state(model, sgd(1e-2), torch.Generator().manual_seed(0), mesh=mesh)
-        init_train_state(Model(get_config("llama3.2-1b").scaled_down()), sgd(1e-2),
-                         torch.Generator().manual_seed(0), mesh=mesh)
+            state = init_train_state(model, sgd(1e-2), torch.Generator().manual_seed(0),
+                                     mesh=mesh)
+            owners = checkpoint.leaves(state.params)
+            assert any(x.sharding.model_dim is not None for x in owners), arch
+            group = trainer._group_params(state.params, owners, mesh)[0]
+            with pytest.raises(ValueError, match="serving over a model mesh"):
+                model.prefill(group, ids, model.init_cache(2, 16, device="cpu"))
+            with pytest.raises(ValueError, match="serving over a model mesh"):
+                model.decode_step(group, ids[:, 0], model.init_cache(2, 16, device="cpu"), 0)
     for multi_pod in (False, True):
         with pytest.raises(ValueError, match=r"production mesh .*cuda:\d+ … cuda:\d+"):
             make_production_mesh(multi_pod=multi_pod)

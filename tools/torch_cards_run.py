@@ -28,8 +28,11 @@ bit, and the sparse model's launches on each card), then
 ``chip_smoke.py``'s ``llm-train-data`` and ``launch-train-data`` over
 the 4 cards. The model axis: ``model-cards-bits`` (the same step on the
 2 × 2 ``data`` × ``model`` mesh, on card 0 and on 4 cards, the same bits;
-the sparse model's launches on each group's home card), then
-``chip_smoke.py``'s ``llm-train-model`` over the 4 cards. Naming phases
+the sparse model's launches on each group's home card),
+``mixer-cards-bits`` (the same for DeepSeek-V2's MLA, Jamba's Mamba and
+RWKV-6 at published width, cut as ``chip_smoke.MIXER_CUTS``, and Jamba's
+layer with its FFN pruned), then ``chip_smoke.py``'s ``llm-train-model``
+over the 4 cards. Naming phases
 runs those alone (``device`` and ``cards`` always run first).
 
 ``copy-modes`` times one layer of RadiX-net 65536 × 120 over the cards
@@ -161,6 +164,48 @@ def copy_modes(neurons=65536, layers=120, shards=4, width=512, density=0.45,
             "same_bits": True}
 
 
+def same_step_on_one_card_and_cards(model, params, batch, one, cards, microbatches: int,
+                                    label: str) -> dict:
+    """One AdamW step of ``model`` from ``params`` on the mesh ``one`` (every
+    position on card 0) and on ``cards`` (one position a card): metrics and
+    every chunk of the new state (params and moments) must be the same
+    bits. Returns the metrics, the leaves compared, each mesh's launches by
+    card, and the cards' step ms (host clock, every card synchronised)."""
+    import time
+
+    import torch
+
+    from repro_torch.distribution.sharding import param_pspecs, place, shardings_for
+    from repro_torch.kernels import ops
+    from repro_torch.train import adamw, checkpoint
+    from repro_torch.train.optimizer import init_placed, warmup_cosine
+    from repro_torch.train.trainer import TrainState, make_train_step
+
+    opt = adamw(warmup_cosine(3e-4, 10, 100), state_dtype=torch.float32)
+    step = make_train_step(model, opt, microbatches=microbatches)
+    runs = []
+    for mesh in (one, cards):
+        placed = place(params, shardings_for(None, mesh, param_pspecs(None, params, mesh)))
+        state = TrainState(placed, init_placed(opt, checkpoint.leaves(placed)))
+        del placed
+        smoke.sync_all()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        smoke.sync_all()
+        ms = 1e3 * (time.perf_counter() - t0)
+        runs.append(({k: float(v) for k, v in metrics.items()}, state,
+                     {str(d): ops.launch_counts(d) for d in mesh.cards}, ms))
+    (m1, s1, l1, _), (m4, s4, l4, ms4) = runs
+    leaves1, leaves4 = smoke.placed_leaves(s1), smoke.placed_leaves(s4)
+    same = m1 == m4 and len(leaves1) == len(leaves4) and all(
+        torch.equal(a.to(b.device), b) for x, y in zip(leaves1, leaves4)
+        for a, b in zip(x.chunks, y.chunks))
+    smoke.check(same, (label, "a step on 4 cards is the 4-position one-card step", m1, m4))
+    return {"metrics": m4, "same_bits": True, "leaves": len(leaves4), "cards_step_ms": ms4,
+            "launches_one_card": l1, "launches_by_card": l4}
+
+
 def data_cards_bits(arch="llama3.2-1b", seq_len=128, global_batch=8, microbatches=2,
                     positions=4, block=128, blocks_per_row=4, seed=0, model_axis=1) -> dict:
     """One train step from the same weights and batch on a mesh of
@@ -174,13 +219,8 @@ def data_cards_bits(arch="llama3.2-1b", seq_len=128, global_batch=8, microbatche
 
     from repro_torch.configs import SparsityConfig, get_config
     from repro_torch.data import SyntheticLM
-    from repro_torch.distribution.sharding import param_pspecs, place, shardings_for
-    from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models import Model
-    from repro_torch.train import adamw, checkpoint
-    from repro_torch.train.optimizer import init_placed, warmup_cosine
-    from repro_torch.train.trainer import TrainState, make_train_step
 
     data = positions // model_axis
     one = make_local_mesh(data, model=model_axis, device="cuda:0")
@@ -197,40 +237,66 @@ def data_cards_bits(arch="llama3.2-1b", seq_len=128, global_batch=8, microbatche
             model = Model(dataclasses.replace(cfg, sparsity=SparsityConfig(
                 (block, block), blocks_per_row=blocks_per_row, targets=("ffn",))))
             params = model.sparsify(params)
-        opt = adamw(warmup_cosine(3e-4, 10, 100), state_dtype=torch.float32)
-        step = make_train_step(model, opt, microbatches=microbatches)
-        runs = []
-        for mesh in (one, cards):
-            placed = place(params, shardings_for(None, mesh, param_pspecs(cfg, params, mesh)))
-            ops.reset_launch_counts()
-            state, metrics = step(TrainState(placed, init_placed(opt, checkpoint.leaves(placed))),
-                                  batch)
-            smoke.sync_all()
-            runs.append(({k: float(v) for k, v in metrics.items()}, state,
-                         {str(d): ops.launch_counts(d) for d in mesh.cards}))
-            del placed
-        (m1, s1, l1), (m4, s4, l4) = runs
-        leaves1, leaves4 = smoke.placed_leaves(s1), smoke.placed_leaves(s4)
-        same = m1 == m4 and len(leaves1) == len(leaves4) and all(
-            torch.equal(a.to(b.device), b) for x, y in zip(leaves1, leaves4)
-            for a, b in zip(x.chunks, y.chunks))
-        smoke.check(same, (name, "a step on 4 cards is the 4-position one-card step", m1, m4))
-        out[name] = {"metrics": m4, "same_bits": True, "leaves": len(leaves4),
-                     "launches_one_card": l1, "launches_by_card": l4}
+        out[name] = same_step_on_one_card_and_cards(model, params, batch, one, cards,
+                                                    microbatches, name)
         if name == "sparse":
+            l1, l4 = out[name]["launches_one_card"], out[name]["launches_by_card"]
             n = 3 * cfg.num_layers * microbatches
             homes = cards.devices[::model_axis]
             smoke.check(all(c["bsr_spmm"] == c["bcsr_spmm"] == n * homes.count(torch.device(d))
                             for d, c in l4.items())
                         and all(c["bsr_spmm"] == data * n for c in l1.values()),
                         ("sparse launches by card", l1, l4))
-        del runs, s1, s4, leaves1, leaves4
     return {"arch": arch, "mesh": dict(cards.shape), "cards": len(cards.cards), **out}
+
+
+def mixer_cards_bits(seq_len=128, global_batch=8, microbatches=2, block=128, blocks_per_row=4,
+                     seed=0) -> dict:
+    """The same comparison for ``chip_smoke.MIXER_CUTS`` (MLA, Mamba,
+    RWKV-6 at published width, cut in depth) on the 2 × 2 ``data`` ×
+    ``model`` mesh, and the pruned mixer's cut with its FFNs block-pruned
+    (its SpMM launches on the groups' home cards, 0 and 2, only)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import SparsityConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import Model
+
+    one = make_local_mesh(2, model=2, device="cuda:0")
+    cards = make_local_mesh(2, model=2, devices=[f"cuda:{i}" for i in range(4)])
+    out = {}
+    for name, cut in smoke.MIXER_CUTS.items():
+        cfg = smoke.cut_config(name, **cut)
+        batch = {k: torch.from_numpy(v) for k, v in
+                 SyntheticLM(cfg.vocab_size, seq_len, global_batch, seed=seed).batch(0).items()}
+        params = Model(cfg).init(torch.Generator(device="cuda:0").manual_seed(seed),
+                                 device="cuda:0")
+        out[name] = same_step_on_one_card_and_cards(Model(cfg), params, batch, one, cards,
+                                                    microbatches, name)
+        if name == smoke.LLM_TRAIN_MODEL["pruned_mixer"]:
+            pcfg = dataclasses.replace(cfg, sparsity=SparsityConfig(
+                (block, block), blocks_per_row=blocks_per_row, targets=("ffn",)))
+            pruned = same_step_on_one_card_and_cards(Model(pcfg), Model(pcfg).sparsify(params),
+                                                     batch, one, cards, microbatches,
+                                                     name + " pruned")
+            n = 3 * pcfg.num_layers * microbatches
+            smoke.check({d: (c["bsr_spmm"], c["bcsr_spmm"]) for d, c in
+                         pruned["launches_by_card"].items()}
+                        == {f"cuda:{i}": (n, n) if i % 2 == 0 else (0, 0) for i in range(4)},
+                        ("pruned launches on the home cards", pruned["launches_by_card"]))
+            out[name + "-pruned"] = pruned
+        del params
+        torch.cuda.empty_cache()
+    return {"mesh": dict(cards.shape), "cards": len(cards.cards), "cuts": smoke.MIXER_CUTS,
+            "archs": out}
 
 
 PHASES = ("copy-modes", "sharded", "sharded-cards", "sharded-train", "sharded-cards-train",
           "capture-across-cards", "data-cards-bits", "llm-train-data", "launch-train-data",
-          "model-cards-bits", "llm-train-model")
+          "model-cards-bits", "mixer-cards-bits", "llm-train-model")
 
 
 def main(argv=None) -> int:
@@ -270,6 +336,8 @@ def main(argv=None) -> int:
                     **smoke.phase_launch_train_data(**smoke.LAUNCH_TRAIN_DATA)})
     if "model-cards-bits" in chosen:
         smoke.emit({"phase": "model-cards-bits", **data_cards_bits(model_axis=2)})
+    if "mixer-cards-bits" in chosen:
+        smoke.emit({"phase": "mixer-cards-bits", **mixer_cards_bits()})
     if "llm-train-model" in chosen:
         smoke.emit({"phase": "llm-train-model",
                     **smoke.phase_llm_train_model(**smoke.LLM_TRAIN_MODEL)})

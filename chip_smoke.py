@@ -6,7 +6,9 @@ mesh also over one position a card on a host with 4).
 
     python3 chip_smoke.py        # from the repository root, on a CUDA host
 
-Phases (each prints one JSON line; any failure raises, exit code != 0):
+Phases (each prints one JSON line; any failure raises, exit code != 0;
+they run in this order, except that 30, ``dryrun``, runs right after 2,
+with the numpy oracles of 10, 16 and 20 computed beside it):
 
 1. device    — a CUDA card must be present; print its name and power
    limit, build the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
@@ -303,7 +305,38 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    its own storages; train's loss and gradient norm finite; the same
    donated decode at f32 compute within ``LLM_F32_TOL`` of the f32
    prefill of S positions (the bf16 distances printed). Each cell's
-   time beside its roofline bound; no kernel launched.
+   time beside its roofline bound; no kernel launched. The cells keep
+   the card busy and the host's cores idle for minutes, so the numpy
+   oracles of ``continuous``, ``sharded`` and ``fleet`` run beside them
+   (``oracles_ahead``, on the cores less 4: the dry run's process and
+   its two tracers); the script waits for them before the next phase,
+   so no phase that reads the host's clock runs beside them
+   (``oracles_beside`` in this line).
+31. llm-serve-model — serving over the model's 2 × 2 ``data`` × ``model``
+   mesh (``LLM_SERVE_MODEL``, ``model_mesh``) through
+   ``serve.engine.make_serve_fns``: Llama-3.2-1B at published width, its
+   params placed by ``param_pspecs`` and its cache by ``cache_pspecs``
+   (128 slots, 64 a model position), 4 prompts of 48 tokens, 40 greedy
+   tokens, so the decode crosses into model position 1's slot range.
+   Held at f32 compute against the one-device path on the same weights
+   and tokens and ``Engine.generate`` (``serve_held``): every call's
+   logits within ``LLM_F32_TOL`` of each row's max, the greedy tokens
+   equal, every cache chunk in its own storage. Timed at bf16
+   (``serve_timed``): prefill and decode ms on the host clock, one decode
+   step's exchanges between model positions by kind and each card's
+   device ms, the per-call gather of the groups' params and its share of
+   a step, stored bytes a position, peak. Then the same weights with
+   every FFN pruned to 4 blocks of 128 × 128 a row, held at f32 against
+   the one-device path with the kernels and with the plain products
+   (``Model(use_kernel=False)``), its ``bsr_spmm`` launches on each
+   group's home card held to the count from shapes. Then
+   ``SERVE_MIXER_CUTS`` on 1 × 2, each held at f32 and
+   timed: DeepSeek-V2 (1 layer, MLA latents over ``cache_seq``), Jamba (1
+   Mamba layer, its state over ``di``), RWKV-6 (8 layers, its state over
+   heads; held in f64, ``MIXER_HELD_IN_F64``, its f32 errors printed) and
+   Gemma-3-4B cut to one period (5 local layers of window 1024 and a
+   global one; a 1 100-token prompt into 1 280 slots, so the local rings
+   wrap and split, ``SERVE_LONG``).
 
 Every engine plan on the card captures its forward as a CUDA graph at
 its first panel (an eager warm-up, then the capture) and replays it for
@@ -317,11 +350,14 @@ same layer loop called eagerly through ``kernel_ops`` from this script,
 interleaved, five times each, beside the kernels' CUDA-event time
 (``host_share``).
 
-Launch counts are reset to 0 right before each of phases 3-30 and read
+Launch counts are reset to 0 right before each of phases 3-31 and read
 right after (for 8, 9, 17, 19 and 24, around the train steps; for 25, 27
 and 29, around the sparse model's steps, in 29 also around the pruned
-Jamba layer's step; for 20, around each run of the trace). The ``kernels`` line, the ``nvidia-smi`` line and, last,
-``{"ok": true, "device": {...}}`` close the run. Numbers are this run's
+Jamba layer's step; for 20, around each run of the trace; for 31, around
+the mesh's calls of the pruned serve). Each phase's line ends with
+``elapsed_s``, the seconds since the script started. The ``kernels``
+line, the ``nvidia-smi`` line and, last, ``{"ok": true, "device":
+{...}}`` close the run. Numbers are this run's
 own; the bound of a kernel is max(bytes / 3.35 TB/s, ops / 67 TFLOP/s)
 (H100 SXM HBM3 rate and f32 CUDA-core peak at 700 W; the LLM train step's
 bound takes the dense bf16 tensor-core peak, 989 TFLOP/s), counting the
@@ -347,6 +383,7 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+START = time.perf_counter()
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -465,6 +502,19 @@ MIXER_CUTS = {"deepseek-v2-236b": dict(num_layers=1),  # its dense first layer (
 MIXER_HELD_IN_F64 = ("rwkv6-3b",)
 LLM_TRAIN_MODEL = dict(LLM_TRAIN, steps=3, data=2, model=2, moe_arch="moonshot-v1-16b-a3b",
                        moe_layers=2, mixers=MIXER_CUTS, pruned_mixer="jamba-v0.1-52b")
+# serving over the model's mesh: llm-serve's Llama-3.2-1B over the 2 x 2 data x
+# model mesh (model_mesh), 4 prompts of 48 tokens into a 128-slot cache (64 slots
+# a model position) and 40 greedy new tokens, so the decode crosses from model
+# position 0's slot range into position 1's at position 64; the same weights
+# with every FFN pruned; then MIXER_CUTS and Gemma-3-4B cut to one period (5
+# local layers of window 1024 and a global one) on data 1 x model 2, Gemma's
+# 1 100-token prompt into 1 280 slots, so its local ring wraps and is split
+SERVE_MIXER_CUTS = {**MIXER_CUTS, "gemma3-4b": dict(num_layers=6, tail=0)}
+SERVE_LONG = {"gemma3-4b": dict(cache_len=1280, prompt_len=1100, new_tokens=8)}
+LLM_SERVE_MODEL = dict(arch="llama3.2-1b", data=2, model=2, batch=4, cache_len=128,
+                       prompt_len=48, new_tokens=40, block=128, blocks_per_row=4,
+                       pruned_tokens=4, mixers=SERVE_MIXER_CUTS, long=SERVE_LONG,
+                       seed=MODEL_SEED)
 LOSS_RTOL = 1e-5  # f32 compute: the tests' loss tolerance (tests/_torch_train.py)
 # logits, per row: max|got - want| <= tol x max|want|. bf16 compute: 2e-2 (the
 # reference's decode/forward tolerance, tests/test_arch_smoke.py, taken against
@@ -505,6 +555,10 @@ def check(ok: bool, detail) -> None:
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase's line also says when it ended (seconds since
+    the script started)."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - START}
     print(json.dumps(obj), flush=True)
 
 
@@ -1157,18 +1211,35 @@ def oracle_forward(spec, panel, chunk: int = 512) -> tuple[np.ndarray, np.ndarra
     """``radixnet_reference``'s (final activations, categories) on every
     column of ``panel``, chunks of columns in parallel processes (the
     oracle is one numpy gather a layer, single-threaded)."""
+    return oracles_ahead({"": (spec, panel, chunk)}, os.cpu_count() or 1)[""]()
+
+
+def oracles_ahead(work: dict, workers: int) -> dict:
+    """Each entry ``name: (spec, panel, chunk)`` of ``work`` started now, in
+    that order, as :func:`oracle_forward`'s chunks on one pool of
+    ``workers`` spawned processes, beside whatever the script does next;
+    returns ``name:`` a function that waits for its (final activations,
+    categories)."""
     import concurrent.futures
     import multiprocessing
 
-    starts = range(0, panel.shape[1], chunk)
-    jobs = [(spec.neurons, spec.layers, np.ascontiguousarray(panel[:, i:i + chunk]))
-            for i in starts]
-    with concurrent.futures.ProcessPoolExecutor(
-            max_workers=min(len(jobs), os.cpu_count() or 1),
-            mp_context=multiprocessing.get_context("spawn")) as pool:
-        parts = list(pool.map(_oracle_chunk, jobs))
-    return (np.concatenate([y for y, _ in parts], axis=1),
-            np.concatenate([cats + i for (_, cats), i in zip(parts, starts)]))
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=workers, mp_context=multiprocessing.get_context("spawn"))
+    waits = {}
+    for name, (spec, panel, chunk) in work.items():
+        starts = range(0, panel.shape[1], chunk)
+        futures = [pool.submit(_oracle_chunk, (spec.neurons, spec.layers,
+                                               np.ascontiguousarray(panel[:, i:i + chunk])))
+                   for i in starts]
+
+        def result(futures=futures, starts=starts) -> tuple[np.ndarray, np.ndarray]:
+            parts = [f.result() for f in futures]
+            return (np.concatenate([y for y, _ in parts], axis=1),
+                    np.concatenate([cats + i for (_, cats), i in zip(parts, starts)]))
+
+        waits[name] = result
+    pool.shutdown(wait=False)  # the workers finish the jobs, then exit
+    return waits
 
 
 def serve_trace(batcher, ticks, features, *, on_tick=None) -> float:
@@ -2222,15 +2293,16 @@ def sharded_layer_checks(plan, unsharded, y0) -> dict:
                      f"{SPMM_RTOL} |plain| + {SPMM_ATOL}"}
 
 
-def phase_sharded(neurons, layers, shards, n_inputs, density, ref_cols) -> dict:
+def phase_sharded(neurons, layers, shards, n_inputs, density, ref_cols, *,
+                  ahead=None) -> dict:
     """``run_challenge(spec, mesh=make_row_blocks_mesh(shards))`` on the one
     card: route and level ``sharded``, ``bcsr_spmm`` launches counted as
     the captured graph's kernel nodes, per-shard nnz and bills, categories
     against the unsharded engine's on every input and the numpy oracle's
-    on ``ref_cols``; then a shard failure at dispatch 1. Returns what the
-    ``sharded-cards`` phase is held to (the weights, a panel and its
-    output, the categories, the oracle's and the unsharded bill), and
-    the phase's record."""
+    on ``ref_cols`` (``ahead``: (its panel, its :func:`oracle_forward`),
+    computed earlier, else here); then a shard failure at dispatch 1. Returns what the ``sharded-cards`` phase
+    is held to (the weights, a panel and its output, the categories, the
+    oracle's and the unsharded bill), and the phase's record."""
     import torch
 
     from repro_torch.data import radixnet as rx
@@ -2289,7 +2361,12 @@ def phase_sharded(neurons, layers, shards, n_inputs, density, ref_cols) -> dict:
     del single
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ref_y, ref_cats = oracle_forward(spec, np.ascontiguousarray(panel[:, :ref_cols]), chunk=8)
+    if ahead is None:
+        ref_y, ref_cats = oracle_forward(spec, np.ascontiguousarray(panel[:, :ref_cols]),
+                                         chunk=8)
+    else:
+        check(np.array_equal(ahead[0], panel[:, :ref_cols]), "the oracle's panel")
+        ref_y, ref_cats = ahead[1]
     oracle_seconds = time.perf_counter() - t0
     got_cats = res.categories[res.categories < ref_cols]
     check(0 < len(ref_cats) < ref_cols, ("nondegenerate answer set", len(ref_cats)))
@@ -2333,6 +2410,7 @@ def phase_sharded(neurons, layers, shards, n_inputs, density, ref_cols) -> dict:
         "peak_memory_gb": peak_gb, "weights_seconds": weights_seconds,
         "categories": int(len(res.categories)), "reference_columns": ref_cols,
         "reference_categories": int(len(ref_cats)), "oracle_seconds": oracle_seconds,
+        "oracle_computed_ahead": ahead is not None,
         "degrade": {"levels": list(deg.levels), "routes": list(deg.routes),
                     "events": faulted.ladder.describe()["events"],
                     "categories_match": True},
@@ -2631,34 +2709,45 @@ def phase_sharded_cards(neurons, layers, shards, n_inputs, density, ref_cols, on
     }
 
 
+def fleet_jobs(neurons, profile, rate_factor, duration, width_mix, deadline_s, seed, device,
+               **_):
+    """The fleet phase's job trace (``FLEET``) with its panels on ``device``."""
+    from repro_torch.serve import LoadProfile, generate_jobs
+
+    return generate_jobs(LoadProfile.bursty(**profile).scaled(rate_factor), duration,
+                         m=neurons, seed=seed, width_mix=width_mix, deadline_s=deadline_s,
+                         device=device)
+
+
 def phase_fleet(neurons, layers, replicas, profile, rate_factor, duration, width_mix,
-                width_classes, deadline_s, max_pending_cols, seed, loss_at) -> dict:
+                width_classes, deadline_s, max_pending_cols, seed, loss_at, *,
+                ahead) -> dict:
     """The reference's fleet arm on the card: ``replicas`` engines of
     RadiX-net ``neurons × layers`` behind ``FleetFrontend`` on a
     ``VirtualClock``, the service model priced by a replayed plan's
     measured time over its bill; every served job's categories against
-    the numpy oracle, the plan hit rate, then the same trace with a
-    replica lost mid-trace, which must drop no admitted job."""
+    the numpy oracle (``ahead``: (every job's panel in trace order, its
+    :func:`oracle_forward`), computed earlier), the plan hit rate, then the same
+    trace with a replica lost mid-trace, which must drop no admitted
+    job."""
     import torch
 
     from repro_torch.data import radixnet as rx
     from repro_torch.kernels import ops
     from repro_torch.serve import (
         FleetFrontend,
-        LoadProfile,
         ReplicaFleet,
         ServiceModel,
         SparseDNNEngine,
         VirtualClock,
-        generate_jobs,
     )
     from repro_torch.testing import SITE_REPLICA_LOSS, FaultInjector
 
     dev = torch.device("cuda")
     spec = rx.RadixNetSpec(neurons, layers)
     weights, biases = rx.radixnet_weights(spec, device=dev)
-    jobs = generate_jobs(LoadProfile.bursty(**profile).scaled(rate_factor), duration,
-                         m=neurons, seed=seed, width_mix=width_mix, deadline_s=deadline_s)
+    jobs = fleet_jobs(neurons, profile, rate_factor, duration, width_mix, deadline_s, seed,
+                      device=dev)
     # the card's price of a billed block product: a replayed plan of the
     # largest class, its CUDA-event time over its bill
     probe = SparseDNNEngine(weights, biases, batch_align=8)
@@ -2703,11 +2792,12 @@ def phase_fleet(neurons, layers, replicas, profile, rate_factor, duration, width
     # every served job of both runs against the numpy oracle
     rids = sorted(set(fe.results) | set(lfe.results))
     cols = np.cumsum([0] + [jobs[r].cols for r in rids])
-    t0 = time.perf_counter()
-    ref = np.zeros(cols[-1], bool)
-    ref[oracle_categories(spec, np.ascontiguousarray(np.concatenate(
-        [jobs[r].features.cpu().numpy() for r in rids], axis=1)))] = True
-    oracle_seconds = time.perf_counter() - t0
+    check(np.array_equal(ahead[0], np.concatenate([j.features.cpu().numpy() for j in jobs],
+                                                  axis=1)), "the oracle's panel")
+    alive = np.zeros(ahead[0].shape[1], bool)
+    alive[ahead[1][1]] = True
+    starts = np.cumsum([0] + [j.cols for j in jobs])
+    ref = np.concatenate([alive[starts[r]:starts[r + 1]] for r in rids])
     for results in (fe.results, lfe.results):
         for i, r in enumerate(rids):
             if r in results:
@@ -2737,7 +2827,7 @@ def phase_fleet(neurons, layers, replicas, profile, rate_factor, duration, width
         "cross_replica_compiles": f["cross_replica_compiles"],
         "launches": counts, "host_seconds": seconds,
         "oracle_columns": int(cols[-1]), "oracle_categories": int(ref.sum()),
-        "oracle_seconds": oracle_seconds, "value_col_rel_err_first_8_jobs": value_err,
+        "value_col_rel_err_first_8_jobs": value_err,
         "replica_loss": {"at_dispatch": loss_at, **{k: lstats[k] for k in keep},
                          "routing": lstats["fleet"]["routing"],
                          "events": lstats["fleet"]["events"], "launches": lcounts,
@@ -3966,13 +4056,13 @@ def group_exchange(state, mesh) -> dict:
     one microbatch's reduce (each group's gradients, here stand-ins of the
     copies' shapes, added onto the owners in card order). Bytes: what the
     gather copies and what the reduce adds."""
-    from repro_torch.distribution.sharding import constrain_like_params
-    from repro_torch.train import checkpoint, trainer
+    from repro_torch.distribution.sharding import constrain_like_params, group_params
+    from repro_torch.train import checkpoint
 
     owners = checkpoint.leaves(state.params)
     sync_all()
     t0 = time.perf_counter()
-    groups = trainer._group_params(state.params, owners, mesh)
+    groups = group_params(state.params, owners, mesh)
     sync_all()
     gather_ms = 1e3 * (time.perf_counter() - t0)
     own = {id(c) for x in owners for c in x.chunks}
@@ -4042,15 +4132,20 @@ def f64_casts():
         torch.Tensor.float = float32
 
 
-def cut_config(arch: str, num_layers: int, period: int | None = None):
+def cut_config(arch: str, num_layers: int, period: int | None = None,
+               tail: int | None = None):
     """``arch``'s published config cut to ``num_layers`` layers (and its
-    period to its first ``period`` layers): widths unchanged."""
+    period and tail to their first ``period`` and ``tail`` layers): widths
+    unchanged."""
     from repro_torch.configs import get_config
 
     cfg = get_config(arch)
+    cuts = {"num_layers": num_layers}
     if period is not None:
-        cfg = dataclasses.replace(cfg, period=cfg.period[:period])
-    return dataclasses.replace(cfg, num_layers=num_layers)
+        cuts["period"] = cfg.period[:period]
+    if tail is not None:
+        cuts["tail"] = cfg.tail[:tail]
+    return dataclasses.replace(cfg, **cuts)
 
 
 def mixer_on_model_mesh(cfg, mesh, opt, *, seq_len: int, global_batch: int,
@@ -4312,6 +4407,286 @@ def phase_llm_train_model(arch: str, seq_len: int, global_batch: int, microbatch
             "dense": {**dense, "tokens_per_s": tokens / (dense["step_ms"] / 1e3)},
             "sparse": {**sparse, "tokens_per_s": tokens / (sparse["step_ms"] / 1e3)},
             "moe": moe, "mixers": mixer_runs, "launches": launches}
+
+
+def placed_for_serving(model, params, mesh, batch: int, cache_len: int) -> tuple:
+    """(``params`` placed by ``param_pspecs``, a fresh cache placed by
+    ``cache_pspecs``) on ``mesh``."""
+    from repro_torch.distribution.sharding import cache_pspecs, param_pspecs, place, shardings_for
+
+    pp = place(params, shardings_for(None, mesh, param_pspecs(model.cfg, params, mesh)))
+    cache = model.init_cache(batch, cache_len, device=mesh.device)
+    return pp, place(cache, shardings_for(None, mesh, cache_pspecs(model.cfg, cache, mesh)))
+
+
+def greedy(logits):
+    import torch
+
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def one_device_serve(model, params, prompts, new_tokens: int, cache_len: int, *,
+                     feed=None) -> tuple[list, list, object]:
+    """The one-device prefill and ``new_tokens - 1`` decode steps of
+    ``model`` (``Model.prefill``/``decode_step``): (each call's logits, the
+    prefill's last position's; the greedy tokens; the cache). Decode step
+    i is fed ``feed[i]`` where given, else its own greedy token."""
+    b, s = prompts.shape
+    cache = model.init_cache(b, cache_len, device=prompts.device)
+    logits, cache = model.prefill(params, prompts, cache)
+    calls = [logits[:, -1]]
+    toks = [greedy(calls[-1])]
+    for i in range(new_tokens - 1):
+        logits, cache = model.decode_step(params, toks[i] if feed is None else feed[i], cache,
+                                          s + i)
+        calls.append(logits)
+        toks.append(greedy(logits))
+    return calls, toks, cache
+
+
+def serve_greedy(model, pp, cache, prompts, new_tokens: int, *, feed=None) -> tuple:
+    """A prefill of ``prompts`` and ``new_tokens - 1`` greedy decode steps
+    through ``make_serve_fns`` over placed params ``pp`` and a placed
+    ``cache`` (written in place): (each call's logits, the prefill's last
+    position's; each call's ms on the host clock, every card synchronised
+    before and after it; each call's ``tensor_parallel.exchange_counts``).
+    Decode step i is fed ``feed[i]`` where given (another path's greedy
+    tokens), else the greedy token of the call before."""
+    from repro_torch.distribution import tensor_parallel as tp
+    from repro_torch.serve.engine import make_serve_fns
+
+    prefill_fn, decode_fn = make_serve_fns(model)
+    s = prompts.shape[1]
+    calls, ms, exchanges = [], [], []
+    for i in range(new_tokens):
+        tp.reset_exchange_counts()
+        sync_all()
+        t0 = time.perf_counter()
+        if i == 0:
+            logits = prefill_fn(pp, prompts, cache)[0][:, -1]
+        else:
+            tok = greedy(calls[-1]) if feed is None else feed[i - 1]
+            logits = decode_fn(pp, tok, cache, s + i - 1)[0]
+        sync_all()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        exchanges.append(tp.exchange_counts())
+        calls.append(logits)
+    return calls, ms, exchanges
+
+
+def serve_held(model, params, mesh, prompts, new_tokens: int, cache_len: int, *,
+               hold: bool = True, plain=None) -> dict:
+    """The greedy serve through ``make_serve_fns`` over ``params`` and a cache
+    placed on ``mesh`` against the one-device path on the same weights
+    (:func:`one_device_serve`, and ``Engine.generate``), then the mesh fed
+    the one-device path's tokens (:func:`serve_greedy`), launches counted
+    from 0 over the mesh's calls alone. Held (``hold``): every call's
+    logits within ``LLM_F32_TOL`` of each row's max |logit|, the mesh's
+    greedy tokens the one-device path's and the engine's, and every cache
+    chunk in its own storage after the calls. ``plain``: another model of
+    the same weights (the plain products in place of the kernels), its
+    one-device calls fed the same tokens, the mesh's logits held to its
+    too. Also the placed cache, gathered, against the one-device cache
+    (each leaf's max error over its max)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import Engine
+    from repro_torch.train import checkpoint
+
+    b = prompts.shape[0]
+    want, toks, one = one_device_serve(model, params, prompts, new_tokens, cache_len)
+    engine_tokens, _ = Engine(model, params, batch_size=b, cache_len=cache_len,
+                              device=mesh.device).generate(prompts, new_tokens)
+    pp, cache = placed_for_serving(model, params, mesh, b, cache_len)
+    ptrs = [c.data_ptr() for x in checkpoint.leaves(cache) for c in x.chunks]
+    sync_all()
+    ops.reset_launch_counts()
+    got, _, _ = serve_greedy(model, pp, cache, prompts, new_tokens, feed=toks)
+    sync_all()
+    launches = {str(d): ops.launch_counts(d) for d in mesh.cards}
+    total = ops.launch_counts()
+    errs = [row_rel(g, w) for g, w in zip(got, want)]
+    same = [torch.equal(greedy(g), t) for g, t in zip(got, toks)]
+    kept = ptrs == [c.data_ptr() for x in checkpoint.leaves(cache) for c in x.chunks]
+    engine_same = torch.equal(engine_tokens, torch.stack(toks, 1))
+    cache_err = max(float((x.gather(mesh.device).double() - y.double()).abs().max())
+                    / max(float(y.double().abs().max()), 1e-30)
+                    for x, y in zip(checkpoint.leaves(cache), checkpoint.leaves(one)) if y.numel())
+    rec = {"max_row_rel": max(errs), "row_rel_by_call": errs, "tokens_equal": all(same),
+           "engine_tokens_equal": engine_same, "cache_storages_kept": kept,
+           "cache_rel_err": cache_err, "first_tokens": torch.stack(toks, 1)[:, :8].tolist(),
+           "launches_by_card": launches, "launches": total, "calls": new_tokens}
+    held = all(same) and engine_same and kept and max(errs) <= LLM_F32_TOL
+    if plain is not None:
+        ref, _, _ = one_device_serve(plain, params, prompts, new_tokens, cache_len, feed=toks)
+        rec["plain_row_rel_by_call"] = [row_rel(g, w) for g, w in zip(got, ref)]
+        rec["plain_max_row_rel"] = max(rec["plain_row_rel_by_call"])
+        held = held and rec["plain_max_row_rel"] <= LLM_F32_TOL
+    if hold:
+        check(held, (model.cfg.name, "the mesh's serve is the one-device serve", rec))
+    return rec
+
+
+def serve_timed(model, params, mesh, prompts, new_tokens: int, cache_len: int) -> dict:
+    """The greedy serve through ``make_serve_fns`` at the config's compute
+    dtype (the params cast once, the serving copy ``Engine`` holds),
+    timed on the host clock with every card synchronised
+    (:func:`serve_greedy`): the prefill and each decode step; the second
+    decode step's exchanges between model positions by kind
+    (``tensor_parallel.exchange_counts``) and one more step's device ms on
+    each card (profiler); the per-call gather of the groups' params on its
+    own and its share of a decode step; each position's stored bytes
+    (params and cache chunks) and each card's peak."""
+    import torch
+
+    from repro_torch.distribution.sharding import group_params
+    from repro_torch.models.model import cast_floating
+    from repro_torch.serve.engine import make_serve_fns
+    from repro_torch.train import checkpoint
+
+    b, s = prompts.shape
+    for d in mesh.cards:
+        torch.cuda.reset_peak_memory_stats(d)
+    pp, cache = placed_for_serving(model, cast_floating(params, model.compute_dtype), mesh, b,
+                                   cache_len)
+    owners = checkpoint.leaves(pp)
+    stored = [sum(x.chunks[p].numel() * x.chunks[p].element_size()
+                  for x in owners + checkpoint.leaves(cache)) for p in range(mesh.size)]
+    calls, ms, exchanges = serve_greedy(model, pp, cache, prompts, new_tokens)
+    prefill_ms, step_ms, counts = ms[0], ms[1:], exchanges[2]
+    check(bool(torch.isfinite(calls[-1]).all()), (model.cfg.name, "finite logits"))
+    n = len(mesh.devices) // mesh.shape["model"]
+    groups = n if b % n == 0 else 1
+    gather_ms = []
+    for _ in range(3):
+        sync_all()
+        t0 = time.perf_counter()
+        trees = group_params(pp, owners, mesh, groups)
+        sync_all()
+        gather_ms.append(1e3 * (time.perf_counter() - t0))
+        del trees
+    step = statistics.median(step_ms)
+    _, decode_fn = make_serve_fns(model)
+    device_ms = device_ms_by_card(
+        lambda: decode_fn(pp, greedy(calls[-1]), cache, s + new_tokens - 1))
+    return {"compute_dtype": model.cfg.compute_dtype, "prefill_ms": prefill_ms,
+            "decode_step_ms": step, "decode_step_ms_all": step_ms,
+            "tokens_per_s": b / (step / 1e3), "decode_device_ms_by_card": device_ms,
+            "exchanges_a_decode_step": counts,
+            "exchange_mb_a_decode_step": sum(c["bytes"] for c in counts.values()) / 1e6,
+            "param_gather_ms": statistics.median(gather_ms),
+            "param_gather_share_of_decode": statistics.median(gather_ms) / step,
+            "stored_gb_by_position": [x / 1e9 for x in stored],
+            "peak_memory_gb": {str(d): torch.cuda.max_memory_allocated(d) / 1e9
+                               for d in mesh.cards}}
+
+
+def split_cache_leaves(model, mesh, batch: int, cache_len: int) -> list:
+    """The cache leaves ``cache_pspecs`` splits over ``model`` (their key)."""
+    from repro_torch.distribution.sharding import Sharding, cache_pspecs
+    from repro_torch.train import checkpoint
+
+    cache = model.init_cache(batch, cache_len, device="meta")
+    specs = checkpoint.leaves(cache_pspecs(model.cfg, cache, mesh))
+    keys = checkpoint.leaves(checkpoint.map_with_path(lambda k, _: k, cache))
+    return sorted({k.split("//")[-1] for k, spec in zip(keys, specs)
+                   if Sharding(mesh, spec).model_dim is not None})
+
+
+def phase_llm_serve_model(arch: str, data: int, model: int, batch: int, cache_len: int,
+                          prompt_len: int, new_tokens: int, block: int, blocks_per_row: int,
+                          pruned_tokens: int, mixers: dict, long: dict, seed: int) -> dict:
+    """Serving over the model's ``data`` × ``model`` mesh (:func:`model_mesh`)
+    through ``make_serve_fns``: params placed by ``param_pspecs``, the cache
+    by ``cache_pspecs`` (attention slots over ``model``, Mamba's channels,
+    RWKV-6's heads), each group's rows with its split weights, the decode
+    attention's slot ranges merged in model order. ``arch`` at published
+    width, f32 compute held against the one-device path and ``Engine``
+    (:func:`serve_held`) across the slot-range boundary, then timed at its
+    compute dtype (:func:`serve_timed`); again with every FFN pruned to
+    ``blocks_per_row`` blocks of ``block`` × ``block`` a row, held at f32
+    against the one-device path with the kernels and with the plain
+    products, its ``bsr_spmm`` launches on each group's home card held to the count
+    from shapes; then each of ``mixers`` (cut by :func:`cut_config`, sizes
+    from ``long`` where given) on ``data`` 1 × ``model``, held at f32
+    (``MIXER_HELD_IN_F64``: held in f64, the f32 errors printed) and
+    timed."""
+    import torch
+
+    from repro_torch.configs import SparsityConfig, get_config
+    from repro_torch.models import Model
+    from repro_torch.models.model import cast_floating
+    from repro_torch.train import checkpoint
+
+    mesh = model_mesh(data, model)
+    homes = mesh.devices[::model]
+    dev = mesh.device
+    cfg = get_config(arch)
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    params = Model(cfg).init(torch.Generator(device=dev).manual_seed(seed), device=dev)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(seed + 1))
+    check(prompt_len < cache_len // model < prompt_len + new_tokens,
+          ("the decode crosses into model position 1's slots", prompt_len, new_tokens))
+    held = serve_held(Model(f32), params, mesh, prompts, new_tokens, cache_len)
+    timed = serve_timed(Model(cfg), params, mesh, prompts, new_tokens, cache_len)
+
+    pcfg = dataclasses.replace(f32, sparsity=SparsityConfig(
+        (block, block), blocks_per_row=blocks_per_row, targets=("ffn",)))
+    pparams = Model(pcfg).sparsify(params)
+    del params
+    n_proj = sparse_projections(pparams)
+    check(n_proj == 3 * cfg.num_layers, n_proj)
+    pruned = serve_held(Model(pcfg), pparams, mesh, prompts, pruned_tokens, cache_len,
+                        plain=Model(pcfg, use_kernel=False))
+    del pparams
+    want = {str(d): {"bsr_spmm": pruned_tokens * n_proj * homes.count(d)} for d in mesh.cards}
+    got = {d: {"bsr_spmm": c["bsr_spmm"]} for d, c in pruned["launches_by_card"].items()}
+    check(got == want and all(sum(c.values()) == c["bsr_spmm"]
+                              for c in pruned["launches_by_card"].values()),
+          ("bsr_spmm on each group's home card", got, want))
+    pruned.update({"projections": n_proj, "launches_by_card_from_shapes": want,
+                   "pruned": f"{blocks_per_row} blocks of {block} x {block} a row"})
+    torch.cuda.empty_cache()
+
+    runs = {}
+    mesh1 = model_mesh(1, model)
+    for name, cut in mixers.items():
+        c = cut_config(name, **cut)
+        sizes = {"cache_len": cache_len, "prompt_len": prompt_len, "new_tokens": new_tokens,
+                 **long.get(name, {})}
+        mparams = Model(c).init(torch.Generator(device=dev).manual_seed(seed), device=dev)
+        mprompts = torch.randint(0, c.vocab_size, (batch, sizes["prompt_len"]), device=dev,
+                                 generator=torch.Generator(device=dev).manual_seed(seed + 1))
+        args = (mesh1, mprompts, sizes["new_tokens"], sizes["cache_len"])
+        c32 = dataclasses.replace(c, compute_dtype="float32")
+        rec = {"cut": cut, **sizes,
+               "params": sum(x.numel() for x in checkpoint.leaves(mparams)),
+               "cache_leaves_split": split_cache_leaves(Model(c), mesh1, batch,
+                                                        sizes["cache_len"])}
+        check(rec["cache_leaves_split"], (name, "cache leaves split over model"))
+        if name in MIXER_HELD_IN_F64:
+            rec["f32"] = serve_held(Model(c32), mparams, *args, hold=False)
+            c64 = dataclasses.replace(c, compute_dtype="float64", param_dtype="float64")
+            with f64_casts():
+                rec["float64"] = serve_held(Model(c64), cast_floating(mparams, torch.float64),
+                                            *args)
+        else:
+            rec["f32"] = serve_held(Model(c32), mparams, *args)
+        rec["timed"] = serve_timed(Model(c), mparams, *args)
+        del mparams
+        torch.cuda.empty_cache()
+        runs[name] = rec
+    return {"arch": arch, "mesh": dict(mesh.shape), "cards": len(mesh.cards),
+            "devices": [str(d) for d in mesh.devices], "homes": [str(d) for d in homes],
+            "batch": batch, "cache_len": cache_len, "slots_a_position": cache_len // model,
+            "prompt_len": prompt_len, "new_tokens": new_tokens,
+            "cache_leaves_split": split_cache_leaves(Model(cfg), mesh, batch, cache_len),
+            "f32": held, "timed": timed, "pruned_ffn": pruned,
+            "tolerance": {"f32": LLM_F32_TOL}, "mixers": runs,
+            "mixers_mesh": dict(mesh1.shape),
+            "launches": pruned["launches"]}
 
 
 def dryrun_meta_record(arch: str, shape: str, global_batch: int | None,
@@ -4701,7 +5076,34 @@ def main() -> int:
     dev = phase_device()
     kern = phase_kernels()
 
+    # the dry run holds the card for minutes and leaves the host's cores
+    # idle: the numpy oracles of the sharded, fleet and continuous phases
+    # run beside it, and the script waits for them before the phases that
+    # read the host's clock
     spec = RadixNetSpec(1024, 120)
+    n = CONTINUOUS["n_requests"]
+    cont_panel = np.ascontiguousarray(rx.radixnet_input_panel(spec.neurons, n, density=0.3,
+                                                              seed=CONTINUOUS["seed"]))
+    big = RadixNetSpec(SHARDED["neurons"], SHARDED["layers"])
+    sharded_panel = np.ascontiguousarray(rx.radixnet_input_panel(
+        big.neurons, SHARDED["n_inputs"], density=SHARDED["density"],
+        seed=0)[:, :SHARDED["ref_cols"]])
+    fleet_panel = np.concatenate([j.features.numpy() for j in fleet_jobs(**FLEET, device="cpu")],
+                                 axis=1)
+    workers = max(1, (os.cpu_count() or 1) - 4)  # the dry run's process and its tracers
+    torch.cuda.empty_cache()  # the dry run sizes its cells by the card's free memory
+    t0 = time.perf_counter()
+    oracles = oracles_ahead({"sharded": (big, sharded_panel, 8), "fleet": (spec, fleet_panel, 512),
+                             "continuous": (spec, cont_panel, 512)}, workers)
+    dry = phase_dryrun(**DRYRUN)
+    t1 = time.perf_counter()
+    ready = {name: wait() for name, wait in oracles.items()}
+    beside = {"workers": workers, "started_to_ready_seconds": time.perf_counter() - t0,
+              "wait_after_dryrun_seconds": time.perf_counter() - t1,
+              "columns": {"sharded": sharded_panel.shape[1], "fleet": fleet_panel.shape[1],
+                          "continuous": cont_panel.shape[1]}}
+    emit({"phase": "dryrun", "card": dev["nvidia_smi"], **dry, "oracles_beside": beside})
+
     serve, _, serve_res = phase_serve(spec, n_inputs=60000, use_resident=None, density=0.3,
                                       ref_cols=512, route="fused", level="resident",
                                       kernels=("fused_mlp_forward",))
@@ -4735,14 +5137,9 @@ def main() -> int:
     train_paper = phase_train_paper(**PAPER_TRAIN)
     emit({"phase": "train-paper", **train_paper})
 
-    n = CONTINUOUS["n_requests"]
-    cont_panel = np.ascontiguousarray(rx.radixnet_input_panel(spec.neurons, n, density=0.3,
-                                                              seed=CONTINUOUS["seed"]))
-    t0 = time.perf_counter()
-    cont_cats = oracle_categories(spec, cont_panel)
-    oracle_seconds = time.perf_counter() - t0
+    cont_cats = ready["continuous"][1]
     cont = phase_continuous(spec, cont_panel, cont_cats, **CONTINUOUS)
-    emit({"phase": "continuous", "oracle_seconds": oracle_seconds, **cont})
+    emit({"phase": "continuous", **cont})
     faulted = phase_continuous_faults(spec, cont_panel, cont_cats, **CONTINUOUS)
     emit({"phase": "continuous-faults", **faulted})
     bf16 = phase_serve_bf16(spec, serve_res)
@@ -4754,7 +5151,8 @@ def main() -> int:
     emit({"phase": "serve-tuned", **served})
     resilient = phase_train_resilient(**RESILIENT)
     emit({"phase": "train-resilient", **resilient})
-    one_card, sharded = phase_sharded(**SHARDED)
+    one_card, sharded = phase_sharded(**SHARDED,
+                                      ahead=(sharded_panel, ready["sharded"]))
     emit({"phase": "sharded", **sharded})
     sharded_train = phase_sharded_train(**SHARDED_TRAIN)
     emit({"phase": "sharded-train", **sharded_train})
@@ -4763,7 +5161,7 @@ def main() -> int:
     emit({"phase": "sharded-cards", **cards})
     cards_train = phase_sharded_train(**SHARDED_TRAIN, cards=True)
     emit({"phase": "sharded-cards-train", **cards_train})
-    fleet = phase_fleet(**FLEET)
+    fleet = phase_fleet(**FLEET, ahead=(fleet_panel, ready["fleet"]))
     emit({"phase": "fleet", **fleet})
     llm, llm_params = phase_llm_serve(**LLM_SERVE)
     emit({"phase": "llm-serve", **llm})
@@ -4784,8 +5182,8 @@ def main() -> int:
     emit({"phase": "launch-train-data", **launch_data})
     llm_model = phase_llm_train_model(**LLM_TRAIN_MODEL)
     emit({"phase": "llm-train-model", **llm_model})
-    dry = phase_dryrun(**DRYRUN)
-    emit({"phase": "dryrun", "card": dev["nvidia_smi"], **dry})
+    serve_model = phase_llm_serve_model(**LLM_SERVE_MODEL)
+    emit({"phase": "llm-serve-model", **serve_model})
 
     by_phase = {"serve": serve["launches"], "layered": layered["launches"],
                 "tiled": tiled["launches"], "dense": dense["launches"],
@@ -4806,7 +5204,8 @@ def main() -> int:
                 "launch-train": launch["launches"],
                 "llm-train-data": llm_data["sparse"]["launches"],
                 "launch-train-data": launch_data["launches"],
-                "llm-train-model": llm_model["launches"], "dryrun": dry["launches"]}
+                "llm-train-model": llm_model["launches"], "dryrun": dry["launches"],
+                "llm-serve-model": serve_model["launches"]}
     checks = {name: "max|kernel - plain| <= 1e-5 |plain| + 1e-6 (f32 order)"
               for name in ("semiring_matmul", "bsr_spmm", "bcsr_spmm")}
     checks.update({name: "stack: <= 1e-4 max|plain|, each entry within 2x the f32 bound, "

@@ -40,7 +40,15 @@ points (``repro_torch.distribution.tensor_parallel``), and
 :func:`constrain_like_params` adds each group's gradients onto the owners
 in card order, per ``model`` chunk. Outside a group :func:`constrain` is
 the identity and :func:`embed_lookup` is ``table[ids]``: the reference's
-vocab-parallel lookup gives the same rows. The sparse stack runs across
+vocab-parallel lookup gives the same rows. :func:`group_params` gives each group
+its copy of the params (for the train step and for serving), and
+:func:`group_cache` a group's view of a decode cache placed by
+:func:`cache_pspecs`: the placed chunks themselves (a serving step
+writes them in place), a leaf split over ``model`` as a
+``tensor_parallel.Split`` of the group's chunks (the attention caches'
+slots, Mamba's channels, RWKV-6's heads) and every other leaf the home
+position's own tensor; :func:`sync_replicas` then copies what the
+positions that ran wrote into every other position's copy. The sparse stack runs across
 cards too: :func:`shard_device` says where shard s runs and
 :func:`row_bands` which rows each position owns in the shard-order sum.
 """
@@ -56,6 +64,7 @@ from typing import Any
 import torch
 
 from repro_torch.distribution import peer
+from repro_torch.distribution import tensor_parallel as tp
 
 Params = dict[str, Any]
 
@@ -594,6 +603,105 @@ def split_batch(batch: dict, mesh, microbatches: int = 1,
             for c in range(n):
                 out[i][c][key] = x.narrow(0, i * per_mb + c * per_pos, per_pos)
     return out
+
+
+# ------------------------------ groups ---------------------------------------
+
+
+def group_params(state_params, owners: list, mesh, groups: int | None = None) -> list:
+    """Each group's params tree (the first ``groups`` data indices' groups,
+    default every one), from the placed ``state_params`` and their flat
+    leaves ``owners``: a leaf split over ``model`` as a
+    ``tensor_parallel.Split`` of its positions' chunks (each whole along
+    ``data``), every other leaf whole on the group's home device. Copies
+    are shared between groups whose positions share a device. The train
+    step gathers them once a step, a serving call once a call."""
+    from repro_torch.train import checkpoint
+
+    m_size = mesh.shape.get("model", 1)
+    copies: dict = {}
+
+    def copy(j, device, m=None):
+        key = (j, device, m)
+        if key not in copies:
+            copies[key] = owners[j].gather(device, m)
+        return copies[key]
+
+    trees = []
+    for c in range(len(mesh.devices) // m_size if groups is None else groups):
+        group = mesh.devices[c * m_size:(c + 1) * m_size]
+        leaves = []
+        for j, leaf in enumerate(owners):
+            dim = leaf.sharding.model_dim
+            leaves.append(copy(j, group[0]) if dim is None else
+                          tp.Split(tuple(copy(j, d, m) for m, d in enumerate(group)), dim))
+        trees.append(checkpoint.with_leaves(state_params, leaves))
+    return trees
+
+
+def group_cache(cache, mesh, c: int):
+    """Group ``c``'s view of a decode cache placed by :func:`cache_pspecs`:
+    the placed chunks of its positions themselves, never gathered (a
+    serving step writes them in place). A leaf split over ``model`` (the
+    GQA/MLA caches along ``cache_seq``, Mamba's ``conv``/``ssm`` along
+    ``di``, RWKV-6's ``wkv`` along heads) is a ``tensor_parallel.Split`` of
+    the group's M chunks, each holding the group's rows when the batch
+    splits over ``data`` (all rows when it does not, and group 0 runs
+    them); every other leaf (``positions``, the token shifts, a dim that
+    does not divide) is the home position's own chunk."""
+    from repro_torch.train.checkpoint import map_with_path
+
+    m_size = mesh.shape.get("model", 1)
+
+    def view(_key, leaf):
+        if not isinstance(leaf, Placed):
+            return leaf
+        chunks = leaf.chunks[c * m_size:(c + 1) * m_size]
+        dim = leaf.sharding.model_dim
+        return chunks[0] if dim is None else tp.Split(tuple(chunks), dim)
+
+    return map_with_path(view, cache)
+
+
+def sync_replicas(cache, mesh, groups: int) -> None:
+    """After a serving step in which the first ``groups`` groups wrote their
+    :func:`group_cache` views, each chunk no group wrote is made a copy of
+    the chunk written in its place (``tensor_parallel.replicate_into``): a
+    leaf whole along ``model`` takes its group's home position's, and,
+    when only group 0 ran (a batch that does not split over ``data``),
+    every group takes group 0's chunks."""
+    from repro_torch.train import checkpoint
+
+    m_size = mesh.shape.get("model", 1)
+    for leaf in checkpoint.leaves(cache):
+        if not isinstance(leaf, Placed):
+            continue
+        by_source: dict[int, list] = {}
+        for p, chunk in enumerate(leaf.chunks):
+            c, m = divmod(p, m_size)
+            src = (c if c < groups else 0) * m_size
+            if leaf.sharding.model_dim is not None:
+                src += m
+            by_source.setdefault(src, []).append(chunk)
+        for src, copies in by_source.items():
+            tp.replicate_into(copies, leaf.chunks[src])
+
+
+def check_moe_groups(cfg, rows: dict, n: int) -> None:
+    """Refuse a split over ``n`` data indices whose MoE token groups differ
+    from the whole batch's: the groups would cross positions and route
+    otherwise (the train step's rule, and serving's)."""
+    if n == 1 or not any(spec.ffn == "moe" for spec in cfg.layer_specs()):
+        return
+    from repro_torch.models.moe import _group_size
+
+    x = rows["inputs"]
+    tokens = x.shape[0] * (x.shape[1] if cfg.input_mode != "features" and x.dim() > 1 else 1)
+    if _group_size(tokens) != _group_size(tokens * n):
+        raise ValueError(
+            f"{tokens} tokens a position make MoE groups of {_group_size(tokens)}, the "
+            f"whole batch's {tokens * n} tokens groups of {_group_size(tokens * n)}: the "
+            "groups would cross positions; give each position a multiple of the group size")
 
 
 # ----------------------- sharded sparse weights ------------------------------

@@ -45,8 +45,15 @@ replay a step's exchanges on their own (:func:`replay`).
 
 The model axis covers every layer kind of the train step: GQA and MLA
 attention, Mamba, RWKV-6's time and channel mix, dense and MoE FFNs, the
-paper's MLP, the embedding and the head. :func:`refuse_serving` refuses
-prefill and decode with split weights (:data:`NEXT_SLICE`).
+paper's MLP, the embedding and the head. Serving adds a decode cache
+split over ``model`` (``cache_pspecs``: the attention caches' slots, a
+``cache_seq`` range a position; Mamba's and RWKV-6's states by channel
+and head, which follow their weights) and three forward-only exchanges:
+:func:`write_slots` (new keys, values or latents to the positions that
+own their slots), :func:`merge_softmax` (each slot range's partial
+softmax, ``(max, Σexp, Σexp·v)``, merged in model order on the home
+device) and :func:`replicate_into` (a cache leaf every position holds
+whole, copied from the position that wrote it).
 """
 
 from __future__ import annotations
@@ -58,16 +65,14 @@ import torch
 
 from repro_torch.distribution import peer
 
-NEXT_SLICE = ("serving over a model mesh (prefill and decode with the cache over model) is "
-              "the next slice of the port")
-
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Split:
     """A group's copy of a leaf split over ``model``: ``chunks[m]`` on
     model position m's device, split along ``dim``. Reads like the whole
     leaf (shape, dtype) and indexes like it along a leading layer dim, which
-    is never split (a period's stacked leaves)."""
+    is never split (a period's stacked leaves). A group's view of a placed
+    cache leaf is one too, its chunks the placed storages."""
 
     chunks: tuple[torch.Tensor, ...]
     dim: int
@@ -365,15 +370,119 @@ def embed_lookup(table: Split, ids: torch.Tensor) -> torch.Tensor:
     return all_gather(rows, -1, ids.device)
 
 
+# ------------------------ serving: the split cache --------------------------
+
+
+def slot_runs(slots, per: int) -> list[tuple[int, int, int, int]]:
+    """``(first entry, owner, first local slot, length)`` of each run of
+    consecutive entries of ``slots`` (host ints) that land on consecutive
+    slots of one owner, where owner m holds slots ``[m·per, (m+1)·per)``."""
+    runs: list[list[int]] = []
+    for i, slot in enumerate(slots):
+        owner, local = divmod(slot, per)
+        if runs and runs[-1][1] == owner and runs[-1][2] + runs[-1][3] == local:
+            runs[-1][3] += 1
+        else:
+            runs.append([i, owner, local, 1])
+    return [tuple(r) for r in runs]
+
+
+def write_slots(cache: Split, x: torch.Tensor, slots) -> None:
+    """``x``'s entries along ``cache.dim`` written, in place, into the
+    slots ``slots`` (host ints, one an entry) of the cache split into
+    equal slot ranges over ``model``: each run of them to the position
+    that owns its slots (slot s: position ``s // (size/M)``), cast to the
+    cache's dtype. Forward only (serving has no backward); the bytes that
+    leave ``x``'s position for another are counted as ``"write"``."""
+    dim, per = cache.dim, cache.chunks[0].shape[cache.dim]
+    runs = slot_runs(slots, per)
+    _log("write", shape=tuple(x.shape), dtype=x.dtype, home=x.device, devices=cache.devices,
+         dim=dim, runs=runs)
+    moved = 0
+    for i, owner, local, n in runs:
+        piece = x.narrow(dim, i, n)
+        if owner:
+            moved += _nbytes(piece)
+        peer.copy_into(cache.chunks[owner].narrow(dim, local, n), piece)
+    _count("write", moved)
+
+
+def merge_softmax(partials, device) -> torch.Tensor:
+    """The softmax-weighted sum over every slot range, from each range's
+    partial ``(m, l, acc)``: its scores' max ``m`` (…, T), ``l = Σ exp(s -
+    m)`` (…, T) and ``acc = Σ exp(s - m)·v`` (…, T, dv), all f32, one range
+    a model position. Moved to ``device`` and merged in model order:
+    ``Σ_r e^{m_r - M}·acc_r / Σ_r e^{m_r - M}·l_r`` with ``M = max_r m_r``. A
+    range whose every slot is masked (scores -1e30) weighs exactly 0 as
+    long as one range holds a live slot. Forward only (serving has no
+    backward); the partials of positions past the home are counted as
+    ``"merge"``."""
+    device = torch.device(device)
+    _log("merge", shapes=[tuple(t.shape) for t in partials[0]], dtype=partials[0][2].dtype,
+         home=device, devices=tuple(p[2].device for p in partials))
+    _count("merge", sum(_nbytes(t) for p in partials[1:] for t in p))
+    parts = [tuple(peer.to(t, device) for t in p) for p in partials]
+    top = parts[0][0]
+    for m, _, _ in parts[1:]:
+        top = torch.maximum(top, m)
+    num = den = None
+    for m, l, acc in parts:
+        w = torch.exp(m - top)
+        num = w[..., None] * acc if num is None else num + w[..., None] * acc
+        den = w * l if den is None else den + w * l
+    return num / den[..., None]
+
+
+def replicate_into(copies, source: torch.Tensor) -> None:
+    """``source`` copied into each tensor of ``copies`` that is not
+    ``source`` itself (a cache leaf every position of a group, or of the
+    mesh, holds whole, after the position that computed it wrote its
+    own). Forward only; counted as ``"replicate"``."""
+    copies = list(copies)
+    _log("replicate", shape=tuple(source.shape), dtype=source.dtype, home=source.device,
+         devices=tuple(c.device for c in copies),
+         source=next((i for i, c in enumerate(copies) if c is source), None))
+    moved = 0
+    for dst in copies:
+        if dst is not source:
+            moved += _nbytes(source)
+            peer.copy_into(dst, source)
+    _count("replicate", moved)
+
+
+# ---------------------------------- replay -----------------------------------
+
+
 def replay(entry) -> None:
-    """One logged exchange (:func:`logging_exchanges`) run forward and
-    backward on fresh tensors of its shapes, devices and dtype."""
+    """One logged exchange (:func:`logging_exchanges`) run on fresh
+    tensors of its shapes, devices and dtype: forward and backward, or
+    forward alone for the serving exchanges (``"write"``, ``"merge"``,
+    ``"replicate"``)."""
     kind, meta = entry
     dtype = meta["dtype"]
 
-    def fresh(shape, device):
-        return torch.ones(shape, dtype=dtype, device=device, requires_grad=True)
+    def fresh(shape, device, grad=True):
+        return torch.ones(shape, dtype=dtype, device=device, requires_grad=grad)
 
+    if kind == "write":
+        shape = list(meta["shape"])
+        shape[meta["dim"]] = max(local + n for _, o, local, n in meta["runs"])
+        cache = Split(tuple(torch.zeros(shape, dtype=dtype, device=d) for d in meta["devices"]),
+                      meta["dim"])
+        slots = [o * shape[meta["dim"]] + local + k for _, o, local, n in meta["runs"]
+                 for k in range(n)]
+        write_slots(cache, fresh(meta["shape"], meta["home"], False), slots)
+        return
+    if kind == "merge":
+        merge_softmax([tuple(fresh(s, d, False) for s in meta["shapes"])
+                       for d in meta["devices"]], meta["home"])
+        return
+    if kind == "replicate":
+        copies = [torch.zeros(meta["shape"], dtype=dtype, device=d) for d in meta["devices"]]
+        i = meta["source"]
+        replicate_into(copies, fresh(meta["shape"], meta["home"], False) if i is None
+                       else copies[i].fill_(1))
+        return
     if kind == "fan_out":
         outs = fan_out(fresh(meta["shape"], meta["home"]), meta["devices"])
     elif kind == "scatter":
@@ -391,13 +500,3 @@ def replay(entry) -> None:
         outs = reshard([fresh(s, d) for s, d in zip(meta["shapes"], meta["devices"])],
                        meta["src_dim"], meta["dst_dim"])
     torch.autograd.backward(outs, [torch.ones_like(o) for o in outs])
-
-
-# -------------------------------- refusals -----------------------------------
-
-
-def refuse_serving(w) -> None:
-    """Raise for a group's split weight on a serving path: the cache's
-    layout over ``model`` is the next slice."""
-    if isinstance(w, Split):
-        raise ValueError(f"{NEXT_SLICE}; serve on one device")

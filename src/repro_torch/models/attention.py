@@ -18,6 +18,19 @@ layer writes a position past its buffer into the last slot, as the
 reference's ``dynamic_update_slice`` clamps its start index. MLA decode uses the
 absorbed formulation: only the (kv_lora + rope) latents are cached and
 the up-projections fold into the query and output sides.
+
+A group of the model's mesh serves with its split weights (heads over
+``model``, as in training) and its view of a cache placed by
+``cache_pspecs`` (``sharding.group_cache``): the K/V or latent slots
+split into M equal ranges, range m on model position m, and
+``positions`` whole on the home device. A prefill attends as the split
+forward does and writes the prompt's keys and values (or latents) into
+the positions that own their slots; a decode step writes its token's
+into the owner of its slot, every range's owner scores its slots for
+every query head, and the ranges' partial softmaxes are merged in model
+order on the home device (``tensor_parallel.merge_softmax``, f32) before
+the row-parallel output projection. A cache whose slots do not divide
+over ``model`` is one range on the home device.
 """
 
 from __future__ import annotations
@@ -28,6 +41,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import AttentionConfig
+from repro_torch.distribution import peer
 from repro_torch.distribution import tensor_parallel as tp
 from repro_torch.models.layers import Init, dense_init, init_rms_norm, rms_norm, rounded
 
@@ -235,18 +249,27 @@ def init_gqa(rng: Init, cfg: AttentionConfig, d_model: int, dtype=torch.float32)
     return p
 
 
-def _gqa_qkv(p: Params, cfg: AttentionConfig, x: torch.Tensor, positions, theta):
+def _gqa_q(p: Params, cfg: AttentionConfig, x: torch.Tensor, positions, theta):
     q = torch.einsum("bsd,dhk->bshk", x, p["w_q"])
+    if cfg.qkv_bias:
+        q = q + p["b_q"]
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+    return apply_rope(q, positions, theta)
+
+
+def _gqa_kv(p: Params, cfg: AttentionConfig, x: torch.Tensor, positions, theta):
     k = torch.einsum("bsd,dhk->bshk", x, p["w_k"])
     v = torch.einsum("bsd,dhk->bshk", x, p["w_v"])
     if cfg.qkv_bias:
-        q, k, v = q + p["b_q"], k + p["b_k"], v + p["b_v"]
+        k, v = k + p["b_k"], v + p["b_v"]
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
-    q = apply_rope(q, positions, theta)
-    k = apply_rope(k, positions, theta)
-    return q, k, v
+    return apply_rope(k, positions, theta), v
+
+
+def _gqa_qkv(p: Params, cfg: AttentionConfig, x: torch.Tensor, positions, theta):
+    return (_gqa_q(p, cfg, x, positions, theta), *_gqa_kv(p, cfg, x, positions, theta))
 
 
 def apply_gqa(
@@ -283,23 +306,25 @@ def kv_heads_of(h: int, hkv: int, m: int, positions: int) -> tuple[int, list[int
 
 
 def _apply_gqa_split(p: Params, cfg: AttentionConfig, x: torch.Tensor, *, window: int,
-                     rope_theta: float, q_chunk: int) -> torch.Tensor:
+                     rope_theta: float, q_chunk: int, kv: list | None = None) -> torch.Tensor:
     """GQA with its query heads split over ``model`` (a group's
     ``tensor_parallel.Split`` weights): ``w_q``/``w_k``/``w_v`` and their
     biases column-parallel, ``w_o`` row-parallel. Each position computes
     its query heads' attention and its partial output projection; the
     partials are added in model order on ``x``'s device. KV heads that do
     not split are whole: each position takes the ones its query heads
-    read (:func:`kv_heads_of`), repeated as the reference repeats them."""
+    read (:func:`kv_heads_of`), repeated as the reference repeats them.
+    ``kv``, where given, receives every KV head's keys and values on
+    ``x``'s device: the positions' own, gathered in model order, where
+    ``w_k`` is split, else computed once there."""
     devices = p["w_q"].devices
     n = len(devices)
     theta = rope_theta or cfg.rope_theta
-    whole = {k: tp.fan_out(w, devices) for k, w in p.items()
-             if k != "w_o" and not isinstance(w, tp.Split)}
+    per = _per_position(p, [k for k in p if k != "w_o"], devices)
     xs = tp.fan_out(x, devices)
-    partials = []
+    partials, own = [], []
     for m, d in enumerate(devices):
-        pm = {k: whole[k][m] if k in whole else w.chunks[m] for k, w in p.items()}
+        pm = {**per[m], "w_o": p["w_o"].chunks[m]}
         counts = None
         if not isinstance(p["w_k"], tp.Split):
             lo, counts = kv_heads_of(cfg.num_heads, cfg.num_kv_heads, m, n)
@@ -308,12 +333,19 @@ def _apply_gqa_split(p: Params, cfg: AttentionConfig, x: torch.Tensor, *, window
                     pm[k] = pm[k].narrow(dim, lo, len(counts))
         positions = torch.arange(x.shape[1], device=d)[None, :]
         q, k, v = _gqa_qkv(pm, cfg, xs[m], positions, theta)
+        own.append((k, v))
         if counts is not None and len(counts) != q.shape[2]:
             k, v = (torch.cat([t[:, :, i:i + 1].expand(-1, -1, c, -1)
                                for i, c in enumerate(counts)], dim=2) for t in (k, v))
         out = attend_causal(q, k, v, window=window, scale=1.0 / math.sqrt(cfg.head_dim),
                             q_chunk=q_chunk)
         partials.append(torch.einsum("bshk,hkd->bsd", out, pm["w_o"]))
+    if kv is not None:
+        if isinstance(p["w_k"], tp.Split):
+            kv.extend(tp.all_gather(list(t), 2, x.device) for t in zip(*own))
+        else:
+            kv.extend(_gqa_kv(p, cfg, x, torch.arange(x.shape[1], device=x.device)[None, :],
+                              theta))
     return tp.fan_in(partials, x.device)
 
 
@@ -340,13 +372,20 @@ def prefill_gqa(
     q_chunk: int = 1024,
     donate: bool = False,
 ) -> tuple[torch.Tensor, Params]:
-    tp.refuse_serving(p["w_q"])
     s = x.shape[1]
+    if isinstance(p["w_q"], tp.Split):  # a group: its split forward's keys and values
+        kv: list = []
+        out = _apply_gqa_split(p, cfg, x, window=window, rope_theta=rope_theta,
+                               q_chunk=q_chunk, kv=kv)
+        return out, _fill_split(cache, dict(zip(("k", "v"), kv)), s, donate)
     theta = rope_theta or cfg.rope_theta
     positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _gqa_qkv(p, cfg, x, positions, theta)
     out = attend_causal(q, k, v, window=window, scale=1.0 / math.sqrt(cfg.head_dim),
                         q_chunk=q_chunk)
+    if isinstance(cache["k"], tp.Split):
+        return (torch.einsum("bshk,hkd->bsd", out, p["w_o"]),
+                _fill_split(cache, {"k": k, "v": v}, s, donate))
     size = cache["k"].shape[1]
     if size >= s:
         new_cache = _writable(cache, ("k", "v", "positions"), donate)
@@ -396,7 +435,9 @@ def decode_gqa(
     rope_theta: float = 0.0,
     donate: bool = False,
 ) -> tuple[torch.Tensor, Params]:
-    tp.refuse_serving(p["w_q"])
+    if isinstance(p["w_q"], tp.Split) or isinstance(cache["k"], tp.Split):
+        return _decode_gqa_split(p, cfg, x, cache, pos, window=window, rope_theta=rope_theta,
+                                 donate=donate)
     theta = rope_theta or cfg.rope_theta
     positions = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
     q, k, v = _gqa_qkv(p, cfg, x, positions, theta)
@@ -409,6 +450,146 @@ def decode_gqa(
     out = _attend(q, k_cache, v_cache, mask, scale=1.0 / math.sqrt(cfg.head_dim))
     out = torch.einsum("bshk,hkd->bsd", out, p["w_o"])
     return out, {"k": k_cache, "v": v_cache, "positions": positions_c}
+
+
+# --- serving over the model axis ----------------------------------------------
+
+
+def _per_position(p: Params, names, devices) -> list[Params]:
+    """Each model position's copy of the leaves ``names`` of ``p``: its
+    chunk of a split leaf, a whole leaf fanned out from the home device."""
+    per: list[Params] = [{} for _ in devices]
+    for name in names:
+        if name in p:
+            w = p[name]
+            parts = w.chunks if isinstance(w, tp.Split) else tp.fan_out(w, devices)
+            for m, part in enumerate(parts):
+                per[m][name] = part
+    return per
+
+
+def _heads_gathered(body, p: Params, names, x: torch.Tensor, positions, lead: str):
+    """``body(leaves, x, positions)`` for every head on ``x``'s device: each
+    position's heads (``p[lead]`` split over ``model``) gathered in model
+    order along the heads dim, or ``body`` once on ``x``'s device where
+    ``p[lead]`` is whole. ``body`` returns a tensor or a tuple of them,
+    heads on dim 2."""
+    w = p[lead]
+    if not isinstance(w, tp.Split):
+        return body(p, x, positions)
+    devices = w.devices
+    xs = tp.fan_out(x, devices)
+    outs = [body(pm, xs[m], peer.to(positions, d))
+            for m, (pm, d) in enumerate(zip(_per_position(p, names, devices), devices))]
+    if isinstance(outs[0], tuple):
+        return tuple(tp.all_gather(list(o), 2, x.device) for o in zip(*outs))
+    return tp.all_gather(outs, 2, x.device)
+
+
+def _as_split(buf, donate: bool) -> tp.Split:
+    """A cache buffer as slot ranges over ``model`` (a whole buffer: one
+    range): the caller's own tensors when ``donate``, else copies."""
+    split = buf if isinstance(buf, tp.Split) else tp.Split((buf,), 1)
+    return split if donate else split.map(torch.clone)
+
+
+def _like(split: tp.Split, buf):
+    return split if isinstance(buf, tp.Split) else split.chunks[0]
+
+
+def _fill_split(cache: Params, new: Params, s: int, donate: bool) -> Params:
+    """``cache`` with a prompt's ``new`` entries (name → (B, s, …)) written
+    into the positions that own their slots: slots ``[0, s)``, or, for a
+    ring smaller than the prompt, the last ``size`` tokens at ``t % size``
+    (``_ring_fill``); ``positions`` on the home device as the one-device
+    prefill writes it."""
+    size = cache[next(iter(new))].shape[1]
+    lo = max(0, s - size)
+    slots = [t % size for t in range(lo, s)]
+    out = {}
+    for name, x in new.items():
+        buf = _as_split(cache[name], donate)
+        tp.write_slots(buf, x.narrow(1, lo, s - lo), slots)
+        out[name] = _like(buf, cache[name])
+    pos = cache["positions"] if donate else cache["positions"].clone()
+    if lo:
+        pos.copy_(_ring_positions(size, s, pos.device))
+    else:
+        pos[:s] = torch.arange(s, dtype=torch.int32, device=pos.device)
+    out["positions"] = pos
+    return out
+
+
+def _write_token(cache: Params, new: Params, positions: torch.Tensor, slot: int,
+                 donate: bool) -> tuple[Params, Params]:
+    """``cache`` with one token's ``new`` entries written into ``slot``'s
+    owner, and ``positions`` at ``slot``: (the buffers as ranges, the
+    cache to return)."""
+    ranges, out = {}, {}
+    for name, x in new.items():
+        ranges[name] = _as_split(cache[name], donate)
+        tp.write_slots(ranges[name], x, [slot])
+        out[name] = _like(ranges[name], cache[name])
+    out["positions"] = _write_slot(cache["positions"], positions[0], slot, 0, donate=donate)
+    return ranges, out
+
+
+def _partial(scores: torch.Tensor, values: torch.Tensor, spec: str):
+    """One slot range's partial softmax over its (masked) ``scores`` (…, S):
+    ``(max, Σ exp(s - max), Σ exp(s - max)·values)``, f32, as ``_attend``
+    computes its exponentials."""
+    m = torch.amax(scores, dim=-1, keepdim=True).float()
+    e = torch.exp(scores.float() - m)
+    return m[..., 0], torch.sum(e, dim=-1), torch.einsum(spec, e, values.float())
+
+
+def _row_parallel_heads(out: torch.Tensor, ws: tuple, body) -> torch.Tensor:
+    """``body(out, *ws)`` with ``out``'s heads (dim 2) scattered to the
+    positions of weights ``ws`` split over heads and the partials added in
+    model order on ``out``'s device; ``body`` once where they are whole."""
+    if not isinstance(ws[0], tp.Split):
+        return body(out, *ws)
+    outs = tp.scatter(out, 2, ws[0].devices)
+    return tp.fan_in([body(o, *(w.chunks[m] for w in ws)) for m, o in enumerate(outs)],
+                     out.device)
+
+
+def _gqa_out(out, w_o):
+    return torch.einsum("bshk,hkd->bsd", out, w_o)
+
+
+def _decode_gqa_split(p: Params, cfg: AttentionConfig, x: torch.Tensor, cache: Params,
+                      pos: int, *, window: int, rope_theta: float,
+                      donate: bool) -> tuple[torch.Tensor, Params]:
+    """A group's decode step: every head's query and the token's keys and
+    values on the home device (heads computed on their positions and
+    gathered), the keys and values written into their slot's owner, every
+    range's owner scoring its slots for every query head, the partial
+    softmaxes merged in model order (:func:`_partial`,
+    ``tensor_parallel.merge_softmax``), then ``w_o`` row-parallel."""
+    theta = rope_theta or cfg.rope_theta
+    positions = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
+    q = _heads_gathered(lambda w, xm, pm: _gqa_q(w, cfg, xm, pm, theta), p,
+                        ("w_q", "b_q", "q_norm"), x, positions, "w_q")
+    k, v = _heads_gathered(lambda w, xm, pm: _gqa_kv(w, cfg, xm, pm, theta), p,
+                           ("w_k", "w_v", "b_k", "b_v", "k_norm"), x, positions, "w_k")
+    size = cache["k"].shape[1]
+    slot = (pos % size) if window else min(pos, size - 1)
+    ranges, new_cache = _write_token(cache, {"k": k, "v": v}, positions, slot, donate)
+    mask = cache_mask(new_cache["positions"], pos, window)
+    kc, vc = ranges["k"], ranges["v"]
+    devices = kc.devices
+    wdt = q.dtype
+    scale_w = rounded(1.0 / math.sqrt(cfg.head_dim), wdt)
+    qs, masks = tp.fan_out(q, devices), tp.scatter(mask, 0, devices)
+    partials = []
+    for r in range(len(devices)):
+        kr, vr = _repeat_kv(kc.chunks[r], vc.chunks[r], q.shape[2])
+        scores = torch.einsum("bthd,bshd->bhts", qs[r], kr) * scale_w
+        scores = torch.where(masks[r], scores, _NEG_INF)
+        partials.append(_partial(scores, vr, "bhts,bshd->bhtd"))
+    out = tp.merge_softmax(partials, x.device).transpose(1, 2).to(wdt)
+    return _row_parallel_heads(out, (p["w_o"],), _gqa_out), new_cache
 
 
 # --- MLA (DeepSeek-V2) -------------------------------------------------------
@@ -543,12 +724,13 @@ def prefill_mla(
     rope_theta: float = 0.0,
     donate: bool = False,
 ) -> tuple[torch.Tensor, Params]:
-    tp.refuse_serving(p["w_uq"])
     s = x.shape[1]
     theta = rope_theta or cfg.rope_theta
     out = apply_mla(p, cfg, x, q_chunk=q_chunk, window=window, rope_theta=rope_theta)
     positions = torch.arange(s, device=x.device)[None, :]
     c_kv, k_rope = _mla_latents(p, cfg, x, positions, theta)
+    if isinstance(p["w_uq"], tp.Split) or isinstance(cache["c_kv"], tp.Split):
+        return out, _fill_split(cache, {"c_kv": c_kv, "k_rope": k_rope}, s, donate)
     new_cache = _writable(cache, ("c_kv", "k_rope", "positions"), donate)
     new_cache["c_kv"][:, :s] = c_kv.to(new_cache["c_kv"].dtype)
     new_cache["k_rope"][:, :s] = k_rope.to(new_cache["k_rope"].dtype)
@@ -570,7 +752,8 @@ def decode_mla(
     """Absorbed-matrix MLA decode: scores and outputs computed against
     the cached latents; W_uk folds into q, W_uv into the output."""
     del window
-    tp.refuse_serving(p["w_uq"])
+    if isinstance(p["w_uq"], tp.Split) or isinstance(cache["c_kv"], tp.Split):
+        return _decode_mla_split(p, cfg, x, cache, pos, rope_theta=rope_theta, donate=donate)
     theta = rope_theta or cfg.rope_theta
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     positions = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
@@ -592,6 +775,57 @@ def decode_mla(
     out = torch.einsum("bthl,lhk->bthk", out_latent, p["w_uv"].float())  # (B,1,H,dv)
     out = torch.einsum("bshk,hkd->bsd", out.to(x.dtype), p["w_o"])
     return out, {"c_kv": c_kv, "k_rope": k_rope, "positions": positions_c}
+
+
+def _mla_absorbed_q(w: Params, cfg: AttentionConfig, cq, positions, theta):
+    """The absorbed query ``q_nope·W_uk`` (f32, the reference's promotion)
+    and the rope query of the heads ``w`` holds."""
+    q_nope, q_rope = _mla_q_heads(w["w_uq"], cfg, cq, positions, theta)
+    return torch.einsum("bthk,lhk->bthl", q_nope.float(), w["w_uk"].float()), q_rope
+
+
+def _mla_out(dtype):
+    """A merged latent's heads through ``w_uv`` (f32) and ``w_o``."""
+    def body(lat, w_uv, w_o):
+        out = torch.einsum("bthl,lhk->bthk", lat, w_uv.float())
+        return torch.einsum("bshk,hkd->bsd", out.to(dtype), w_o)
+
+    return body
+
+
+def _decode_mla_split(p: Params, cfg: AttentionConfig, x: torch.Tensor, cache: Params,
+                      pos: int, *, rope_theta: float, donate: bool) -> tuple[torch.Tensor, Params]:
+    """A group's absorbed MLA decode step: ``cq`` and the token's latents
+    on the home device (whole down-projections), every head's absorbed
+    and rope query (each position's heads, gathered in model order), the
+    latents written into their slot's owner, every range's owner scoring
+    its slots of ``c_kv``/``k_rope`` for every head, the partial softmaxes
+    merged in f32 in model order, and the merged ``out_latent`` through
+    ``w_uv`` (f32) and ``w_o`` over heads, cast to the working dtype only
+    after ``w_uv`` as the reference computes it."""
+    theta = rope_theta or cfg.rope_theta
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    positions = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
+    q_abs, q_rope = _heads_gathered(lambda w, cq, pm: _mla_absorbed_q(w, cfg, cq, pm, theta),
+                                    p, ("w_uq", "w_uk"), _mla_cq(p, x), positions, "w_uq")
+    c_kv_t, k_rope_t = _mla_latents(p, cfg, x, positions, theta)
+    slot = min(pos, cache["c_kv"].shape[1] - 1)
+    ranges, new_cache = _write_token(cache, {"c_kv": c_kv_t, "k_rope": k_rope_t}, positions,
+                                     slot, donate)
+    mask = cache_mask(new_cache["positions"], pos)
+    devices = ranges["c_kv"].devices
+    qas, qrs = tp.fan_out(q_abs, devices), tp.fan_out(q_rope, devices)
+    masks = tp.scatter(mask, 0, devices)
+    partials = []
+    for r in range(len(devices)):
+        c_kv = ranges["c_kv"].chunks[r].float()
+        scores = torch.einsum("bthl,bsl->bhts", qas[r], c_kv) + torch.einsum(
+            "bthk,bsk->bhts", qrs[r].float(), ranges["k_rope"].chunks[r].float())
+        scores = torch.where(masks[r], scores / math.sqrt(dn + dr), _NEG_INF)
+        partials.append(_partial(scores, c_kv, "bhts,bsl->bhtl"))
+    out_latent = tp.merge_softmax(partials, x.device).transpose(1, 2)  # (B, 1, H, kl) f32
+    return (_row_parallel_heads(out_latent, (p["w_uv"], p["w_o"]), _mla_out(x.dtype)),
+            new_cache)
 
 
 # --- dispatch ----------------------------------------------------------------

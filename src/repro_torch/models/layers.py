@@ -77,6 +77,9 @@ def tree_stack(trees: list):
         return {k: tree_stack([t[k] for t in trees]) for k in first}
     if isinstance(first, (list, tuple)):
         return type(first)(tree_stack(list(xs)) for xs in zip(*trees))
+    if isinstance(first, tp.Split):  # a group's split cache leaf: chunk by chunk
+        return tp.Split(tuple(torch.stack(cs) for cs in zip(*(t.chunks for t in trees))),
+                        first.dim + 1)
     if isinstance(first, SPARSE):
         return dataclasses.replace(first, **{
             f.name: torch.stack([getattr(t, f.name) for t in trees])

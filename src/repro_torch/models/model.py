@@ -28,8 +28,11 @@ columns, exact), the head's vocab chunks (an untied ``lm_head``'s own; a
 tied table resharded from d to vocab over ``model``, as the reference's
 ``constrain(w, ("tp", None))``), and the logits stay split into the
 vocab-parallel cross entropy (``layers.vocab_parallel_cross_entropy``);
-``forward`` gathers them. Everything else of the reference's
-distributed lookup and constraints is ``table[ids]`` and the identity.
+``forward``, ``prefill`` and ``decode_step`` gather them in model order.
+A group's cache (``sharding.group_cache``) goes through ``prefill`` and
+``decode_step`` with its split leaves written in place. Everything else
+of the reference's distributed lookup and constraints is ``table[ids]``
+and the identity.
 """
 
 from __future__ import annotations
@@ -158,9 +161,7 @@ class Model:
     def forward_with_aux(self, params: Params,
                          inputs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         logits, aux = self._logits(params, inputs)
-        if isinstance(logits, tp.Split):
-            logits = tp.all_gather(logits.chunks, 2, inputs.device)
-        return logits, aux
+        return _whole(logits, inputs.device), aux
 
     def _logits(self, params: Params, inputs: torch.Tensor):
         params = cast_floating(params, self.compute_dtype)
@@ -204,7 +205,7 @@ class Model:
         x = self._embed(params, inputs)
         x, cache = tfm.prefill_stack(params["stack"], self.cfg, x, cache,
                                      use_kernel=self.use_kernel, donate=donate_cache)
-        return self._head(params, x[:, -1:]), cache
+        return _whole(self._head(params, x[:, -1:]), x.device), cache
 
     def decode_step(self, params: Params, token: torch.Tensor, cache: Params, pos, *,
                     donate_cache: bool = False) -> tuple[torch.Tensor, Params]:
@@ -216,7 +217,7 @@ class Model:
         x = self._embed(params, token)
         x, cache = tfm.decode_stack(params["stack"], self.cfg, x, cache, int(pos),
                                     use_kernel=self.use_kernel, donate=donate_cache)
-        return self._head(params, x)[:, 0], cache
+        return _whole(self._head(params, x), x.device)[:, 0], cache
 
     # ----------------------------- accounting -------------------------------
     def param_count(self) -> int:
@@ -234,6 +235,14 @@ class Model:
         e, k = cfg.moe.num_experts, cfg.moe.top_k
         per_expert = cfg.d_model * cfg.moe.d_expert * (3 if cfg.glu else 2)
         return total - n_moe * (e - k) * per_expert
+
+
+def _whole(logits, device) -> torch.Tensor:
+    """Logits whole on ``device``: a vocab-split head's chunks gathered in
+    model order (exact)."""
+    if isinstance(logits, tp.Split):
+        return tp.all_gather(logits.chunks, 2, device)
+    return logits
 
 
 def build(name_or_cfg) -> Model:

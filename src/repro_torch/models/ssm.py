@@ -14,11 +14,15 @@ Decode paths carry O(1) state: (wkv state, token shift) for RWKV;
 (conv tap, ssm state) for Mamba.
 
 On the model's mesh a group's weights split over ``model`` are
-``tensor_parallel.Split``s, and each mixer has a split forward (train
-step only; serving with split weights is refused): Mamba over its inner
-channels ``di``, RWKV-6's time mix over heads (``w_r``/``w_g``
-column-parallel, the rest whole on the home device) and its channel mix
-over ``d_ff``.
+``tensor_parallel.Split``s, and each mixer has a split forward: Mamba
+over its inner channels ``di``, RWKV-6's time mix over heads
+(``w_r``/``w_g`` column-parallel, the rest whole on the home device) and
+its channel mix over ``d_ff``. Each takes and returns its decode state
+split as its weights are (a group's view of a cache placed by
+``cache_pspecs``): Mamba's ``conv`` tap and ``ssm`` state by channel,
+RWKV-6's ``wkv`` state by head, each position's on its device; the token
+shifts stay whole on the home device. A split whose channels or heads
+do not divide runs whole there, with its state whole.
 """
 
 from __future__ import annotations
@@ -178,14 +182,12 @@ def apply_rwkv_time_mix(
     state: Params | None = None,
 ) -> tuple[torch.Tensor, Params | None]:
     """state (decode): {"shift": (B,D), "wkv": (B,H,K,V)}; None → zeros.
-    With ``w_r``/``w_g`` split over ``model``: the split forward, no state."""
+    With ``w_r``/``w_g`` split over ``model``: the split forward, its
+    ``wkv`` state split by heads where the heads divide."""
     if isinstance(p["w_r"], tp.Split):
-        if state is not None:
-            tp.refuse_serving(p["w_r"])
-        return _apply_rwkv_time_mix_split(p, cfg, x), None
-    b, s, d = x.shape
+        return _apply_rwkv_time_mix_split(p, cfg, x, state)
+    s = x.shape[1]
     hd = cfg.head_dim
-    h = d // hd
     prev = state["shift"] if state is not None else None
     xprev = _token_shift(x, prev)
     xw, xk, xv, xr, xg = _ddlerp(p, x, xprev)
@@ -196,30 +198,31 @@ def apply_rwkv_time_mix(
     g = silu(xg @ p["w_g"])
     logw = _heads(_rwkv_logw(p, xw), hd)
 
-    h0 = (state["wkv"] if state is not None
-          else torch.zeros((b, h, hd, hd), dtype=torch.float32, device=x.device))
-    if s == 1 and state is not None:
-        out, h_fin = wkv_step(r[:, :, 0], k[:, :, 0], v[:, :, 0], logw[:, :, 0],
-                              p["bonus_u"], h0)
-        out = out[:, None]  # (B,1,H,V)
-    else:
-        out, h_fin = wkv_chunked(r, k, v, logw, p["bonus_u"], h0)
-        out = out.transpose(1, 2)  # (B,S,H,V)
-    out = _rwkv_gated(out, p["ln_x"], g, x.dtype)
-    out = out @ p["w_o"]
-    return out, {"shift": x[:, -1], "wkv": h_fin}
+    out, h_fin = _wkv_gated(r, k, v, logw, p["bonus_u"], p["ln_x"], g, x.dtype,
+                            None if state is None else state["wkv"],
+                            step=s == 1 and state is not None)
+    return out @ p["w_o"], {"shift": x[:, -1], "wkv": h_fin}
 
 
-def _wkv_gated(r, k, v, logw, u, ln_x, g, dtype) -> torch.Tensor:
-    """The chunked WKV of the heads given, from a zero state, through the
-    group norm and the gate: (B, S, H·V)."""
+def _wkv_gated(r, k, v, logw, u, ln_x, g, dtype, h0=None,
+               step: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """The WKV of the heads given (chunked, or one recurrent ``step``) from
+    ``h0`` (None: zeros), through the group norm and the gate: ((B, S,
+    H·V), the last state)."""
     b, h, _, hd = r.shape
-    h0 = torch.zeros((b, h, hd, v.shape[-1]), dtype=torch.float32, device=r.device)
-    out, _ = wkv_chunked(r, k, v, logw, u, h0)
-    return _rwkv_gated(out.transpose(1, 2), ln_x, g, dtype)
+    if h0 is None:
+        h0 = torch.zeros((b, h, hd, v.shape[-1]), dtype=torch.float32, device=r.device)
+    if step:
+        out, h_fin = wkv_step(r[:, :, 0], k[:, :, 0], v[:, :, 0], logw[:, :, 0], u, h0)
+        out = out[:, None]
+    else:
+        out, h_fin = wkv_chunked(r, k, v, logw, u, h0)
+        out = out.transpose(1, 2)
+    return _rwkv_gated(out, ln_x, g, dtype), h_fin
 
 
-def _apply_rwkv_time_mix_split(p: Params, cfg: RWKVConfig, x: torch.Tensor) -> torch.Tensor:
+def _apply_rwkv_time_mix_split(p: Params, cfg: RWKVConfig, x: torch.Tensor,
+                               state: Params | None = None) -> tuple[torch.Tensor, Params]:
     """The time mix with ``w_r``/``w_g`` split over ``model`` (output
     columns; every other leaf whole on ``x``'s device, where the token
     shift, the mix, ``k``, ``v``, the decay and ``w_o`` run once). The mixed
@@ -229,28 +232,40 @@ def _apply_rwkv_time_mix_split(p: Params, cfg: RWKVConfig, x: torch.Tensor) -> t
     ``bonus_u`` and ``ln_x`` fanned out (``bonus_u`` narrowed to the
     position's heads), each position runs the WKV of its heads, and the
     gated outputs are gathered in model order for ``w_o``. Otherwise r and
-    g are gathered (exact) and the mixer runs where ``x`` is."""
+    g are gathered (exact) and the mixer runs where ``x`` is. ``state``
+    (decode): the token shift on ``x``'s device and the ``wkv`` state, a
+    ``Split`` by heads (whole where the split cuts a head); the new state
+    comes back the same way (a prefill's, from zeros, too)."""
     hd = cfg.head_dim
     devices = p["w_r"].devices
     n = len(devices)
-    xw, xk, xv, xr, xg = _ddlerp(p, x, _token_shift(x, None))
+    step = x.shape[1] == 1 and state is not None
+    xw, xk, xv, xr, xg = _ddlerp(p, x, _token_shift(x, None if state is None else
+                                                    state["shift"]))
     k = _heads(xk @ p["w_k"], hd)
     v = _heads(xv @ p["w_v"], hd)
     logw = _heads(_rwkv_logw(p, xw), hd)
     xrs, xgs = tp.fan_out(xr, devices), tp.fan_out(xg, devices)
     rs = [xrs[m] @ p["w_r"].chunks[m] for m in range(n)]
     gs = [xgs[m] @ p["w_g"].chunks[m] for m in range(n)]
+    h0 = None if state is None else state["wkv"]
     if (x.shape[-1] // n) % hd:  # the column split cuts a head
         r = _heads(tp.all_gather(rs, -1, x.device), hd)
         g = silu(tp.all_gather(gs, -1, x.device))
-        out = _wkv_gated(r, k, v, logw, p["bonus_u"], p["ln_x"], g, x.dtype)
-        return out @ p["w_o"]
+        out, h_fin = _wkv_gated(r, k, v, logw, p["bonus_u"], p["ln_x"], g, x.dtype, h0, step)
+        return out @ p["w_o"], {"shift": x[:, -1], "wkv": h_fin}
     ks, vs, ws = (tp.scatter(t, 1, devices) for t in (k, v, logw))
     us, lns = tp.fan_out(p["bonus_u"], devices), tp.fan_out(p["ln_x"], devices)
     per = k.shape[1] // n
-    outs = [_wkv_gated(_heads(rs[m], hd), ks[m], vs[m], ws[m], us[m].narrow(0, m * per, per),
-                       lns[m], silu(gs[m]), x.dtype) for m in range(n)]
-    return tp.all_gather(outs, -1, x.device) @ p["w_o"]
+    outs, states = [], []
+    for m in range(n):
+        out, h_fin = _wkv_gated(_heads(rs[m], hd), ks[m], vs[m], ws[m],
+                                us[m].narrow(0, m * per, per), lns[m], silu(gs[m]), x.dtype,
+                                None if h0 is None else h0.chunks[m], step)
+        outs.append(out)
+        states.append(h_fin)
+    return (tp.all_gather(outs, -1, x.device) @ p["w_o"],
+            {"shift": x[:, -1], "wkv": tp.Split(tuple(states), 1)})
 
 
 def init_rwkv_channel_mix(rng: Init, d_model: int, d_ff: int, dtype=torch.float32) -> Params:
@@ -266,13 +281,10 @@ def init_rwkv_channel_mix(rng: Init, d_model: int, d_ff: int, dtype=torch.float3
 def apply_rwkv_channel_mix(
     p: Params, x: torch.Tensor, state: Params | None = None
 ) -> tuple[torch.Tensor, Params | None]:
-    """With ``w_k``/``w_v`` split over ``model``: the split forward, no
-    state."""
-    if isinstance(p["w_k"], tp.Split):
-        if state is not None:
-            tp.refuse_serving(p["w_k"])
-        return _apply_rwkv_channel_mix_split(p, x), None
+    """With ``w_k``/``w_v`` split over ``model``: the split forward."""
     prev = state["shift"] if state is not None else None
+    if isinstance(p["w_k"], tp.Split):
+        return _apply_rwkv_channel_mix_split(p, x, prev), {"shift": x[:, -1]}
     xprev = _token_shift(x, prev)
     xk = x + (xprev - x) * p["mu_k"]
     xr = x + (xprev - x) * p["mu_r"]
@@ -286,13 +298,14 @@ def _squared_relu_mlp(xk: torch.Tensor, w_k: torch.Tensor, w_v: torch.Tensor) ->
     return k @ w_v
 
 
-def _apply_rwkv_channel_mix_split(p: Params, x: torch.Tensor) -> torch.Tensor:
+def _apply_rwkv_channel_mix_split(p: Params, x: torch.Tensor,
+                                  prev: torch.Tensor | None = None) -> torch.Tensor:
     """The channel mix with ``w_k`` column-parallel and ``w_v``
-    row-parallel over ``model`` (``d_ff`` split): the shifted mix fanned
-    out, each position's partial ``k @ w_v`` added in model order on
-    ``x``'s device, where the whole ``w_r``'s sigmoid gate multiplies the
-    sum."""
-    xprev = _token_shift(x, None)
+    row-parallel over ``model`` (``d_ff`` split): the shifted mix (``prev``:
+    the carried token, decode) fanned out, each position's partial ``k @
+    w_v`` added in model order on ``x``'s device, where the whole ``w_r``'s
+    sigmoid gate multiplies the sum."""
+    xprev = _token_shift(x, prev)
     xk = x + (xprev - x) * p["mu_k"]
     xr = x + (xprev - x) * p["mu_r"]
     w_k, w_v = p["w_k"], p["w_v"]
@@ -394,11 +407,10 @@ def apply_mamba(
     state: Params | None = None,
 ) -> tuple[torch.Tensor, Params | None]:
     """state (decode): {"conv": (B, d_conv-1, di), "ssm": (B, di, N)}.
-    With its weights split over ``model``: the split forward, no state."""
+    With its weights split over ``model``: the split forward, its state
+    split by channels where ``di`` divides."""
     if isinstance(p["in_proj"], tp.Split):
-        if state is not None:
-            tp.refuse_serving(p["in_proj"])
-        return _apply_mamba_split(p, cfg, x), None
+        return _apply_mamba_split(p, cfg, x, state)
     return _mamba_after_in_proj(x @ p["in_proj"], p, cfg, state)
 
 
@@ -416,14 +428,17 @@ def _mamba_after_in_proj(xz: torch.Tensor, p: Params, cfg: MambaConfig,
     y, h_fin = _mamba_gated(x_c @ p["x_proj"], x_c, z, p, cfg, h0,
                             step=s == 1 and state is not None)
     out = y @ p["out_proj"]
-    k1 = cfg.d_conv - 1
+    return out, {"conv": _next_tap(x_in, tap, cfg.d_conv - 1), "ssm": h_fin}
+
+
+def _next_tap(x_in: torch.Tensor, tap: torch.Tensor | None, k1: int) -> torch.Tensor:
+    """The conv's carried context after ``x_in``: its last ``k1`` inputs."""
+    s = x_in.shape[1]
     if tap is not None:
-        new_tap = torch.cat([tap, x_in], dim=1)[:, -k1:]
-    elif s >= k1:
-        new_tap = x_in[:, s - k1:]
-    else:
-        new_tap = F.pad(x_in, (0, 0, k1 - s, 0))
-    return out, {"conv": new_tap, "ssm": h_fin}
+        return torch.cat([tap, x_in], dim=1)[:, -k1:]
+    if s >= k1:
+        return x_in[:, s - k1:]
+    return F.pad(x_in, (0, 0, k1 - s, 0))
 
 
 def _mamba_conv(x_in: torch.Tensor, p: Params, tap: torch.Tensor | None) -> torch.Tensor:
@@ -467,7 +482,8 @@ def mamba_channels(p: Params, x: torch.Tensor) -> list[tuple[torch.Tensor, torch
     return [tuple(h.chunk(2, -1)) for h in halves]
 
 
-def _apply_mamba_split(p: Params, cfg: MambaConfig, x: torch.Tensor) -> torch.Tensor:
+def _apply_mamba_split(p: Params, cfg: MambaConfig, x: torch.Tensor,
+                       state: Params | None = None) -> tuple[torch.Tensor, Params]:
     """Mamba with ``di`` split over ``model`` (a group's
     ``tensor_parallel.Split`` weights): ``in_proj``, ``dt_proj`` and the
     per-channel leaves column-parallel, ``x_proj`` and ``out_proj``
@@ -478,24 +494,33 @@ def _apply_mamba_split(p: Params, cfg: MambaConfig, x: torch.Tensor) -> torch.Te
     (state ``(B, di/M, N)``), and the ``out_proj`` partials are added in
     model order on ``x``'s device. When ``di`` does not divide over
     ``model`` (the channel leaves whole) but ``2·di`` does, the ``in_proj``
-    columns are gathered (exact) and the layer runs where ``x`` is."""
-    b, _, d = x.shape
+    columns are gathered (exact) and the layer runs where ``x`` is.
+    ``state`` (decode): each position's ``conv`` tap and ``ssm`` state for
+    its channels (``Split``s; whole where the channel leaves are); the new
+    state comes back the same way (a prefill's, from zeros, too)."""
+    b, s, d = x.shape
     di = cfg.expand * d
     if not isinstance(p["conv_w"], tp.Split):
         w = p["in_proj"]
         xs = tp.fan_out(x, w.devices)
         xz = tp.all_gather([xm @ c for xm, c in zip(xs, w.chunks)], -1, x.device)
-        return _mamba_after_in_proj(xz, p, cfg, None)[0]
+        return _mamba_after_in_proj(xz, p, cfg, state)
     devices = p["in_proj"].devices
     n = len(devices)
+    step = s == 1 and state is not None
+    taps = [None] * n if state is None else state["conv"].chunks
     pm = [{k: p[k].chunks[m] for k in _MAMBA_CHANNELS} for m in range(n)]
     channels = mamba_channels(p, x)
-    x_c = [_mamba_conv(x_in, pm[m], None) for m, (x_in, _) in enumerate(channels)]
+    x_c = [_mamba_conv(x_in, pm[m], taps[m]) for m, (x_in, _) in enumerate(channels)]
     proj = tp.fan_in([xc @ w["x_proj"] for xc, w in zip(x_c, pm)], x.device)
     projs = tp.fan_out(proj, devices)
-    partials = []
+    partials, convs, ssms = [], [], []
     for m, d in enumerate(devices):
-        h0 = torch.zeros((b, di // n, cfg.d_state), dtype=torch.float32, device=d)
-        y, _ = _mamba_gated(projs[m], x_c[m], channels[m][1], pm[m], cfg, h0)
+        h0 = (torch.zeros((b, di // n, cfg.d_state), dtype=torch.float32, device=d)
+              if state is None else state["ssm"].chunks[m])
+        y, h_fin = _mamba_gated(projs[m], x_c[m], channels[m][1], pm[m], cfg, h0, step=step)
         partials.append(y @ pm[m]["out_proj"])
-    return tp.fan_in(partials, x.device)
+        convs.append(_next_tap(channels[m][0], taps[m], cfg.d_conv - 1))
+        ssms.append(h_fin)
+    return tp.fan_in(partials, x.device), {"conv": tp.Split(tuple(convs), 2),
+                                           "ssm": tp.Split(tuple(ssms), 1)}

@@ -11,9 +11,11 @@ it in Python and runs layer ``i`` on views of slice ``i``
 model's mesh a group's leaves split over ``model`` are
 ``tensor_parallel.Split``s, split on a dim after the stacked layer dim
 (which is never split), so ``tree_index`` takes each position's slice i.
-Every mixer and FFN has a split forward for the train step
-(``attention``, ``ssm``, ``moe``, ``layers``); the cache paths refuse
-split weights.
+Every mixer and FFN has a split forward (``attention``, ``ssm``,
+``moe``, ``layers``), and the cache paths take a group's cache
+(``sharding.group_cache``): the attention caches' slots, Mamba's
+channels and RWKV-6's heads as ``tensor_parallel.Split``s written in
+place, the rest whole on the home device.
 
 Three execution paths per layer, all cache-structure compatible:
   * ``apply_layer``   — forward without a cache; returns (x, aux_loss)
@@ -52,7 +54,6 @@ from repro_torch.models.layers import (
     rms_norm,
     sparsify_ffn,
     tree_index,
-    tree_leaves,
     tree_map,
     tree_stack,
 )
@@ -193,13 +194,6 @@ def init_layer_cache(
     return c
 
 
-def _refuse_split(p: Params) -> None:
-    """Serving with a group's split weights is refused (the cache's
-    layout over ``model`` is the next slice)."""
-    for leaf in tree_leaves(p):
-        tp.refuse_serving(leaf)
-
-
 def _mixer_with_cache(
     p: Params,
     cfg: ModelConfig,
@@ -211,7 +205,6 @@ def _mixer_with_cache(
     decode: bool,
     donate: bool,
 ) -> tuple[torch.Tensor, Params]:
-    _refuse_split(p["mixer"])
     h = rms_norm(x, p["mixer_norm"], cfg.norm_eps)
     new = dict(cache)
     if spec.mixer == "attn":
@@ -239,10 +232,19 @@ def _mixer_with_cache(
 
 def _store(buf: Params, state: Params, donate: bool) -> Params:
     """A recurrent layer's new ``state``, or, when ``donate``, the
-    caller's ``buf`` with the state's values copied into its tensors."""
+    caller's ``buf`` with the state's values copied into its tensors (a
+    group's split state chunk by chunk, each on its position)."""
     if not donate:
         return state
-    return {name: buf[name].copy_(value) for name, value in state.items()}
+
+    def put(dst, value):
+        if isinstance(dst, tp.Split):
+            for d, v in zip(dst.chunks, value.chunks):
+                d.copy_(v)
+            return dst
+        return dst.copy_(value)
+
+    return {name: put(buf[name], value) for name, value in state.items()}
 
 
 def _ffn_with_cache(
@@ -256,7 +258,6 @@ def _ffn_with_cache(
     donate: bool,
     use_kernel,
 ) -> tuple[torch.Tensor, Params]:
-    _refuse_split(p["ffn"])
     new = dict(cache)
     if spec.ffn == "relu_mlp":
         return _relu_mlp(p["ffn"], x, use_kernel), new

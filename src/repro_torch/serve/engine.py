@@ -56,6 +56,8 @@ import torch
 
 from repro_torch.core.dnn import Weight
 from repro_torch.device import resolve_device, to_device
+from repro_torch.distribution import peer
+from repro_torch.distribution import sharding as sh
 from repro_torch.models.layers import tree_leaves, tree_map
 from repro_torch.models.model import Model, cast_floating
 from repro_torch.kernels import DEFAULT_BLOCK_N
@@ -66,6 +68,7 @@ from repro_torch.plan.degrade import LEVEL_LAYERED, LEVEL_SHARDED, DegradationLa
 from repro_torch.plan.stack_plan import PlanCaptureError, topology_fingerprint
 from repro_torch.serve.clock import WALL_CLOCK
 from repro_torch.testing import faults as _faults
+from repro_torch.train import checkpoint
 from repro_torch.tune.table import TunedConfig, default_backend, panel_dtype_name
 
 
@@ -475,12 +478,62 @@ def make_serve_fns(model: Model):
     (``repro_torch.launch.specs.make_plan``). The reference plan donates
     the cache (``donate_argnums``, XLA updates it in place); here the
     callee may overwrite it: each function writes the cache in place and
-    returns the same storages (``donate_cache=True``)."""
+    returns the same storages (``donate_cache=True``).
+
+    Over the model's mesh (the reference's plans under their shardings):
+    params placed by ``param_pspecs`` and a cache placed by
+    ``cache_pspecs`` (``sharding.place``). Each call gathers every group's
+    params once (``sharding.group_params``) and runs the groups in data
+    order, each on its rows of ``tokens`` (the batch split over ``data``
+    when it divides, as the plan's ``dp_ok``; else group 0 runs every row)
+    with its view of the cache (``sharding.group_cache``: the placed chunks
+    themselves, written in place); the copies of a leaf no group wrote are
+    then refreshed (``sharding.sync_replicas``). The logits come back
+    concatenated in data order on the mesh's home device, and the cache is
+    the placed tree it was given. A MoE whose token groups would cross
+    data indices is refused, as in the train step. Unplaced arguments take
+    the one-device path."""
 
     def prefill_fn(params, tokens, cache):
+        if _placed(params):
+            return _serve_groups(model, params, tokens, cache, lambda p, rows, c: model.prefill(
+                p, rows, c, donate_cache=True))
         return model.prefill(params, tokens, cache, donate_cache=True)
 
     def decode_fn(params, token, cache, pos):
+        if _placed(params):
+            return _serve_groups(model, params, token, cache, lambda p, rows, c:
+                                 model.decode_step(p, rows, c, pos, donate_cache=True))
         return model.decode_step(params, token, cache, pos, donate_cache=True)
 
     return prefill_fn, decode_fn
+
+
+def _placed(params) -> bool:
+    return isinstance(checkpoint.leaves(params)[0], sh.Placed)
+
+
+def _serve_groups(model: Model, params, tokens: torch.Tensor, cache, step):
+    """``step(group params, group rows, group cache)`` for each group of the
+    mesh the placed ``params`` live on (:func:`make_serve_fns`)."""
+    owners = checkpoint.leaves(params)
+    mesh = owners[0].sharding.mesh
+    m_size = mesh.shape.get("model", 1)
+    n = len(mesh.devices) // m_size
+    if not all(isinstance(leaf, sh.Placed) and leaf.sharding.mesh == mesh
+               for leaf in checkpoint.leaves(cache)):
+        raise ValueError("serving over a mesh takes a cache placed on the params' mesh "
+                         "(sharding.place by cache_pspecs)")
+    rows = tokens.shape[0]
+    groups = n if rows % n == 0 else 1
+    per = rows // groups
+    sh.check_moe_groups(model.cfg, {"inputs": tokens.narrow(0, 0, per)}, groups)
+    trees = sh.group_params(params, owners, mesh, groups)
+    outs = []
+    for c in range(groups):
+        home = mesh.devices[c * m_size]
+        logits, _ = step(trees[c], peer.to(tokens.narrow(0, c * per, per), home),
+                         sh.group_cache(cache, mesh, c))
+        outs.append(peer.to(logits, mesh.device))
+    sh.sync_replicas(cache, mesh, groups)
+    return (outs[0] if groups == 1 else torch.cat(outs, 0)), cache

@@ -26,11 +26,11 @@ stored as ``param_pspecs`` says, one chunk a position. The M positions of
 a data index form its group. The same ``train_step`` then computes the
 reference's step as GSPMD runs it, from one process, in a fixed order:
 
-1. each group gathers its leaves once a step: each position its ``model``
-   chunk of every leaf split over ``model``, whole along ``data``
-   (``tensor_parallel.Split``), and the group's home position (model
-   index 0) every other leaf whole (positions on one device share the
-   copy);
+1. each group gathers its leaves once a step (``sharding.group_params``,
+   which serving shares): each position its ``model`` chunk of every leaf
+   split over ``model``, whole along ``data`` (``tensor_parallel.Split``),
+   and the group's home position (model index 0) every other leaf whole
+   (positions on one device share the copy);
 2. for each data index in order, its group runs :func:`loss_and_grads`
    once on its rows of each microbatch (``sharding.split_batch``): heads,
    hidden columns, experts and vocab on their positions, the collectives
@@ -63,7 +63,9 @@ from repro_torch.distribution import peer
 from repro_torch.distribution import tensor_parallel as tp
 from repro_torch.distribution.sharding import (
     Placed,
+    check_moe_groups,
     constrain_like_params,
+    group_params,
     param_pspecs,
     place,
     shardings_for,
@@ -149,53 +151,11 @@ def loss_and_grads(model: Model, params, batch, *, shares=None) -> tuple[torch.T
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
-def _check_moe_groups(cfg, rows: dict, n: int) -> None:
-    """Refuse a split whose positions' MoE token groups differ from the
-    global batch's: the groups would cross positions and route otherwise."""
-    if cfg.moe is None or n == 1:
-        return
-    from repro_torch.models.moe import _group_size
-
-    x = rows["inputs"]
-    tokens = x.shape[0] * (x.shape[1] if cfg.input_mode != "features" else 1)
-    if _group_size(tokens) != _group_size(tokens * n):
-        raise ValueError(
-            f"{tokens} tokens a position make MoE groups of {_group_size(tokens)}, the "
-            f"microbatch's {tokens * n} tokens groups of {_group_size(tokens * n)}: the "
-            "groups would cross positions; give each position a multiple of the group size")
-
-
 def _shares(labels: torch.Tensor, microbatches: int, n: int) -> torch.Tensor:
     """(microbatches, n) ce shares: each position's unmasked labels over its
     microbatch's (all 0 in a microbatch with none, whose ce is 0)."""
     counts = (labels.reshape(microbatches, n, -1) >= 0).sum(-1).float()
     return counts / torch.clamp_min(counts.sum(1, keepdim=True), 1.0)
-
-
-def _group_params(state_params, owners: list, mesh) -> list:
-    """Each group's params tree (the module docstring's step 1): a leaf
-    split over ``model`` as a ``Split`` of its positions' chunks, every
-    other leaf whole on the group's home device. Copies are shared between
-    groups whose positions share a device."""
-    m_size = mesh.shape.get("model", 1)
-    copies: dict = {}
-
-    def copy(j, device, m=None):
-        key = (j, device, m)
-        if key not in copies:
-            copies[key] = owners[j].gather(device, m)
-        return copies[key]
-
-    trees = []
-    for c in range(len(mesh.devices) // m_size):
-        group = mesh.devices[c * m_size:(c + 1) * m_size]
-        leaves = []
-        for j, leaf in enumerate(owners):
-            dim = leaf.sharding.model_dim
-            leaves.append(copy(j, group[0]) if dim is None else
-                          tp.Split(tuple(copy(j, d, m) for m, d in enumerate(group)), dim))
-        trees.append(checkpoint.with_leaves(state_params, leaves))
-    return trees
 
 
 def _placed_step(model: Model, optimizer: Optimizer, microbatches: int, state: TrainState,
@@ -207,13 +167,13 @@ def _placed_step(model: Model, optimizer: Optimizer, microbatches: int, state: T
     homes = mesh.devices[::m_size]
     n = len(homes)
     split = split_batch(batch, mesh, microbatches)
-    _check_moe_groups(model.cfg, split[0][0], n)
+    check_moe_groups(model.cfg, split[0][0], n)
     shares = _shares(batch["labels"], microbatches, n)
     # every group's rows and shares on its home device before any work is queued
     staged = [[({k: peer.to(v, d) for k, v in split[i][c].items()},
                 (peer.to(shares[i, c], d), 1.0 / n)) for c, d in enumerate(homes)]
               for i in range(microbatches)]
-    groups = _group_params(state.params, owners, mesh)
+    groups = group_params(state.params, owners, mesh)
     acc, loss, metrics = None, None, None
     for i in range(microbatches):
         terms = []

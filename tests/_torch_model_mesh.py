@@ -196,13 +196,11 @@ def split_fraction(leaf) -> int:
 
 def group_params(arch: str, variant: str | None, data: int, model_axis: int) -> list:
     """Each group's params tree on a ``data`` × ``model_axis`` mesh of the
-    CPU (``trainer._group_params``), from the converted weights."""
-    from repro_torch.train import trainer
-
+    CPU (``sharding.group_params``), from the converted weights."""
     _, _, _, p = models(arch, variant)
     mesh = grid(data, model_axis)
     placed = sh.place(p, sh.shardings_for(None, mesh, sh.param_pspecs(None, p, mesh)))
-    return trainer._group_params(placed, checkpoint.leaves(placed), mesh)
+    return sh.group_params(placed, checkpoint.leaves(placed), mesh)
 
 
 def assert_split_as_the_reference(arch: str, variant: str | None, data: int,

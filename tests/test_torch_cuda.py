@@ -1641,3 +1641,118 @@ def test_cards_a_2x2_mixer_step_is_the_2x2_one_card_step_bit_for_bit(arch):
             assert [c.device for c in y.chunks] == cards
             for a, b in zip(x.chunks, y.chunks):
                 assert torch.equal(a.to(b.device), b)
+
+
+# --- serving over the model's mesh ----------------------------------------------
+
+SERVE_ARCHS = ("llama3.2-1b", "deepseek-v2-236b", "jamba-v0.1-52b", "rwkv6-3b", "gemma3-4b")
+
+
+def _serve_on(model, params, mesh, prompts, new_tokens: int, cache_len: int = 32):
+    """A prefill and ``new_tokens - 1`` greedy decode steps through
+    ``make_serve_fns`` over ``params`` and a fresh cache placed on ``mesh``:
+    (each call's logits, the greedy tokens, the placed cache, each card's
+    launches over the calls)."""
+    from repro_torch.distribution import sharding as sh
+    from repro_torch.serve.engine import make_serve_fns
+
+    cfg = model.cfg
+    pp = sh.place(params, sh.shardings_for(None, mesh, sh.param_pspecs(cfg, params, mesh)))
+    cache = model.init_cache(prompts.shape[0], cache_len, device=mesh.device)
+    cache = sh.place(cache, sh.shardings_for(None, mesh, sh.cache_pspecs(cfg, cache, mesh)))
+    prefill_fn, decode_fn = make_serve_fns(model)
+    ops.reset_launch_counts()
+    logits, _ = prefill_fn(pp, prompts.to(mesh.device), cache)
+    calls = [logits[:, -1]]
+    for i in range(new_tokens - 1):
+        tok = torch.argmax(calls[-1], -1).to(torch.int32)
+        calls.append(decode_fn(pp, tok, cache, prompts.shape[1] + i)[0])
+    for d in mesh.cards:
+        torch.cuda.synchronize(d)
+    tokens = torch.stack([torch.argmax(c, -1).to(torch.int32) for c in calls], 1)
+    return calls, tokens, cache, {str(d): ops.launch_counts(d) for d in mesh.cards}
+
+
+def _serve_model(arch: str, sparse: bool = False):
+    """A scaled-down arch at f32 compute (Llama's FFNs pruned to 2 blocks
+    of 16 a row when ``sparse``), seeded weights on card 0 and 4 prompts
+    of 12 tokens (80 for Gemma-3, past its scaled-down window of 64)."""
+    from repro_torch.configs import SparsityConfig, get_config
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(get_config(arch).scaled_down(), compute_dtype="float32")
+    if sparse:
+        cfg = dataclasses.replace(cfg, sparsity=SparsityConfig((16, 16), blocks_per_row=2,
+                                                               targets=("ffn",)))
+    model = Model(cfg)
+    params = model.init(torch.Generator(device="cuda:0").manual_seed(0), device="cuda:0")
+    if sparse:
+        params = model.sparsify(params)
+    s = 80 if arch == "gemma3-4b" else 12
+    prompts = torch.from_numpy(np.random.default_rng(90).integers(
+        0, cfg.vocab_size, (4, s)).astype(np.int32)).to("cuda:0")
+    return model, params, prompts, (128 if arch == "gemma3-4b" else 32)
+
+
+def test_a_2x2_serve_on_the_card_is_the_one_position_engine(cuda):
+    """Llama on the 2 × 2 mesh of card 0, 32 slots (16 a model position), a
+    decode across the boundary: the greedy tokens ``Engine.generate``'s and
+    every call's logits within 1e-4 of each row's max of the one-device
+    path's."""
+    from repro_torch.serve.engine import Engine
+    from repro_torch.launch.mesh import make_local_mesh
+
+    model, params, prompts, cache_len = _serve_model("llama3.2-1b")
+    calls, tokens, _, _ = _serve_on(model, params, make_local_mesh(2, model=2, device="cuda"),
+                                    prompts, 10, cache_len)
+    want, _ = Engine(model, params, batch_size=4, cache_len=cache_len).generate(prompts, 10)
+    assert torch.equal(tokens, want)
+    one = model.init_cache(4, cache_len, device="cuda")
+    logits, one = model.prefill(params, prompts, one)
+    ref = [logits[:, -1]]
+    for i in range(9):
+        logits, one = model.decode_step(params, want[:, i], one, prompts.shape[1] + i)
+        ref.append(logits)
+    for got, r in zip(calls, ref):
+        err = (got - r).abs().amax(-1) / r.abs().amax(-1)
+        assert float(err.max()) <= 1e-4
+
+
+def test_a_pruned_ffn_serve_launches_bsr_spmm_on_each_group_home_card(cuda):
+    """Llama's FFNs pruned on the 2 × 2 mesh of card 0: each group runs its
+    block-sparse FFNs once a call on its home card (both card 0), 3
+    projections a layer; the tokens those of the one-device path."""
+    from repro_torch.serve.engine import Engine
+    from repro_torch.launch.mesh import make_local_mesh
+
+    model, params, prompts, cache_len = _serve_model("llama3.2-1b", sparse=True)
+    _, tokens, _, launches = _serve_on(model, params, make_local_mesh(2, model=2, device="cuda"),
+                                       prompts, 4, cache_len)
+    n = 3 * model.cfg.num_layers
+    assert launches == {"cuda:0": {**{k: 0 for k in launches["cuda:0"]}, "bsr_spmm": 4 * 2 * n}}
+    want, _ = Engine(model, params, batch_size=4, cache_len=cache_len).generate(prompts, 4)
+    assert torch.equal(tokens, want)
+
+
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_cards_a_2x2_serve_is_the_2x2_one_card_serve_bit_for_bit(arch):
+    """The 2 × 2 serve on 4 cards (groups on cards 0-1 and 2-3) against the
+    same mesh on card 0: every call's logits, the tokens and every chunk
+    of the cache bit for bit (a MoE arch on 1 × 2: its token groups would
+    cross data indices)."""
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.train import checkpoint
+
+    cards = _cards(4)
+    model, params, prompts, cache_len = _serve_model(arch)
+    data = 1 if any(s.ffn == "moe" for s in model.cfg.layer_specs()) else 2
+    runs = [_serve_on(model, params, make_local_mesh(data, model=2, **where), prompts, 6,
+                      cache_len)
+            for where in ({"device": cards[0]}, {"devices": cards[:2 * data]})]
+    (c1, t1, k1, _), (c4, t4, k4, _) = runs
+    assert torch.equal(t1, t4.to(t1.device))
+    assert all(torch.equal(a, b.to(a.device)) for a, b in zip(c1, c4))
+    for x, y in zip(checkpoint.leaves(k1), checkpoint.leaves(k4)):
+        assert [c.device for c in y.chunks] == cards[:2 * data]
+        for a, b in zip(x.chunks, y.chunks):
+            assert torch.equal(a.to(b.device), b)

@@ -176,13 +176,15 @@ def test_embed_lookup_and_constrain_on_one_device():
 
 
 def test_model_meshes_past_one_device_are_refused():
-    """What the model axis still refuses: serving with a group's split
-    weights (prefill and decode over a model mesh are the next slice) and
-    the production mesh on a host without its cards. Every arch's train
-    state builds on ``data`` × ``model`` meshes, its leaves split over
-    ``model`` (MLA, Mamba and RWKV-6 included: ``test_torch_model_mesh*.py``
-    trains on them)."""
-    from repro_torch.train import sgd, trainer
+    """What the model axis still refuses: the production mesh on a host
+    without its cards (and the card by default where there is none).
+    Every arch's train state builds on ``data`` × ``model`` meshes, its
+    leaves split over ``model`` (MLA, Mamba and RWKV-6 included:
+    ``test_torch_model_mesh*.py`` trains on them), and prefill and decode
+    on a group's split params run (a cache held whole on the home device;
+    placed caches: ``test_torch_model_mesh_serve*.py``)."""
+    from repro_torch.distribution.sharding import group_params
+    from repro_torch.train import sgd
     from repro_torch.train.trainer import init_train_state
 
     assert make_local_mesh(device="cpu", data=2).shape == {"data": 2, "model": 1}
@@ -196,11 +198,11 @@ def test_model_meshes_past_one_device_are_refused():
                                      mesh=mesh)
             owners = checkpoint.leaves(state.params)
             assert any(x.sharding.model_dim is not None for x in owners), arch
-            group = trainer._group_params(state.params, owners, mesh)[0]
-            with pytest.raises(ValueError, match="serving over a model mesh"):
-                model.prefill(group, ids, model.init_cache(2, 16, device="cpu"))
-            with pytest.raises(ValueError, match="serving over a model mesh"):
-                model.decode_step(group, ids[:, 0], model.init_cache(2, 16, device="cpu"), 0)
+            group = group_params(state.params, owners, mesh)[0]
+            logits, cache = model.prefill(group, ids, model.init_cache(2, 16, device="cpu"))
+            assert logits.shape == (2, 1, 512) and bool(torch.isfinite(logits).all()), arch
+            logits, _ = model.decode_step(group, ids[:, 0], cache, 5)
+            assert logits.shape == (2, 512) and bool(torch.isfinite(logits).all()), arch
     for multi_pod in (False, True):
         with pytest.raises(ValueError, match=r"production mesh .*cuda:\d+ … cuda:\d+"):
             make_production_mesh(multi_pod=multi_pod)

@@ -217,18 +217,19 @@ def test_a_model_mesh_checkpoint_restores_onto_one_position_and_the_reference():
 def test_forward_on_a_groups_split_params_gathers_the_logits_and_serving_is_refused():
     """``Model.forward`` on one group's params (leaves split over ``model``
     as ``Split``s) gives the whole model's logits, the vocab chunks
-    gathered in model order; prefill with split weights raises (serving
-    over a model mesh is a later slice)."""
-    from repro_torch.train import trainer
-
+    gathered in model order; prefill with split weights, once refused,
+    now serves: its last logits are the one-device prefill's, gathered
+    the same way (placed caches: ``test_torch_model_mesh_serve.py``)."""
     _, model, _, p = mm.models(LLAMA, "kv-split")
     mesh = mm.grid(1, 2)
     placed = sh.place(p, sh.shardings_for(None, mesh, sh.param_pspecs(None, p, mesh)))
-    (group,) = trainer._group_params(placed, checkpoint.leaves(placed), mesh)
+    (group,) = sh.group_params(placed, checkpoint.leaves(placed), mesh)
     assert isinstance(group["embed"], tp.Split)
     ids = torch.from_numpy(np.random.default_rng(7).integers(0, 512, (2, 9)).astype(np.int32))
     want, got = model.forward(p, ids), model.forward(group, ids)
     assert got.shape == want.shape
     assert float((got - want).abs().max()) <= tt.GRAD_RTOL * float(want.abs().max())
-    with pytest.raises(ValueError, match="serving over a model mesh"):
-        model.prefill(group, ids, model.init_cache(2, 16, device="cpu"))
+    want, _ = model.prefill(p, ids, model.init_cache(2, 16, device="cpu"))
+    got, _ = model.prefill(group, ids, model.init_cache(2, 16, device="cpu"))
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= tt.GRAD_RTOL * float(want.abs().max())

@@ -67,8 +67,9 @@ def test_each_position_gets_its_own_x_in_and_z_channels_of_in_proj(m):
 def test_in_proj_split_with_whole_channels_runs_the_layer_on_the_home_device():
     """d 5 on ``model`` = 4: ``2·di`` = 20 splits and ``di`` = 10 does not,
     so ``param_pspecs`` splits ``in_proj`` alone. Its column products are
-    gathered (exact) and the layer runs whole: the output and every
-    gradient equal the whole layer's to f32 rounding."""
+    gathered (exact) and the layer runs whole: the output, the decode
+    state it leaves (whole, on the home device) and every gradient equal
+    the whole layer's to f32 rounding."""
     from repro_torch.configs.base import MambaConfig
     from repro_torch.models.layers import Init
 
@@ -76,14 +77,17 @@ def test_in_proj_split_with_whole_channels_runs_the_layer_on_the_home_device():
     p = ssm.init_mamba(Init(torch.Generator().manual_seed(3), torch.device("cpu")), 5, cfg)
     x = torch.from_numpy(np.random.default_rng(4).standard_normal((2, 7, 5)).astype(np.float32))
     whole = {k: w.clone().requires_grad_() for k, w in p.items()}
-    want, _ = ssm.apply_mamba(whole, cfg, x)
+    want, want_state = ssm.apply_mamba(whole, cfg, x)
     chunks = [c.clone().requires_grad_() for c in p["in_proj"].chunk(4, 1)]
     split = {**{k: w.clone().requires_grad_() for k, w in p.items() if k != "in_proj"},
              "in_proj": tp.Split(tuple(chunks), 1)}
     tp.reset_exchange_counts()
     got, state = ssm.apply_mamba(split, cfg, x)
-    assert state is None and set(tp.exchange_counts()) == {"fan_out", "all_gather"}
+    assert set(tp.exchange_counts()) == {"fan_out", "all_gather"}
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    assert set(state) == set(want_state) == {"conv", "ssm"}
+    for k, v in want_state.items():
+        torch.testing.assert_close(state[k], v, rtol=1e-6, atol=1e-6)
     g = torch.ones_like(want)
     want.backward(g)
     got.backward(g)

@@ -32,8 +32,13 @@ the sparse model's launches on each group's home card),
 ``mixer-cards-bits`` (the same for DeepSeek-V2's MLA, Jamba's Mamba and
 RWKV-6 at published width, cut as ``chip_smoke.MIXER_CUTS``, and Jamba's
 layer with its FFN pruned), then ``chip_smoke.py``'s ``llm-train-model``
-over the 4 cards. Naming phases
-runs those alone (``device`` and ``cards`` always run first).
+over the 4 cards. Serving over the model axis: ``serve-cards-bits`` (the
+2 × 2 serve of Llama-3.2-1B and of each ``chip_smoke.SERVE_MIXER_CUTS``
+cut through ``make_serve_fns``, on 4 positions of card 0 and on 4 cards:
+every call's logits, the greedy tokens and every cache chunk bit for
+bit), then ``chip_smoke.py``'s ``llm-serve-model`` over the 4 cards.
+Naming phases runs those alone (``device`` and ``cards`` always run
+first).
 
 ``copy-modes`` times one layer of RadiX-net 65536 × 120 over the cards
 (4 shards, 512 columns) and a whole forward with two ways of copying
@@ -294,9 +299,73 @@ def mixer_cards_bits(seq_len=128, global_batch=8, microbatches=2, block=128, blo
             "archs": out}
 
 
+def serve_on(model, params, mesh, prompts, new_tokens: int, cache_len: int) -> tuple:
+    """``chip_smoke.serve_greedy`` over ``params`` and a fresh cache placed on
+    ``mesh``: (each call's logits, the tokens, the placed cache, each
+    card's launches, the median decode step's ms)."""
+    import statistics
+
+    import torch
+
+    from repro_torch.kernels import ops
+
+    pp, cache = smoke.placed_for_serving(model, params, mesh, prompts.shape[0], cache_len)
+    ops.reset_launch_counts()
+    calls, ms, _ = smoke.serve_greedy(model, pp, cache, prompts, new_tokens)
+    tokens = torch.stack([smoke.greedy(c) for c in calls], 1)
+    return (calls, tokens, cache, {str(d): ops.launch_counts(d) for d in mesh.cards},
+            statistics.median(ms[1:]))
+
+
+def serve_cards_bits(batch=4, cache_len=128, prompt_len=48, new_tokens=40, seed=0) -> dict:
+    """The 2 × 2 serve of ``chip_smoke.LLM_SERVE_MODEL``'s Llama-3.2-1B (bf16
+    serving copy, 40 greedy tokens across the slot-range boundary) and of
+    each ``chip_smoke.SERVE_MIXER_CUTS`` cut at published width (Gemma-3's
+    sizes from ``SERVE_LONG``) on 4 positions of card 0 and on 4 cards:
+    every call's logits, the tokens and every cache chunk bit for bit; the
+    median decode step's ms on each."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import Model
+    from repro_torch.models.model import cast_floating
+    from repro_torch.train import checkpoint
+
+    one = make_local_mesh(2, model=2, device="cuda:0")
+    cards = make_local_mesh(2, model=2, devices=[f"cuda:{i}" for i in range(4)])
+    out = {}
+    for name, cut in {"llama3.2-1b": None, **smoke.SERVE_MIXER_CUTS}.items():
+        cfg = get_config(name) if cut is None else smoke.cut_config(name, **cut)
+        sizes = {"cache_len": cache_len, "prompt_len": prompt_len, "new_tokens": new_tokens,
+                 **smoke.SERVE_LONG.get(name, {})}
+        model = Model(cfg)
+        params = cast_floating(model.init(torch.Generator(device="cuda:0").manual_seed(seed),
+                                          device="cuda:0"), model.compute_dtype)
+        prompts = torch.randint(0, cfg.vocab_size, (batch, sizes["prompt_len"]),
+                                device="cuda:0",
+                                generator=torch.Generator(device="cuda:0").manual_seed(seed + 1))
+        (c1, t1, k1, _, ms1), (c4, t4, k4, l4, ms4) = (
+            serve_on(model, params, mesh, prompts, sizes["new_tokens"], sizes["cache_len"])
+            for mesh in (one, cards))
+        leaves = list(zip(checkpoint.leaves(k1), checkpoint.leaves(k4)))
+        same = (torch.equal(t1, t4.to(t1.device))
+                and all(torch.equal(a, b.to(a.device)) for a, b in zip(c1, c4))
+                and all(torch.equal(a.to(b.device), b) for x, y in leaves
+                        for a, b in zip(x.chunks, y.chunks)))
+        smoke.check(same, (name, "the 4-card serve is the 4-position one-card serve"))
+        out[name] = {"cut": cut, **sizes, "same_bits": True, "cache_leaves": len(leaves),
+                     "first_tokens": t4[:, :8].tolist(), "decode_step_ms_one_card": ms1,
+                     "decode_step_ms_cards": ms4, "launches_by_card": l4}
+        del params, k1, k4, c1, c4
+        torch.cuda.empty_cache()
+    return {"mesh": dict(cards.shape), "cards": len(cards.cards), "archs": out}
+
+
 PHASES = ("copy-modes", "sharded", "sharded-cards", "sharded-train", "sharded-cards-train",
           "capture-across-cards", "data-cards-bits", "llm-train-data", "launch-train-data",
-          "model-cards-bits", "mixer-cards-bits", "llm-train-model")
+          "model-cards-bits", "mixer-cards-bits", "llm-train-model", "serve-cards-bits",
+          "llm-serve-model")
 
 
 def main(argv=None) -> int:
@@ -341,6 +410,11 @@ def main(argv=None) -> int:
     if "llm-train-model" in chosen:
         smoke.emit({"phase": "llm-train-model",
                     **smoke.phase_llm_train_model(**smoke.LLM_TRAIN_MODEL)})
+    if "serve-cards-bits" in chosen:
+        smoke.emit({"phase": "serve-cards-bits", **serve_cards_bits()})
+    if "llm-serve-model" in chosen:
+        smoke.emit({"phase": "llm-serve-model",
+                    **smoke.phase_llm_serve_model(**smoke.LLM_SERVE_MODEL)})
     print(dev["nvidia_smi"], flush=True)
     return 0
 

@@ -305,11 +305,21 @@ with the numpy oracles of 10, 16 and 20 computed beside it):
    its own storages; train's loss and gradient norm finite; the same
    donated decode at f32 compute within ``LLM_F32_TOL`` of the f32
    prefill of S positions (the bf16 distances printed). Each cell's
-   time beside its roofline bound; no kernel launched. The cells keep
+   time beside its roofline bound; no kernel launched. Then the mesh
+   cells (``DRYRUN_MESH``): Llama-3.2-1B ``train_4k`` (8 of 16 layers)
+   and ``decode_32k`` on the 2 × 2 ``data`` × ``model`` mesh, traced
+   through the mesh path on ``meta`` at the largest batch whose traced
+   peak for the whole device fits the same limit, then the same placed
+   step run on 4 positions of card 0 with every move between positions a
+   copy: FLOPs and the exchanges by kind equal to the trace, the card's
+   peak within 10% of the traced peak for the whole device; a line each
+   with the trace's per-position peaks, collectives, ``t_collective_s``
+   and dominant term (``tools/torch_cards_run.py dryrun-cards`` runs them
+   one card a position). The cells keep
    the card busy and the host's cores idle for minutes, so the numpy
    oracles of ``continuous``, ``sharded`` and ``fleet`` run beside them
    (``oracles_ahead``, on the cores less 4: the dry run's process and
-   its two tracers); the script waits for them before the next phase,
+   its three tracers); the script waits for them before the next phase,
    so no phase that reads the host's clock runs beside them
    (``oracles_beside`` in this line).
 31. llm-serve-model — serving over the model's 2 × 2 ``data`` × ``model``
@@ -531,6 +541,14 @@ LLM_TOL, LLM_F32_TOL = 2e-2, 1e-4
 # a real prefill of S - 1 positions of DRYRUN["decode_rows"] prompts, tiled
 DRYRUN = dict(arch="llama3.2-1b", long_arch="gemma3-4b", decode_rows=2, seed=MODEL_SEED)
 DRYRUN_PEAK_RTOL = 0.10
+# the dryrun phase's mesh cells: Llama-3.2-1B's train_4k and decode_32k on the
+# 2 x 2 data x model mesh, traced through the mesh path on meta
+# (dryrun.mesh_trace) at the largest batch whose traced peak for the whole
+# device fits, then run on 4 positions of card 0 (tools/torch_cards_run.py
+# dryrun-cards: one card a position). train_4k is cut to 8 of 16 layers: at
+# full depth one sequence a group already needs 85.3 GiB over the 4 positions
+# (80.1 GiB with the positions' copies shared), more than the card holds
+DRYRUN_MESH = dict(arch="llama3.2-1b", data=2, model=2, train_layers=8, seed=MODEL_SEED)
 DRYRUN_MARGIN_BYTES = 2**30
 WIDTH_CLASSES = (64, 128, 256, 512)
 HOST_SHARE_REPEATS = 5  # captured and eager forwards, interleaved
@@ -4911,35 +4929,273 @@ def decode_vs_prefill(model, params, tokens, got, want, tile, pos) -> dict:
     return res
 
 
-def dryrun_records() -> tuple[dict, float]:
+def dryrun_records(mesh: str = "card") -> tuple[dict, float]:
     """The dry run's records of every arch's ``decode_32k`` and
-    ``long_500k`` on the ``card`` and ``pod16x16`` meshes, each ``ok`` or
-    ``skipped`` with its assigned reason and printed on a line of its own,
-    and the seconds they took (run in a worker process)."""
+    ``long_500k`` on ``mesh`` (``card``, or ``single``: ``pod16x16``, from
+    the trace of the mesh path over it), each ``ok``, ``skipped`` with its
+    assigned reason or, on the pod, ``refused`` with the mesh path's
+    message (an MoE decode whose token groups would cross data indices),
+    printed on a line of its own, and the seconds they took (run in a
+    worker process)."""
     from repro_torch.configs import ARCHS, SHAPE_CELLS, get_config
     from repro_torch.launch import dryrun, specs
 
     recs, t0 = {}, time.perf_counter()
     for a in ARCHS:
         for shape in ("decode_32k", "long_500k"):
-            for rec in dryrun.run_cell(a, shape, meshes=("card", "single")):
-                reason = specs.skip_reason(get_config(a), SHAPE_CELLS[shape])
-                check(rec["status"] == ("skipped" if reason else "ok"), rec)
+            for rec in dryrun.run_cell(a, shape, meshes=(mesh,)):
+                cfg = get_config(a)
+                reason = specs.skip_reason(cfg, SHAPE_CELLS[shape])
+                if rec["status"] == "refused":
+                    check(mesh != "card" and cfg.moe is not None
+                          and "groups would cross positions" in rec["reason"], rec)
+                else:
+                    check(rec["status"] == ("skipped" if reason else "ok"), rec)
                 recs[a, shape, rec["mesh"]] = rec
                 line = {k: rec.get(k) for k in ("arch", "shape", "mesh", "status", "chips",
                                                 "flops_per_device", "bytes_per_device",
-                                                "useful_flops_fraction", "trace_s")}
+                                                "useful_flops_fraction", "trace_s", "reason")}
                 if rec["status"] == "ok":
-                    line.update(peak_per_device_bytes=rec["memory"]["peak_per_device_bytes"],
-                                bound_s=rec["roofline"]["step_time_lower_bound_s"],
-                                dominant=rec["roofline"]["dominant"])
+                    mem, r = rec["memory"], rec["roofline"]
+                    line.update(peak_per_device_bytes=mem["peak_per_device_bytes"],
+                                temp_bytes=mem["temp_bytes"],
+                                bound_s=r["step_time_lower_bound_s"], dominant=r["dominant"],
+                                t_collective_s=r["t_collective_s"])
+                    if rec["collectives"] is not None:
+                        line.update(total_bytes=rec["collectives"]["total_bytes"],
+                                    busiest_position=rec["busiest_position"],
+                                    peak_position=rec["peak_position"],
+                                    traced_groups=rec["traced_groups"])
                 emit({"dryrun_record": line})
     return recs, time.perf_counter() - t0
 
 
-def dryrun_card(arch: str, long_arch: str, decode_rows: int, seed: int) -> dict:
+def mesh_plan(arch: str, shape: str, mesh, batch: int, train_layers: int):
+    """``arch``'s plan of ``shape`` for ``mesh`` at global batch ``batch``:
+    train in one microbatch, cut to ``train_layers`` layers."""
+    from repro_torch.launch import specs
+
+    train = shape == "train_4k"
+    return specs.make_plan(arch, shape, mesh, global_batch=batch,
+                           microbatches=1 if train else None,
+                           config=cut_config(arch, train_layers) if train else None)
+
+
+def dryrun_mesh_traces(arch: str, data: int, model: int, train_layers: int,
+                       limit: int) -> dict:
+    """``DRYRUN_MESH``'s cells traced through the mesh path on a ``meta``
+    ``data`` × ``model`` mesh (``dryrun.mesh_trace``, every move between
+    positions a copy, as on one card a position): each at the largest
+    batch, a multiple of ``data``, whose traced peak for the whole device
+    fits ``limit``: traces at ``data`` and ``2·data`` rows, then at the
+    batch the line through the last two traces puts at the limit, until
+    one batch fits and the next one up (traced) does not. Run in a worker
+    process."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+
+    mesh = make_local_mesh(data, model=model, device="meta")
+    out = {}
+    for shape, cap in (("train_4k", 256), ("decode_32k", 128)):
+        runs = {}
+
+        def traced(b):
+            plan = mesh_plan(arch, shape, mesh, b, train_layers)
+            runs[b] = plan, dryrun.mesh_trace(plan, mesh)
+            return runs[b]
+
+        probes = {b: traced(b)[1]["peak_bytes"] for b in (data, 2 * data)}
+        check(probes[data] <= limit, (shape, "fits at no batch", probes, limit))
+        while True:  # the secant through the two traces nearest the limit
+            batch = max(b for b, p in probes.items() if p <= limit)
+            over = min((b for b, p in probes.items() if p > limit), default=None)
+            if batch == cap or over == batch + data:
+                break
+            other = over if over is not None else max(b for b in probes if b < batch)
+            per_row = (probes[other] - probes[batch]) / (other - batch)
+            guess = batch + data * int((limit - probes[batch]) // (per_row * data))
+            guess = min(max(guess, batch + data), cap if over is None else over - data)
+            probes[guess] = traced(guess)[1]["peak_bytes"]
+        plan, mt = runs[batch]
+        name = f"{data}x{model}"
+        rec = dryrun.mesh_record(arch, shape, plan, mt, mesh, name)
+        out[shape] = {
+            "batch": batch, "layers": plan.model.cfg.num_layers, "probes": probes,
+            "next_batch_peak_bytes": probes.get(batch + data), "trace_s": mt["trace_s"],
+            "flops": mt["flops"], "peak_bytes": mt["peak_bytes"],
+            "positions": mt["positions"], "exchanges": mt["exchanges"],
+            "links": sorted((k, s, d, v["calls"], v["bytes"])
+                            for (k, s, d), v in mt["links"].items()),
+            "collectives": {k: rec["collectives"][k] for k in
+                            ("per_kind_bytes", "per_kind_count", "total_bytes",
+                             "per_axis_bytes", "position")},
+            "t_collective_s": rec["roofline"]["t_collective_s"],
+            "dominant": rec["roofline"]["dominant"],
+            "bound_s": rec["roofline"]["step_time_lower_bound_s"],
+            "per_position_t_collective_s": rec["per_position"]["t_collective_s"],
+            "layout": rec["layout"],
+        }
+        check(batch == cap or out[shape]["next_batch_peak_bytes"] > limit,
+              (shape, "a larger mesh batch fits", probes))
+    return out
+
+
+def fresh_placed_cache(plan, mesh):
+    """The plan's cache placed on ``mesh`` as ``Model.init_cache`` fills it
+    (zeros; -1, an empty slot, in the int32 positions), each chunk made on
+    its position's device: never whole on one card."""
+    import torch
+
+    from repro_torch.distribution import sharding as sh
+    from repro_torch.train import checkpoint
+
+    specs_ = checkpoint.leaves(plan.args[2])
+    shardings = checkpoint.leaves(sh.shardings_for(None, mesh, plan.in_shardings[2]))
+    return checkpoint.with_leaves(plan.args[2], [
+        sh.Placed(tuple(torch.full(s.part(leaf, p).shape, -1 if leaf.dtype == torch.int32
+                                   else 0, dtype=leaf.dtype, device=d)
+                        for p, d in enumerate(mesh.devices)), s)
+        for leaf, s in zip(specs_, shardings)])
+
+
+def position_bytes(tree, mesh) -> list[int]:
+    """Each position's live bytes of ``tree``'s placed chunks, rounded as
+    the caching allocator rounds a block."""
+    from repro_torch.launch import dryrun
+    from repro_torch.train import checkpoint
+
+    seen: dict[int, tuple[int, int]] = {}
+    for leaf in checkpoint.leaves(tree):
+        for p, c in enumerate(getattr(leaf, "chunks", ())):
+            st = c.untyped_storage()
+            seen.setdefault(st._cdata, (p, -(-st.nbytes() // dryrun.ALLOC_ROUND_BYTES)
+                                        * dryrun.ALLOC_ROUND_BYTES))
+    out = [0] * mesh.size
+    for p, n in seen.values():
+        out[p] += n
+    return out
+
+
+def dryrun_mesh_card(arch: str, shape: str, info: dict, train_layers: int, seed: int, *,
+                     cards: bool = False) -> dict:
+    """One ``dryrun_mesh_traces`` cell run for real on the 2 × 2 mesh: 4
+    positions of card 0, or (``cards``) one card a position. Seeded
+    weights placed by the plan's ``in_shardings`` (the cache made on its
+    positions), the batch (the tokens) from the host, the step run once
+    with every move between positions a copy (``peer.distinct_positions``)
+    under ``FlopCounterMode``. Held to the trace: FLOPs and the exchanges
+    by kind equal; on one card, ``max_memory_allocated`` over the call less
+    what the process held besides the arguments within
+    ``DRYRUN_PEAK_RTOL`` of the traced peak for the whole device; on the
+    cards, each card's within ``DRYRUN_PEAK_RTOL`` of its position's, and
+    the bytes each position received equal. Loss (logits) finite."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.distribution import peer
+    from repro_torch.distribution import sharding as sh
+    from repro_torch.distribution import tensor_parallel as tp
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.specs import train_optimizer
+    from repro_torch.train import checkpoint
+    from repro_torch.train.trainer import TrainState
+
+    mesh = (make_local_mesh(2, model=2, devices=[f"cuda:{i}" for i in range(4)]) if cards
+            else make_local_mesh(2, model=2, device="cuda"))
+    plan = mesh_plan(arch, shape, mesh, info["batch"], train_layers)
+    gen = torch.Generator(device=mesh.device).manual_seed(seed)
+    host = torch.Generator().manual_seed(seed)
+    model, cfg = plan.model, plan.model.cfg
+    if shape == "train_4k":
+        params = model.init(gen, device=mesh.device)
+        state = TrainState(params, train_optimizer().init(checkpoint.leaves(params)))
+        placed = dryrun.place_args(plan, mesh, (state, None))[:1]
+        del params, state
+        batch = {k: torch.randint(0, cfg.vocab_size, v.shape, generator=host, dtype=v.dtype)
+                 for k, v in plan.args[1].items()}
+        args = (placed[0], batch if cards else {k: v.to(mesh.device) for k, v in batch.items()})
+    else:
+        params = model.init(gen, device=mesh.device)
+        pp = sh.place(params, sh.shardings_for(None, mesh, plan.in_shardings[0]))
+        del params
+        tokens = torch.randint(0, cfg.vocab_size, plan.args[1].shape, generator=host,
+                               dtype=plan.args[1].dtype)
+        args = (pp, tokens if cards else tokens.to(mesh.device),
+                fresh_placed_cache(plan, mesh), plan.args[3].clone())
+    torch.cuda.empty_cache()
+    devices = mesh.cards
+    for d in devices:  # cuBLAS's workspaces first, so that no measured peak holds them
+        w = torch.ones((64, 64), device=d)
+        _ = (w @ w, w.bfloat16() @ w.bfloat16())
+    sync_all()
+    own = position_bytes(args, mesh)
+    if cards:
+        held = [torch.cuda.memory_allocated(d) - own[p] for p, d in enumerate(mesh.devices)]
+    else:
+        held = [torch.cuda.memory_allocated(mesh.device) - dryrun.live_bytes(args, "cuda")]
+    for d in devices:
+        torch.cuda.reset_peak_memory_stats(d)
+    tp.reset_exchange_counts()
+    peer.reset_link_counts()
+    with peer.distinct_positions(), FlopCounterMode(display=False) as counter:
+        ms, out = synced_ms(lambda: plan.fn(*args))
+    sync_all()
+    peaks = [torch.cuda.max_memory_allocated(d) - h for d, h in zip(devices, held)]
+    links = sorted((k, s, d, v["calls"], v["bytes"])
+                   for (k, s, d), v in peer.link_counts().items())
+    received = [sum(v[4] for v in links if v[2] == p) for p in range(mesh.size)]
+    want_received = [sum(v[4] for v in info["links"] if v[2] == p) for p in range(mesh.size)]
+    res = {"cards": len(devices), "global_batch": info["batch"], "layers": info["layers"],
+           "flops": counter.get_total_flops(), "dryrun_flops": info["flops"],
+           "exchanges": tp.exchange_counts(), "received_bytes": received, "ms": ms}
+    check(res["flops"] == info["flops"], ("mesh FLOPs on the card vs the trace", shape, res))
+    check(res["exchanges"] == info["exchanges"], ("mesh exchanges vs the trace", shape, res,
+                                                  info["exchanges"]))
+    check(received == want_received, ("bytes received by position vs the trace", shape,
+                                      received, want_received))
+    if cards:
+        want = info["positions"]["peak_bytes"]
+        res.update(peak_bytes=peaks, dryrun_peak_bytes=want,
+                   peak_rel_err=[got / w - 1 for got, w in zip(peaks, want)])
+    else:
+        res.update(peak_bytes=peaks[0], dryrun_peak_bytes=info["peak_bytes"],
+                   peak_rel_err=[peaks[0] / info["peak_bytes"] - 1])
+    check(all(abs(e) <= DRYRUN_PEAK_RTOL for e in res["peak_rel_err"]),
+          ("mesh peak on the card vs the trace", shape, res))
+    if shape == "train_4k":
+        res.update(loss=float(out[1]["loss"]), grad_norm=float(out[1]["grad_norm"]))
+        check(np.isfinite(res["loss"]) and np.isfinite(res["grad_norm"]), (shape, res))
+    else:
+        check(bool(torch.isfinite(out[0].float()).all()), (shape, "non-finite mesh logits"))
+    del out, args
+    torch.cuda.empty_cache()
+    return res
+
+
+
+
+def dryrun_mesh_cells(info: dict, train_layers: int, seed: int, *, arch: str,
+                      cards: bool = False) -> dict:
+    """``dryrun_mesh_card`` of each ``dryrun_mesh_traces`` cell, each
+    printed on a line of its own beside the trace's per-position peaks,
+    collectives, collective time and dominant term."""
+    out = {}
+    for shape, cell in info.items():
+        res = dryrun_mesh_card(arch, shape, cell, train_layers, seed, cards=cards)
+        out[shape] = {"mesh": "2x2", "positions_peak_bytes": cell["positions"]["peak_bytes"],
+                      "collectives": cell["collectives"],
+                      "t_collective_s": cell["t_collective_s"], "dominant": cell["dominant"],
+                      "bound_s": cell["bound_s"], "trace_s": cell["trace_s"],
+                      "probes": cell["probes"],
+                      "next_batch_peak_bytes": cell["next_batch_peak_bytes"], **res}
+        emit({"dryrun_mesh": shape, **out[shape]})
+    return out
+
+
+def dryrun_card(arch: str, long_arch: str, decode_rows: int, seed: int, mesh: dict) -> dict:
     """The ``dryrun`` phase, in a process of its own on the card (see
-    ``phase_dryrun``)."""
+    ``phase_dryrun``); ``mesh``: ``DRYRUN_MESH``."""
     import concurrent.futures
     import multiprocessing
 
@@ -4959,14 +5215,18 @@ def dryrun_card(arch: str, long_arch: str, decode_rows: int, seed: int) -> dict:
     limit = free - DRYRUN_MARGIN_BYTES
     out = {"free_bytes": free, "total_bytes": total, "limit_bytes": limit,
            "alloc_conf": os.environ.get("PYTORCH_CUDA_ALLOC_CONF")}
+    grid = mesh
     mesh = make_production_mesh(device="meta")
     ops.reset_launch_counts()
-    # the records and the prefill's batch-1 trace run in two worker processes
-    # beside the card's runs
+    # the records, the prefill's batch-1 trace, the mesh cells' traces and the
+    # pod records run in three worker processes beside the card's runs
     with concurrent.futures.ProcessPoolExecutor(
-            max_workers=2, mp_context=multiprocessing.get_context("spawn")) as meta:
+            max_workers=3, mp_context=multiprocessing.get_context("spawn")) as meta:
         records = meta.submit(dryrun_records)
         probe = meta.submit(dryrun_meta_record, arch, "prefill_32k", 1, None)
+        mesh_traces = meta.submit(dryrun_mesh_traces, grid["arch"], grid["data"],
+                                  grid["model"], grid["train_layers"], limit)
+        pods = meta.submit(dryrun_records, "single")
         out["train_4k"] = dryrun_train(arch, limit, seed)
         emit({"dryrun_cell": "train_4k", **out["train_4k"]})
         torch.cuda.empty_cache()
@@ -5023,7 +5283,7 @@ def dryrun_card(arch: str, long_arch: str, decode_rows: int, seed: int) -> dict:
         tile = torch.arange(batch, device=dev) % decode_rows
         pos = torch.tensor(s - 1, dtype=torch.int32)
         token = tokens[:, s - 1][tile]
-        res, (got, _) = card_run(plan, (params, token, cache, pos), rec, donated=True)
+        res, (got, cache) = card_run(plan, (params, token, cache, pos), rec, donated=True)
         res.update(prefill_rows=decode_rows, prefill_rows_ms=ms_prefill,
                    next_batch_peak_bytes=next_batch_peak(rec, fixed),
                    ms=statistics.median(synced_ms(lambda: plan.fn(params, token, cache, pos))[0]
@@ -5033,12 +5293,20 @@ def dryrun_card(arch: str, long_arch: str, decode_rows: int, seed: int) -> dict:
         res.update(decode_vs_prefill(model, params, tokens, got, want, tile, pos))
         out["decode_32k"] = res
         emit({"dryrun_cell": "decode_32k", **res})
+        del params, tokens, got, want
+        torch.cuda.empty_cache()
+
+        # the mesh cells: traced through the mesh path, run on 4 positions of the card
+        out["mesh"] = dryrun_mesh_cells(mesh_traces.result(), grid["train_layers"],
+                                        grid["seed"], arch=grid["arch"])
+        pod_recs, out["pod_records_seconds"] = pods.result()
+        out["pod_records"] = len(pod_recs)
     out["launches"] = ops.launch_counts()
     check(not any(out["launches"].values()), ("the dry run's cells launch no kernel", out))
     return out
 
 
-def phase_dryrun(arch: str, long_arch: str, decode_rows: int, seed: int) -> dict:
+def phase_dryrun(arch: str, long_arch: str, decode_rows: int, seed: int, mesh: dict) -> dict:
     """The dry run held to the card (``dryrun_card``), in a process of its
     own: its cells fill the card, so it starts from no allocation of the
     earlier phases, and with ``expandable_segments`` so that a cell sized
@@ -5056,7 +5324,7 @@ def phase_dryrun(arch: str, long_arch: str, decode_rows: int, seed: int) -> dict
     try:  # the worker starts, and takes the environment, at submit
         with concurrent.futures.ProcessPoolExecutor(
                 max_workers=1, mp_context=multiprocessing.get_context("spawn")) as pool:
-            return pool.submit(dryrun_card, arch, long_arch, decode_rows, seed).result()
+            return pool.submit(dryrun_card, arch, long_arch, decode_rows, seed, mesh).result()
     finally:
         if saved is None:
             os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
@@ -5095,7 +5363,7 @@ def main() -> int:
     t0 = time.perf_counter()
     oracles = oracles_ahead({"sharded": (big, sharded_panel, 8), "fleet": (spec, fleet_panel, 512),
                              "continuous": (spec, cont_panel, 512)}, workers)
-    dry = phase_dryrun(**DRYRUN)
+    dry = phase_dryrun(**DRYRUN, mesh=DRYRUN_MESH)
     t1 = time.perf_counter()
     ready = {name: wait() for name, wait in oracles.items()}
     beside = {"workers": workers, "started_to_ready_seconds": time.perf_counter() - t0,

@@ -26,11 +26,162 @@ together on one device in position order, and :func:`reduce_into` /
 that own each chunk, in card order. Within a group the model code's
 collectives (``repro_torch.distribution.tensor_parallel``) are built on
 :func:`copy_into`, :func:`to` and :func:`shard_order_sum`.
+
+Every exchange between two positions of the model's mesh is also
+logged by the position that sends it, the one that receives it and its
+bytes (:func:`link_counts`; :func:`axis_crossed` names the mesh axis
+the link crosses). The mesh code says which position it works for: a
+group's home while the group computes (:func:`in_group`), a given
+position around a copy or a per-position loop (:func:`at`). The dry
+run (``repro_torch.launch.dryrun``) bills the storages and FLOPs of
+each op to that position. Under :func:`distinct_positions` every move
+between two positions is a copy even where the positions share a
+device, so that M positions on one device (or on ``meta``) hold what M
+cards would hold each.
 """
 
 from __future__ import annotations
 
+import contextlib
+import math
+import threading
+
 import torch
+
+# ------------------------------ positions ------------------------------------
+
+_GROUP: list[tuple[object, int]] = []  # (mesh, the group's home position)
+_AT: list[int] = []  # positions named by the mesh code, innermost last
+_DISTINCT: list[bool] = [False]
+_TRACED: list[int | None] = [None]
+_LINKS: dict[tuple[str, int, int], list[int]] = {}  # (kind, src, dst) -> [calls, bytes]
+_LINKS_LOCK = threading.Lock()  # backward runs on one autograd thread a card
+
+
+@contextlib.contextmanager
+def in_group(mesh, c: int):
+    """The mesh code works for data index ``c``'s group of ``mesh``: its
+    home is position ``c·M``, and model index m is position ``c·M + m``."""
+    _GROUP.append((mesh, c * mesh.shape.get("model", 1)))
+    try:
+        yield
+    finally:
+        _GROUP.pop()
+
+
+@contextlib.contextmanager
+def at(p: int | None):
+    """What runs inside works for position ``p`` (None: as outside)."""
+    if p is None:
+        yield
+        return
+    _AT.append(p)
+    try:
+        yield
+    finally:
+        _AT.pop()
+
+
+def group_position(m: int = 0) -> int | None:
+    """The position of model index ``m`` of the current group, or None
+    outside a group."""
+    return _GROUP[-1][1] + m if _GROUP else None
+
+
+def device_of(p: int) -> torch.device:
+    """Position ``p``'s device on the current group's mesh."""
+    return _GROUP[-1][0].devices[p]
+
+
+def named_position() -> int | None:
+    """The position the mesh code last named with :func:`at`, or None."""
+    return _AT[-1] if _AT else None
+
+
+def working_position() -> int | None:
+    """The position the mesh code last named (:func:`at`), else the
+    current group's home, else None."""
+    return _AT[-1] if _AT else group_position()
+
+
+@contextlib.contextmanager
+def distinct_positions():
+    """Every move between two positions inside is a copy (see the module
+    docstring): what the dry run traces, and what a card that holds every
+    position runs to be held to it."""
+    _DISTINCT.append(True)
+    try:
+        yield
+    finally:
+        _DISTINCT.pop()
+
+
+def distinct() -> bool:
+    return _DISTINCT[-1]
+
+
+@contextlib.contextmanager
+def traced_groups(k: int | None):
+    """Only the first ``k`` groups compute inside (None: every one): the
+    others stand in with zeros of the last computing group's results, and
+    every exchange between groups still runs. The dry run's shortcut: all
+    groups do the same work on the same shapes."""
+    _TRACED.append(k)
+    try:
+        yield
+    finally:
+        _TRACED.pop()
+
+
+def computes(c: int) -> bool:
+    """Whether group ``c`` computes (:func:`traced_groups`)."""
+    return _TRACED[-1] is None or c < _TRACED[-1]
+
+
+def record(kind: str, src: int | None, dst: int | None, nbytes: int) -> None:
+    """One exchange of ``nbytes`` from position ``src`` to ``dst`` (nothing
+    when either is unknown or they are one position)."""
+    if src is None or dst is None or src == dst:
+        return
+    with _LINKS_LOCK:
+        entry = _LINKS.setdefault((kind, src, dst), [0, 0])
+        entry[0] += 1
+        entry[1] += nbytes
+
+
+def reset_link_counts() -> None:
+    _LINKS.clear()
+
+
+def link_counts() -> dict[tuple[str, int, int], dict[str, int]]:
+    """``(kind, sending position, receiving position)`` → its calls and
+    bytes since the last reset."""
+    return {k: {"calls": v[0], "bytes": v[1]} for k, v in _LINKS.items()}
+
+
+def axis_crossed(shape: dict, src: int, dst: int) -> str:
+    """The outermost axis of a mesh of ``shape`` (name → size, row-major
+    positions) on which positions ``src`` and ``dst`` differ."""
+    for i, name in enumerate(shape):
+        inner = math.prod(list(shape.values())[i + 1:])
+        if src // inner != dst // inner:
+            return name
+        src, dst = src % inner, dst % inner
+    raise ValueError("one position does not cross an axis")
+
+
+def send(x: torch.Tensor, device, src: int | None, dst: int | None,
+         kind: str | None = None) -> torch.Tensor:
+    """``x``, which position ``src`` holds (None: the host or an unplaced
+    tensor), for position ``dst`` on ``device``: a copy made for ``dst``
+    under :func:`distinct_positions` when the positions differ, else
+    :func:`to`. ``kind`` logs the bytes as an exchange (:func:`record`)."""
+    if kind is not None:
+        record(kind, src, dst, x.numel() * x.element_size())
+    if distinct() and (src is None or src != dst):
+        with at(dst):
+            return copy_into(torch.empty(x.shape, dtype=x.dtype, device=device), x)
+    return to(x, device)
 
 
 def copy_into(dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
@@ -106,15 +257,22 @@ def reduce_into(acc, term: torch.Tensor, sharding) -> list[torch.Tensor]:
     ``term`` is their sequence; the whole of a replicated leaf), in f32 on
     c's device. ``acc=None`` starts the sums with copies of the parts.
     Called for groups 0, 1, … in turn, it gives each owner the card-order
-    sum, with one group's gradient alive at a time."""
+    sum, with one group's gradient alive at a time. Inside a group
+    (:func:`in_group`) each part's bytes are logged as ``"reduce"`` from
+    the position that holds it to the owner."""
+    home = group_position()
+    sequence = isinstance(term, (tuple, list))
     out = []
     for c, device in enumerate(sharding.devices):
         part = sharding.part(term, c)
-        if acc is None:
-            out.append(copy_into(torch.empty_like(part, dtype=torch.float32, device=device),
-                                 part))
-        else:
-            out.append(acc[c].add_(to(part, device).float()))
+        src = None if home is None else home + (c % sharding.model_size if sequence else 0)
+        with at(c):
+            if acc is None:
+                record("reduce", src, c, part.numel() * part.element_size())
+                out.append(copy_into(torch.empty_like(part, dtype=torch.float32, device=device),
+                                     part))
+            else:
+                out.append(acc[c].add_(send(part, device, src, c, "reduce").float()))
     return out
 
 

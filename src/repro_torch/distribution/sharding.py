@@ -21,8 +21,10 @@ On the model's mesh (``repro_torch.launch.mesh.make_local_mesh``, ``data``
 :func:`shardings_for` gives each leaf a :class:`Sharding` (the
 reference's ``NamedSharding``) and :func:`place` stores it as a
 :class:`Placed` leaf, one chunk a position. A spec splits at most one dim
-over ``data`` (D contiguous chunks, chunk c at data index c) and one over
-``model`` (M chunks, chunk m at model index m): heads, the FFN's hidden
+over ``data`` (D contiguous chunks, chunk c at data index c; on the pod
+mesh over ``("pod", "data")``, or over ``data`` alone and replicated over
+``pod``, the reference's pure data axis that only the gradient reduce
+crosses) and one over ``model`` (M chunks, chunk m at model index m): heads, the FFN's hidden
 dim, the MoE's experts, the embedding's d and the head's vocab go over
 ``model``, d_model-like dims over ``data``. A dim that does not divide,
 norms, the router and every tensor of a sparse FFN weight are whole
@@ -388,11 +390,17 @@ def _axis_names(entry) -> tuple:
 @dataclasses.dataclass(frozen=True)
 class Sharding:
     """Where a leaf lives on a mesh, the reference's ``NamedSharding``:
-    the mesh and the leaf's spec. :attr:`data_dim` is the dim split over
-    the ``data`` positions (D chunks), :attr:`model_dim` the dim split
-    over ``model`` (M chunks); position ``c·M + m`` holds chunk (c, m).
-    On a mesh without a ``model`` axis, or with ``model`` = 1, every
-    axis but ``model`` counts as ``data``."""
+    the mesh and the leaf's spec. The positions of one ``model`` index
+    are the mesh's groups, D of them (``data_size``: every position over
+    ``model``), group c in row-major order over the other axes
+    (``pod``, ``data``). :attr:`data_dim` is the dim split over some of
+    those axes (:attr:`data_ways` chunks: over ``("pod", "data")`` one a
+    group; over ``data`` alone, the reference's FSDP dims on the pod
+    mesh, one a group of each pod, replicated over ``pod``), and
+    :attr:`model_dim` the dim split over ``model`` (M chunks); position
+    ``c·M + m`` holds chunk (its group's data chunk, m). On a mesh without
+    a ``model`` axis, or with ``model`` = 1, every axis but ``model``
+    counts as data."""
 
     mesh: Any
     spec: PartitionSpec
@@ -410,22 +418,22 @@ class Sharding:
         return len(self.mesh.devices) // self.model_size
 
     @functools.cached_property
-    def _split(self) -> tuple[int | None, int | None]:
+    def _split(self) -> tuple[int | None, int | None, tuple[str, ...]]:
         data_dim = model_dim = None
+        data_axes: tuple[str, ...] = ()
         for d, entry in enumerate(self.spec):
             names = tuple(a for a in _axis_names(entry) if self.mesh.shape[a] > 1)
             if not names:
                 continue
             if names == ("model",):
                 model_dim = d
-            elif "model" not in names and math.prod(self.mesh.shape[a] for a in names) \
-                    == self.data_size and data_dim is None:
-                data_dim = d
+            elif "model" not in names and data_dim is None:
+                data_dim, data_axes = d, names
             else:
                 raise ValueError(f"{self.spec} splits dim {d} over {names} on a mesh of shape "
-                                 f"{self.mesh.shape}: a placed leaf splits one dim over every "
-                                 "data position and one over the model axis")
-        return data_dim, model_dim
+                                 f"{self.mesh.shape}: a placed leaf splits one dim over data "
+                                 "axes and one over the model axis")
+        return data_dim, model_dim, data_axes
 
     @property
     def data_dim(self) -> int | None:
@@ -436,23 +444,60 @@ class Sharding:
         return self._split[1]
 
     @property
+    def data_ways(self) -> int:
+        """How many chunks :attr:`data_dim` is split into (1: none)."""
+        return math.prod(self.mesh.shape[a] for a in self._split[2])
+
+    @property
     def dim(self) -> int | None:
         """The one dim the leaf is split along (over ``data`` or ``model``),
         or None for a leaf every position holds whole; a leaf split along
         two dims raises (read :attr:`data_dim` and :attr:`model_dim`)."""
-        data_dim, model_dim = self._split
+        data_dim, model_dim, _ = self._split
         if data_dim is not None and model_dim is not None:
             raise ValueError(f"{self.spec} splits two dims: read data_dim and model_dim")
         return model_dim if data_dim is None else data_dim
 
+    def _group_coords(self, c: int) -> dict[str, int]:
+        """Group ``c``'s coordinates on the axes other than ``model``."""
+        axes = [a for a in self.mesh.shape if a != "model"]
+        coords = {}
+        for a in reversed(axes):
+            c, coords[a] = divmod(c, self.mesh.shape[a])
+        return coords
+
+    def data_index(self, c: int) -> int:
+        """Group ``c``'s chunk along :attr:`data_dim`."""
+        coords, k = self._group_coords(c), 0
+        for a in self._split[2]:
+            k = k * self.mesh.shape[a] + coords[a]
+        return k
+
+    def data_holders(self, c: int, m: int) -> list[int]:
+        """The positions of model index ``m`` from which group ``c`` gathers
+        the leaf whole along ``data``: one a chunk, in chunk order, from the
+        groups that share ``c``'s coordinates on the axes the leaf is not
+        split over (its pod, for a leaf split over ``data`` alone)."""
+        if c not in self._peer_groups:
+            mine = self._group_coords(c)
+            kept = [a for a in mine if a not in self._split[2]]
+            peers = [g for g in range(self.data_size)
+                     if all(self._group_coords(g)[a] == mine[a] for a in kept)]
+            self._peer_groups[c] = sorted(peers, key=self.data_index)
+        return [g * self.model_size + m for g in self._peer_groups[c]]
+
+    @functools.cached_property
+    def _peer_groups(self) -> dict[int, list[int]]:
+        return {}
+
     def data_part(self, x: torch.Tensor, c: int) -> torch.Tensor:
-        """Data index ``c``'s chunk of ``x``, whole along ``data`` (a view),
-        or ``x`` for a leaf whole along ``data``."""
+        """Group ``c``'s chunk of ``x``, whole along ``data`` (a view), or
+        ``x`` for a leaf whole along ``data``."""
         dim = self.data_dim
         if dim is None:
             return x
-        size = x.shape[dim] // self.data_size
-        return x.narrow(dim, c * size, size)
+        size = x.shape[dim] // self.data_ways
+        return x.narrow(dim, self.data_index(c) * size, size)
 
     def model_part(self, x: torch.Tensor, m: int) -> torch.Tensor:
         """Model index ``m``'s chunk of ``x`` (a view), or ``x``."""
@@ -486,9 +531,9 @@ class Placed:
     def shape(self) -> torch.Size:
         shape = list(self.chunks[0].shape)
         s = self.sharding
-        data_dim, model_dim = s._split
+        data_dim, model_dim, _ = s._split
         if data_dim is not None:
-            shape[data_dim] *= s.data_size
+            shape[data_dim] *= s.data_ways
         if model_dim is not None:
             shape[model_dim] *= s.model_size
         return torch.Size(shape)
@@ -515,20 +560,33 @@ class Placed:
     def is_floating_point(self) -> bool:
         return self.chunks[0].is_floating_point()
 
-    def gather(self, device, m: int | None = None) -> torch.Tensor:
+    def gather(self, device, m: int | None = None, *, position: int | None = None
+               ) -> torch.Tensor:
         """The leaf on ``device``, put together in position order
         (``peer.all_gather``): with ``m``, model index m's chunk, whole along
         ``data`` (a group position's copy); without, the whole leaf. A part
         held whole is the copy of the first position on ``device`` that
-        holds it, else the first such position's copied there."""
+        holds it, else the first such position's copied there.
+
+        ``position``: the copy is that position's (model index ``m``, or
+        the home of its group for a leaf whole along ``model``): its own
+        chunk where it holds the part whole, else the chunks of its group's
+        :meth:`Sharding.data_holders` sent to it (``peer.send``, logged as
+        ``"gather"``) and concatenated there."""
         device = torch.device(device)
         s = self.sharding
-        data_dim, model_dim = s._split
+        data_dim, model_dim, _ = s._split
+        if position is not None:
+            if data_dim is None:
+                return self.chunks[position]
+            holders = s.data_holders(position // s.model_size, m or 0)
+            with peer.at(position):
+                return torch.cat([peer.send(self.chunks[h], device, h, position, "gather")
+                                  for h in holders], data_dim)
         if m is None and model_dim is not None:
             return peer.all_gather([self.gather(device, k) for k in range(s.model_size)],
                                    model_dim, device)
-        ms = s.model_size
-        holders = [self.chunks[c * ms + (m or 0)] for c in range(s.data_size)]
+        holders = [self.chunks[h] for h in s.data_holders(0, m or 0)]
         if data_dim is not None:
             return peer.all_gather(holders, data_dim, device)
         if m is None:
@@ -614,27 +672,32 @@ def group_params(state_params, owners: list, mesh, groups: int | None = None) ->
     leaves ``owners``: a leaf split over ``model`` as a
     ``tensor_parallel.Split`` of its positions' chunks (each whole along
     ``data``), every other leaf whole on the group's home device. Copies
-    are shared between groups whose positions share a device. The train
+    are shared between groups whose positions share a device, except
+    under ``peer.distinct_positions``, where each position gathers its
+    own (``Placed.gather`` with ``position``, the exchanges logged as
+    ``"gather"``), as it does on a mesh of one card a position. The train
     step gathers them once a step, a serving call once a call."""
     from repro_torch.train import checkpoint
 
     m_size = mesh.shape.get("model", 1)
+    own = peer.distinct() or len(mesh.cards) == len(mesh.devices)
     copies: dict = {}
 
-    def copy(j, device, m=None):
-        key = (j, device, m)
+    def copy(j, p, m=None):
+        key = (j, p) if own else (j, mesh.devices[p], m)
         if key not in copies:
-            copies[key] = owners[j].gather(device, m)
+            copies[key] = (owners[j].gather(mesh.devices[p], m, position=p) if own else
+                           owners[j].gather(mesh.devices[p], m))
         return copies[key]
 
     trees = []
     for c in range(len(mesh.devices) // m_size if groups is None else groups):
-        group = mesh.devices[c * m_size:(c + 1) * m_size]
+        home = c * m_size
         leaves = []
         for j, leaf in enumerate(owners):
             dim = leaf.sharding.model_dim
-            leaves.append(copy(j, group[0]) if dim is None else
-                          tp.Split(tuple(copy(j, d, m) for m, d in enumerate(group)), dim))
+            leaves.append(copy(j, home) if dim is None else
+                          tp.Split(tuple(copy(j, home + m, m) for m in range(m_size)), dim))
         trees.append(checkpoint.with_leaves(state_params, leaves))
     return trees
 
@@ -676,15 +739,16 @@ def sync_replicas(cache, mesh, groups: int) -> None:
     for leaf in checkpoint.leaves(cache):
         if not isinstance(leaf, Placed):
             continue
-        by_source: dict[int, list] = {}
-        for p, chunk in enumerate(leaf.chunks):
+        by_source: dict[int, list[int]] = {}
+        for p in range(len(leaf.chunks)):
             c, m = divmod(p, m_size)
             src = (c if c < groups else 0) * m_size
             if leaf.sharding.model_dim is not None:
                 src += m
-            by_source.setdefault(src, []).append(chunk)
-        for src, copies in by_source.items():
-            tp.replicate_into(copies, leaf.chunks[src])
+            by_source.setdefault(src, []).append(p)
+        for src, dsts in by_source.items():
+            tp.replicate_into([leaf.chunks[p] for p in dsts], leaf.chunks[src],
+                              positions=(src, dsts))
 
 
 def check_moe_groups(cfg, rows: dict, n: int) -> None:

@@ -39,7 +39,10 @@ Every sum is written out in model order, never NCCL's, so M positions on
 one device and M cards give the same bits. :func:`exchange_counts`
 reports the bytes each collective moves between model positions
 (forward and backward; model position 0 is the group's home), counted
-whether or not the positions share a device, and
+whether or not the positions share a device; inside a group
+(``peer.in_group``) each move is also logged by the position that sends
+it and the one that receives it (``peer.link_counts``), and under
+``peer.distinct_positions`` each is a copy made for its receiver.
 :func:`logging_exchanges` records each call's shapes so a caller can
 replay a step's exchanges on their own (:func:`replay`).
 
@@ -60,6 +63,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
 
 import torch
 
@@ -113,13 +117,27 @@ class Split:
 # ------------------------------ accounting -----------------------------------
 
 _COUNTS: dict[str, dict[str, int]] = {}
+_COUNTS_LOCK = threading.Lock()
 _LOG: list | None = None
 
 
-def _count(kind: str, nbytes: int) -> None:
-    c = _COUNTS.setdefault(kind, {"calls": 0, "bytes": 0})
-    c["calls"] += 1
-    c["bytes"] += nbytes
+def _total(kind: str, nbytes: int) -> None:
+    with _COUNTS_LOCK:  # backward runs on one autograd thread a card
+        c = _COUNTS.setdefault(kind, {"calls": 0, "bytes": 0})
+        c["calls"] += 1
+        c["bytes"] += nbytes
+
+
+def _count(kind: str, moves) -> None:
+    """One call of ``kind`` and its ``moves``, ``(sending model index,
+    receiving model index, bytes)``: the totals, and each move by position
+    (``peer.record``, from the current group's home)."""
+    moves = list(moves)
+    _total(kind, sum(n for _, _, n in moves))
+    home = peer.group_position()
+    if home is not None:
+        for src, dst, n in moves:
+            peer.record(kind, home + src, home + dst, n)
 
 
 def _nbytes(x: torch.Tensor) -> int:
@@ -156,29 +174,45 @@ def _log(kind: str, **meta) -> None:
 # ------------------------------ collectives ----------------------------------
 
 
-def _to(x: torch.Tensor, device: torch.device) -> torch.Tensor:
-    """``x`` for a position on ``device``, laid out as ``peer.to`` lays out
-    a copy on another device (contiguous): a view of ``x`` where it lies
-    already, or a contiguous copy of it there. A kernel may sum in another
-    order for other strides, and M positions on one device must give M
-    cards' bits."""
-    if x.device != device:
-        return peer.to(x, device)
+def _to(x: torch.Tensor, device: torch.device, src: int = 0, dst: int = 0) -> torch.Tensor:
+    """``x``, which model index ``src`` holds, for model index ``dst`` on
+    ``device``, laid out as ``peer.to`` lays out a copy on another device
+    (contiguous): a view of ``x`` where it lies already, or a contiguous
+    copy of it there (a copy made for ``dst`` under
+    ``peer.distinct_positions`` when the indices differ). A kernel may sum
+    in another order for other strides, and M positions on one device must
+    give M cards' bits."""
+    if x.device != device or (src != dst and peer.distinct()):
+        return _send(x, device, src, dst)
     return x.view_as(x) if x.is_contiguous() else x.contiguous()
+
+
+def _send(x: torch.Tensor, device: torch.device, src: int, dst: int) -> torch.Tensor:
+    """``peer.send`` between model indices of the current group."""
+    home = peer.group_position()
+    return peer.send(x, device, None if home is None else home + src,
+                     None if home is None else home + dst) if src != dst else peer.to(x, device)
+
+
+def _at(m: int):
+    """``peer.at`` model index ``m`` of the current group."""
+    return peer.at(peer.group_position(m))
 
 
 class _FanOut(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, devices):
         ctx.home = x.device
-        _count("fan_out", _nbytes(x) * (len(devices) - 1))
-        return tuple(_to(x, d) for d in devices)
+        _count("fan_out", ((0, i, _nbytes(x)) for i in range(1, len(devices))))
+        return tuple(_to(x, d, 0, i) for i, d in enumerate(devices))
 
     @staticmethod
     def backward(ctx, *grads):
-        live = [g for g in grads if g is not None]
-        _count("fan_out", sum(_nbytes(g) for g in grads[1:] if g is not None))
-        total = peer.shard_order_sum([peer.to(g, ctx.home) for g in live]) if live else None
+        live = [(i, g) for i, g in enumerate(grads) if g is not None]
+        _count("fan_out", ((i, 0, _nbytes(g)) for i, g in live if i))
+        with _at(0):
+            total = (peer.shard_order_sum([_send(g, ctx.home, i, 0) for i, g in live])
+                     if live else None)
         return total, None
 
 
@@ -195,13 +229,15 @@ class _FanIn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, device, *partials):
         ctx.devices = [p.device for p in partials]
-        _count("fan_in", sum(_nbytes(p) for p in partials[1:]))
-        return peer.shard_order_sum([peer.to(p, device) for p in partials])
+        _count("fan_in", ((m, 0, _nbytes(p)) for m, p in enumerate(partials) if m))
+        with _at(0):
+            return peer.shard_order_sum([_send(p, device, m, 0)
+                                         for m, p in enumerate(partials)])
 
     @staticmethod
     def backward(ctx, g):
-        _count("fan_in", _nbytes(g) * (len(ctx.devices) - 1))
-        return (None, *(_to(g, d) for d in ctx.devices))
+        _count("fan_in", ((0, m, _nbytes(g)) for m in range(1, len(ctx.devices))))
+        return (None, *(_to(g, d, 0, m) for m, d in enumerate(ctx.devices)))
 
 
 def fan_in(partials, device) -> torch.Tensor:
@@ -218,14 +254,16 @@ class _AllGather(torch.autograd.Function):
     def forward(ctx, dim, device, *chunks):
         ctx.dim, ctx.devices = dim, [c.device for c in chunks]
         ctx.sizes = [c.shape[dim] for c in chunks]
-        _count("all_gather", sum(_nbytes(c) for c in chunks[1:]))
-        return torch.cat([peer.to(c, device) for c in chunks], dim)
+        _count("all_gather", ((m, 0, _nbytes(c)) for m, c in enumerate(chunks) if m))
+        with _at(0):
+            return torch.cat([_send(c, device, m, 0) for m, c in enumerate(chunks)], dim)
 
     @staticmethod
     def backward(ctx, g):
         pieces = g.split(ctx.sizes, ctx.dim)
-        _count("all_gather", sum(_nbytes(p) for p in pieces[1:]))
-        return (None, None, *(_to(p, d) for p, d in zip(pieces, ctx.devices)))
+        _count("all_gather", ((0, m, _nbytes(p)) for m, p in enumerate(pieces) if m))
+        return (None, None, *(_to(p, d, 0, m) for m, (p, d) in enumerate(zip(pieces,
+                                                                             ctx.devices))))
 
 
 def all_gather(chunks, dim: int, device) -> torch.Tensor:
@@ -244,15 +282,18 @@ class _Scatter(torch.autograd.Function):
         ctx.dim, ctx.home = dim, x.device
         pieces = x.chunk(len(devices), dim)
         ctx.shapes = [p.shape for p in pieces]
-        _count("scatter", sum(_nbytes(p) for p in pieces[1:]))
-        return tuple(_to(p, d) for p, d in zip(pieces, devices))
+        _count("scatter", ((0, i, _nbytes(p)) for i, p in enumerate(pieces) if i))
+        return tuple(_to(p, d, 0, i) for i, (p, d) in enumerate(zip(pieces, devices)))
 
     @staticmethod
     def backward(ctx, *grads):
-        _count("scatter", sum(_nbytes(g) for g in grads[1:] if g is not None))
-        parts = [torch.zeros(s, dtype=g.dtype, device=ctx.home) if g is None else
-                 peer.to(g, ctx.home) for s, g in zip(ctx.shapes, grads)]
-        return torch.cat(parts, ctx.dim), None, None
+        _count("scatter", ((i, 0, _nbytes(g)) for i, g in enumerate(grads)
+                           if i and g is not None))
+        dtype = next(g for g in grads if g is not None).dtype
+        with _at(0):
+            parts = [torch.zeros(s, dtype=dtype, device=ctx.home) if g is None else
+                     _send(g, ctx.home, i, 0) for i, (s, g) in enumerate(zip(ctx.shapes, grads))]
+            return torch.cat(parts, ctx.dim), None, None
 
 
 def scatter(x: torch.Tensor, dim: int, devices) -> tuple[torch.Tensor, ...]:
@@ -269,10 +310,14 @@ def _resplit(chunks, devices, whole_dim: int, split_dim: int):
     """Chunk ``m`` of the result: every chunk's m-th slice along
     ``split_dim``, concatenated along ``whole_dim`` on ``devices[m]``."""
     size = chunks[0].shape[split_dim] // len(devices)
-    moved = sum(_nbytes(c) // len(devices) for c in chunks) * (len(devices) - 1)
-    return moved, tuple(
-        torch.cat([peer.to(c.narrow(split_dim, m * size, size), d) for c in chunks], whole_dim)
-        for m, d in enumerate(devices))
+    moves = [(j, m, _nbytes(c) // len(devices)) for j, c in enumerate(chunks)
+             for m in range(len(devices)) if j != m]
+    out = []
+    for m, d in enumerate(devices):
+        with _at(m):
+            out.append(torch.cat([_send(c.narrow(split_dim, m * size, size), d, j, m)
+                                  for j, c in enumerate(chunks)], whole_dim))
+    return moves, tuple(out)
 
 
 class _Reshard(torch.autograd.Function):
@@ -307,19 +352,20 @@ def _move_pieces(tensors, devices, dim: int, parts: int, source):
     """Tensor ``i`` of the result, on ``devices[i]``: its ``parts`` slots
     concatenated along ``dim``, slot ``k`` being piece ``q`` (of ``parts``
     equal pieces along ``dim``) of ``tensors[j]``, ``(j, q) = source(i,
-    k)``. Also returns the bytes of the pieces that change position."""
+    k)``. Also returns the moves of the pieces that change position."""
     width = tensors[0].shape[dim] // parts
     pieces = [t.split(width, dim) for t in tensors]
-    moved, out = 0, []
+    moves, out = [], []
     for i, d in enumerate(devices):
         got = []
-        for k in range(parts):
-            j, q = source(i, k)
-            if j != i:
-                moved += _nbytes(pieces[j][q])
-            got.append(peer.to(pieces[j][q], d))
-        out.append(torch.cat(got, dim))
-    return moved, tuple(out)
+        with _at(i):
+            for k in range(parts):
+                j, q = source(i, k)
+                if j != i:
+                    moves.append((j, i, _nbytes(pieces[j][q])))
+                got.append(_send(pieces[j][q], d, j, i))
+            out.append(torch.cat(got, dim))
+    return moves, tuple(out)
 
 
 class _Regroup(torch.autograd.Function):
@@ -366,7 +412,7 @@ def embed_lookup(table: Split, ids: torch.Tensor) -> torch.Tensor:
     """``table[ids]`` for a table split along d over ``model``: each
     position looks its chunk's columns up, and the rows are concatenated in
     model order on ``ids``' device (exact)."""
-    rows = [c[peer.to(ids, c.device).long()] for c in table.chunks]
+    rows = [c[_send(ids, c.device, 0, m).long()] for m, c in enumerate(table.chunks)]
     return all_gather(rows, -1, ids.device)
 
 
@@ -398,13 +444,13 @@ def write_slots(cache: Split, x: torch.Tensor, slots) -> None:
     runs = slot_runs(slots, per)
     _log("write", shape=tuple(x.shape), dtype=x.dtype, home=x.device, devices=cache.devices,
          dim=dim, runs=runs)
-    moved = 0
+    moves = []
     for i, owner, local, n in runs:
         piece = x.narrow(dim, i, n)
         if owner:
-            moved += _nbytes(piece)
+            moves.append((0, owner, _nbytes(piece)))
         peer.copy_into(cache.chunks[owner].narrow(dim, local, n), piece)
-    _count("write", moved)
+    _count("write", moves)
 
 
 def merge_softmax(partials, device) -> torch.Tensor:
@@ -420,34 +466,38 @@ def merge_softmax(partials, device) -> torch.Tensor:
     device = torch.device(device)
     _log("merge", shapes=[tuple(t.shape) for t in partials[0]], dtype=partials[0][2].dtype,
          home=device, devices=tuple(p[2].device for p in partials))
-    _count("merge", sum(_nbytes(t) for p in partials[1:] for t in p))
-    parts = [tuple(peer.to(t, device) for t in p) for p in partials]
-    top = parts[0][0]
-    for m, _, _ in parts[1:]:
-        top = torch.maximum(top, m)
-    num = den = None
-    for m, l, acc in parts:
-        w = torch.exp(m - top)
-        num = w[..., None] * acc if num is None else num + w[..., None] * acc
-        den = w * l if den is None else den + w * l
-    return num / den[..., None]
+    _count("merge", ((r, 0, sum(_nbytes(t) for t in p)) for r, p in enumerate(partials) if r))
+    with _at(0):
+        parts = [tuple(_send(t, device, r, 0) for t in p) for r, p in enumerate(partials)]
+        top = parts[0][0]
+        for m, _, _ in parts[1:]:
+            top = torch.maximum(top, m)
+        num = den = None
+        for m, l, acc in parts:
+            w = torch.exp(m - top)
+            num = w[..., None] * acc if num is None else num + w[..., None] * acc
+            den = w * l if den is None else den + w * l
+        return num / den[..., None]
 
 
-def replicate_into(copies, source: torch.Tensor) -> None:
+def replicate_into(copies, source: torch.Tensor, *, positions=None) -> None:
     """``source`` copied into each tensor of ``copies`` that is not
     ``source`` itself (a cache leaf every position of a group, or of the
     mesh, holds whole, after the position that computed it wrote its
-    own). Forward only; counted as ``"replicate"``."""
+    own). Forward only; counted as ``"replicate"``, and by position where
+    ``positions`` names them: ``(source's, [each copy's])``."""
     copies = list(copies)
     _log("replicate", shape=tuple(source.shape), dtype=source.dtype, home=source.device,
          devices=tuple(c.device for c in copies),
          source=next((i for i, c in enumerate(copies) if c is source), None))
+    src, dsts = positions if positions is not None else (None, [None] * len(copies))
     moved = 0
-    for dst in copies:
+    for dst, p in zip(copies, dsts):
         if dst is not source:
             moved += _nbytes(source)
+            peer.record("replicate", src, p, _nbytes(source))
             peer.copy_into(dst, source)
-    _count("replicate", moved)
+    _total("replicate", moved)
 
 
 # ---------------------------------- replay -----------------------------------

@@ -199,7 +199,8 @@ def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
     """The reference's production mesh, (16, 16) ``("data", "model")`` or
     (2, 16, 16) with an outer ``"pod"`` axis. ``device="meta"``: a
     shapes-only mesh, every position ``meta``, for the dry run
-    (``repro_torch.launch.dryrun``), which reads its ``shape``. Otherwise
+    (``repro_torch.launch.dryrun``), which places a plan's arguments on it
+    and runs the mesh path over its positions. Otherwise
     one CUDA card a position, refused on a host without its 256 (or 512)
     cards, naming the missing ones."""
     shape = (2, 16, 16) if multi_pod else (16, 16)

@@ -113,10 +113,12 @@ def make_plan(
     rules: ShardingRules | None = None,
     microbatches: int | None = None,
     global_batch: int | None = None,
+    config: ModelConfig | None = None,
 ) -> LoweringPlan:
     """The plan of one cell on ``mesh`` (only ``mesh.shape`` is read).
-    ``global_batch`` cuts the cell's batch (None: the cell's own)."""
-    cfg = get_config(arch)
+    ``global_batch`` cuts the cell's batch (None: the cell's own);
+    ``config`` is ``arch``'s config cut by the caller (None: its own)."""
+    cfg = get_config(arch) if config is None else config
     cell = SHAPE_CELLS[shape]
     reason = skip_reason(cfg, cell)
     if reason:
@@ -219,11 +221,12 @@ def _prod(it):
     return out
 
 
-def model_flops(arch: str, shape: str, *, global_batch: int | None = None) -> dict[str, float]:
+def model_flops(arch: str, shape: str, *, global_batch: int | None = None,
+                config: ModelConfig | None = None) -> dict[str, float]:
     """MODEL_FLOPS per §Roofline: 6·N·D train, 2·N·D forward-only, with
     N = active non-embedding params and D = tokens processed
-    (``global_batch`` as ``make_plan``'s)."""
-    cfg = get_config(arch)
+    (``global_batch`` and ``config`` as ``make_plan``'s)."""
+    cfg = get_config(arch) if config is None else config
     cell = SHAPE_CELLS[shape]
     if global_batch is not None:
         cell = dataclasses.replace(cell, global_batch=global_batch)

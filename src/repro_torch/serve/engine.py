@@ -532,8 +532,14 @@ def _serve_groups(model: Model, params, tokens: torch.Tensor, cache, step):
     outs = []
     for c in range(groups):
         home = mesh.devices[c * m_size]
-        logits, _ = step(trees[c], peer.to(tokens.narrow(0, c * per, per), home),
-                         sh.group_cache(cache, mesh, c))
-        outs.append(peer.to(logits, mesh.device))
+        with peer.in_group(mesh, c):
+            rows = peer.send(tokens.narrow(0, c * per, per), home, None, c * m_size)
+            if peer.computes(c):
+                logits, _ = step(trees[c], rows, sh.group_cache(cache, mesh, c))
+                like = (logits.shape, logits.dtype)
+            else:  # the dry run's shortcut (``peer.traced_groups``)
+                with peer.at(c * m_size):
+                    logits = torch.zeros(like[0], dtype=like[1], device=home)
+            outs.append(peer.send(logits, mesh.device, c * m_size, 0, "logits"))
     sh.sync_replicas(cache, mesh, groups)
     return (outs[0] if groups == 1 else torch.cat(outs, 0)), cache

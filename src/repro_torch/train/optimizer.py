@@ -74,12 +74,14 @@ def global_norm(tensors: Sequence) -> torch.Tensor:
     sums = []
     for p, device in enumerate(devices):
         c, m = divmod(p, m_size)
-        sq = [torch.sum(t.chunks[p].float() ** 2) for t in live
-              if (c == 0 or t.sharding.data_dim is not None)
-              and (m == 0 or t.sharding.model_dim is not None)]
-        sums.append(peer.to(torch.stack(sq).sum() if sq else torch.zeros((), device=device),
-                            devices[0]))
-    return torch.sqrt(peer.shard_order_sum(sums))
+        with peer.at(p):
+            sq = [torch.sum(t.chunks[p].float() ** 2) for t in live
+                  if (c == 0 or t.sharding.data_dim is not None)
+                  and (m == 0 or t.sharding.model_dim is not None)]
+            total = torch.stack(sq).sum() if sq else torch.zeros((), device=device)
+        sums.append(peer.send(total, devices[0], p, 0, "metrics"))
+    with peer.at(0):
+        return torch.sqrt(peer.shard_order_sum(sums))
 
 
 def adamw(
@@ -188,9 +190,11 @@ def update_placed(optimizer: Optimizer, grads: Sequence, state: OptState,
     per = []
     for c, device in enumerate(devices):
         nu = _chunks(state.nu, c) if isinstance(state.nu, list) else state.nu
-        per.append(optimizer.update(_chunks(grads, c), OptState(state.step, _chunks(state.mu, c),
-                                                                nu),
-                                    _chunks(params, c), gnorm=peer.to(gnorm, device)))
+        with peer.at(c):
+            per.append(optimizer.update(_chunks(grads, c),
+                                        OptState(state.step, _chunks(state.mu, c), nu),
+                                        _chunks(params, c),
+                                        gnorm=peer.send(gnorm, device, 0, c, "metrics")))
     new_nu = (_placed([s.nu for _, s in per], params) if isinstance(state.nu, list)
               else per[0][1].nu)
     return (_placed([p for p, _ in per], params),

@@ -170,8 +170,9 @@ def _placed_step(model: Model, optimizer: Optimizer, microbatches: int, state: T
     check_moe_groups(model.cfg, split[0][0], n)
     shares = _shares(batch["labels"], microbatches, n)
     # every group's rows and shares on its home device before any work is queued
-    staged = [[({k: peer.to(v, d) for k, v in split[i][c].items()},
-                (peer.to(shares[i, c], d), 1.0 / n)) for c, d in enumerate(homes)]
+    staged = [[({k: peer.send(v, d, None, c * m_size) for k, v in split[i][c].items()},
+                (peer.send(shares[i, c], d, None, c * m_size), 1.0 / n))
+               for c, d in enumerate(homes)]
               for i in range(microbatches)]
     groups = group_params(state.params, owners, mesh)
     acc, loss, metrics = None, None, None
@@ -179,11 +180,17 @@ def _placed_step(model: Model, optimizer: Optimizer, microbatches: int, state: T
         terms = []
         for c in range(n):
             rows, sh = staged[i][c]
-            loss_c, metrics_c, g = loss_and_grads(model, groups[c], rows, shares=sh)
-            acc = constrain_like_params(g, owners=owners, into=acc)
-            del g
-            terms.append((peer.to(loss_c, homes[0]),
-                          {k: peer.to(v, homes[0]) for k, v in metrics_c.items()}))
+            with peer.in_group(mesh, c):
+                if peer.computes(c):
+                    loss_c, metrics_c, g = loss_and_grads(model, groups[c], rows, shares=sh)
+                    like = _skeleton((loss_c, metrics_c, g))
+                else:
+                    loss_c, metrics_c, g = _stand_in(like, c * m_size)
+                acc = constrain_like_params(g, owners=owners, into=acc)
+                del g
+                terms.append((peer.send(loss_c, homes[0], c * m_size, 0, "metrics"),
+                              {k: peer.send(v, homes[0], c * m_size, 0, "metrics")
+                               for k, v in metrics_c.items()}))
         loss_i = peer.shard_order_sum([t[0] for t in terms])
         metrics_i = {k: peer.shard_order_sum([t[1][k] for t in terms]) for k in terms[0][1]}
         loss = loss_i if loss is None else loss + loss_i
@@ -202,6 +209,42 @@ def _placed_step(model: Model, optimizer: Optimizer, microbatches: int, state: T
     metrics["loss"] = loss
     metrics["grad_norm"] = gnorm
     return TrainState(checkpoint.with_leaves(state.params, new_leaves), new_opt), metrics
+
+
+class _Like(NamedTuple):
+    shape: torch.Size
+    dtype: torch.dtype
+
+
+def _skeleton(tree):
+    """``tree`` with each tensor, a ``Split``'s chunks too, as its shape
+    and dtype: no storage held."""
+    if isinstance(tree, torch.Tensor):
+        return _Like(tree.shape, tree.dtype)
+    if isinstance(tree, tp.Split):
+        return tp.Split(tuple(_Like(c.shape, c.dtype) for c in tree.chunks), tree.dim)
+    if isinstance(tree, dict):
+        return {k: _skeleton(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_skeleton(v) for v in tree)
+    return tree
+
+
+def _stand_in(skeleton, home: int, m: int = 0):
+    """Zeros of a :func:`_skeleton`'s shapes, each made for position
+    ``home + m`` of its model index (``peer.traced_groups``)."""
+    if isinstance(skeleton, _Like):
+        with peer.at(home + m):
+            return torch.zeros(skeleton.shape, dtype=skeleton.dtype,
+                               device=peer.device_of(home + m))
+    if isinstance(skeleton, tp.Split):
+        return tp.Split(tuple(_stand_in(c, home, k) for k, c in enumerate(skeleton.chunks)),
+                        skeleton.dim)
+    if isinstance(skeleton, dict):
+        return {k: _stand_in(v, home, m) for k, v in skeleton.items()}
+    if isinstance(skeleton, (list, tuple)):
+        return type(skeleton)(_stand_in(v, home, m) for v in skeleton)
+    return skeleton
 
 
 def make_train_step(model: Model, optimizer: Optimizer, *, microbatches: int = 1):

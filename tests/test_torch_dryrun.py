@@ -131,27 +131,50 @@ def test_a_skipped_cell_gives_the_reference_reason():
 
 
 def test_card_and_pod_records_come_from_one_trace(tiny, monkeypatch):
-    traces = []
-    real_trace = dryrun.trace
+    """Each record comes from one trace: the card's from one trace of the
+    one-card plan, each pod mesh's from one trace of the mesh path over
+    that mesh (``mesh_trace``), never from the card's numbers."""
+    traces, mesh_traces = [], []
+    real_trace, real_mesh_trace = dryrun.trace, dryrun.mesh_trace
     monkeypatch.setattr(dryrun, "trace", lambda plan: traces.append(plan) or real_trace(plan))
+    monkeypatch.setattr(dryrun, "mesh_trace", lambda plan, mesh, **kw: mesh_traces.append(
+        (plan, mesh)) or real_mesh_trace(plan, mesh, **kw))
     card, single, multi = dryrun.run_cell("gemma3-4b", "decode_32k",
                                           meshes=("card", "single", "multi"))
     assert len(traces) == 1
+    assert [dict(m.shape) for _, m in mesh_traces] == [{"data": 16, "model": 16},
+                                                      {"pod": 2, "data": 16, "model": 16}]
+    assert all(m.devices[0].type == "meta" for _, m in mesh_traces)
     assert (card["chips"], single["chips"], multi["chips"]) == (1, 256, 512)
     for rec in (card, single, multi):
-        assert rec["status"] == "ok" and rec["collectives"] is None
-        assert rec["roofline"]["t_collective_s"] is None
-        assert rec["flops_per_device"] * rec["chips"] == pytest.approx(card["flops_per_device"])
-        assert rec["useful_flops_fraction"] == card["useful_flops_fraction"]
+        assert rec["status"] == "ok"
         assert set(rec["notes"]) >= {"bytes", "collectives", "trace", "donation"}
-        bound = max(rec["flops_per_device"] / dryrun.PEAK_FLOPS,
-                    rec["bytes_per_device"] / dryrun.HBM_BW)
-        assert rec["roofline"]["step_time_lower_bound_s"] == bound
-    mem = card["memory"]
-    assert mem["peak_per_device_bytes"] == (mem["argument_bytes"] + mem["output_bytes"]
-                                            + mem["temp_bytes"] - mem["alias_bytes"])
-    assert mem["alias_bytes"] > 0 and single["memory"]["temp_bytes"] is None
+        r = rec["roofline"]
+        terms = [rec["flops_per_device"] / dryrun.PEAK_FLOPS,
+                 rec["bytes_per_device"] / dryrun.HBM_BW]
+        if rec is not card:
+            terms.append(r["t_collective_s"])
+        assert r["step_time_lower_bound_s"] == max(terms)
+    assert card["collectives"] is None and card["roofline"]["t_collective_s"] is None
+    for rec in (card, single, multi):
+        mem = rec["memory"]
+        assert mem["peak_per_device_bytes"] == (mem["argument_bytes"] + mem["output_bytes"]
+                                                + mem["temp_bytes"] - mem["alias_bytes"])
+        assert mem["alias_bytes"] > 0 and mem["temp_bytes"] > 0
     assert "per_device" in single["notes"] and "per_device" not in card["notes"]
+    # the pod records: the busiest position's numbers of the mesh trace, not the
+    # card's over the chips
+    for rec in (single, multi):
+        pos = rec["per_position"]
+        assert rec["flops_per_device"] == pos["flops"][rec["busiest_position"]]
+        assert rec["memory"]["peak_per_device_bytes"] == max(pos["peak_bytes"])
+        assert rec["flops_per_device"] * rec["chips"] != pytest.approx(card["flops_per_device"])
+        assert rec["useful_flops_fraction"] == pytest.approx(
+            rec["model_flops"] / sum(pos["flops"]))
+        coll = rec["collectives"]
+        assert coll["total_bytes"] == sum(coll["per_axis_bytes"].values()) > 0
+        assert set(coll["per_axis_bytes"]) == set(rec["layout"]["axis_bytes_per_s"])
+        assert rec["roofline"]["t_collective_s"] == pos["t_collective_s"][rec["busiest_position"]]
 
 
 def test_main_writes_records_and_summarizes_them(tiny, tmp_path, capsys):

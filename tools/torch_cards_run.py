@@ -37,7 +37,12 @@ over the 4 cards. Serving over the model axis: ``serve-cards-bits`` (the
 cut through ``make_serve_fns``, on 4 positions of card 0 and on 4 cards:
 every call's logits, the greedy tokens and every cache chunk bit for
 bit), then ``chip_smoke.py``'s ``llm-serve-model`` over the 4 cards.
-Naming phases runs those alone (``device`` and ``cards`` always run
+The dry run against the cards: ``dryrun-cards`` (the ``dryrun`` phase's
+2 × 2 mesh cells, Llama-3.2-1B ``train_4k`` cut to 8 layers and
+``decode_32k``, traced through the mesh path on ``meta`` and run one
+card a position: each card's ``max_memory_allocated`` within 10% of its
+position's traced peak, each card's received bytes, the FLOPs and the
+exchanges by kind equal to the trace's). Naming phases runs those alone (``device`` and ``cards`` always run
 first).
 
 ``copy-modes`` times one layer of RadiX-net 65536 × 120 over the cards
@@ -362,10 +367,31 @@ def serve_cards_bits(batch=4, cache_len=128, prompt_len=48, new_tokens=40, seed=
     return {"mesh": dict(cards.shape), "cards": len(cards.cards), "archs": out}
 
 
+def dryrun_cards() -> dict:
+    """``chip_smoke.py``'s mesh cells of the ``dryrun`` phase over 4 cards,
+    one card a position: traced on ``meta`` at the batches the one-card
+    phase picks (card 0's free memory less 1 GiB), then each card's peak
+    held to its position's traced peak and each card's received bytes to
+    the trace's (``chip_smoke.dryrun_mesh_card`` with ``cards=True``)."""
+    import torch
+
+    grid = smoke.DRYRUN_MESH
+    with torch.cuda.device(0):
+        w = torch.ones((64, 64), device="cuda:0")
+        _ = (w @ w, w.bfloat16() @ w.bfloat16())
+        torch.cuda.synchronize()
+        free, _total = torch.cuda.mem_get_info()
+    limit = free - smoke.DRYRUN_MARGIN_BYTES
+    info = smoke.dryrun_mesh_traces(grid["arch"], grid["data"], grid["model"],
+                                    grid["train_layers"], limit)
+    return {"limit_bytes": limit, "cells": smoke.dryrun_mesh_cells(
+        info, grid["train_layers"], grid["seed"], arch=grid["arch"], cards=True)}
+
+
 PHASES = ("copy-modes", "sharded", "sharded-cards", "sharded-train", "sharded-cards-train",
           "capture-across-cards", "data-cards-bits", "llm-train-data", "launch-train-data",
           "model-cards-bits", "mixer-cards-bits", "llm-train-model", "serve-cards-bits",
-          "llm-serve-model")
+          "llm-serve-model", "dryrun-cards")
 
 
 def main(argv=None) -> int:
@@ -415,6 +441,8 @@ def main(argv=None) -> int:
     if "llm-serve-model" in chosen:
         smoke.emit({"phase": "llm-serve-model",
                     **smoke.phase_llm_serve_model(**smoke.LLM_SERVE_MODEL)})
+    if "dryrun-cards" in chosen:
+        smoke.emit({"phase": "dryrun-cards", **dryrun_cards()})
     print(dev["nvidia_smi"], flush=True)
     return 0
 

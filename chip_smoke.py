@@ -282,7 +282,19 @@ with the numpy oracles of 10, 16 and 20 computed beside it):
    clock, each card's device ms and peak memory, stored bytes, the
    groups' gather and reduce bytes and ms, and the model axis's exchanges
    a step (bytes by collective, Mamba's ``in_proj`` regroup its own line,
-   and ms replayed on their own).
+   and ms replayed on their own). Then sequence parallelism over
+   ``model`` (``ShardingRules(seq_axis="model")`` active, ``seq_rules``;
+   64 of the 128 tokens a position): Llama-3.2-1B's first step at f32
+   held against the one-position step (the limits above) and against the
+   unsplit 2 × 2 step (``split_against_unsplit``: the loss and ce the same
+   bits, each gradient within ``SPLIT_GRAD_RTOL`` of its leaf's max; the
+   sequence gathers and reduce-scatters present, the fan-out and fan-in
+   bytes fallen), the bf16 step timed against the unsplit one in turns
+   with each card's peak, its exchanges by kind; the same with every FFN
+   pruned (the sequence gathered on each group's home card, its
+   ``bsr_spmm``/``bcsr_spmm`` launches held to the count from shapes and
+   added to this phase's); and Jamba's one-Mamba-layer cut held to its
+   unsplit step the same way.
 30. dryrun — ``repro_torch.launch.dryrun`` held to the card (``DRYRUN``),
    in a process of its own with ``expandable_segments``: one line per
    record of every arch's ``decode_32k`` and ``long_500k`` on the
@@ -312,7 +324,9 @@ with the numpy oracles of 10, 16 and 20 computed beside it):
    peak for the whole device fits the same limit, then the same placed
    step run on 4 positions of card 0 with every move between positions a
    copy: FLOPs and the exchanges by kind equal to the trace, the card's
-   peak within 10% of the traced peak for the whole device; a line each
+   peak within 10% of the traced peak for the whole device; then
+   ``train_4k_seq``, ``train_4k`` at the same batch with its sequence
+   split over ``model`` (``--seq-shard``), traced and held the same way; a line each
    with the trace's per-position peaks, collectives, ``t_collective_s``
    and dominant term (``tools/torch_cards_run.py dryrun-cards`` runs them
    one card a position). The cells keep
@@ -335,7 +349,11 @@ with the numpy oracles of 10, 16 and 20 computed beside it):
    (``serve_timed``): prefill and decode ms on the host clock, one decode
    step's exchanges between model positions by kind and each card's
    device ms, the per-call gather of the groups' params and its share of
-   a step, stored bytes a position, peak. Then the same weights with
+   a step, stored bytes a position, peak. Then the f32 serve again with
+   ``ShardingRules(seq_axis="model")`` active: the 48-token prefill split
+   over ``model`` (24 tokens a position), held to the one-device path and
+   ``Engine`` the same way, its sequence gathers and reduce-scatters
+   counted; the decode steps (S = 1) unsplit. Then the same weights with
    every FFN pruned to 4 blocks of 128 × 128 a row, held at f32 against
    the one-device path with the kernels and with the plain products
    (``Model(use_kernel=False)``), its ``bsr_spmm`` launches on each
@@ -363,7 +381,7 @@ interleaved, five times each, beside the kernels' CUDA-event time
 Launch counts are reset to 0 right before each of phases 3-31 and read
 right after (for 8, 9, 17, 19 and 24, around the train steps; for 25, 27
 and 29, around the sparse model's steps, in 29 also around the pruned
-Jamba layer's step; for 20, around each run of the trace; for 31, around
+Jamba layer's step and the split pruned step; for 20, around each run of the trace; for 31, around
 the mesh's calls of the pruned serve). Each phase's line ends with
 ``elapsed_s``, the seconds since the script started. The ``kernels``
 line, the ``nvidia-smi`` line and, last, ``{"ok": true, "device":
@@ -511,7 +529,8 @@ MIXER_CUTS = {"deepseek-v2-236b": dict(num_layers=1),  # its dense first layer (
 # gradients measured beside the data mesh's own spread
 MIXER_HELD_IN_F64 = ("rwkv6-3b",)
 LLM_TRAIN_MODEL = dict(LLM_TRAIN, steps=3, data=2, model=2, moe_arch="moonshot-v1-16b-a3b",
-                       moe_layers=2, mixers=MIXER_CUTS, pruned_mixer="jamba-v0.1-52b")
+                       moe_layers=2, mixers=MIXER_CUTS, pruned_mixer="jamba-v0.1-52b",
+                       seq_mixers=("jamba-v0.1-52b",))
 # serving over the model's mesh: llm-serve's Llama-3.2-1B over the 2 x 2 data x
 # model mesh (model_mesh), 4 prompts of 48 tokens into a 128-slot cache (64 slots
 # a model position) and 40 greedy new tokens, so the decode crosses from model
@@ -525,6 +544,11 @@ LLM_SERVE_MODEL = dict(arch="llama3.2-1b", data=2, model=2, batch=4, cache_len=1
                        prompt_len=48, new_tokens=40, block=128, blocks_per_row=4,
                        pruned_tokens=4, mixers=SERVE_MIXER_CUTS, long=SERVE_LONG,
                        seed=MODEL_SEED)
+# sequence parallelism over model (ShardingRules(seq_axis="model")): the split
+# f32 step against the unsplit one on the same mesh, the loss bits equal and
+# each gradient within this of its leaf's max (the norms' scales add their
+# chunks' partials in model order where the unsplit step sums every row at once)
+SPLIT_GRAD_RTOL = 1e-6
 LOSS_RTOL = 1e-5  # f32 compute: the tests' loss tolerance (tests/_torch_train.py)
 # logits, per row: max|got - want| <= tol x max|want|. bf16 compute: 2e-2 (the
 # reference's decode/forward tolerance, tests/test_arch_smoke.py, taken against
@@ -4246,10 +4270,159 @@ def mixer_on_model_mesh(cfg, mesh, opt, *, seq_len: int, global_batch: int,
     return rec, params
 
 
+def seq_rules():
+    """The reference's sequence parallelism over ``model``."""
+    from repro_torch.distribution.sharding import ShardingRules
+
+    return ShardingRules(seq_axis="model")
+
+
+def sgd_on_mesh(model, params, batch, mesh, microbatches: int, rules=None) -> tuple:
+    """One SGD step (1e-2, no momentum) of ``model`` on ``params`` placed on
+    ``mesh``, under ``rules`` (``sharding.activate``): (the metrics, the
+    gradients each position's update got, the model axis's exchanges)."""
+    from repro_torch.distribution import tensor_parallel as tp
+    from repro_torch.distribution.sharding import activate, param_pspecs, place, shardings_for
+    from repro_torch.train import checkpoint, make_train_step, sgd
+    from repro_torch.train.optimizer import init_placed
+    from repro_torch.train.trainer import TrainState
+
+    opt = sgd(1e-2, momentum=0.0)
+    rec, seen = recording(opt)
+    placed = place(params, shardings_for(None, mesh, param_pspecs(None, params, mesh)))
+    state = TrainState(placed, init_placed(opt, checkpoint.leaves(placed)))
+    del placed
+    tp.reset_exchange_counts()
+    with activate(mesh, rules):
+        _, metrics = make_train_step(model, rec, microbatches=microbatches)(state, batch)
+    return {k: float(v) for k, v in metrics.items()}, seen, tp.exchange_counts()
+
+
+def split_against_unsplit(model, params, batch, mesh, microbatches: int) -> dict:
+    """The first step at f32 compute split along the sequence
+    (:func:`seq_rules`) against the same step unsplit on the same mesh:
+    the loss and ce the same bits, each gradient within
+    ``SPLIT_GRAD_RTOL`` of its leaf's max on each position's card; the
+    split step's sequence gathers and reduce-scatters present, and no
+    fan-out or fan-in left of the residual (their bytes fall)."""
+    import torch
+
+    from repro_torch.train import checkpoint
+
+    m0, g0, c0 = sgd_on_mesh(model, params, batch, mesh, microbatches)
+    m1, g1, c1 = sgd_on_mesh(model, params, batch, mesh, microbatches, seq_rules())
+    paths = checkpoint.leaves(checkpoint.map_with_path(lambda k, _: k, params))
+    worst, moved = 0.0, {}
+    for j, path in enumerate(paths):
+        for a, b in zip(g0, g1):
+            if a[j] is None:
+                continue
+            err = float((a[j].float() - b[j].float()).abs().max()) / max(
+                float(a[j].float().abs().max()), 1e-30)
+            check(bool(torch.isfinite(b[j]).all()), (path, "finite split gradient"))
+            worst = max(worst, err)
+            if err:
+                moved[path] = max(moved.get(path, 0.0), err)
+    del g0, g1
+    torch.cuda.empty_cache()
+    fans = {k: sum(c.get(x, {}).get("bytes", 0) for x in ("fan_out", "fan_in"))
+            for k, c in (("unsplit", c0), ("split", c1))}
+    rec = {"loss": m1["loss"], "unsplit_loss": m0["loss"],
+           "loss_bits_equal": m1["loss"] == m0["loss"] and m1["ce"] == m0["ce"],
+           "grad_max_rel_err": worst, "grad_rel_err_by_leaf": moved,
+           "fan_out_fan_in_bytes": fans, "exchanges_split": c1, "exchanges_unsplit": c0,
+           "check": f"f32 compute, SGD 1e-2: loss and ce bit for bit, each gradient <= "
+                    f"{SPLIT_GRAD_RTOL} of its leaf's max against the unsplit step"}
+    check(rec["loss_bits_equal"] and worst <= SPLIT_GRAD_RTOL,
+          ("the split step against the unsplit one", rec))
+    check(c1.get("seq_gather", {}).get("bytes", 0) > 0 and "seq_gather" not in c0
+          and fans["split"] < fans["unsplit"], ("the split's exchanges", c0, c1))
+    return rec
+
+
+def interleaved_steps(step, state, batch, mesh, rounds: int) -> dict:
+    """``step`` from ``state`` unsplit and split along the sequence in turns
+    (unsplit, split, split, unsplit; ``rounds`` times), each timed on the
+    host clock with every card synchronised and each card's peak read;
+    the state is not advanced. Medians and every time."""
+    import torch
+
+    from repro_torch.distribution.sharding import activate
+
+    times, peaks = {"unsplit": [], "split": []}, {"unsplit": {}, "split": {}}
+    for _ in range(rounds):
+        for name in ("unsplit", "split", "split", "unsplit"):
+            for d in mesh.cards:
+                torch.cuda.reset_peak_memory_stats(d)
+            sync_all()
+            t0 = time.perf_counter()
+            with activate(mesh, seq_rules() if name == "split" else None):
+                out = step(state, batch)
+            sync_all()
+            times[name].append(1e3 * (time.perf_counter() - t0))
+            peaks[name] = {str(d): max(peaks[name].get(str(d), 0.0),
+                                       torch.cuda.max_memory_allocated(d) / 1e9)
+                           for d in mesh.cards}
+            check(np.isfinite(float(out[1]["loss"])), (name, "finite loss"))
+            del out
+    return {"step_ms": {k: statistics.median(v) for k, v in times.items()},
+            "step_ms_all": times, "peak_memory_gb": peaks}
+
+
+def seq_on_model_mesh(cfg, params, first, mesh, opt, microbatches: int, *,
+                      rounds: int = 2, exchanges: bool = True) -> dict:
+    """``cfg`` on the model's mesh with the sequence split over ``model``
+    (:func:`seq_rules`): the first step at f32 compute against the
+    one-position step (:func:`first_step_against_one_position`, its limits)
+    and against the unsplit step (:func:`split_against_unsplit`), then
+    ``opt``'s step at the config's compute dtype timed against the unsplit
+    one in turns (:func:`interleaved_steps`), the split step's launches
+    counted from 0 over one more call, and (``exchanges``) the model axis's
+    exchanges a split step by kind (:func:`exchanges_a_step`)."""
+    import torch
+
+    from repro_torch.distribution.sharding import activate, param_pspecs, place, shardings_for
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+    from repro_torch.train import checkpoint
+    from repro_torch.train.optimizer import init_placed
+    from repro_torch.train.trainer import TrainState, make_train_step
+
+    f32 = Model(dataclasses.replace(cfg, compute_dtype="float32"))
+    rec = {"rules": "ShardingRules(seq_axis='model')",
+           "tokens_a_position": first["inputs"].shape[1] // mesh.shape["model"]}
+    with activate(mesh, seq_rules()):
+        rec["first_step_f32"] = first_step_against_one_position(f32, params, first, mesh,
+                                                                microbatches)
+    rec["against_unsplit_f32"] = split_against_unsplit(f32, params, first, mesh, microbatches)
+    placed = place(params, shardings_for(None, mesh, param_pspecs(cfg, params, mesh)))
+    state = TrainState(placed, init_placed(opt, checkpoint.leaves(placed)))
+    del placed
+    step = make_train_step(Model(cfg), opt, microbatches=microbatches)
+    rec.update(interleaved_steps(step, state, first, mesh, rounds))
+    sync_all()
+    ops.reset_launch_counts()
+    with activate(mesh, seq_rules()):
+        out = step(state, first)
+    sync_all()
+    rec["launches_by_card"] = {str(d): ops.launch_counts(d) for d in mesh.cards}
+    rec["launches"] = ops.launch_counts()
+    del out
+    if exchanges:
+        with activate(mesh, seq_rules()):
+            rec["exchanges_a_step"] = exchanges_a_step(step, state, first)
+        ex = rec["exchanges_a_step"]["counts"]
+        check(ex.get("seq_gather", {}).get("bytes", 0) > 0
+              and ex.get("seq_reduce", {}).get("bytes", 0) > 0, ("split exchanges", ex))
+    del state
+    torch.cuda.empty_cache()
+    return rec
+
+
 def phase_llm_train_model(arch: str, seq_len: int, global_batch: int, microbatches: int,
                           steps: int, lr: float, block: int, blocks_per_row: int, data: int,
                           model: int, moe_arch: str, moe_layers: int, mixers: dict,
-                          pruned_mixer: str, seed: int) -> dict:
+                          pruned_mixer: str, seq_mixers: tuple, seed: int) -> dict:
     """llm-train over the model's ``data`` × ``model`` mesh (:func:`model_mesh`:
     one position a card on a host with ``data · model`` cards, else every
     position on card 0): heads, the FFN's hidden columns, the embedding's d
@@ -4266,7 +4439,11 @@ def phase_llm_train_model(arch: str, seq_len: int, global_batch: int, microbatch
     ``mixers`` (arch: its cut, :func:`cut_config`) through
     :func:`mixer_on_model_mesh`, and ``pruned_mixer``'s cut again with its
     FFNs block-pruned, the SpMM launches of its timed step held to the
-    count from shapes on each group's home card."""
+    count from shapes on each group's home card. Then the sequence split
+    over ``model`` (:func:`seq_on_model_mesh`: ``arch`` dense and pruned,
+    the pruned step's SpMM launches on each group's home card from shapes)
+    and each of ``seq_mixers``' cuts held to its unsplit step
+    (:func:`split_against_unsplit`)."""
     import torch
 
     from repro_torch.configs import SparsityConfig, get_config
@@ -4326,6 +4503,10 @@ def phase_llm_train_model(arch: str, seq_len: int, global_batch: int, microbatch
     check(sum(dense["launches"].values()) == 0, ("dense FFNs launch no kernel", dense["launches"]))
     dense["group_exchange"] = group_exchange(state0, mesh)
     del state, state0
+    torch.cuda.empty_cache()
+    # the sequence split over model (ShardingRules(seq_axis="model")), dense
+    seq = {"dense": seq_on_model_mesh(cfg, params0, first, mesh, opt, microbatches)}
+    check(sum(seq["dense"]["launches"].values()) == 0, ("split dense launches", seq["dense"]))
 
     scfg = dataclasses.replace(cfg, sparsity=SparsityConfig(
         (block, block), blocks_per_row=blocks_per_row, targets=("ffn",)))
@@ -4334,7 +4515,6 @@ def phase_llm_train_model(arch: str, seq_len: int, global_batch: int, microbatch
     n_proj = sparse_projections(sparams)
     check(n_proj == 3 * cfg.num_layers, n_proj)
     sstate0, sstate, sparse = run(scfg, sparams, "sparse")
-    del sparams
     a_group = steps * microbatches * n_proj
     want = {str(d): {"bsr_spmm": a_group * homes.count(d), "bcsr_spmm": a_group * homes.count(d)}
             for d in mesh.cards}
@@ -4347,6 +4527,21 @@ def phase_llm_train_model(arch: str, seq_len: int, global_batch: int, microbatch
                    "launches_per_step_a_group": {"bsr_spmm": microbatches * n_proj,
                                                  "bcsr_spmm": microbatches * n_proj}})
     del sstate, sstate0
+    torch.cuda.empty_cache()
+    # the pruned FFNs under the split: whole on each group's home card, the
+    # sequence gathered there and handed back; its SpMM launches from shapes
+    seq["pruned"] = seq_on_model_mesh(scfg, sparams, first, mesh, opt, microbatches, rounds=1,
+                                      exchanges=False)
+    a_step = microbatches * n_proj
+    want = {str(d): {"bsr_spmm": a_step * homes.count(d), "bcsr_spmm": a_step * homes.count(d)}
+            for d in mesh.cards}
+    got = {d: {k: c[k] for k in ("bsr_spmm", "bcsr_spmm")}
+           for d, c in seq["pruned"]["launches_by_card"].items()}
+    check(got == want and sum(seq["pruned"]["launches"].values())
+          == sum(sum(v.values()) for v in want.values()),
+          ("the split pruned step's launches on each group's home card", got, want))
+    seq["pruned"]["launches_by_card_from_shapes"] = want
+    del sparams
     torch.cuda.empty_cache()
 
     mcfg = dataclasses.replace(get_config(moe_arch), num_layers=moe_layers)
@@ -4411,10 +4606,18 @@ def phase_llm_train_model(arch: str, seq_len: int, global_batch: int, microbatch
             rec["pruned_ffn"] = pruned
         else:
             check(sum(rec["launches"].values()) == 0, (name, "no kernel", rec["launches"]))
+        if name in seq_mixers:  # the split step held to the unsplit one
+            stream_c = SyntheticLM(c.vocab_size, seq_len, global_batch, seed=seed)
+            first_c = {k: torch.from_numpy(v) for k, v in stream_c.batch(0).items()}
+            seq[name] = {"cut": cut, "against_unsplit_f32": split_against_unsplit(
+                Model(dataclasses.replace(c, compute_dtype="float32")), mixer_params, first_c,
+                mesh, microbatches)}
         del mixer_params
         mixer_runs[name] = rec
     launches = dict(sparse["launches"])
     for k, n in mixer_runs[pruned_mixer]["pruned_ffn"]["launches"].items():
+        launches[k] = launches.get(k, 0) + n
+    for k, n in seq["pruned"]["launches"].items():
         launches[k] = launches.get(k, 0) + n
     tokens = seq_len * global_batch
     return {"arch": arch, "mesh": dict(mesh.shape), "cards": len(mesh.cards),
@@ -4424,7 +4627,7 @@ def phase_llm_train_model(arch: str, seq_len: int, global_batch: int, microbatch
             "optimizer": f"adamw(warmup_cosine({lr}, 10, 100), state_dtype=float32)",
             "dense": {**dense, "tokens_per_s": tokens / (dense["step_ms"] / 1e3)},
             "sparse": {**sparse, "tokens_per_s": tokens / (sparse["step_ms"] / 1e3)},
-            "moe": moe, "mixers": mixer_runs, "launches": launches}
+            "moe": moe, "mixers": mixer_runs, "seq": seq, "launches": launches}
 
 
 def placed_for_serving(model, params, mesh, batch: int, cache_len: int) -> tuple:
@@ -4520,7 +4723,7 @@ def serve_held(model, params, mesh, prompts, new_tokens: int, cache_len: int, *,
     ptrs = [c.data_ptr() for x in checkpoint.leaves(cache) for c in x.chunks]
     sync_all()
     ops.reset_launch_counts()
-    got, _, _ = serve_greedy(model, pp, cache, prompts, new_tokens, feed=toks)
+    got, ms, exchanges = serve_greedy(model, pp, cache, prompts, new_tokens, feed=toks)
     sync_all()
     launches = {str(d): ops.launch_counts(d) for d in mesh.cards}
     total = ops.launch_counts()
@@ -4534,7 +4737,8 @@ def serve_held(model, params, mesh, prompts, new_tokens: int, cache_len: int, *,
     rec = {"max_row_rel": max(errs), "row_rel_by_call": errs, "tokens_equal": all(same),
            "engine_tokens_equal": engine_same, "cache_storages_kept": kept,
            "cache_rel_err": cache_err, "first_tokens": torch.stack(toks, 1)[:, :8].tolist(),
-           "launches_by_card": launches, "launches": total, "calls": new_tokens}
+           "launches_by_card": launches, "launches": total, "calls": new_tokens,
+           "prefill_ms": ms[0], "prefill_exchanges": exchanges[0]}
     held = all(same) and engine_same and kept and max(errs) <= LLM_F32_TOL
     if plain is not None:
         ref, _, _ = one_device_serve(plain, params, prompts, new_tokens, cache_len, feed=toks)
@@ -4633,6 +4837,7 @@ def phase_llm_serve_model(arch: str, data: int, model: int, batch: int, cache_le
     import torch
 
     from repro_torch.configs import SparsityConfig, get_config
+    from repro_torch.distribution.sharding import activate
     from repro_torch.models import Model
     from repro_torch.models.model import cast_floating
     from repro_torch.train import checkpoint
@@ -4649,6 +4854,16 @@ def phase_llm_serve_model(arch: str, data: int, model: int, batch: int, cache_le
           ("the decode crosses into model position 1's slots", prompt_len, new_tokens))
     held = serve_held(Model(f32), params, mesh, prompts, new_tokens, cache_len)
     timed = serve_timed(Model(cfg), params, mesh, prompts, new_tokens, cache_len)
+    # the prefill with its sequence split over model (prompt_len / model tokens a
+    # position), held the same way; the decode steps (S = 1) run unsplit
+    with activate(mesh, seq_rules()):
+        seq = serve_held(Model(f32), params, mesh, prompts, new_tokens, cache_len)
+    ex = seq["prefill_exchanges"]
+    check(ex.get("seq_gather", {}).get("bytes", 0) > 0
+          and ex.get("seq_reduce", {}).get("bytes", 0) > 0
+          and "seq_gather" not in held["prefill_exchanges"], ("the split prefill", ex))
+    seq.update(tokens_a_position=prompt_len // model, unsplit_prefill_ms=held["prefill_ms"],
+               unsplit_prefill_exchanges=held["prefill_exchanges"])
 
     pcfg = dataclasses.replace(f32, sparsity=SparsityConfig(
         (block, block), blocks_per_row=blocks_per_row, targets=("ffn",)))
@@ -4701,7 +4916,7 @@ def phase_llm_serve_model(arch: str, data: int, model: int, batch: int, cache_le
             "batch": batch, "cache_len": cache_len, "slots_a_position": cache_len // model,
             "prompt_len": prompt_len, "new_tokens": new_tokens,
             "cache_leaves_split": split_cache_leaves(Model(cfg), mesh, batch, cache_len),
-            "f32": held, "timed": timed, "pruned_ffn": pruned,
+            "f32": held, "timed": timed, "seq": seq, "pruned_ffn": pruned,
             "tolerance": {"f32": LLM_F32_TOL}, "mixers": runs,
             "mixers_mesh": dict(mesh1.shape),
             "launches": pruned["launches"]}
@@ -4970,15 +5185,22 @@ def dryrun_records(mesh: str = "card") -> tuple[dict, float]:
     return recs, time.perf_counter() - t0
 
 
-def mesh_plan(arch: str, shape: str, mesh, batch: int, train_layers: int):
+def mesh_plan(arch: str, shape: str, mesh, batch: int, train_layers: int, seq: bool = False):
     """``arch``'s plan of ``shape`` for ``mesh`` at global batch ``batch``:
-    train in one microbatch, cut to ``train_layers`` layers."""
+    train in one microbatch, cut to ``train_layers`` layers; ``seq``: under
+    :func:`seq_rules` (``--seq-shard``)."""
     from repro_torch.launch import specs
 
     train = shape == "train_4k"
     return specs.make_plan(arch, shape, mesh, global_batch=batch,
                            microbatches=1 if train else None,
-                           config=cut_config(arch, train_layers) if train else None)
+                           config=cut_config(arch, train_layers) if train else None,
+                           rules=seq_rules() if seq else None)
+
+
+def mesh_cell(name: str) -> tuple[str, bool]:
+    """A mesh cell's shape and whether its sequence splits (``_seq``)."""
+    return name.removesuffix("_seq"), name.endswith("_seq")
 
 
 def dryrun_mesh_traces(arch: str, data: int, model: int, train_layers: int,
@@ -4989,24 +5211,32 @@ def dryrun_mesh_traces(arch: str, data: int, model: int, train_layers: int,
     batch, a multiple of ``data``, whose traced peak for the whole device
     fits ``limit``: traces at ``data`` and ``2·data`` rows, then at the
     batch the line through the last two traces puts at the limit, until
-    one batch fits and the next one up (traced) does not. Run in a worker
+    one batch fits and the next one up (traced) does not; ``train_4k_seq``
+    is ``train_4k`` at the same batch with its sequence split over
+    ``model`` (:func:`seq_rules`, ``--seq-shard``). Run in a worker
     process."""
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_local_mesh
 
     mesh = make_local_mesh(data, model=model, device="meta")
     out = {}
-    for shape, cap in (("train_4k", 256), ("decode_32k", 128)):
+    for cell, cap in (("train_4k", 256), ("train_4k_seq", None), ("decode_32k", 128)):
+        shape, seq = mesh_cell(cell)
         runs = {}
 
         def traced(b):
-            plan = mesh_plan(arch, shape, mesh, b, train_layers)
+            plan = mesh_plan(arch, shape, mesh, b, train_layers, seq)
             runs[b] = plan, dryrun.mesh_trace(plan, mesh)
             return runs[b]
 
-        probes = {b: traced(b)[1]["peak_bytes"] for b in (data, 2 * data)}
-        check(probes[data] <= limit, (shape, "fits at no batch", probes, limit))
-        while True:  # the secant through the two traces nearest the limit
+        if seq:  # the unsplit cell's batch
+            batch = out[shape]["batch"]
+            probes = {batch: traced(batch)[1]["peak_bytes"]}
+            check(probes[batch] <= limit, (cell, "does not fit", probes, limit))
+        else:
+            probes = {b: traced(b)[1]["peak_bytes"] for b in (data, 2 * data)}
+            check(probes[data] <= limit, (shape, "fits at no batch", probes, limit))
+        while not seq:  # the secant through the two traces nearest the limit
             batch = max(b for b, p in probes.items() if p <= limit)
             over = min((b for b, p in probes.items() if p > limit), default=None)
             if batch == cap or over == batch + data:
@@ -5018,8 +5248,8 @@ def dryrun_mesh_traces(arch: str, data: int, model: int, train_layers: int,
             probes[guess] = traced(guess)[1]["peak_bytes"]
         plan, mt = runs[batch]
         name = f"{data}x{model}"
-        rec = dryrun.mesh_record(arch, shape, plan, mt, mesh, name)
-        out[shape] = {
+        rec = dryrun.mesh_record(arch, shape, plan, mt, mesh, name, rules=plan.rules)
+        out[cell] = {
             "batch": batch, "layers": plan.model.cfg.num_layers, "probes": probes,
             "next_batch_peak_bytes": probes.get(batch + data), "trace_s": mt["trace_s"],
             "flops": mt["flops"], "peak_bytes": mt["peak_bytes"],
@@ -5033,9 +5263,9 @@ def dryrun_mesh_traces(arch: str, data: int, model: int, train_layers: int,
             "dominant": rec["roofline"]["dominant"],
             "bound_s": rec["roofline"]["step_time_lower_bound_s"],
             "per_position_t_collective_s": rec["per_position"]["t_collective_s"],
-            "layout": rec["layout"],
+            "layout": rec["layout"], "seq_axis": rec["seq_axis"],
         }
-        check(batch == cap or out[shape]["next_batch_peak_bytes"] > limit,
+        check(seq or batch == cap or out[cell]["next_batch_peak_bytes"] > limit,
               (shape, "a larger mesh batch fits", probes))
     return out
 
@@ -5076,7 +5306,7 @@ def position_bytes(tree, mesh) -> list[int]:
     return out
 
 
-def dryrun_mesh_card(arch: str, shape: str, info: dict, train_layers: int, seed: int, *,
+def dryrun_mesh_card(arch: str, cell: str, info: dict, train_layers: int, seed: int, *,
                      cards: bool = False) -> dict:
     """One ``dryrun_mesh_traces`` cell run for real on the 2 × 2 mesh: 4
     positions of card 0, or (``cards``) one card a position. Seeded
@@ -5088,7 +5318,9 @@ def dryrun_mesh_card(arch: str, shape: str, info: dict, train_layers: int, seed:
     what the process held besides the arguments within
     ``DRYRUN_PEAK_RTOL`` of the traced peak for the whole device; on the
     cards, each card's within ``DRYRUN_PEAK_RTOL`` of its position's, and
-    the bytes each position received equal. Loss (logits) finite."""
+    the bytes each position received equal. Loss (logits) finite. A
+    ``_seq`` cell runs under the plan's rules (the sequence split over
+    ``model``), as it was traced."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -5103,7 +5335,8 @@ def dryrun_mesh_card(arch: str, shape: str, info: dict, train_layers: int, seed:
 
     mesh = (make_local_mesh(2, model=2, devices=[f"cuda:{i}" for i in range(4)]) if cards
             else make_local_mesh(2, model=2, device="cuda"))
-    plan = mesh_plan(arch, shape, mesh, info["batch"], train_layers)
+    shape, seq = mesh_cell(cell)
+    plan = mesh_plan(arch, shape, mesh, info["batch"], train_layers, seq)
     gen = torch.Generator(device=mesh.device).manual_seed(seed)
     host = torch.Generator().manual_seed(seed)
     model, cfg = plan.model, plan.model.cfg
@@ -5138,7 +5371,8 @@ def dryrun_mesh_card(arch: str, shape: str, info: dict, train_layers: int, seed:
         torch.cuda.reset_peak_memory_stats(d)
     tp.reset_exchange_counts()
     peer.reset_link_counts()
-    with peer.distinct_positions(), FlopCounterMode(display=False) as counter:
+    with sh.activate(mesh, plan.rules), peer.distinct_positions(), \
+            FlopCounterMode(display=False) as counter:
         ms, out = synced_ms(lambda: plan.fn(*args))
     sync_all()
     peaks = [torch.cuda.max_memory_allocated(d) - h for d, h in zip(devices, held)]
@@ -5183,7 +5417,8 @@ def dryrun_mesh_cells(info: dict, train_layers: int, seed: int, *, arch: str,
     out = {}
     for shape, cell in info.items():
         res = dryrun_mesh_card(arch, shape, cell, train_layers, seed, cards=cards)
-        out[shape] = {"mesh": "2x2", "positions_peak_bytes": cell["positions"]["peak_bytes"],
+        out[shape] = {"mesh": "2x2", "seq_axis": cell["seq_axis"],
+                      "positions_peak_bytes": cell["positions"]["peak_bytes"],
                       "collectives": cell["collectives"],
                       "t_collective_s": cell["t_collective_s"], "dominant": cell["dominant"],
                       "bound_s": cell["bound_s"], "trace_s": cell["trace_s"],

@@ -88,6 +88,11 @@ def group_position(m: int = 0) -> int | None:
     return _GROUP[-1][1] + m if _GROUP else None
 
 
+def group_mesh():
+    """The current group's mesh (:func:`in_group`)."""
+    return _GROUP[-1][0]
+
+
 def device_of(p: int) -> torch.device:
     """Position ``p``'s device on the current group's mesh."""
     return _GROUP[-1][0].devices[p]

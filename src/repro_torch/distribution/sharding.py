@@ -40,11 +40,13 @@ over ``model`` is whole on the group's home position; the model code runs
 the collectives that GSPMD inserts at the reference's ``constrain``
 points (``repro_torch.distribution.tensor_parallel``), and
 :func:`constrain_like_params` adds each group's gradients onto the owners
-in card order, per ``model`` chunk. Outside a group :func:`constrain` is
-the identity and :func:`embed_lookup` is ``table[ids]``: the reference's
-vocab-parallel lookup gives the same rows. :func:`group_params` gives each group
-its copy of the params (for the train step and for serving), and
-:func:`group_cache` a group's view of a decode cache placed by
+in card order, per ``model`` chunk. Inside a group, rules whose ``seq``
+resolves to ``model`` make :func:`constrain` split the residual along
+the sequence (sequence parallelism, :func:`seq_chunks`); outside a group
+it is the identity and :func:`embed_lookup` is ``table[ids]``: the
+reference's vocab-parallel lookup gives the same rows. :func:`group_params`
+gives each group its copy of the params (for the train step and for
+serving), and :func:`group_cache` a group's view of a decode cache placed by
 :func:`cache_pspecs`: the placed chunks themselves (a serving step
 writes them in place), a leaf split over ``model`` as a
 ``tensor_parallel.Split`` of the group's chunks (the attention caches'
@@ -88,9 +90,12 @@ class PartitionSpec(tuple):
 P = PartitionSpec
 
 # ---------------------- activation-constraint context ------------------------
-# Model code may call ``constrain(x, logical_axes)``; outside an
-# ``activate(mesh, rules)`` scope, and on the port's one-device mesh
-# inside one, it returns ``x`` as it is.
+# Model code calls ``constrain(x, logical_axes)`` at the reference's sites
+# (the embedding's rows, each layer's input); outside an
+# ``activate(mesh, rules)`` scope, and outside a group of the model's mesh
+# inside one, it returns ``x`` as it is. Inside a group, rules whose
+# ``seq`` resolves to a ``model`` axis of more than one position split the
+# sequence (sequence parallelism).
 
 _ACTIVE: list[tuple[Any, "ShardingRules"]] = []
 
@@ -108,16 +113,43 @@ def active_rules() -> "ShardingRules | None":
     return _ACTIVE[-1][1] if _ACTIVE else None
 
 
-def constrain(x: torch.Tensor, logical: tuple) -> torch.Tensor:
-    """``x`` pinned to the spec of ``logical`` on the active mesh: the spec
-    is resolved (an unknown logical axis raises, as in the reference)
-    and ``x`` returned as it is. On the model's mesh the layout changes
-    where the model code calls ``tensor_parallel``'s collectives, not
-    here."""
-    if _ACTIVE:
-        mesh, rules = _ACTIVE[-1]
-        _resolve_spec(tuple(logical), tuple(x.shape), mesh, rules)
-    return x
+def seq_chunks(logical: tuple, shape) -> int:
+    """Into how many chunks the active rules split the ``"seq"`` dim of an
+    activation of ``logical`` axes and ``shape`` in the current group
+    (``peer.in_group``): the group's M positions where ``seq`` resolves to
+    the ``model`` axis (M > 1, dividing the dim; else the reference's
+    divisibility fallback), else 1. An unknown logical axis raises."""
+    if not _ACTIVE:
+        return 1
+    mesh, rules = _ACTIVE[-1]
+    spec = _resolve_spec(tuple(logical), tuple(shape), mesh, rules)
+    if "seq" not in logical or peer.group_position() is None:
+        return 1
+    dim = tuple(logical).index("seq")
+    if (spec[dim] if dim < len(spec) else None) != "model":
+        return 1
+    m_size = peer.group_mesh().shape.get("model", 1)
+    if m_size != mesh.shape["model"]:
+        raise ValueError(f"rules active on a mesh of shape {mesh.shape} inside a group of "
+                         f"{m_size} model positions: activate them on the group's own mesh")
+    return m_size
+
+
+def constrain(x, logical: tuple):
+    """``x`` pinned to the spec of ``logical`` on the active mesh, the
+    reference's ``with_sharding_constraint``: the spec is resolved (an
+    unknown logical axis raises, as in the reference) and, where it splits
+    the ``"seq"`` dim over the group's ``model`` positions
+    (:func:`seq_chunks`), ``x`` comes back a ``tensor_parallel.Split``
+    along it (a whole ``x`` on the home scattered; one split already, as it
+    is). Otherwise ``x`` as it is: on the model's mesh the other layouts
+    change where the model code calls ``tensor_parallel``'s collectives."""
+    n = seq_chunks(logical, x.shape)
+    if n == 1 or isinstance(x, tp.Split):
+        return x
+    home = peer.group_position()
+    return tp.seq_reduce([x], tuple(logical).index("seq"),
+                         [peer.device_of(home + m) for m in range(n)])
 
 
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

@@ -35,6 +35,28 @@ each an autograd Function built on ``peer.copy_into``/``peer.to`` and
   ``[x_in | z]``), split contiguously, as chunks holding each position's
   slice of every part (an exact all-to-all both ways).
 
+Sequence parallelism (the reference's ``ShardingRules(seq_axis="model")``,
+turned on by ``sharding.constrain``) holds the residual stream between the
+tensor-parallel regions as a :class:`Split` along the sequence (dim 1),
+chunk m on model position m: norms, residual adds and the embedding's rows
+run on each chunk. Three more collectives move it:
+
+* :func:`seq_gather` — the chunks concatenated in model order on each
+  receiving position (a region's input on every position, or the whole
+  sequence on the home for a layer that runs there); backward: a
+  reduce-scatter, chunk m's rows of every receiver's gradient added in
+  model order on position m;
+* :func:`seq_reduce` — partials, one a position, as chunks: position m
+  adds every partial's rows of chunk m in model order (a row-parallel
+  region's output; one partial is a scatter); backward: a gather;
+* :func:`fan_out` with ``kind="param_copy"`` — a leaf the group holds
+  whole on its home copied to the positions whose chunks use it (a norm's
+  scale); backward: the chunks' partial gradients added in model order.
+
+:func:`region_input`, :func:`region_output` and :func:`on_home` pick the
+collective by the residual's layout, so a model's code runs the same
+whether or not its sequence is split.
+
 Every sum is written out in model order, never NCCL's, so M positions on
 one device and M cards give the same bits. :func:`exchange_counts`
 reports the bytes each collective moves between model positions
@@ -76,7 +98,8 @@ class Split:
     model position m's device, split along ``dim``. Reads like the whole
     leaf (shape, dtype) and indexes like it along a leading layer dim, which
     is never split (a period's stacked leaves). A group's view of a placed
-    cache leaf is one too, its chunks the placed storages."""
+    cache leaf is one too, its chunks the placed storages, and so is a
+    residual split along the sequence (``dim`` 1)."""
 
     chunks: tuple[torch.Tensor, ...]
     dim: int
@@ -101,6 +124,11 @@ class Split:
 
     def is_floating_point(self) -> bool:
         return self.chunks[0].is_floating_point()
+
+    @property
+    def device(self) -> torch.device:
+        """The home device, model position 0's."""
+        return self.chunks[0].device
 
     def map(self, fn) -> "Split":
         return Split(tuple(fn(c) for c in self.chunks), self.dim)
@@ -201,28 +229,29 @@ def _at(m: int):
 
 class _FanOut(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, devices):
-        ctx.home = x.device
-        _count("fan_out", ((0, i, _nbytes(x)) for i in range(1, len(devices))))
+    def forward(ctx, x, devices, kind):
+        ctx.home, ctx.kind = x.device, kind
+        _count(kind, ((0, i, _nbytes(x)) for i in range(1, len(devices))))
         return tuple(_to(x, d, 0, i) for i, d in enumerate(devices))
 
     @staticmethod
     def backward(ctx, *grads):
         live = [(i, g) for i, g in enumerate(grads) if g is not None]
-        _count("fan_out", ((i, 0, _nbytes(g)) for i, g in live if i))
+        _count(ctx.kind, ((i, 0, _nbytes(g)) for i, g in live if i))
         with _at(0):
             total = (peer.shard_order_sum([_send(g, ctx.home, i, 0) for i, g in live])
                      if live else None)
-        return total, None
+        return total, None, None
 
 
-def fan_out(x: torch.Tensor, devices) -> tuple[torch.Tensor, ...]:
+def fan_out(x: torch.Tensor, devices, *, kind: str = "fan_out") -> tuple[torch.Tensor, ...]:
     """``x`` on each of ``devices`` (where it lies already, a view of it, or a
     contiguous copy when it is not contiguous: :func:`_to`); its
-    backward adds the devices' gradients in their order on ``x``'s device."""
+    backward adds the devices' gradients in their order on ``x``'s device.
+    ``kind``: the name its bytes are counted under."""
     devices = tuple(torch.device(d) for d in devices)
-    _log("fan_out", shape=tuple(x.shape), dtype=x.dtype, home=x.device, devices=devices)
-    return _FanOut.apply(x, devices)
+    _log(kind, shape=tuple(x.shape), dtype=x.dtype, home=x.device, devices=devices)
+    return _FanOut.apply(x, devices, kind)
 
 
 class _FanIn(torch.autograd.Function):
@@ -408,11 +437,166 @@ def regroup(chunks, dim: int, parts: int) -> tuple[torch.Tensor, ...]:
     return _Regroup.apply(dim, parts, *chunks)
 
 
-def embed_lookup(table: Split, ids: torch.Tensor) -> torch.Tensor:
+# --------------------------- sequence parallelism -----------------------------
+
+
+class _SeqGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, dim, receivers, devices, *chunks):
+        ctx.dim, ctx.receivers = dim, receivers
+        ctx.devices = [c.device for c in chunks]
+        ctx.sizes = [c.shape[dim] for c in chunks]
+        _count("seq_gather", ((m, r, _nbytes(c)) for r in receivers
+                              for m, c in enumerate(chunks) if m != r))
+        shared: dict = {}  # positions sharing a device share its copy, as fan_out's views
+        out = []
+        for r, d in zip(receivers, devices):
+            if not peer.distinct() and d in shared:
+                out.append(shared[d].view_as(shared[d]))
+                continue
+            with _at(r):
+                whole = torch.cat([_send(c, d, m, r) for m, c in enumerate(chunks)], dim)
+            shared[d] = whole
+            out.append(whole)
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        live = [(r, g) for r, g in zip(ctx.receivers, grads) if g is not None]
+        moves, out = [], []
+        for m, (d, n) in enumerate(zip(ctx.devices, ctx.sizes)):
+            o = sum(ctx.sizes[:m])
+            with _at(m):
+                pieces = [_send(g.narrow(ctx.dim, o, n), d, r, m) for r, g in live]
+                moves += [(r, m, _nbytes(p)) for (r, _), p in zip(live, pieces) if r != m]
+                out.append(_own(peer.shard_order_sum(pieces)) if pieces else None)
+        _count("seq_gather", moves)
+        return (None, None, None, *out)
+
+
+def _own(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous: a chunk a position holds as a card would."""
+    return x if x.is_contiguous() else x.contiguous()
+
+
+def seq_gather(x: Split, receivers=None) -> tuple[torch.Tensor, ...]:
+    """The whole sequence of ``x`` (a :class:`Split` along it) on each of
+    the model indices ``receivers`` (default every one), its chunks
+    concatenated in model order there (exact; positions that share a
+    device share one copy, except under ``peer.distinct_positions``). The
+    backward is a reduce-scatter: chunk m's gradient is the sum of every
+    receiver's gradient rows of chunk m, in model order, on position m."""
+    receivers = tuple(range(len(x.chunks)) if receivers is None else receivers)
+    devices = tuple(x.chunks[r].device for r in receivers)
+    _log("seq_gather", shapes=[tuple(c.shape) for c in x.chunks], dtype=x.dtype,
+         devices=x.devices, dim=x.dim, receivers=receivers)
+    return _SeqGather.apply(x.dim, receivers, devices, *x.chunks)
+
+
+class _SeqReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, dim, devices, *partials):
+        ctx.dim, ctx.homes = dim, [p.device for p in partials]
+        n = partials[0].shape[dim] // len(devices)
+        moves, out = [], []
+        for m, d in enumerate(devices):
+            with _at(m):
+                pieces = [_send(p.narrow(dim, m * n, n), d, j, m) for j, p in enumerate(partials)]
+                out.append(_own(peer.shard_order_sum(pieces)))
+            moves += [(j, m, _nbytes(p)) for j, p in enumerate(pieces) if j != m]
+        _count("seq_reduce", moves)
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        moves, out = [], []
+        for j, d in enumerate(ctx.homes):
+            with _at(j):
+                out.append(torch.cat([_send(g, d, m, j) for m, g in enumerate(grads)], ctx.dim))
+            moves += [(m, j, _nbytes(g)) for m, g in enumerate(grads) if m != j]
+        _count("seq_reduce", moves)
+        return (None, None, *out)
+
+
+def seq_reduce(partials, dim: int, devices) -> Split:
+    """Partials of a sequence (partial j on model index j, each whole along
+    ``dim``) as a :class:`Split` along ``dim`` over ``devices``: chunk m, on
+    ``devices[m]``, the sum of every partial's rows of the m-th of
+    ``len(devices)`` equal chunks, in model order (one partial: a scatter,
+    exact). The backward gathers the chunks' gradients on each partial's
+    position."""
+    devices = tuple(torch.device(d) for d in devices)
+    dim = dim % partials[0].ndim
+    if partials[0].shape[dim] % len(devices):
+        raise ValueError(f"dim {dim} of {tuple(partials[0].shape)} does not split over "
+                         f"{len(devices)}")
+    _log("seq_reduce", shapes=[tuple(p.shape) for p in partials], dtype=partials[0].dtype,
+         homes=tuple(p.device for p in partials), devices=devices, dim=dim)
+    return Split(_SeqReduce.apply(dim, devices, *partials), dim)
+
+
+def region_input(x, devices) -> tuple[torch.Tensor, ...]:
+    """A tensor-parallel region's input on each of ``devices`` (a group's
+    positions): ``x`` fanned out from the home, or, for ``x`` split along the
+    sequence, gathered on every position (:func:`seq_gather`)."""
+    if isinstance(x, Split):
+        if tuple(torch.device(d) for d in devices) != x.devices:
+            raise ValueError(f"a sequence split over {x.devices} enters a region over {devices}")
+        return seq_gather(x)
+    return fan_out(x, devices)
+
+
+def region_output(partials, x):
+    """A row-parallel region's partials (one a position) combined in model
+    order, laid out as the region's input ``x``: summed on its home
+    device, or, for ``x`` split along the sequence, reduce-scattered onto
+    its chunks (:func:`seq_reduce`)."""
+    if isinstance(x, Split):
+        return seq_reduce(partials, x.dim, x.devices)
+    return fan_in(partials, x.device)
+
+
+def whole_on_home(x) -> torch.Tensor:
+    """``x`` whole on the home device: a sequence split gathered there."""
+    return seq_gather(x, (0,))[0] if isinstance(x, Split) else x
+
+
+def on_home(fn, x):
+    """``fn(x)`` for a layer that runs once a group on the home device: for
+    ``x`` split along the sequence, ``fn`` of the whole sequence gathered
+    there, and its result (a tensor, or a tuple whose first item is the
+    layer's output) handed back as chunks (a scatter)."""
+    if not isinstance(x, Split):
+        return fn(x)
+    out = fn(whole_on_home(x))
+    if isinstance(out, tuple):
+        return (seq_reduce([out[0]], x.dim, x.devices), *out[1:])
+    return seq_reduce([out], x.dim, x.devices)
+
+
+def last_tokens(x, n: int = 1) -> torch.Tensor:
+    """The last ``n`` positions of a sequence on the home device: ``x[:,
+    -n:]``, or, for ``x`` split along it, the last chunk's sent there
+    (counted as ``"seq_gather"``; ``n`` must fit in the chunk)."""
+    if not isinstance(x, Split):
+        return x[:, -n:]
+    last = len(x.chunks) - 1
+    piece = x.chunks[last].narrow(x.dim, x.chunks[last].shape[x.dim] - n, n)
+    _count("seq_gather", [(last, 0, _nbytes(piece))])
+    with _at(0):
+        return _own(_send(piece, x.device, last, 0))
+
+
+def embed_lookup(table: Split, ids: torch.Tensor, *, by_sequence: bool = False):
     """``table[ids]`` for a table split along d over ``model``: each
     position looks its chunk's columns up, and the rows are concatenated in
-    model order on ``ids``' device (exact)."""
+    model order on ``ids``' device (exact). ``by_sequence``: the rows
+    resharded from d to the sequence instead (:func:`reshard`, exact), a
+    :class:`Split` along dim 1, each position its chunk of the tokens with
+    every column; nothing is gathered on the home."""
     rows = [c[_send(ids, c.device, 0, m).long()] for m, c in enumerate(table.chunks)]
+    if by_sequence:
+        return Split(reshard(rows, rows[0].ndim - 1, 1), 1)
     return all_gather(rows, -1, ids.device)
 
 
@@ -533,8 +717,15 @@ def replay(entry) -> None:
         replicate_into(copies, fresh(meta["shape"], meta["home"], False) if i is None
                        else copies[i].fill_(1))
         return
-    if kind == "fan_out":
-        outs = fan_out(fresh(meta["shape"], meta["home"]), meta["devices"])
+    if kind in ("fan_out", "param_copy"):
+        outs = fan_out(fresh(meta["shape"], meta["home"]), meta["devices"], kind=kind)
+    elif kind == "seq_gather":
+        x = Split(tuple(fresh(s, d) for s, d in zip(meta["shapes"], meta["devices"])),
+                  meta["dim"])
+        outs = seq_gather(x, meta["receivers"])
+    elif kind == "seq_reduce":
+        outs = seq_reduce([fresh(s, d) for s, d in zip(meta["shapes"], meta["homes"])],
+                          meta["dim"], meta["devices"]).chunks
     elif kind == "scatter":
         outs = scatter(fresh(meta["shape"], meta["home"]), meta["dim"], meta["devices"])
     elif kind == "fan_in":

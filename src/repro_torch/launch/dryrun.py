@@ -29,7 +29,10 @@ A pod record (``pod16x16``, ``pod2x16x16``) comes from the port's own
 partitioned program (:func:`mesh_trace`): the plan made for that mesh,
 its ``meta`` arguments placed by the plan's ``in_shardings``
 (``sharding.place``), and the train step or serve fn run through the
-mesh path (``distribution.tensor_parallel``, ``peer``) under a
+mesh path (``distribution.tensor_parallel``, ``peer``) under the plan's
+rules (``sharding.activate``: ``--seq-shard`` gives
+``ShardingRules(seq_axis="model")``, which splits the sequence over
+``model`` between the tensor-parallel regions) and a
 :class:`MeshTracker`, which bills every new storage and every op's FLOPs
 and eager bytes to the position the mesh path works for, and every
 exchange by the position that sends it, the one that receives it and
@@ -52,12 +55,13 @@ Where a record differs from the reference's, it says so (``notes``):
   collectives (null).
 * The port's collectives are not the reference's HLO collectives
   (``notes.collectives``): model-order fan-out and fan-in where the
-  reference all-reduces, the MoE combine gathered, softmaxes merged per
-  slot range, each group's gradients sent to every owner, the logits
-  gathered on position 0.
+  reference all-reduces (under ``--seq-shard``, a model-order gather and
+  reduce-scatter over the sequence where GSPMD all-gathers and
+  reduce-scatters), the MoE combine gathered, softmaxes merged per slot
+  range, each group's gradients sent to every owner, the logits gathered
+  on position 0.
 * The collective time assumes a layout (``notes.layout``,
   :data:`NODE_POSITIONS`, :data:`NETWORK_BW`): it is not a measurement.
-* ``--seq-shard`` records say that sequence parallelism is not ported.
 * A train cell's state is not donated: the step builds new leaves, and
   the old and new parameters and moments live together at its peak.
 * ``F.one_hot`` (the MoE dispatch) runs arange and eq on ``meta`` and
@@ -89,7 +93,13 @@ from torch.utils.flop_counter import flop_registry
 from repro_torch.configs import ARCHS, SHAPE_CELLS, get_config
 from repro_torch.distribution import peer
 from repro_torch.distribution import tensor_parallel as tp
-from repro_torch.distribution.sharding import Placed, ShardingRules, place, shardings_for
+from repro_torch.distribution.sharding import (
+    Placed,
+    ShardingRules,
+    activate,
+    place,
+    shardings_for,
+)
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.specs import (
     LoweringPlan,
@@ -136,7 +146,12 @@ MESH_NOTES = {
     "collectives": "the port's exchanges, by kind, where the reference's HLO has its own "
                    "collectives: fan_out and fan_in (copies to each model position and "
                    "model-order sums on the group's home, where the reference all-reduces a "
-                   "row-parallel product), all_gather, scatter, reshard (the tied table), "
+                   "row-parallel product), under --seq-shard seq_gather and seq_reduce (a "
+                   "region's input gathered over the sequence on every model position, its "
+                   "partials reduce-scattered onto the sequence chunks in model order, where "
+                   "the reference all-gathers and reduce-scatters) and param_copy (a norm's "
+                   "scale copied to the chunks' positions), all_gather, scatter, reshard (the "
+                   "tied table; the embedding's rows to the sequence chunks), "
                    "regroup (Mamba's in_proj), write, merge (each slot range's partial "
                    "softmax merged on the home, where the reference reduces over cache_seq) "
                    "and replicate (serving's split cache), gather (each position's FSDP copy "
@@ -430,7 +445,7 @@ def _chunk_bytes(tree, n: int) -> list[int]:
 
 # the exchanges of a group's own computation, each between two of its positions
 GROUP_KINDS = ("fan_out", "fan_in", "all_gather", "scatter", "reshard", "regroup", "write",
-               "merge")
+               "merge", "seq_gather", "seq_reduce", "param_copy")
 # the groups the pod records trace (``mesh_trace``'s ``groups``)
 SHORTCUT_GROUPS = 2
 
@@ -464,7 +479,8 @@ def _by_symmetry(res: dict, mesh, k: int) -> None:
 def mesh_trace(plan: LoweringPlan, mesh, args=None, *, groups: int | None = None) -> dict:
     """``plan.fn`` once over ``mesh``, the port's own partitioned program:
     ``args`` (default: the plan's ``meta`` specs) placed by the plan's
-    ``in_shardings`` (:func:`place_args`), then run under a
+    ``in_shardings`` (:func:`place_args`), then run under the plan's rules
+    (``sharding.activate``) and a
     :class:`MeshTracker` with every move between positions a copy
     (``peer.distinct_positions``), so each position holds what its card
     would. The plan must be made for ``mesh``'s shape. Returns the device
@@ -486,7 +502,7 @@ def mesh_trace(plan: LoweringPlan, mesh, args=None, *, groups: int | None = None
     tp.reset_exchange_counts()
     peer.reset_link_counts()
     t0 = time.monotonic()
-    with peer.distinct_positions(), peer.traced_groups(k), \
+    with activate(mesh, plan.rules), peer.distinct_positions(), peer.traced_groups(k), \
             MeshTracker(placed, mesh) as tracker:
         out = plan.fn(*placed)
     seconds = time.monotonic() - t0
@@ -648,11 +664,6 @@ def per_device_bytes(tree, specs, mesh_shape: dict) -> int:
                for leaf, spec in zip(checkpoint.leaves(tree), checkpoint.leaves(specs)))
 
 
-SEQ_NOTE = ("sequence parallelism is not ported: ShardingRules.seq_axis resolves, but "
-            "sharding.constrain is the identity and no sequence is split; the record is the "
-            "program without it")
-
-
 def _base(arch: str, shape: str, plan: LoweringPlan, t: dict,
           rules: ShardingRules | None) -> dict:
     """What every record of a traced cell holds, from one trace ``t``."""
@@ -667,8 +678,6 @@ def _base(arch: str, shape: str, plan: LoweringPlan, t: dict,
     if plan.model.cfg.moe is not None:
         notes["moe"] = ("F.one_hot runs arange and eq on meta, zeros and scatter on a "
                         "device: eager bytes and peak differ from a device run's by those ops")
-    if rules is not None and rules.seq_axis is not None:
-        notes["seq"] = SEQ_NOTE
     return {"arch": arch, "shape": shape, "kind": kind, "status": "ok",
             "global_batch": cell.global_batch,
             "batch_cut_from": (SHAPE_CELLS[shape].global_batch
@@ -677,7 +686,8 @@ def _base(arch: str, shape: str, plan: LoweringPlan, t: dict,
             "trace_s": t["trace_s"], "model_flops": mf["model_flops"],
             "n_active_params": mf["n_active"],
             "useful_flops_fraction": mf["model_flops"] / max(t["flops"], 1.0),
-            "static": plan.static, "card": card_info(), "notes": notes}
+            "static": plan.static, "seq_axis": None if rules is None else rules.seq_axis,
+            "card": card_info(), "notes": notes}
 
 
 def card_record(arch: str, shape: str, plan: LoweringPlan, t: dict, *,
@@ -812,8 +822,7 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=OUT_DEFAULT)
     ap.add_argument("--microbatches", type=int, default=None)
     ap.add_argument("--seq-shard", action="store_true",
-                    help="sequence parallelism: shard the token dim over 'model' (not "
-                         "ported: the records say so)")
+                    help="sequence parallelism: shard the token dim over 'model'")
     ap.add_argument("--summary", action="store_true")
     args = ap.parse_args(argv)
 

@@ -103,6 +103,7 @@ class LoweringPlan:
     static: dict
     model: Model | None = None
     cell: ShapeCell | None = None
+    rules: ShardingRules | None = None  # active around ``fn`` on a mesh (``sharding.activate``)
 
 
 def make_plan(
@@ -155,6 +156,7 @@ def make_plan(
             static={"microbatches": mb, "kind": "train"},
             model=model,
             cell=cell,
+            rules=rules,
         )
 
     # serving cells
@@ -189,6 +191,7 @@ def make_plan(
             static={"kind": "prefill"},
             model=model,
             cell=cell,
+            rules=rules,
         )
 
     # decode: one new token against a full cache
@@ -211,6 +214,7 @@ def make_plan(
         static={"kind": "decode"},
         model=model,
         cell=cell,
+        rules=rules,
     )
 
 

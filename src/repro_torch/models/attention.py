@@ -284,6 +284,9 @@ def apply_gqa(
     if isinstance(p["w_q"], tp.Split):
         return _apply_gqa_split(p, cfg, x, window=window, rope_theta=rope_theta,
                                 q_chunk=q_chunk)
+    if isinstance(x, tp.Split):  # whole weights: once on the home
+        return tp.on_home(lambda h: apply_gqa(p, cfg, h, window=window, rope_theta=rope_theta,
+                                              q_chunk=q_chunk), x)
     s = x.shape[1]
     theta = rope_theta or cfg.rope_theta
     positions = torch.arange(s, device=x.device)[None, :]
@@ -311,7 +314,10 @@ def _apply_gqa_split(p: Params, cfg: AttentionConfig, x: torch.Tensor, *, window
     ``tensor_parallel.Split`` weights): ``w_q``/``w_k``/``w_v`` and their
     biases column-parallel, ``w_o`` row-parallel. Each position computes
     its query heads' attention and its partial output projection; the
-    partials are added in model order on ``x``'s device. KV heads that do
+    partials are added in model order on ``x``'s device (for ``x`` split
+    along the sequence: gathered on every position, each attending over
+    the whole sequence at its positions ``0 … S−1``, and the partials
+    reduce-scattered onto the chunks). KV heads that do
     not split are whole: each position takes the ones its query heads
     read (:func:`kv_heads_of`), repeated as the reference repeats them.
     ``kv``, where given, receives every KV head's keys and values on
@@ -321,7 +327,7 @@ def _apply_gqa_split(p: Params, cfg: AttentionConfig, x: torch.Tensor, *, window
     n = len(devices)
     theta = rope_theta or cfg.rope_theta
     per = _per_position(p, [k for k in p if k != "w_o"], devices)
-    xs = tp.fan_out(x, devices)
+    xs = tp.region_input(x, devices)
     partials, own = [], []
     for m, d in enumerate(devices):
         pm = {**per[m], "w_o": p["w_o"].chunks[m]}
@@ -343,10 +349,10 @@ def _apply_gqa_split(p: Params, cfg: AttentionConfig, x: torch.Tensor, *, window
     if kv is not None:
         if isinstance(p["w_k"], tp.Split):
             kv.extend(tp.all_gather(list(t), 2, x.device) for t in zip(*own))
-        else:
-            kv.extend(_gqa_kv(p, cfg, x, torch.arange(x.shape[1], device=x.device)[None, :],
+        else:  # from the home position's copy of the whole sequence
+            kv.extend(_gqa_kv(p, cfg, xs[0], torch.arange(x.shape[1], device=x.device)[None, :],
                               theta))
-    return tp.fan_in(partials, x.device)
+    return tp.region_output(partials, x)
 
 
 def init_gqa_cache(
@@ -378,6 +384,10 @@ def prefill_gqa(
         out = _apply_gqa_split(p, cfg, x, window=window, rope_theta=rope_theta,
                                q_chunk=q_chunk, kv=kv)
         return out, _fill_split(cache, dict(zip(("k", "v"), kv)), s, donate)
+    if isinstance(x, tp.Split):  # whole weights: once on the home
+        return tp.on_home(lambda h: prefill_gqa(p, cfg, h, cache, window=window,
+                                                rope_theta=rope_theta, q_chunk=q_chunk,
+                                                donate=donate), x)
     theta = rope_theta or cfg.rope_theta
     positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _gqa_qkv(p, cfg, x, positions, theta)
@@ -671,14 +681,17 @@ def apply_mla(
     del window  # MLA archs here are full-attention
     if isinstance(p["w_uq"], tp.Split):
         return _apply_mla_split(p, cfg, x, q_chunk=q_chunk, rope_theta=rope_theta)
+    if isinstance(x, tp.Split):  # whole weights: once on the home
+        return tp.on_home(lambda h: apply_mla(p, cfg, h, q_chunk=q_chunk,
+                                              rope_theta=rope_theta), x)
     theta = rope_theta or cfg.rope_theta
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     c_kv, k_rope = _mla_latents(p, cfg, x, positions, theta)
     return _mla_heads(p, cfg, _mla_cq(p, x), c_kv, k_rope, positions, theta, q_chunk)
 
 
-def _apply_mla_split(p: Params, cfg: AttentionConfig, x: torch.Tensor, *, q_chunk: int,
-                     rope_theta: float) -> torch.Tensor:
+def _apply_mla_split(p: Params, cfg: AttentionConfig, x, *, q_chunk: int,
+                     rope_theta: float, latents: list | None = None):
     """MLA with its heads split over ``model`` (a group's
     ``tensor_parallel.Split`` weights): ``w_uq``/``w_uk``/``w_uv`` over
     heads, ``w_o`` row-parallel. The down-projections and their norms are
@@ -687,18 +700,24 @@ def _apply_mla_split(p: Params, cfg: AttentionConfig, x: torch.Tensor, *, q_chun
     back as model-order sums); each position attends with its heads, and
     the partial output projections are added in model order on ``x``'s
     device. Heads that do not divide over ``model`` leave these leaves
-    whole, and :func:`apply_mla` runs where ``x`` is."""
+    whole, and :func:`apply_mla` runs where ``x`` is. For ``x`` split along
+    the sequence: the sequence gathered on the home for the
+    down-projections, and the partials reduce-scattered onto the chunks.
+    ``latents``, where given, receives ``(c_kv, k_rope)``."""
     devices = p["w_uq"].devices
     theta = rope_theta or cfg.rope_theta
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    c_kv, k_rope = _mla_latents(p, cfg, x, positions, theta)
-    shared = [tp.fan_out(t, devices) for t in (_mla_cq(p, x), c_kv, k_rope)]
+    xh = tp.whole_on_home(x)
+    c_kv, k_rope = _mla_latents(p, cfg, xh, positions, theta)
+    if latents is not None:
+        latents.extend((c_kv, k_rope))
+    shared = [tp.fan_out(t, devices) for t in (_mla_cq(p, xh), c_kv, k_rope)]
     partials = []
     for m, d in enumerate(devices):
         w = {k: p[k].chunks[m] for k in _MLA_HEADS}
         positions = torch.arange(x.shape[1], device=d)[None, :]
         partials.append(_mla_heads(w, cfg, *(t[m] for t in shared), positions, theta, q_chunk))
-    return tp.fan_in(partials, x.device)
+    return tp.region_output(partials, x)
 
 
 def init_mla_cache(
@@ -726,10 +745,18 @@ def prefill_mla(
 ) -> tuple[torch.Tensor, Params]:
     s = x.shape[1]
     theta = rope_theta or cfg.rope_theta
+    if isinstance(p["w_uq"], tp.Split):  # a group: its split forward's latents
+        latents: list = []
+        out = _apply_mla_split(p, cfg, x, q_chunk=q_chunk, rope_theta=rope_theta,
+                               latents=latents)
+        return out, _fill_split(cache, dict(zip(("c_kv", "k_rope"), latents)), s, donate)
+    if isinstance(x, tp.Split):  # whole weights: once on the home
+        return tp.on_home(lambda h: prefill_mla(p, cfg, h, cache, q_chunk=q_chunk,
+                                                rope_theta=rope_theta, donate=donate), x)
     out = apply_mla(p, cfg, x, q_chunk=q_chunk, window=window, rope_theta=rope_theta)
     positions = torch.arange(s, device=x.device)[None, :]
     c_kv, k_rope = _mla_latents(p, cfg, x, positions, theta)
-    if isinstance(p["w_uq"], tp.Split) or isinstance(cache["c_kv"], tp.Split):
+    if isinstance(cache["c_kv"], tp.Split):
         return out, _fill_split(cache, {"c_kv": c_kv, "k_rope": k_rope}, s, donate)
     new_cache = _writable(cache, ("c_kv", "k_rope", "positions"), donate)
     new_cache["c_kv"][:, :s] = c_kv.to(new_cache["c_kv"].dtype)

@@ -278,22 +278,26 @@ def _ffn(p: Params, x: torch.Tensor, act: str, glu: bool, *,
     return linear(p["w_out"], h, use_kernel=use_kernel)
 
 
-def row_parallel(body: Callable, p: Params, x: torch.Tensor, *args, **kw) -> torch.Tensor:
+def row_parallel(body: Callable, p: Params, x, *args, **kw):
     """``body(p, x, ...)`` for params whose leaves are all split over
     ``model`` (column-parallel in, row-parallel out): ``x`` fanned out to
     the positions, each position's ``body`` on its chunks, the partials
-    added in model order on ``x``'s device (``tensor_parallel.fan_in``).
-    Params held whole: ``body`` once, where ``x`` is."""
+    added in model order on ``x``'s device (``tensor_parallel.fan_in``);
+    for ``x`` split along the sequence, gathered on every position and the
+    partials reduce-scattered onto its chunks
+    (``tensor_parallel.region_input``/``region_output``). Params held
+    whole: ``body`` once, where ``x`` is (a split sequence gathered on the
+    home and handed back, ``tensor_parallel.on_home``)."""
     split = [isinstance(w, tp.Split) for w in p.values()]
     if not any(split):
-        return body(p, x, *args, **kw)
+        return tp.on_home(lambda h: body(p, h, *args, **kw), x)
     if not all(split):
         raise ValueError(f"an FFN split over model in part ({sorted(p)}): its weights share "
                          "the hidden dim")
     devices = next(iter(p.values())).devices
-    xs = tp.fan_out(x, devices)
-    return tp.fan_in([body({k: w.chunks[m] for k, w in p.items()}, xs[m], *args, **kw)
-                      for m in range(len(devices))], x.device)
+    xs = tp.region_input(x, devices)
+    return tp.region_output([body({k: w.chunks[m] for k, w in p.items()}, xs[m], *args, **kw)
+                             for m in range(len(devices))], x)
 
 
 def sparsify_ffn(

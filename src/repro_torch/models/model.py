@@ -29,8 +29,13 @@ tied table resharded from d to vocab over ``model``, as the reference's
 ``constrain(w, ("tp", None))``), and the logits stay split into the
 vocab-parallel cross entropy (``layers.vocab_parallel_cross_entropy``);
 ``forward``, ``prefill`` and ``decode_step`` gather them in model order.
-A group's cache (``sharding.group_cache``) goes through ``prefill`` and
-``decode_step`` with its split leaves written in place. Everything else
+Under rules that split the sequence over ``model`` (``sharding.activate``
+with ``ShardingRules(seq_axis="model")``), the embedding's rows come out
+split along the sequence (each position its chunk of the tokens, the
+d-split rows resharded, never gathered on the home), the final norm runs
+on each chunk, and the head gathers the sequence on every position for
+its vocab chunk. A group's cache (``sharding.group_cache``) goes through
+``prefill`` and ``decode_step`` with its split leaves written in place. Everything else
 of the reference's distributed lookup and constraints is ``table[ids]``
 and the identity.
 """
@@ -45,6 +50,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.distribution import sharding
 from repro_torch.distribution import tensor_parallel as tp
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (
@@ -53,13 +59,13 @@ from repro_torch.models.layers import (
     cross_entropy_loss,
     embed_init,
     init_rms_norm,
-    rms_norm,
     tree_leaves,
     tree_map,
     vocab_parallel_cross_entropy,
 )
 
 Params = dict[str, Any]
+_SEQ = tfm._SEQ
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -124,8 +130,11 @@ class Model:
         cfg = self.cfg
         if cfg.input_mode == "tokens":
             table = params["embed"]
-            x = (tp.embed_lookup(table, inputs) if isinstance(table, tp.Split)
-                 else table[inputs.long()])
+            seq = (*inputs.shape[:2], cfg.d_model)
+            x = (tp.embed_lookup(table, inputs,
+                                 by_sequence=sharding.seq_chunks(_SEQ, seq) > 1)
+                 if isinstance(table, tp.Split) else table[inputs.long()])
+            x = sharding.constrain(x, _SEQ)
         elif cfg.input_mode == "embeddings":
             x = inputs  # (B, S, D) float stub frontend
         else:  # features — the paper's MLP operates on (B, m)
@@ -138,19 +147,21 @@ class Model:
         cfg = self.cfg
         if cfg.input_mode == "features":
             return x  # output features ARE the logits (vocab = m)
-        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        x = tfm._norm(x, params["final_norm"], cfg.norm_eps)
         w = params["embed"] if cfg.tie_embeddings else params["lm_head"]
         if isinstance(w, tp.Split):
             if cfg.tie_embeddings:  # the table d over model → vocab over model
                 if w.shape[0] % len(w.chunks):
-                    return torch.einsum("bsd,vd->bsv", x, tp.all_gather(w.chunks, 1, x.device))
+                    return torch.einsum("bsd,vd->bsv", tp.whole_on_home(x),
+                                        tp.all_gather(w.chunks, 1, x.device))
                 chunks = tp.reshard(w.chunks, 1, 0)
             else:
                 chunks = w.chunks
-            xs = tp.fan_out(x, w.devices)
+            xs = tp.region_input(x, w.devices)
             spec = "bsd,vd->bsv" if cfg.tie_embeddings else "bsd,dv->bsv"
             return tp.Split(tuple(torch.einsum(spec, xm, c.to(x.dtype))
                                   for xm, c in zip(xs, chunks)), 2)
+        x = tp.whole_on_home(x)
         if cfg.tie_embeddings:
             return torch.einsum("bsd,vd->bsv", x, w.to(x.dtype))
         return torch.einsum("bsd,dv->bsv", x, w.to(x.dtype))
@@ -205,7 +216,7 @@ class Model:
         x = self._embed(params, inputs)
         x, cache = tfm.prefill_stack(params["stack"], self.cfg, x, cache,
                                      use_kernel=self.use_kernel, donate=donate_cache)
-        return _whole(self._head(params, x[:, -1:]), x.device), cache
+        return _whole(self._head(params, tp.last_tokens(x)), x.device), cache
 
     def decode_step(self, params: Params, token: torch.Tensor, cache: Params, pos, *,
                     donate_cache: bool = False) -> tuple[torch.Tensor, Params]:

@@ -9,6 +9,9 @@ experts on its slice of the dispatched tokens (``tensor_parallel.scatter``),
 and the experts' outputs are concatenated back in model order (exact)
 before the combine. The reference all-reduces the combine over ``model``
 instead; the shared experts follow the FFN's column/row-parallel split.
+A residual split along the sequence is gathered on the home device first
+(``tensor_parallel.on_home``), so the token groups, the capacity and the
+routing are the unsplit path's, and the output goes back by chunks.
 
 The dispatch is expressed as einsums over a (groups, tokens, experts,
 capacity) one-hot tensor, as the reference computes it. Tokens over
@@ -104,6 +107,8 @@ def apply_moe(
     glu: bool,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (output, aux_loss)."""
+    if isinstance(x, tp.Split):
+        return tp.on_home(lambda h: apply_moe(p, cfg, h, act, glu), x)
     b, s0, d = x.shape
     tokens = b * s0
     s = _group_size(tokens)

@@ -23,6 +23,14 @@ split as its weights are (a group's view of a cache placed by
 RWKV-6's ``wkv`` state by head, each position's on its device; the token
 shifts stay whole on the home device. A split whose channels or heads
 do not divide runs whole there, with its state whole.
+
+With the residual split along the sequence (sequence parallelism), Mamba
+gathers it on every position (its conv and scan run over the whole
+sequence, channel by channel) and reduce-scatters ``out_proj``'s
+partials; RWKV-6's mixes, whose token shift, decay and gate run on the
+home device, take the whole sequence gathered there (a chunk's first
+token then reads the previous chunk's last) and hand their output back
+by chunks (``tensor_parallel.on_home``).
 """
 
 from __future__ import annotations
@@ -184,6 +192,8 @@ def apply_rwkv_time_mix(
     """state (decode): {"shift": (B,D), "wkv": (B,H,K,V)}; None → zeros.
     With ``w_r``/``w_g`` split over ``model``: the split forward, its
     ``wkv`` state split by heads where the heads divide."""
+    if isinstance(x, tp.Split):
+        return tp.on_home(lambda h: apply_rwkv_time_mix(p, cfg, h, state), x)
     if isinstance(p["w_r"], tp.Split):
         return _apply_rwkv_time_mix_split(p, cfg, x, state)
     s = x.shape[1]
@@ -282,6 +292,8 @@ def apply_rwkv_channel_mix(
     p: Params, x: torch.Tensor, state: Params | None = None
 ) -> tuple[torch.Tensor, Params | None]:
     """With ``w_k``/``w_v`` split over ``model``: the split forward."""
+    if isinstance(x, tp.Split):
+        return tp.on_home(lambda h: apply_rwkv_channel_mix(p, h, state), x)
     prev = state["shift"] if state is not None else None
     if isinstance(p["w_k"], tp.Split):
         return _apply_rwkv_channel_mix_split(p, x, prev), {"shift": x[:, -1]}
@@ -411,6 +423,8 @@ def apply_mamba(
     split by channels where ``di`` divides."""
     if isinstance(p["in_proj"], tp.Split):
         return _apply_mamba_split(p, cfg, x, state)
+    if isinstance(x, tp.Split):  # whole weights: once on the home
+        return tp.on_home(lambda h: apply_mamba(p, cfg, h, state), x)
     return _mamba_after_in_proj(x @ p["in_proj"], p, cfg, state)
 
 
@@ -470,14 +484,15 @@ _MAMBA_CHANNELS = ("conv_w", "conv_b", "x_proj", "dt_proj", "dt_bias", "A_log", 
                    "out_proj")
 
 
-def mamba_channels(p: Params, x: torch.Tensor) -> list[tuple[torch.Tensor, torch.Tensor]]:
+def mamba_channels(p: Params, x) -> list[tuple[torch.Tensor, torch.Tensor]]:
     """Each model position's ``(x_in, z)`` of Mamba's ``in_proj`` split
-    over ``model``: ``x`` fanned out, each position's product with its
+    over ``model``: ``x`` fanned out (a split sequence gathered on every
+    position: ``tensor_parallel.region_input``), each position's product with its
     contiguous chunk of the ``2·di`` columns, then regrouped
     (``tensor_parallel.regroup``, counted as ``"regroup"``) so position m
     holds channels ``[m·di/M, (m+1)·di/M)`` of both ``x_in`` and ``z``."""
     w = p["in_proj"]
-    xs = tp.fan_out(x, w.devices)
+    xs = tp.region_input(x, w.devices)
     halves = tp.regroup([xm @ c for xm, c in zip(xs, w.chunks)], -1, 2)
     return [tuple(h.chunk(2, -1)) for h in halves]
 
@@ -494,13 +509,17 @@ def _apply_mamba_split(p: Params, cfg: MambaConfig, x: torch.Tensor,
     (state ``(B, di/M, N)``), and the ``out_proj`` partials are added in
     model order on ``x``'s device. When ``di`` does not divide over
     ``model`` (the channel leaves whole) but ``2·di`` does, the ``in_proj``
-    columns are gathered (exact) and the layer runs where ``x`` is.
+    columns are gathered (exact) and the layer runs where ``x`` is. For
+    ``x`` split along the sequence the ``out_proj`` partials are
+    reduce-scattered onto its chunks.
     ``state`` (decode): each position's ``conv`` tap and ``ssm`` state for
     its channels (``Split``s; whole where the channel leaves are); the new
     state comes back the same way (a prefill's, from zeros, too)."""
     b, s, d = x.shape
     di = cfg.expand * d
     if not isinstance(p["conv_w"], tp.Split):
+        if isinstance(x, tp.Split):
+            return tp.on_home(lambda h: _apply_mamba_split(p, cfg, h, state), x)
         w = p["in_proj"]
         xs = tp.fan_out(x, w.devices)
         xz = tp.all_gather([xm @ c for xm, c in zip(xs, w.chunks)], -1, x.device)
@@ -522,5 +541,5 @@ def _apply_mamba_split(p: Params, cfg: MambaConfig, x: torch.Tensor,
         partials.append(y @ pm[m]["out_proj"])
         convs.append(_next_tap(channels[m][0], taps[m], cfg.d_conv - 1))
         ssms.append(h_fin)
-    return tp.fan_in(partials, x.device), {"conv": tp.Split(tuple(convs), 2),
+    return tp.region_output(partials, x), {"conv": tp.Split(tuple(convs), 2),
                                            "ssm": tp.Split(tuple(ssms), 1)}

@@ -17,6 +17,16 @@ Every mixer and FFN has a split forward (``attention``, ``ssm``,
 channels and RWKV-6's heads as ``tensor_parallel.Split``s written in
 place, the rest whole on the home device.
 
+Under rules that split the sequence over ``model`` (``ShardingRules(
+seq_axis="model")`` active around the call, ``sharding.activate``),
+``apply_layer`` and ``prefill_layer`` constrain their input at the
+reference's site (``sharding.constrain``): between the tensor-parallel
+regions the residual is a ``tensor_parallel.Split`` along the sequence,
+and the norms, post-norms and residual adds run on each position's chunk
+(:func:`_norm`, :func:`_add`); each region takes it in by
+a gather and hands it back by a reduce-scatter. ``decode_layer``
+(S = 1) never splits.
+
 Three execution paths per layer, all cache-structure compatible:
   * ``apply_layer``   — forward without a cache; returns (x, aux_loss)
   * ``prefill_layer`` — forward that also fills the decode cache
@@ -40,6 +50,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.distribution import sharding
 from repro_torch.distribution import tensor_parallel as tp
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -100,24 +111,48 @@ def init_layer(rng: Init, cfg: ModelConfig, spec: LayerSpec, dtype=torch.float32
     return p
 
 
-def _relu_mlp(f: Params, x: torch.Tensor, use_kernel) -> torch.Tensor:
+_SEQ = ("batch", "seq", None)  # the residual's logical axes (the reference's constraint)
+
+
+def _norm(x, scale: torch.Tensor, eps: float):
+    """``rms_norm`` of the residual: on each chunk of a sequence split, with
+    the scale (whole on the home) copied to the chunks' positions, its
+    gradient the chunks' partials added in model order."""
+    if isinstance(x, tp.Split):
+        scales = tp.fan_out(scale, x.devices, kind="param_copy")
+        return tp.Split(tuple(rms_norm(c, s, eps) for c, s in zip(x.chunks, scales)), x.dim)
+    return rms_norm(x, scale, eps)
+
+
+def _add(x, y):
+    """The residual add, chunk by chunk on a sequence split."""
+    if isinstance(x, tp.Split):
+        return tp.Split(tuple(a + b for a, b in zip(x.chunks, y.chunks)), x.dim)
+    return x + y
+
+
+def _relu_mlp(f: Params, x, use_kernel):
     """The paper's Fig. 4 layer: max(x W + b, 0). With ``w`` and ``b``
     split over ``model`` (output columns), each position computes its
     columns, ReLU is local, and the next layer's input is their
-    concatenation in model order on ``x``'s device. A sparse ``w`` is
+    concatenation in model order on ``x``'s device (for ``x`` split along
+    the sequence: resharded from columns to the sequence). A sparse ``w`` is
     whole and runs where ``x`` is, with ``b`` gathered there."""
     w, b = f["w"], f["b"]
     if isinstance(w, tp.Split):
-        xs = tp.fan_out(x, w.devices)
-        return tp.all_gather([_relu_mlp({"w": w.chunks[m], "b": b.chunks[m]}, xs[m], use_kernel)
-                              for m in range(len(xs))], -1, x.device)
+        xs = tp.region_input(x, w.devices)
+        cols = [_relu_mlp({"w": w.chunks[m], "b": b.chunks[m]}, xs[m], use_kernel)
+                for m in range(len(xs))]
+        if isinstance(x, tp.Split):
+            return tp.Split(tp.reshard(cols, -1, x.dim), x.dim)
+        return tp.all_gather(cols, -1, x.device)
     if isinstance(b, tp.Split):
         b = tp.all_gather(b.chunks, 0, x.device)
-    return torch.clamp_min(linear(w, x, use_kernel=use_kernel) + b, 0.0)
+    return tp.on_home(lambda h: torch.clamp_min(linear(w, h, use_kernel=use_kernel) + b, 0.0), x)
 
 
-def _apply_mixer(p: Params, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor) -> torch.Tensor:
-    h = rms_norm(x, p["mixer_norm"], cfg.norm_eps)
+def _apply_mixer(p: Params, cfg: ModelConfig, spec: LayerSpec, x):
+    h = _norm(x, p["mixer_norm"], cfg.norm_eps)
     if spec.mixer == "attn":
         out = attn.APPLY[cfg.attention.kind](p["mixer"], cfg.attention, h, window=spec.window,
                                              rope_theta=spec.rope_theta)
@@ -126,17 +161,15 @@ def _apply_mixer(p: Params, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor) 
     else:  # rwkv
         out, _ = ssm.apply_rwkv_time_mix(p["mixer"], cfg.rwkv, h)
     if cfg.post_norms:
-        out = rms_norm(out, p["mixer_post_norm"], cfg.norm_eps)
-    return x + out
+        out = _norm(out, p["mixer_post_norm"], cfg.norm_eps)
+    return _add(x, out)
 
 
-def _apply_ffn_block(
-    p: Params, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor, use_kernel
-) -> tuple[torch.Tensor, torch.Tensor]:
+def _apply_ffn_block(p: Params, cfg: ModelConfig, spec: LayerSpec, x, use_kernel):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.ffn == "relu_mlp":
         return _relu_mlp(p["ffn"], x, use_kernel), aux
-    h = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
+    h = _norm(x, p["ffn_norm"], cfg.norm_eps)
     if spec.ffn == "dense":
         out = apply_ffn(p["ffn"], h, cfg.act, cfg.glu, use_kernel=use_kernel)
     elif spec.ffn == "moe":
@@ -144,8 +177,8 @@ def _apply_ffn_block(
     else:  # rwkv_channel_mix
         out, _ = ssm.apply_rwkv_channel_mix(p["ffn"], h)
     if cfg.post_norms:
-        out = rms_norm(out, p["ffn_post_norm"], cfg.norm_eps)
-    return x + out, aux
+        out = _norm(out, p["ffn_post_norm"], cfg.norm_eps)
+    return _add(x, out), aux
 
 
 def apply_layer(
@@ -153,6 +186,7 @@ def apply_layer(
     use_kernel: bool | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward. Returns (x, moe_aux_loss)."""
+    x = sharding.constrain(x, _SEQ)
     if spec.mixer != "none":
         x = _apply_mixer(p, cfg, spec, x)
     if spec.ffn != "none":
@@ -205,7 +239,7 @@ def _mixer_with_cache(
     decode: bool,
     donate: bool,
 ) -> tuple[torch.Tensor, Params]:
-    h = rms_norm(x, p["mixer_norm"], cfg.norm_eps)
+    h = _norm(x, p["mixer_norm"], cfg.norm_eps)
     new = dict(cache)
     if spec.mixer == "attn":
         kind = cfg.attention.kind
@@ -226,8 +260,8 @@ def _mixer_with_cache(
         out, state = ssm.apply_rwkv_time_mix(p["mixer"], cfg.rwkv, h, state)
         new["rwkv"] = _store(cache["rwkv"], state, donate)
     if cfg.post_norms:
-        out = rms_norm(out, p["mixer_post_norm"], cfg.norm_eps)
-    return x + out, new
+        out = _norm(out, p["mixer_post_norm"], cfg.norm_eps)
+    return _add(x, out), new
 
 
 def _store(buf: Params, state: Params, donate: bool) -> Params:
@@ -261,7 +295,7 @@ def _ffn_with_cache(
     new = dict(cache)
     if spec.ffn == "relu_mlp":
         return _relu_mlp(p["ffn"], x, use_kernel), new
-    h = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
+    h = _norm(x, p["ffn_norm"], cfg.norm_eps)
     if spec.ffn == "dense":
         out = apply_ffn(p["ffn"], h, cfg.act, cfg.glu, use_kernel=use_kernel)
     elif spec.ffn == "moe":
@@ -271,14 +305,15 @@ def _ffn_with_cache(
         out, state = ssm.apply_rwkv_channel_mix(p["ffn"], h, state)
         new["cmix"] = _store(cache["cmix"], state, donate)
     if cfg.post_norms:
-        out = rms_norm(out, p["ffn_post_norm"], cfg.norm_eps)
-    return x + out, new
+        out = _norm(out, p["ffn_post_norm"], cfg.norm_eps)
+    return _add(x, out), new
 
 
 def prefill_layer(
     p: Params, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor, cache: Params, *,
     use_kernel: bool | None = None, donate: bool = False,
 ) -> tuple[torch.Tensor, Params]:
+    x = sharding.constrain(x, _SEQ)
     new = cache
     if spec.mixer != "none":
         x, new = _mixer_with_cache(p, cfg, spec, x, new, None, decode=False, donate=donate)

@@ -491,8 +491,12 @@ def make_serve_fns(model: Model):
     then refreshed (``sharding.sync_replicas``). The logits come back
     concatenated in data order on the mesh's home device, and the cache is
     the placed tree it was given. A MoE whose token groups would cross
-    data indices is refused, as in the train step. Unplaced arguments take
-    the one-device path."""
+    data indices is refused, as in the train step. Under
+    ``ShardingRules(seq_axis="model")`` active around a call
+    (``sharding.activate``), a prefill splits its prompt's residual along
+    the sequence over each group's positions and writes the cache to the
+    slot owners as it does unsplit; a decode step (one token) never
+    splits. Unplaced arguments take the one-device path."""
 
     def prefill_fn(params, tokens, cache):
         if _placed(params):

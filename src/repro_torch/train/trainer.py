@@ -48,7 +48,13 @@ reference's step as GSPMD runs it, from one process, in a fixed order:
 
 So D × M positions on one device and D × M cards give the same bits, and
 ``model`` = 1 gives the data mesh's step, one position the unplaced
-step's bits. Every mixer the configs name runs split over ``model``: GQA
+step's bits. Under ``ShardingRules(seq_axis="model")`` active around the
+step (``sharding.activate``), each group holds its residual split along
+the sequence over its M positions (``sharding.constrain``); a leaf whole
+along ``model`` that scales the chunks (a norm's scale) is copied to
+their positions and its M partial gradients come back added in model
+order (``tensor_parallel.fan_out``, ``kind="param_copy"``) before step
+3. Every mixer the configs name runs split over ``model``: GQA
 and MLA over heads, Mamba over its inner channels, RWKV-6's time mix over
 heads and its channel mix over ``d_ff``.
 """

@@ -5,7 +5,11 @@ exchanges by kind, axis and position, all exact); the symmetry shortcut
 against the full trace on 2 × 2 × 2 with ``pod``; per-position argument
 bytes against ``per_device_bytes`` under the reference's pspecs; a hand
 count of a one-layer toy's exchanges and collective time; an MoE serve
-over ``data`` > 1 refused with the mesh path's message."""
+over ``data`` > 1 refused with the mesh path's message. Under
+``--seq-shard`` (``ShardingRules(seq_axis="model")``) the same holds of
+the split train step and prefill: the ``meta`` trace equal to the CPU
+tensors', the shortcut to the full trace, every model position carrying
+about the same bytes, and no note that the split is missing."""
 
 import dataclasses
 
@@ -18,6 +22,7 @@ from repro.launch import specs as ref_specs
 from repro_torch.configs import SHAPE_CELLS, ShapeCell, get_config
 from repro_torch.distribution import peer
 from repro_torch.distribution.sharding import PartitionSpec as P
+from repro_torch.distribution.sharding import ShardingRules
 from repro_torch.launch import dryrun, specs
 from repro_torch.launch.mesh import Mesh, make_local_mesh
 from repro_torch.train import checkpoint
@@ -28,6 +33,8 @@ TINY = {"train_4k": ShapeCell("train_4k", 16, 8, "train"),
 # group in each of 2 microbatches
 MOE_TRAIN = ShapeCell("train_4k", 128, 8, "train")
 LLAMA, MOE = "llama3.2-1b", "moonshot-v1-16b-a3b"
+SEQ = ShardingRules(seq_axis="model")  # --seq-shard
+TINY_PREFILL = ShapeCell("prefill_32k", 16, 4, "prefill")
 
 
 @pytest.fixture
@@ -50,8 +57,9 @@ def _grid(shape: dict, device) -> Mesh:
     return Mesh(tuple(shape), tuple(shape.values()), (torch.device(device),) * 8)
 
 
-def _plan(arch, shape, mesh, mb=2):
-    return specs.make_plan(arch, shape, mesh, microbatches=mb if shape == "train_4k" else None)
+def _plan(arch, shape, mesh, mb=2, rules=None):
+    return specs.make_plan(arch, shape, mesh, rules=rules,
+                           microbatches=mb if shape == "train_4k" else None)
 
 
 CASES = [(LLAMA, "train_4k", 2), (LLAMA, "train_4k", 1), (LLAMA, "decode_32k", None),
@@ -197,3 +205,89 @@ def test_an_moe_serve_over_data_is_refused_with_the_mesh_paths_message(tiny, mon
     assert rec["status"] == "refused" and rec["chips"] == 256
     assert "groups would cross positions" in rec["reason"]
     assert set(rec) == {"arch", "shape", "mesh", "kind", "status", "chips", "reason"}
+
+
+@pytest.mark.parametrize("shape,mb", [("train_4k", 2), ("prefill_32k", None),
+                                      ("decode_32k", None)])
+def test_a_seq_shard_meta_trace_equals_the_step_on_real_cpu_tensors(tiny, monkeypatch, shape,
+                                                                    mb):
+    monkeypatch.setitem(SHAPE_CELLS, "prefill_32k", TINY_PREFILL)
+    grid = {"data": 2, "model": 2}
+    meta_mesh, cpu_mesh = _grid(grid, "meta"), _grid(grid, "cpu")
+    plan = _plan(LLAMA, shape, meta_mesh, mb, SEQ)
+    meta = dryrun.mesh_trace(plan, meta_mesh)
+    args = dryrun.materialize(plan, device="cpu", generator=torch.Generator().manual_seed(0))
+    real = dryrun.mesh_trace(_plan(LLAMA, shape, cpu_mesh, mb, SEQ), cpu_mesh, args)
+    assert meta["flops"] == real["flops"] > 0
+    assert meta["positions"] == real["positions"]
+    assert meta["links"] == real["links"] and meta["exchanges"] == real["exchanges"]
+    kinds = {k for k, _, _ in meta["links"]}
+    # the decode step (S = 1) is never split
+    assert ({"seq_gather", "seq_reduce"} <= kinds) == (shape != "decode_32k")
+
+
+@pytest.mark.parametrize("shape,mb", [("train_4k", 1), ("prefill_32k", None)])
+def test_the_two_group_shortcut_equals_the_full_trace_under_seq_shard(tiny, monkeypatch,
+                                                                     shape, mb):
+    monkeypatch.setitem(SHAPE_CELLS, "prefill_32k", TINY_PREFILL)
+    mesh = _grid({"pod": 2, "data": 2, "model": 2}, "meta")
+    plan = _plan(LLAMA, shape, mesh, mb, SEQ)
+    full = dryrun.mesh_trace(plan, mesh)
+    short = dryrun.mesh_trace(plan, mesh, groups=2)
+    for key in ("flops", "eager_bytes", "peak_bytes", "argument_bytes", "output_bytes",
+                "alias_bytes"):
+        assert short["positions"][key] == full["positions"][key], key
+    assert short["links"] == full["links"] and short["exchanges"] == full["exchanges"]
+    assert "seq_gather" in full["exchanges"]
+
+
+def _four_heads(cfg):
+    """4 query and KV heads, so attention splits over 4 model positions."""
+    return dataclasses.replace(cfg, attention=dataclasses.replace(cfg.attention, num_heads=4,
+                                                                  num_kv_heads=4))
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k"])
+def test_under_seq_shard_every_model_position_carries_about_the_same_bytes(tiny, monkeypatch,
+                                                                          shape):
+    """On 1 × 4, the unsplit step's home fans every region's input out to
+    3 positions and takes their partials back (more than twice position
+    1's bytes over ``model``); split, each position gathers and
+    reduce-scatters its own chunk: the same sequence bytes on every
+    position, and the train step's position 0 within 5% of position 1 in
+    all. (A prefill still gathers the keys and values on the home and
+    writes them to their slots' owners from there, as unsplit, and sends
+    its last token to the home for the logits.)"""
+    monkeypatch.setitem(SHAPE_CELLS, "prefill_32k", TINY_PREFILL)
+    cut = lambda name: _four_heads(get_config(name).scaled_down())  # noqa: E731
+    monkeypatch.setattr(specs, "get_config", cut)
+    monkeypatch.setattr(dryrun, "get_config", cut)
+    mesh = _grid({"data": 1, "model": 4}, "meta")
+    total, seq = {}, {}
+    for rules in (None, SEQ):
+        mt = dryrun.mesh_trace(_plan(LLAMA, shape, mesh, 1, rules), mesh)
+        ex = dryrun.exchange_bytes(mt["links"], mesh.shape)
+        total[rules] = [ex["sent"][p]["model"] + ex["received"][p]["model"] for p in range(4)]
+        seq[rules] = [sum(ex["kind_bytes"][p].get(k, 0) for k in ("seq_gather", "seq_reduce"))
+                      for p in range(4)]
+    assert total[None][0] > 2 * total[None][1] and total[SEQ][0] < total[None][0]
+    # (a prefill's last token also goes from the last chunk's position to the home)
+    assert seq[None] == [0] * 4 and 0 < max(seq[SEQ]) - min(seq[SEQ]) <= 0.02 * min(seq[SEQ]) \
+        if shape == "prefill_32k" else seq[SEQ] == [seq[SEQ][0]] * 4 and seq[SEQ][0] > 0
+    if shape == "train_4k":
+        assert abs(total[SEQ][0] - total[SEQ][1]) <= 0.05 * total[SEQ][1]
+
+
+def test_a_seq_shard_record_says_what_ran_and_carries_no_missing_port_note(tiny):
+    mesh = _grid({"data": 2, "model": 2}, "meta")
+    plan = _plan(LLAMA, "train_4k", mesh, 2, SEQ)
+    rec = dryrun.mesh_record(LLAMA, "train_4k", plan, dryrun.mesh_trace(plan, mesh), mesh,
+                             "2x2", rules=SEQ)
+    assert rec["status"] == "ok" and rec["seq_axis"] == "model"
+    assert "seq" not in rec["notes"] and "seq_gather" in rec["notes"]["collectives"]
+    assert rec["collectives"]["per_kind_bytes"]["seq_gather"] > 0
+    unsplit = _plan(LLAMA, "train_4k", mesh, 2)
+    plain = dryrun.mesh_record(LLAMA, "train_4k", unsplit, dryrun.mesh_trace(unsplit, mesh),
+                               mesh, "2x2")
+    assert plain["seq_axis"] is None and "seq_gather" not in plain["collectives"][
+        "per_kind_bytes"]

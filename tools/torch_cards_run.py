@@ -42,7 +42,15 @@ The dry run against the cards: ``dryrun-cards`` (the ``dryrun`` phase's
 ``decode_32k``, traced through the mesh path on ``meta`` and run one
 card a position: each card's ``max_memory_allocated`` within 10% of its
 position's traced peak, each card's received bytes, the FLOPs and the
-exchanges by kind equal to the trace's). Naming phases runs those alone (``device`` and ``cards`` always run
+exchanges by kind equal to the trace's; with them the ``train_4k_seq``
+cell, its sequence split over ``model``). Sequence parallelism across
+cards: ``seq-cards-bits`` (the 2 × 2 train step and a prefill with
+greedy decode steps of Llama-3.2-1B under ``ShardingRules(seq_axis=
+"model")``, on 4 positions of card 0 and on 4 cards, bit for bit).
+``dryrun-mesh`` runs the ``dryrun`` phase's mesh cells on one card on
+their own (with ``PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True`` in
+the environment, as the ``dryrun`` phase runs them: the decode cell
+fills the card). Naming phases runs those alone (``device`` and ``cards`` always run
 first).
 
 ``copy-modes`` times one layer of RadiX-net 65536 × 120 over the cards
@@ -367,12 +375,69 @@ def serve_cards_bits(batch=4, cache_len=128, prompt_len=48, new_tokens=40, seed=
     return {"mesh": dict(cards.shape), "cards": len(cards.cards), "archs": out}
 
 
-def dryrun_cards() -> dict:
+def seq_cards_bits(arch="llama3.2-1b", seq_len=128, global_batch=8, microbatches=2,
+                   batch=4, cache_len=128, prompt_len=48, new_tokens=8, seed=0) -> dict:
+    """Sequence parallelism over ``model`` (``chip_smoke.seq_rules``) on the
+    2 × 2 mesh, on 4 positions of card 0 and on 4 cards: one AdamW step of
+    Llama-3.2-1B at published width (``same_step_on_one_card_and_cards``:
+    the metrics and every chunk of the new state bit for bit), then a
+    prefill of ``prompt_len`` tokens (``prompt_len / 2`` a position) and
+    greedy decode steps of its bf16 serving copy (every call's logits, the
+    tokens and every cache chunk bit for bit)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distribution import tensor_parallel as tp
+    from repro_torch.distribution.sharding import activate
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import Model
+    from repro_torch.models.model import cast_floating
+    from repro_torch.train import checkpoint
+
+    one = make_local_mesh(2, model=2, device="cuda:0")
+    cards = make_local_mesh(2, model=2, devices=[f"cuda:{i}" for i in range(4)])
+    cfg = get_config(arch)
+    model = Model(cfg)
+    data = {k: torch.from_numpy(v) for k, v in
+            SyntheticLM(cfg.vocab_size, seq_len, global_batch, seed=seed).batch(0).items()}
+    params = model.init(torch.Generator(device="cuda:0").manual_seed(seed), device="cuda:0")
+    tp.reset_exchange_counts()
+    with activate(cards, smoke.seq_rules()):
+        train = same_step_on_one_card_and_cards(model, params, data, one, cards, microbatches,
+                                                "split train step")
+    counts = tp.exchange_counts()
+    smoke.check(counts.get("seq_gather", {}).get("bytes", 0) > 0, ("split", counts))
+    params = cast_floating(params, model.compute_dtype)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len), device="cuda:0",
+                            generator=torch.Generator(device="cuda:0").manual_seed(seed + 1))
+    with activate(cards, smoke.seq_rules()):
+        (c1, t1, k1, _, ms1), (c4, t4, k4, l4, ms4) = (
+            serve_on(model, params, mesh, prompts, new_tokens, cache_len)
+            for mesh in (one, cards))
+    same = (torch.equal(t1, t4.to(t1.device))
+            and all(torch.equal(a, b.to(a.device)) for a, b in zip(c1, c4))
+            and all(torch.equal(a.to(b.device), b)
+                    for x, y in zip(checkpoint.leaves(k1), checkpoint.leaves(k4))
+                    for a, b in zip(x.chunks, y.chunks)))
+    smoke.check(same, ("the split 4-card serve is the 4-position one-card serve",))
+    return {"arch": arch, "mesh": dict(cards.shape), "cards": len(cards.cards),
+            "rules": "ShardingRules(seq_axis='model')", "train": train,
+            "train_exchanges": counts,
+            "serve": {"prompt_len": prompt_len, "tokens_a_position": prompt_len // 2,
+                      "new_tokens": new_tokens, "same_bits": True,
+                      "first_tokens": t4[:, :8].tolist(), "decode_step_ms_one_card": ms1,
+                      "decode_step_ms_cards": ms4, "launches_by_card": l4}}
+
+
+def dryrun_cards(cards: bool = True) -> dict:
     """``chip_smoke.py``'s mesh cells of the ``dryrun`` phase over 4 cards,
     one card a position: traced on ``meta`` at the batches the one-card
     phase picks (card 0's free memory less 1 GiB), then each card's peak
     held to its position's traced peak and each card's received bytes to
-    the trace's (``chip_smoke.dryrun_mesh_card`` with ``cards=True``)."""
+    the trace's (``chip_smoke.dryrun_mesh_card`` with ``cards=True``).
+    ``cards=False``: the one-card cells, every position on card 0, as the
+    ``dryrun`` phase runs them, on their own."""
     import torch
 
     grid = smoke.DRYRUN_MESH
@@ -385,13 +450,13 @@ def dryrun_cards() -> dict:
     info = smoke.dryrun_mesh_traces(grid["arch"], grid["data"], grid["model"],
                                     grid["train_layers"], limit)
     return {"limit_bytes": limit, "cells": smoke.dryrun_mesh_cells(
-        info, grid["train_layers"], grid["seed"], arch=grid["arch"], cards=True)}
+        info, grid["train_layers"], grid["seed"], arch=grid["arch"], cards=cards)}
 
 
 PHASES = ("copy-modes", "sharded", "sharded-cards", "sharded-train", "sharded-cards-train",
           "capture-across-cards", "data-cards-bits", "llm-train-data", "launch-train-data",
           "model-cards-bits", "mixer-cards-bits", "llm-train-model", "serve-cards-bits",
-          "llm-serve-model", "dryrun-cards")
+          "llm-serve-model", "dryrun-cards", "seq-cards-bits", "dryrun-mesh")
 
 
 def main(argv=None) -> int:
@@ -443,6 +508,10 @@ def main(argv=None) -> int:
                     **smoke.phase_llm_serve_model(**smoke.LLM_SERVE_MODEL)})
     if "dryrun-cards" in chosen:
         smoke.emit({"phase": "dryrun-cards", **dryrun_cards()})
+    if "dryrun-mesh" in chosen:
+        smoke.emit({"phase": "dryrun-mesh", **dryrun_cards(cards=False)})
+    if "seq-cards-bits" in chosen:
+        smoke.emit({"phase": "seq-cards-bits", **seq_cards_bits()})
     print(dev["nvidia_smi"], flush=True)
     return 0
 

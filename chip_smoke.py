@@ -528,9 +528,13 @@ MIXER_CUTS = {"deepseek-v2-236b": dict(num_layers=1),  # its dense first layer (
 # first step is held in f64 (f64_casts), and at f32 its loss is held and its
 # gradients measured beside the data mesh's own spread
 MIXER_HELD_IN_F64 = ("rwkv6-3b",)
+# the MoE's step whose token groups cross data indices: a global batch of 4 rows
+# in 2 microbatches puts one row of 128 tokens a data index (groups of 128)
+# against the microbatch's groups of 256
+MOE_CROSSING = dict(global_batch=4, microbatches=2)
 LLM_TRAIN_MODEL = dict(LLM_TRAIN, steps=3, data=2, model=2, moe_arch="moonshot-v1-16b-a3b",
-                       moe_layers=2, mixers=MIXER_CUTS, pruned_mixer="jamba-v0.1-52b",
-                       seq_mixers=("jamba-v0.1-52b",))
+                       moe_layers=2, moe_crossing=MOE_CROSSING, mixers=MIXER_CUTS,
+                       pruned_mixer="jamba-v0.1-52b", seq_mixers=("jamba-v0.1-52b",))
 # serving over the model's mesh: llm-serve's Llama-3.2-1B over the 2 x 2 data x
 # model mesh (model_mesh), 4 prompts of 48 tokens into a 128-slot cache (64 slots
 # a model position) and 40 greedy new tokens, so the decode crosses from model
@@ -540,10 +544,16 @@ LLM_TRAIN_MODEL = dict(LLM_TRAIN, steps=3, data=2, model=2, moe_arch="moonshot-v
 # 1 100-token prompt into 1 280 slots, so its local ring wraps and is split
 SERVE_MIXER_CUTS = {**MIXER_CUTS, "gemma3-4b": dict(num_layers=6, tail=0)}
 SERVE_LONG = {"gemma3-4b": dict(cache_len=1280, prompt_len=1100, new_tokens=8)}
+# and Moonlight at published width cut to its dense first layer and one MoE
+# layer (64 experts, top 6, two shared; 1.345 B parameters) on the same mesh and
+# prompts: prefill token groups of 64 where a data index's 96 tokens make 32,
+# decode groups of 4 where a data index's 2 rows make 2 (capacity 1 an expert),
+# so each MoE layer runs once on group 0's home over both data indices' rows
+SERVE_MOE = dict(arch="moonshot-v1-16b-a3b", num_layers=2, new_tokens=8)
 LLM_SERVE_MODEL = dict(arch="llama3.2-1b", data=2, model=2, batch=4, cache_len=128,
                        prompt_len=48, new_tokens=40, block=128, blocks_per_row=4,
                        pruned_tokens=4, mixers=SERVE_MIXER_CUTS, long=SERVE_LONG,
-                       seed=MODEL_SEED)
+                       moe=SERVE_MOE, seed=MODEL_SEED)
 # sequence parallelism over model (ShardingRules(seq_axis="model")): the split
 # f32 step against the unsplit one on the same mesh, the loss bits equal and
 # each gradient within this of its leaf's max (the norms' scales add their
@@ -573,6 +583,15 @@ DRYRUN_PEAK_RTOL = 0.10
 # full depth one sequence a group already needs 85.3 GiB over the 4 positions
 # (80.1 GiB with the positions' copies shared), more than the card holds
 DRYRUN_MESH = dict(arch="llama3.2-1b", data=2, model=2, train_layers=8, seed=MODEL_SEED)
+# the MoE archs' pod decode records (~40-55 s each on the chip host, each MoE
+# layer gathering every group's rows on position 0) trace in a process of
+# their own from the script's start, beside the kernels' build, the kernels
+# phase (CUDA events) and the dry run, and are joined before the first phase
+# that reads the host's clock; every other pod record traces in the dry run's
+# own pool. In that pool too they made it the dry run's longest chain
+# (PERF.md, PR 30)
+POD_MOE = (("deepseek-v2-236b", "decode_32k"), ("moonshot-v1-16b-a3b", "decode_32k"),
+           ("jamba-v0.1-52b", "decode_32k"))
 DRYRUN_MARGIN_BYTES = 2**30
 WIDTH_CLASSES = (64, 128, 256, 512)
 HOST_SHARE_REPEATS = 5  # captured and eager forwards, interleaved
@@ -4421,8 +4440,9 @@ def seq_on_model_mesh(cfg, params, first, mesh, opt, microbatches: int, *,
 
 def phase_llm_train_model(arch: str, seq_len: int, global_batch: int, microbatches: int,
                           steps: int, lr: float, block: int, blocks_per_row: int, data: int,
-                          model: int, moe_arch: str, moe_layers: int, mixers: dict,
-                          pruned_mixer: str, seq_mixers: tuple, seed: int) -> dict:
+                          model: int, moe_arch: str, moe_layers: int, moe_crossing: dict,
+                          mixers: dict, pruned_mixer: str, seq_mixers: tuple,
+                          seed: int) -> dict:
     """llm-train over the model's ``data`` × ``model`` mesh (:func:`model_mesh`:
     one position a card on a host with ``data · model`` cards, else every
     position on card 0): heads, the FFN's hidden columns, the embedding's d
@@ -4435,7 +4455,9 @@ def phase_llm_train_model(arch: str, seq_len: int, global_batch: int, microbatch
     several positions the same bits after each step, launches on each card
     against the count from shapes, topology unchanged, finite losses. Then
     ``moe_arch`` at published width cut to ``moe_layers`` layers, one step,
-    its experts split over ``model``, held the same way. Then each of
+    its experts split over ``model``, held the same way, and again on
+    ``moe_crossing``'s batch, whose MoE token groups cross data indices
+    (each MoE layer once on group 0's home over every index's rows). Then each of
     ``mixers`` (arch: its cut, :func:`cut_config`) through
     :func:`mixer_on_model_mesh`, and ``pruned_mixer``'s cut again with its
     FFNs block-pruned, the SpMM launches of its timed step held to the
@@ -4553,6 +4575,8 @@ def phase_llm_train_model(arch: str, seq_len: int, global_batch: int, microbatch
     moe_held = first_step_against_one_position(
         Model(dataclasses.replace(mcfg, compute_dtype="float32")), mparams, mfirst, mesh,
         microbatches)
+    crossing = moe_crossing_step(mcfg, mparams, mesh, seq_len=seq_len, seed=seed,
+                                 **moe_crossing)
     mstate0 = placed(mcfg, mparams)
     del mparams
     paths = checkpoint.leaves(checkpoint.map_with_path(lambda k, _: k, mstate0.params))
@@ -4573,6 +4597,7 @@ def phase_llm_train_model(arch: str, seq_len: int, global_batch: int, microbatch
           and np.isfinite(float(mmetrics["loss"])), "the MoE step")
     moe = {"arch": moe_arch, "layers": moe_layers, "params": moe_params,
            "experts_per_position": experts[0], "first_step_f32": moe_held,
+           "groups_crossing": crossing,
            "stored": mstored, "step_ms": moe_ms, "loss": float(mmetrics["loss"]),
            "peak_memory_gb": peaks()}
     del mstate, mstate0
@@ -4628,6 +4653,99 @@ def phase_llm_train_model(arch: str, seq_len: int, global_batch: int, microbatch
             "dense": {**dense, "tokens_per_s": tokens / (dense["step_ms"] / 1e3)},
             "sparse": {**sparse, "tokens_per_s": tokens / (sparse["step_ms"] / 1e3)},
             "moe": moe, "mixers": mixer_runs, "seq": seq, "launches": launches}
+
+
+def moe_crossing_step(cfg, params, mesh, *, seq_len: int, global_batch: int,
+                      microbatches: int, seed: int) -> dict:
+    """The first f32 step of the MoE ``cfg`` on ``mesh`` held to one position
+    (:func:`first_step_against_one_position`) on a batch whose microbatches
+    give each data index fewer tokens than the token group of the whole
+    microbatch, so the groups cross data indices; with the step's
+    ``moe_gather``/``moe_return`` exchanges."""
+    import torch
+
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distribution import tensor_parallel as tp
+    from repro_torch.distribution.sharding import moe_groups_cross
+    from repro_torch.models import Model
+
+    data = len(mesh.devices) // mesh.shape["model"]
+    batch = {k: torch.from_numpy(v) for k, v in
+             SyntheticLM(cfg.vocab_size, seq_len, global_batch, seed=seed).batch(0).items()}
+    rows = global_batch // microbatches // data
+    check(moe_groups_cross(cfg, {"inputs": batch["inputs"][:rows]}, data),
+          ("the MoE token groups cross data indices", rows, seq_len))
+    tp.reset_exchange_counts()
+    held = first_step_against_one_position(
+        Model(dataclasses.replace(cfg, compute_dtype="float32")), params, batch, mesh,
+        microbatches)
+    ex = {k: v for k, v in tp.exchange_counts().items() if k.startswith("moe_")}
+    layers = sum(s.ffn == "moe" for s in cfg.layer_specs())
+    check(all(ex.get(k, {}).get("calls") == 2 * microbatches * layers
+              for k in ("moe_gather", "moe_return")), ("a gather and a return a MoE layer", ex))
+    return {"global_batch": global_batch, "microbatches": microbatches,
+            "tokens_a_data_index": rows * seq_len, "first_step_f32": held, "exchanges": ex}
+
+
+def serve_moe(arch: str, num_layers: int, new_tokens: int, mesh, batch: int, cache_len: int,
+              prompt_len: int, seed: int) -> dict:
+    """``arch`` at published width cut to ``num_layers`` layers, served over
+    ``mesh`` where its MoE token groups cross data indices: how many
+    (token, expert) assignments of the one-device prefill and first decode
+    step each data index's own groups would route otherwise
+    (``moe.rerouted``; more than 0), the serve held at f32 to the
+    one-device path and ``Engine`` (:func:`serve_held`), then timed at
+    bf16 (:func:`serve_timed`) with its exchange bytes by kind."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distribution.sharding import moe_groups_cross
+    from repro_torch.models import Model, moe
+    from repro_torch.train import checkpoint
+
+    dev = mesh.device
+    data = len(mesh.devices) // mesh.shape["model"]
+    cfg = dataclasses.replace(get_config(arch), num_layers=num_layers)
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    params = Model(cfg).init(torch.Generator(device=dev).manual_seed(seed), device=dev)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(seed + 1))
+    rows = prompts[:batch // data]
+    check(moe_groups_cross(cfg, {"inputs": rows}, data)
+          and moe_groups_cross(cfg, {"inputs": rows[:, 0]}, data),
+          ("the prefill's and the decode's MoE token groups cross data indices", batch))
+    seen, apply_moe = [], moe.apply_moe
+
+    def spy(p, c, x, act, glu):
+        seen.append((p["router"], x.detach()))
+        return apply_moe(p, c, x, act, glu)
+
+    moe.apply_moe = spy
+    try:
+        one_device_serve(Model(f32), params, prompts, 2, cache_len)
+    finally:
+        moe.apply_moe = apply_moe
+    rerouted = {call: sum(moe.rerouted(r, cfg.moe, x, data) for r, x in seen
+                          if (x.shape[1] > 1) == (call == "prefill"))
+                for call in ("prefill", "decode")}
+    check(sum(rerouted.values()) > 0, ("each data index's own groups route as the batch's",
+                                       rerouted))
+    held = serve_held(Model(f32), params, mesh, prompts, new_tokens, cache_len)
+    layers = sum(s.ffn == "moe" for s in cfg.layer_specs())
+    check(all(held["prefill_exchanges"].get(k, {}).get("calls") == layers
+              for k in ("moe_gather", "moe_return")), ("the prefill's MoE exchanges", held))
+    timed = serve_timed(Model(cfg), params, mesh, prompts, new_tokens, cache_len)
+    return {"arch": arch, "num_layers": num_layers, "new_tokens": new_tokens,
+            "params": sum(x.numel() for x in checkpoint.leaves(params)),
+            "moe": {"experts": cfg.moe.num_experts, "top_k": cfg.moe.top_k,
+                    "shared": cfg.moe.num_shared_experts,
+                    "token_groups": {"prefill": [moe._group_size(batch * prompt_len),
+                                                 moe._group_size(batch * prompt_len // data)],
+                                     "decode": [moe._group_size(batch),
+                                                moe._group_size(batch // data)]}},
+            "rerouted_assignments": rerouted, "f32": held, "timed": timed,
+            "exchange_bytes_a_decode_step": {k: v["bytes"] for k, v in
+                                             timed["exchanges_a_decode_step"].items()}}
 
 
 def placed_for_serving(model, params, mesh, batch: int, cache_len: int) -> tuple:
@@ -4818,7 +4936,8 @@ def split_cache_leaves(model, mesh, batch: int, cache_len: int) -> list:
 
 def phase_llm_serve_model(arch: str, data: int, model: int, batch: int, cache_len: int,
                           prompt_len: int, new_tokens: int, block: int, blocks_per_row: int,
-                          pruned_tokens: int, mixers: dict, long: dict, seed: int) -> dict:
+                          pruned_tokens: int, mixers: dict, long: dict, moe: dict,
+                          seed: int) -> dict:
     """Serving over the model's ``data`` × ``model`` mesh (:func:`model_mesh`)
     through ``make_serve_fns``: params placed by ``param_pspecs``, the cache
     by ``cache_pspecs`` (attention slots over ``model``, Mamba's channels,
@@ -4833,7 +4952,8 @@ def phase_llm_serve_model(arch: str, data: int, model: int, batch: int, cache_le
     from shapes; then each of ``mixers`` (cut by :func:`cut_config`, sizes
     from ``long`` where given) on ``data`` 1 × ``model``, held at f32
     (``MIXER_HELD_IN_F64``: held in f64, the f32 errors printed) and
-    timed."""
+    timed; then ``moe``'s cut on the same mesh, its token groups crossing
+    data indices (:func:`serve_moe`)."""
     import torch
 
     from repro_torch.configs import SparsityConfig, get_config
@@ -4911,13 +5031,16 @@ def phase_llm_serve_model(arch: str, data: int, model: int, batch: int, cache_le
         del mparams
         torch.cuda.empty_cache()
         runs[name] = rec
+    moe_run = serve_moe(**moe, mesh=mesh, batch=batch, cache_len=cache_len,
+                        prompt_len=prompt_len, seed=seed)
+    torch.cuda.empty_cache()
     return {"arch": arch, "mesh": dict(mesh.shape), "cards": len(mesh.cards),
             "devices": [str(d) for d in mesh.devices], "homes": [str(d) for d in homes],
             "batch": batch, "cache_len": cache_len, "slots_a_position": cache_len // model,
             "prompt_len": prompt_len, "new_tokens": new_tokens,
             "cache_leaves_split": split_cache_leaves(Model(cfg), mesh, batch, cache_len),
             "f32": held, "timed": timed, "seq": seq, "pruned_ffn": pruned,
-            "tolerance": {"f32": LLM_F32_TOL}, "mixers": runs,
+            "tolerance": {"f32": LLM_F32_TOL}, "mixers": runs, "moe": moe_run,
             "mixers_mesh": dict(mesh1.shape),
             "launches": pruned["launches"]}
 
@@ -5144,44 +5267,54 @@ def decode_vs_prefill(model, params, tokens, got, want, tile, pos) -> dict:
     return res
 
 
-def dryrun_records(mesh: str = "card") -> tuple[dict, float]:
-    """The dry run's records of every arch's ``decode_32k`` and
-    ``long_500k`` on ``mesh`` (``card``, or ``single``: ``pod16x16``, from
-    the trace of the mesh path over it), each ``ok``, ``skipped`` with its
-    assigned reason or, on the pod, ``refused`` with the mesh path's
-    message (an MoE decode whose token groups would cross data indices),
-    printed on a line of its own, and the seconds they took (run in a
-    worker process)."""
+def dryrun_records(mesh: str = "card", cells=None, skip=()) -> tuple[dict, float]:
+    """The dry run's records of ``cells`` (arch, shape), default every
+    arch's ``decode_32k`` and ``long_500k`` less ``skip``, on ``mesh``
+    (``card``, or ``single``: ``pod16x16``, from the trace of the mesh path
+    over it), each ``ok`` or ``skipped`` with its assigned reason (none
+    ``refused``: an MoE decode whose token groups cross data indices
+    gathers them on position 0, its ``moe_gather``/``moe_return`` bytes at
+    position 0 and its collective time printed), printed on a line of its
+    own, and the seconds they took (run in a worker process)."""
     from repro_torch.configs import ARCHS, SHAPE_CELLS, get_config
     from repro_torch.launch import dryrun, specs
 
+    if cells is None:
+        cells = [(a, shape) for a in ARCHS for shape in ("decode_32k", "long_500k")
+                 if (a, shape) not in skip]
     recs, t0 = {}, time.perf_counter()
-    for a in ARCHS:
-        for shape in ("decode_32k", "long_500k"):
-            for rec in dryrun.run_cell(a, shape, meshes=(mesh,)):
-                cfg = get_config(a)
-                reason = specs.skip_reason(cfg, SHAPE_CELLS[shape])
-                if rec["status"] == "refused":
-                    check(mesh != "card" and cfg.moe is not None
-                          and "groups would cross positions" in rec["reason"], rec)
-                else:
-                    check(rec["status"] == ("skipped" if reason else "ok"), rec)
-                recs[a, shape, rec["mesh"]] = rec
-                line = {k: rec.get(k) for k in ("arch", "shape", "mesh", "status", "chips",
-                                                "flops_per_device", "bytes_per_device",
-                                                "useful_flops_fraction", "trace_s", "reason")}
-                if rec["status"] == "ok":
-                    mem, r = rec["memory"], rec["roofline"]
-                    line.update(peak_per_device_bytes=mem["peak_per_device_bytes"],
-                                temp_bytes=mem["temp_bytes"],
-                                bound_s=r["step_time_lower_bound_s"], dominant=r["dominant"],
-                                t_collective_s=r["t_collective_s"])
-                    if rec["collectives"] is not None:
-                        line.update(total_bytes=rec["collectives"]["total_bytes"],
-                                    busiest_position=rec["busiest_position"],
-                                    peak_position=rec["peak_position"],
-                                    traced_groups=rec["traced_groups"])
-                emit({"dryrun_record": line})
+    for a, shape in cells:
+        for rec in dryrun.run_cell(a, shape, meshes=(mesh,)):
+            cfg = get_config(a)
+            reason = specs.skip_reason(cfg, SHAPE_CELLS[shape])
+            check(rec["status"] == ("skipped" if reason else "ok"), rec)
+            recs[a, shape, rec["mesh"]] = rec
+            line = {k: rec.get(k) for k in ("arch", "shape", "mesh", "status", "chips",
+                                            "flops_per_device", "bytes_per_device",
+                                            "useful_flops_fraction", "trace_s", "reason")}
+            if rec["status"] == "ok":
+                mem, r = rec["memory"], rec["roofline"]
+                line.update(peak_per_device_bytes=mem["peak_per_device_bytes"],
+                            temp_bytes=mem["temp_bytes"],
+                            bound_s=r["step_time_lower_bound_s"], dominant=r["dominant"],
+                            t_collective_s=r["t_collective_s"])
+                if rec["collectives"] is not None:
+                    line.update(total_bytes=rec["collectives"]["total_bytes"],
+                                busiest_position=rec["busiest_position"],
+                                peak_position=rec["peak_position"],
+                                traced_groups=rec["traced_groups"],
+                                t_collective_s_position_0=rec["per_position"]
+                                ["t_collective_s"][0])
+                    links = rec["collectives"]["moe_links"]
+                    if cfg.moe is not None and shape == "decode_32k":
+                        check(links, ("the MoE decode's rows gathered on position 0", a))
+                    if links:
+                        line["moe_bytes_position_0"] = {
+                            k: sum(x["bytes"] for x in links
+                                   if x["kind"] == k and 0 in (x["src"], x["dst"]))
+                            for k in ("moe_gather", "moe_return")}
+                        line["moe_axes"] = sorted({x["axis"] for x in links})
+            emit({"dryrun_record": line})
     return recs, time.perf_counter() - t0
 
 
@@ -5454,14 +5587,15 @@ def dryrun_card(arch: str, long_arch: str, decode_rows: int, seed: int, mesh: di
     mesh = make_production_mesh(device="meta")
     ops.reset_launch_counts()
     # the records, the prefill's batch-1 trace, the mesh cells' traces and the
-    # pod records run in three worker processes beside the card's runs
+    # pod records (but the MoE decodes', POD_MOE) run in three worker
+    # processes beside the card's runs
     with concurrent.futures.ProcessPoolExecutor(
             max_workers=3, mp_context=multiprocessing.get_context("spawn")) as meta:
         records = meta.submit(dryrun_records)
         probe = meta.submit(dryrun_meta_record, arch, "prefill_32k", 1, None)
         mesh_traces = meta.submit(dryrun_mesh_traces, grid["arch"], grid["data"],
                                   grid["model"], grid["train_layers"], limit)
-        pods = meta.submit(dryrun_records, "single")
+        pods = meta.submit(dryrun_records, "single", None, POD_MOE)
         out["train_4k"] = dryrun_train(arch, limit, seed)
         emit({"dryrun_cell": "train_4k", **out["train_4k"]})
         torch.cuda.empty_cache()
@@ -5573,9 +5707,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device available", file=sys.stderr)
         return 1
+    import concurrent.futures
+    import multiprocessing
+
     from repro_torch.data import radixnet as rx
     from repro_torch.data.radixnet import RadixNetSpec
 
+    moe_pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+    moe_pods = moe_pool.submit(dryrun_records, "single", POD_MOE)
     dev = phase_device()
     kern = phase_kernels()
 
@@ -5606,6 +5746,13 @@ def main() -> int:
               "columns": {"sharded": sharded_panel.shape[1], "fleet": fleet_panel.shape[1],
                           "continuous": cont_panel.shape[1]}}
     emit({"phase": "dryrun", "card": dev["nvidia_smi"], **dry, "oracles_beside": beside})
+    t2 = time.perf_counter()
+    moe_recs, moe_s = moe_pods.result()
+    moe_pool.shutdown()
+    emit({"phase": "dryrun-pod-moe", "cells": [list(c) for c in POD_MOE],
+          "records": len(moe_recs), "seconds": moe_s,
+          "beside": ["device", "kernels", "dryrun"],
+          "wait_after_dryrun_seconds": time.perf_counter() - t2})
 
     serve, _, serve_res = phase_serve(spec, n_inputs=60000, use_resident=None, density=0.3,
                                       ref_cols=512, route="fused", level="resident",

@@ -56,6 +56,7 @@ _DISTINCT: list[bool] = [False]
 _TRACED: list[int | None] = [None]
 _LINKS: dict[tuple[str, int, int], list[int]] = {}  # (kind, src, dst) -> [calls, bytes]
 _LINKS_LOCK = threading.Lock()  # backward runs on one autograd thread a card
+_BACKWARD = threading.local()  # the groups a backward runs for, on its own thread
 
 
 @contextlib.contextmanager
@@ -82,20 +83,44 @@ def at(p: int | None):
         _AT.pop()
 
 
+def current_group() -> tuple[object, int] | None:
+    """The current group, ``(mesh, home position)``, or None outside one: the
+    group a backward runs for (:func:`backward_for`), else :func:`in_group`'s."""
+    stack = getattr(_BACKWARD, "groups", None)
+    if stack:
+        return stack[-1]
+    return _GROUP[-1] if _GROUP else None
+
+
+@contextlib.contextmanager
+def backward_for(group: tuple[object, int] | None):
+    """What runs inside works for ``group`` (a :func:`current_group` taken
+    in a forward), on this thread alone: a backward run by an autograd
+    thread, or for several groups at once, bills the group its forward
+    ran in."""
+    stack = _BACKWARD.__dict__.setdefault("groups", [])
+    stack.append(group)
+    try:
+        yield
+    finally:
+        stack.pop()
+
+
 def group_position(m: int = 0) -> int | None:
     """The position of model index ``m`` of the current group, or None
     outside a group."""
-    return _GROUP[-1][1] + m if _GROUP else None
+    group = current_group()
+    return group[1] + m if group else None
 
 
 def group_mesh():
     """The current group's mesh (:func:`in_group`)."""
-    return _GROUP[-1][0]
+    return current_group()[0]
 
 
 def device_of(p: int) -> torch.device:
     """Position ``p``'s device on the current group's mesh."""
-    return _GROUP[-1][0].devices[p]
+    return current_group()[0].devices[p]
 
 
 def named_position() -> int | None:

@@ -52,8 +52,11 @@ writes them in place), a leaf split over ``model`` as a
 ``tensor_parallel.Split`` of the group's chunks (the attention caches'
 slots, Mamba's channels, RWKV-6's heads) and every other leaf the home
 position's own tensor; :func:`sync_replicas` then copies what the
-positions that ran wrote into every other position's copy. The sparse stack runs across
-cards too: :func:`shard_device` says where shard s runs and
+positions that ran wrote into every other position's copy. Where a
+data index's rows make smaller MoE token groups than the whole batch
+(:func:`moe_groups_cross`), the groups run one call together layer by
+layer (:class:`GroupRun`), each MoE layer once over every index's rows.
+The sparse stack runs across cards too: :func:`shard_device` says where shard s runs and
 :func:`row_bands` which rows each position owns in the shard-order sum.
 """
 
@@ -783,21 +786,45 @@ def sync_replicas(cache, mesh, groups: int) -> None:
                               positions=(src, dsts))
 
 
-def check_moe_groups(cfg, rows: dict, n: int) -> None:
-    """Refuse a split over ``n`` data indices whose MoE token groups differ
-    from the whole batch's: the groups would cross positions and route
-    otherwise (the train step's rule, and serving's)."""
+def moe_groups_cross(cfg, rows: dict, n: int) -> bool:
+    """Whether the MoE token groups of ``n`` data indices' ``rows`` each
+    (one index's, ``rows["inputs"]``) cross data indices: the whole batch's
+    groups (``moe._group_size`` of all ``n`` indices' tokens) are larger
+    than one index's rows make. Then each MoE layer runs once over every
+    index's rows (:class:`GroupRun`), as the reference's groups of the
+    whole batch; else each group routes its own rows."""
     if n == 1 or not any(spec.ffn == "moe" for spec in cfg.layer_specs()):
-        return
+        return False
     from repro_torch.models.moe import _group_size
 
     x = rows["inputs"]
     tokens = x.shape[0] * (x.shape[1] if cfg.input_mode != "features" and x.dim() > 1 else 1)
-    if _group_size(tokens) != _group_size(tokens * n):
-        raise ValueError(
-            f"{tokens} tokens a position make MoE groups of {_group_size(tokens)}, the "
-            f"whole batch's {tokens * n} tokens groups of {_group_size(tokens * n)}: the "
-            "groups would cross positions; give each position a multiple of the group size")
+    return _group_size(tokens) != _group_size(tokens * n)
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupRun:
+    """The first ``groups`` data indices' groups of ``mesh`` computing one
+    call together, layer by layer, where their MoE token groups cross data
+    indices (:func:`moe_groups_cross`): each group's work runs inside its
+    own ``peer.in_group`` (:meth:`within`), a MoE layer once inside group
+    0's over every group's rows (``models.moe.apply_moe_groups``). Under
+    ``peer.traced_groups`` a group that does not compute (:meth:`computes`)
+    hands each MoE layer zeros of its rows' shape, so its exchanges run."""
+
+    mesh: Any
+    groups: int
+
+    def within(self, c: int):
+        return peer.in_group(self.mesh, c)
+
+    def computes(self, c: int) -> bool:
+        return peer.computes(c)
+
+    def home(self, c: int) -> tuple[torch.device, int]:
+        """Group ``c``'s home device and position."""
+        p = c * self.mesh.shape.get("model", 1)
+        return self.mesh.devices[p], p
 
 
 # ----------------------- sharded sparse weights ------------------------------

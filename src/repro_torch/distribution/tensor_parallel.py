@@ -79,6 +79,19 @@ own their slots), :func:`merge_softmax` (each slot range's partial
 softmax, ``(max, Σexp, Σexp·v)``, merged in model order on the home
 device) and :func:`replicate_into` (a cache leaf every position holds
 whole, copied from the position that wrote it).
+
+A MoE layer whose token groups cross data indices (the whole batch makes
+larger groups than one data index's rows) runs once, on the first data
+index's home, over every index's rows: the reference's groups of the
+whole batch. Two exchanges between groups move its input and output,
+between each group's home and position 0, counted and logged by the
+absolute positions they join (they cross ``data``, or ``pod``):
+
+* :func:`moe_gather` — each data index's rows concatenated in data order
+  on position 0 (exact); backward: each index's rows of the gradient
+  handed back to its home;
+* :func:`moe_return` — each data index's rows of the output sent to its
+  home (exact); backward: their gradients concatenated on position 0.
 """
 
 from __future__ import annotations
@@ -145,24 +158,27 @@ class Split:
 # ------------------------------ accounting -----------------------------------
 
 _COUNTS: dict[str, dict[str, int]] = {}
+_BY_GROUP: dict[int, dict[str, dict[str, int]]] = {}  # a group's home → its own calls
 _COUNTS_LOCK = threading.Lock()
 _LOG: list | None = None
 
 
-def _total(kind: str, nbytes: int) -> None:
+def _total(kind: str, nbytes: int, home: int | None = None) -> None:
     with _COUNTS_LOCK:  # backward runs on one autograd thread a card
-        c = _COUNTS.setdefault(kind, {"calls": 0, "bytes": 0})
-        c["calls"] += 1
-        c["bytes"] += nbytes
+        for counts in (_COUNTS, _BY_GROUP.setdefault(home, {}) if home is not None else {}):
+            c = counts.setdefault(kind, {"calls": 0, "bytes": 0})
+            c["calls"] += 1
+            c["bytes"] += nbytes
 
 
 def _count(kind: str, moves) -> None:
     """One call of ``kind`` and its ``moves``, ``(sending model index,
-    receiving model index, bytes)``: the totals, and each move by position
+    receiving model index, bytes)``: the totals (and the current group's
+    own, :func:`group_exchange_counts`), and each move by position
     (``peer.record``, from the current group's home)."""
     moves = list(moves)
-    _total(kind, sum(n for _, _, n in moves))
     home = peer.group_position()
+    _total(kind, sum(n for _, _, n in moves), home)
     if home is not None:
         for src, dst, n in moves:
             peer.record(kind, home + src, home + dst, n)
@@ -174,12 +190,19 @@ def _nbytes(x: torch.Tensor) -> int:
 
 def reset_exchange_counts() -> None:
     _COUNTS.clear()
+    _BY_GROUP.clear()
 
 
 def exchange_counts() -> dict[str, dict[str, int]]:
     """Per collective, its calls (forward and backward) and the bytes they
     moved from one position to another since the last reset."""
     return {k: dict(v) for k, v in _COUNTS.items()}
+
+
+def group_exchange_counts() -> dict[int, dict[str, dict[str, int]]]:
+    """:func:`exchange_counts` of the calls made inside a group
+    (``peer.in_group``), by the group's home position."""
+    return {home: {k: dict(v) for k, v in counts.items()} for home, counts in _BY_GROUP.items()}
 
 
 @contextlib.contextmanager
@@ -200,6 +223,25 @@ def _log(kind: str, **meta) -> None:
 
 
 # ------------------------------ collectives ----------------------------------
+
+
+def _in_forward_group(cls):
+    """``cls``'s backward works for the group its forward ran in
+    (``peer.backward_for``): a backward taken for several groups at once
+    (the layer-major train step) counts and bills each group's moves as
+    its forward did."""
+    forward, backward = cls.forward, cls.backward
+
+    def forward_in_group(ctx, *args):
+        ctx.group = peer.current_group()
+        return forward(ctx, *args)
+
+    def backward_in_group(ctx, *grads):
+        with peer.backward_for(ctx.group):
+            return backward(ctx, *grads)
+
+    cls.forward, cls.backward = staticmethod(forward_in_group), staticmethod(backward_in_group)
+    return cls
 
 
 def _to(x: torch.Tensor, device: torch.device, src: int = 0, dst: int = 0) -> torch.Tensor:
@@ -227,6 +269,7 @@ def _at(m: int):
     return peer.at(peer.group_position(m))
 
 
+@_in_forward_group
 class _FanOut(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, devices, kind):
@@ -254,6 +297,7 @@ def fan_out(x: torch.Tensor, devices, *, kind: str = "fan_out") -> tuple[torch.T
     return _FanOut.apply(x, devices, kind)
 
 
+@_in_forward_group
 class _FanIn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, device, *partials):
@@ -278,6 +322,7 @@ def fan_in(partials, device) -> torch.Tensor:
     return _FanIn.apply(device, *partials)
 
 
+@_in_forward_group
 class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, dim, device, *chunks):
@@ -305,6 +350,7 @@ def all_gather(chunks, dim: int, device) -> torch.Tensor:
     return _AllGather.apply(dim, device, *chunks)
 
 
+@_in_forward_group
 class _Scatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, devices):
@@ -349,6 +395,7 @@ def _resplit(chunks, devices, whole_dim: int, split_dim: int):
     return moves, tuple(out)
 
 
+@_in_forward_group
 class _Reshard(torch.autograd.Function):
     @staticmethod
     def forward(ctx, src_dim, dst_dim, *chunks):
@@ -397,6 +444,7 @@ def _move_pieces(tensors, devices, dim: int, parts: int, source):
     return moves, tuple(out)
 
 
+@_in_forward_group
 class _Regroup(torch.autograd.Function):
     """Piece ``r`` of chunk ``m`` is global slice ``f = parts·m + r``: part
     ``f // M``, slice ``f % M``. Chunk ``o`` of the result holds slice
@@ -440,6 +488,7 @@ def regroup(chunks, dim: int, parts: int) -> tuple[torch.Tensor, ...]:
 # --------------------------- sequence parallelism -----------------------------
 
 
+@_in_forward_group
 class _SeqGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, dim, receivers, devices, *chunks):
@@ -493,6 +542,7 @@ def seq_gather(x: Split, receivers=None) -> tuple[torch.Tensor, ...]:
     return _SeqGather.apply(x.dim, receivers, devices, *x.chunks)
 
 
+@_in_forward_group
 class _SeqReduce(torch.autograd.Function):
     @staticmethod
     def forward(ctx, dim, devices, *partials):
@@ -684,6 +734,89 @@ def replicate_into(copies, source: torch.Tensor, *, positions=None) -> None:
     _total("replicate", moved)
 
 
+# ---------------------- MoE token groups across data -------------------------
+
+
+def _cross(kind: str, moves) -> None:
+    """One call of ``kind`` between groups and its ``moves``, ``(sending
+    position, receiving position, bytes)`` by absolute position."""
+    moves = list(moves)
+    _total(kind, sum(n for _, _, n in moves))
+    for src, dst, n in moves:
+        peer.record(kind, src, dst, n)
+
+
+def _hand(x: torch.Tensor, device: torch.device, src: int, dst: int) -> torch.Tensor:
+    """``x``, which position ``src`` holds, for position ``dst`` on
+    ``device``: :func:`_to`'s rule between absolute positions (a copy made
+    for ``dst`` on another device or under ``peer.distinct_positions``,
+    else a view)."""
+    if x.device != device or (src != dst and peer.distinct()):
+        with peer.at(dst):
+            return peer.send(x, device, src, dst)
+    return x.view_as(x) if x.is_contiguous() else x.contiguous()
+
+
+class _MoEGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, positions, device, *xs):
+        ctx.positions, ctx.devices = positions, [x.device for x in xs]
+        ctx.sizes = [x.shape[0] for x in xs]
+        _cross("moe_gather", ((q, positions[0], _nbytes(x))
+                              for q, x in zip(positions[1:], xs[1:])))
+        with peer.at(positions[0]):
+            return torch.cat([_hand(x, device, q, positions[0])
+                              for q, x in zip(positions, xs)], 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        home, pieces = ctx.positions[0], g.split(ctx.sizes, 0)
+        _cross("moe_gather", ((home, q, _nbytes(p))
+                              for q, p in zip(ctx.positions[1:], pieces[1:])))
+        return (None, None, *(_hand(p, d, home, q)
+                              for p, d, q in zip(pieces, ctx.devices, ctx.positions)))
+
+
+def moe_gather(xs, positions, device) -> torch.Tensor:
+    """The data indices' rows ``xs`` (index c's held by position
+    ``positions[c]``) concatenated along dim 0 in data order on ``device``,
+    for position ``positions[0]`` (exact); the backward hands each index
+    its rows of the gradient on its own device."""
+    device, positions = torch.device(device), tuple(positions)
+    _log("moe_gather", shapes=[tuple(x.shape) for x in xs], dtype=xs[0].dtype, home=device,
+         devices=tuple(x.device for x in xs), positions=positions)
+    return _MoEGather.apply(positions, device, *xs)
+
+
+class _MoEReturn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, sizes, devices, positions, y):
+        ctx.positions, ctx.home = positions, y.device
+        pieces = y.split(sizes, 0)
+        _cross("moe_return", ((positions[0], q, _nbytes(p))
+                              for q, p in zip(positions[1:], pieces[1:])))
+        return tuple(_hand(p, d, positions[0], q) for p, d, q in zip(pieces, devices, positions))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        home = ctx.positions[0]
+        _cross("moe_return", ((q, home, _nbytes(g))
+                              for q, g in zip(ctx.positions[1:], grads[1:])))
+        with peer.at(home):
+            return None, None, None, torch.cat([_hand(g, ctx.home, q, home)
+                                                for q, g in zip(ctx.positions, grads)], 0)
+
+
+def moe_return(y: torch.Tensor, sizes, devices, positions) -> tuple[torch.Tensor, ...]:
+    """``y``'s rows handed back to the data indices: index c's ``sizes[c]``
+    rows, in data order, on ``devices[c]`` for position ``positions[c]``
+    (exact); the backward concatenates their gradients on ``y``'s device."""
+    devices, positions = tuple(torch.device(d) for d in devices), tuple(positions)
+    _log("moe_return", shape=tuple(y.shape), dtype=y.dtype, home=y.device, devices=devices,
+         positions=positions, sizes=tuple(sizes))
+    return _MoEReturn.apply(tuple(sizes), devices, positions, y)
+
+
 # ---------------------------------- replay -----------------------------------
 
 
@@ -717,7 +850,13 @@ def replay(entry) -> None:
         replicate_into(copies, fresh(meta["shape"], meta["home"], False) if i is None
                        else copies[i].fill_(1))
         return
-    if kind in ("fan_out", "param_copy"):
+    if kind == "moe_gather":
+        outs = (moe_gather([fresh(s, d) for s, d in zip(meta["shapes"], meta["devices"])],
+                           meta["positions"], meta["home"]),)
+    elif kind == "moe_return":
+        outs = moe_return(fresh(meta["shape"], meta["home"]), meta["sizes"], meta["devices"],
+                          meta["positions"])
+    elif kind in ("fan_out", "param_copy"):
         outs = fan_out(fresh(meta["shape"], meta["home"]), meta["devices"], kind=kind)
     elif kind == "seq_gather":
         x = Split(tuple(fresh(s, d) for s, d in zip(meta["shapes"], meta["devices"])),

@@ -43,9 +43,12 @@ what the reference reads from the compiled HLO
 a collective time (``roofline.t_collective_s``, also in ``dominant``
 and the bound). All groups of a pod do the same work on the same shapes,
 so the pod records trace the first :data:`SHORTCUT_GROUPS` groups'
-computation and bill the rest by symmetry (``notes.shortcut``). What
-the mesh path refuses (an MoE serve whose token groups would cross data
-indices) is a ``refused`` record with its message.
+computation and bill the rest by symmetry (``notes.shortcut``); where an
+MoE's token groups cross data indices (a decode of one token a row),
+each MoE layer runs on group 0, which is traced, and every group's rows
+go there and back in full (``moe_gather``, ``moe_return``). What the
+mesh path refuses (a batch that does not split into its microbatches) is
+a ``refused`` record with its message.
 
 Where a record differs from the reference's, it says so (``notes``):
 
@@ -57,9 +60,10 @@ Where a record differs from the reference's, it says so (``notes``):
   (``notes.collectives``): model-order fan-out and fan-in where the
   reference all-reduces (under ``--seq-shard``, a model-order gather and
   reduce-scatter over the sequence where GSPMD all-gathers and
-  reduce-scatters), the MoE combine gathered, softmaxes merged per slot
-  range, each group's gradients sent to every owner, the logits gathered
-  on position 0.
+  reduce-scatters), the MoE combine gathered, a MoE whose token groups
+  cross data indices run once on position 0 over every group's rows,
+  softmaxes merged per slot range, each group's gradients sent to every
+  owner, the logits gathered on position 0.
 * The collective time assumes a layout (``notes.layout``,
   :data:`NODE_POSITIONS`, :data:`NETWORK_BW`): it is not a measurement.
 * A train cell's state is not donated: the step builds new leaves, and
@@ -154,7 +158,10 @@ MESH_NOTES = {
                    "tied table; the embedding's rows to the sequence chunks), "
                    "regroup (Mamba's in_proj), write, merge (each slot range's partial "
                    "softmax merged on the home, where the reference reduces over cache_seq) "
-                   "and replicate (serving's split cache), gather (each position's FSDP copy "
+                   "and replicate (serving's split cache), moe_gather and moe_return (a MoE "
+                   "whose token groups cross data indices: each group's rows of its input "
+                   "sent to position 0 and its output's rows back, where GSPMD replicates "
+                   "such a group over data), gather (each position's FSDP copy "
                    "of its chunks, over data), reduce (each group's gradients sent to every "
                    "owner and added in card order, where the reference reduce-scatters), "
                    "metrics (losses, norms) and logits (gathered on position 0, where the "
@@ -446,6 +453,8 @@ def _chunk_bytes(tree, n: int) -> list[int]:
 # the exchanges of a group's own computation, each between two of its positions
 GROUP_KINDS = ("fan_out", "fan_in", "all_gather", "scatter", "reshard", "regroup", "write",
                "merge", "seq_gather", "seq_reduce", "param_copy")
+# the exchanges between groups of a MoE whose token groups cross data indices
+CROSS_KINDS = ("moe_gather", "moe_return")
 # the groups the pod records trace (``mesh_trace``'s ``groups``)
 SHORTCUT_GROUPS = 2
 
@@ -454,8 +463,11 @@ def _by_symmetry(res: dict, mesh, k: int) -> None:
     """A :func:`mesh_trace` of the first ``k`` groups made whole: every
     position of a group that stood in takes the FLOPs, eager bytes and
     peak of the same model index of group ``k - 1``, and that group's
-    exchanges between its own positions (:data:`GROUP_KINDS`), moved to
-    the group's positions; the exchanges between groups ran in full."""
+    exchanges between its own positions (:data:`GROUP_KINDS`: its links,
+    moved to the group's positions, and its own calls and bytes,
+    ``tensor_parallel.group_exchange_counts``); the exchanges between
+    groups ran in full. Group 0 may do more (a MoE whose token groups
+    cross data indices runs there) and is always traced."""
     m_size = mesh.shape.get("model", 1)
     groups, last = mesh.size // m_size, k - 1
     pos = res["positions"]
@@ -469,9 +481,11 @@ def _by_symmetry(res: dict, mesh, k: int) -> None:
         shift = (g - last) * m_size
         for (kind, src, dst), v in own:
             links[kind, src + shift, dst + shift] = dict(v)
+    own_calls = res["group_exchanges"].get(last * m_size, {})
     for kind, v in res["exchanges"].items():
-        if kind in GROUP_KINDS:
-            v["calls"], v["bytes"] = v["calls"] // k * groups, v["bytes"] // k * groups
+        if kind in GROUP_KINDS and kind in own_calls:
+            v["calls"] += (groups - k) * own_calls[kind]["calls"]
+            v["bytes"] += (groups - k) * own_calls[kind]["bytes"]
     res["flops"], res["eager_bytes"] = sum(pos["flops"]), sum(pos["eager_bytes"])
     res["peak_bytes"] = None
 
@@ -532,6 +546,7 @@ def mesh_trace(plan: LoweringPlan, mesh, args=None, *, groups: int | None = None
         },
         "links": peer.link_counts(),
         "exchanges": tp.exchange_counts(),
+        "group_exchanges": tp.group_exchange_counts(),
         "groups": n_groups,
         "traced_groups": k or n_groups,
         "out": out,
@@ -745,6 +760,11 @@ def mesh_record(arch: str, shape: str, plan: LoweringPlan, mt: dict, mesh, name:
                      "per_kind_count": ex["kind_calls"][busy],
                      "total_bytes": sent[busy] + received[busy],
                      "largest": largest,
+                     "moe_links": sorted(
+                         ({"kind": k, "src": src, "dst": dst,
+                           "axis": peer.axis_crossed(mesh.shape, src, dst), **v}
+                          for (k, src, dst), v in mt["links"].items() if k in CROSS_KINDS),
+                         key=lambda r: (r["kind"], r["src"], r["dst"])),
                      "per_axis_bytes": {a: ex["sent"][busy][a] + ex["received"][busy][a]
                                         for a in mesh.shape},
                      "position": busy, "exchange_counts": mt["exchanges"]},
@@ -762,7 +782,8 @@ def pod_record(arch: str, shape: str, name: str, *, rules: ShardingRules | None 
     """The record of one cell on a pod mesh (``name``, a key of
     :data:`MESHES`) from :func:`mesh_trace` of the plan made for that
     mesh (its first :data:`SHORTCUT_GROUPS` groups traced), or
-    ``refused`` with the mesh path's own message."""
+    ``refused`` with the mesh path's own message (a batch that does not
+    split into its microbatches)."""
     mesh = make_production_mesh(multi_pod=MESHES[name], device="meta")
     plan = make_plan(arch, shape, mesh, rules=rules, microbatches=microbatches,
                      global_batch=global_batch)

@@ -37,7 +37,10 @@ on each chunk, and the head gathers the sequence on every position for
 its vocab chunk. A group's cache (``sharding.group_cache``) goes through
 ``prefill`` and ``decode_step`` with its split leaves written in place. Everything else
 of the reference's distributed lookup and constraints is ``table[ids]``
-and the identity.
+and the identity. Where the data indices' MoE token groups cross, the
+groups of one call run together layer by layer (:meth:`Model.loss_groups`,
+:meth:`Model.prefill_groups`, :meth:`Model.decode_groups`), each MoE layer
+once over every group's rows.
 """
 
 from __future__ import annotations
@@ -191,10 +194,7 @@ class Model:
         labels and the MoE aux loss by its share of the token groups, so
         the positions' losses and metrics add up to the global ones."""
         logits, aux = self._logits(params, batch["inputs"])
-        if isinstance(logits, tp.Split):
-            ce = vocab_parallel_cross_entropy(logits.chunks, batch["labels"], z_loss=1e-4)
-        else:
-            ce = cross_entropy_loss(logits, batch["labels"], z_loss=1e-4)
+        ce = _cross_entropy(logits, batch["labels"])
         if shares is not None:
             ce, aux = shares[0] * ce, shares[1] * aux
         aux_w = self.cfg.moe.aux_loss_weight if self.cfg.moe else 0.0
@@ -230,6 +230,76 @@ class Model:
                                     use_kernel=self.use_kernel, donate=donate_cache)
         return _whole(self._head(params, x), x.device)[:, 0], cache
 
+    # ------------- groups whose MoE token groups cross data indices ------------
+    # ``run`` (a ``sharding.GroupRun``) holds the groups of one call; each
+    # group's params, rows and cache are given in data order, and a group
+    # that does not compute (``run.computes``) gets None back.
+
+    def _embed_groups(self, run, params: list, inputs: list) -> tuple[list, list]:
+        ps, xs = [None] * run.groups, [None] * run.groups
+        for c in range(run.groups):
+            if run.computes(c):
+                with run.within(c):
+                    ps[c] = cast_floating(params[c], self.compute_dtype)
+                    xs[c] = self._embed(ps[c], inputs[c])
+        return ps, xs
+
+    def _stack_groups(self, run, ps: list, xs: list, caches=None, pos=None):
+        return tfm.stack_groups(run, [None if p is None else p["stack"] for p in ps], self.cfg,
+                                xs, caches, pos=pos, use_kernel=self.use_kernel)
+
+    def loss_groups(self, run, params: list, batches: list, shares: list) -> list:
+        """:meth:`loss` of each group's rows, the groups computed together
+        layer by layer (``transformer.stack_groups``): each group's ce
+        weighted by its share ``shares[c]`` of the unmasked labels; the MoE
+        aux loss, computed once over the whole batch's token groups (the
+        reference's E · mean over every group), enters group 0's loss and
+        ``moe_aux`` once (the other groups' ``moe_aux`` are 0), so the
+        groups' losses and metrics add up to the global ones. Returns each
+        group's ``(loss, metrics)``."""
+        ps, xs = self._embed_groups(run, params, [b["inputs"] for b in batches])
+        xs, aux = self._stack_groups(run, ps, xs)
+        out = []
+        for c in range(run.groups):
+            if xs[c] is None:
+                out.append(None)
+                continue
+            with run.within(c):
+                ce = shares[c] * _cross_entropy(self._head(ps[c], xs[c]), batches[c]["labels"])
+                if c == 0:
+                    out.append((ce + self.cfg.moe.aux_loss_weight * aux,
+                                {"ce": ce, "moe_aux": aux}))
+                else:
+                    out.append((ce, {"ce": ce, "moe_aux": torch.zeros_like(ce)}))
+        return out
+
+    def prefill_groups(self, run, params: list, inputs: list, caches: list) -> list:
+        """:meth:`prefill` (``donate_cache=True``) of each group's rows into
+        its cache, the groups computed together layer by layer: each
+        group's logits for its last position."""
+        ps, xs = self._embed_groups(run, params, inputs)
+        xs, _ = self._stack_groups(run, ps, xs, caches)
+        return self._head_groups(run, ps, [None if x is None else tp.last_tokens(x)
+                                           for x in xs], xs)
+
+    def decode_groups(self, run, params: list, tokens: list, caches: list, pos) -> list:
+        """:meth:`decode_step` (``donate_cache=True``) of each group's tokens,
+        the groups computed together layer by layer: each group's logits."""
+        tokens = [t[:, None] if t.dim() == 1 else t for t in tokens]
+        ps, xs = self._embed_groups(run, params, tokens)
+        xs, _ = self._stack_groups(run, ps, xs, caches, int(pos))
+        return [None if lg is None else lg[:, 0] for lg in self._head_groups(run, ps, xs, xs)]
+
+    def _head_groups(self, run, ps: list, heads: list, xs: list) -> list:
+        out = []
+        for c, (h, x) in enumerate(zip(heads, xs)):
+            if h is None:
+                out.append(None)
+                continue
+            with run.within(c):
+                out.append(_whole(self._head(ps[c], h), x.device))
+        return out
+
     # ----------------------------- accounting -------------------------------
     def param_count(self) -> int:
         """Parameters of the dense model, counted on the ``meta`` device
@@ -246,6 +316,13 @@ class Model:
         e, k = cfg.moe.num_experts, cfg.moe.top_k
         per_expert = cfg.d_model * cfg.moe.d_expert * (3 if cfg.glu else 2)
         return total - n_moe * (e - k) * per_expert
+
+
+def _cross_entropy(logits, labels: torch.Tensor) -> torch.Tensor:
+    """The loss's ce: vocab-parallel over a head split over ``model``."""
+    if isinstance(logits, tp.Split):
+        return vocab_parallel_cross_entropy(logits.chunks, labels, z_loss=1e-4)
+    return cross_entropy_loss(logits, labels, z_loss=1e-4)
 
 
 def _whole(logits, device) -> torch.Tensor:

@@ -12,6 +12,9 @@ instead; the shared experts follow the FFN's column/row-parallel split.
 A residual split along the sequence is gathered on the home device first
 (``tensor_parallel.on_home``), so the token groups, the capacity and the
 routing are the unsplit path's, and the output goes back by chunks.
+Where one data index's rows make smaller token groups than the whole
+batch's, the indices' rows run together on the first one's home
+(:func:`apply_moe_groups`), as the reference's groups of the whole batch.
 
 The dispatch is expressed as einsums over a (groups, tokens, experts,
 capacity) one-hot tensor, as the reference computes it. Tokens over
@@ -29,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.distribution import peer
 from repro_torch.distribution import tensor_parallel as tp
 from repro_torch.models.layers import Init, activation, dense_init, row_parallel
 
@@ -105,26 +109,29 @@ def apply_moe(
     x: torch.Tensor,  # (B, S, D) — flattened into (G, S_g, D) token groups
     act: str,
     glu: bool,
+    *,
+    ordered: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (output, aux_loss)."""
+    """Returns (output, aux_loss). ``ordered``: the input's gradient adds
+    its three uses' in a fixed order where the experts are split
+    (:class:`_Uses`; the crossing groups' path, :func:`apply_moe_groups`)."""
     if isinstance(x, tp.Split):
         return tp.on_home(lambda h: apply_moe(p, cfg, h, act, glu), x)
     b, s0, d = x.shape
-    tokens = b * s0
-    s = _group_size(tokens)
-    x = x.reshape(tokens // s, s, d)
+    x = _grouped(x)
+    if ordered and _split(p):
+        x, x_dispatch, x_shared = _Uses.apply(x, 3)
+    else:
+        x_dispatch = x_shared = x
+    probs, combine, dispatch = _route(p["router"], cfg, x)
     e = cfg.num_experts
-    capacity = max(1, -(-int(cfg.capacity_factor * s * cfg.top_k) // e))
-    logits = x.float() @ p["router"].float()
-    probs = torch.softmax(logits, dim=-1)  # (G,S,E)
-    combine, dispatch = _top_k_dispatch(probs, cfg.top_k, capacity)
 
     # Switch/GShard load-balance loss: E · Σ_e f_e · P_e
     density = torch.mean((dispatch.sum(-1) > 0).float(), dim=1)  # (G,E) fraction routed
     mean_prob = torch.mean(probs, dim=1)
     aux = e * torch.mean(torch.sum(density * mean_prob, dim=-1))
 
-    xe = torch.einsum("gsd,gsec->egcd", x, dispatch.to(x.dtype))  # tokens → experts
+    xe = torch.einsum("gsd,gsec->egcd", x_dispatch, dispatch.to(x.dtype))  # tokens → experts
     banks = {k: p[k] for k in ("w_in", "w_gate", "w_out") if k in p}
     if isinstance(p["w_in"], tp.Split):
         # experts over model: each position runs its experts' slice of xe, and
@@ -138,8 +145,82 @@ def apply_moe(
     y = torch.einsum("egcd,gsec->gsd", ye, combine.to(x.dtype))  # experts → tokens
 
     if "shared" in p:
-        y = y + row_parallel(_shared, p["shared"], x, act)
+        y = y + row_parallel(_shared, p["shared"], x_shared, act)
     return y.reshape(b, s0, d), aux
+
+
+def _grouped(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (B, S, D) as its token groups (G, S_g, D)."""
+    b, s0, d = x.shape
+    s = _group_size(b * s0)
+    return x.reshape(b * s0 // s, s, d)
+
+
+def _route(router: torch.Tensor, cfg: MoEConfig, x: torch.Tensor):
+    """The router's probabilities over the token groups ``x`` (G, S_g, D),
+    and the combine and dispatch tensors of the groups' capacity
+    (:func:`_top_k_dispatch`)."""
+    capacity = max(1, -(-int(cfg.capacity_factor * x.shape[1] * cfg.top_k)
+                        // cfg.num_experts))
+    probs = torch.softmax(x.float() @ router.float(), dim=-1)  # (G,S,E)
+    return (probs, *_top_k_dispatch(probs, cfg.top_k, capacity))
+
+
+def _split(p: Params) -> bool:
+    """Whether the experts or the shared experts are split over ``model``."""
+    return isinstance(p["w_in"], tp.Split) or isinstance(p.get("shared", {}).get("w_in"),
+                                                        tp.Split)
+
+
+class _Uses(torch.autograd.Function):
+    """``x`` for ``n`` uses, whose gradients add in their order. Autograd
+    adds the gradients of a tensor used by several nodes in the order the
+    nodes' backwards hand them over; with cards, each card's nodes run on
+    that card's own autograd thread, so that order can follow the cards'
+    timing, and the gathered rows of crossing groups gave 4 cards other
+    bits than 4 positions of one card."""
+
+    @staticmethod
+    def forward(ctx, x, n):
+        return tuple(x.view_as(x) for _ in range(n))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return peer.shard_order_sum([g for g in grads if g is not None]), None
+
+
+def apply_moe_groups(p: Params, cfg: MoEConfig, xs, act: str, glu: bool,
+                     homes) -> tuple[tuple[torch.Tensor, ...], torch.Tensor]:
+    """:func:`apply_moe` of the data indices' rows together, where their
+    token groups cross data indices: ``xs[c]`` (B_c, S, D), data index c's
+    input on its home, ``homes[c]`` its ``(device, position)``. The rows
+    are gathered in data order on the first home
+    (``tensor_parallel.moe_gather``), :func:`apply_moe` runs once on their
+    concatenation with ``p``, that group's params (the whole batch's
+    groups, capacity and sequence-order priority, as the reference's
+    reshape of the whole batch), and each index gets its rows of the
+    output back on its home (``tensor_parallel.moe_return``). Returns
+    (each index's output, the aux loss once). Call it inside the first
+    group (``peer.in_group``): its experts split over that group's
+    ``model`` positions."""
+    devices, positions = [d for d, _ in homes], [q for _, q in homes]
+    y, aux = apply_moe(p, cfg, tp.moe_gather(xs, positions, devices[0]), act, glu,
+                       ordered=True)
+    return tp.moe_return(y, [x.shape[0] for x in xs], devices, positions), aux
+
+
+def rerouted(router: torch.Tensor, cfg: MoEConfig, x: torch.Tensor, n: int) -> int:
+    """How many (token, expert) assignments of the MoE input ``x`` (B, S, D)
+    the token groups of ``n`` data indices' rows each would route
+    otherwise than the whole batch's groups (kept by one, dropped by the
+    other): 0 where the groups do not cross or drop nothing either way."""
+    def kept(rows):
+        _, _, dispatch = _route(router, cfg, _grouped(rows))
+        return (dispatch.sum(-1) > 0).reshape(-1, cfg.num_experts)
+
+    with torch.no_grad():
+        alone = torch.cat([kept(rows) for rows in x.chunk(n, 0)], 0)
+        return int((kept(x) != alone).sum())
 
 
 def _experts(p: Params, xe: torch.Tensor, act: str, glu: bool) -> torch.Tensor:

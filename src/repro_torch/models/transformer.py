@@ -37,6 +37,14 @@ with ``donate=True`` they write into the caller's tensors (a period
 layer's cache through its ``tree_index`` views of the stacked buffers)
 and return a tree of those same tensors, the same values.
 
+Every path walks one layer list (:func:`layer_list`) and runs each
+layer through one generator (:func:`_layer`), which hands a MoE FFN's
+input to its caller. Where the data indices' MoE token groups cross
+(``sharding.moe_groups_cross``), the groups of one call run layer by
+layer (:func:`stack_groups`): each group's layer up to its MoE, the MoE
+once over every group's rows on the first group's home, then each
+group's layer to its end.
+
 The paper's technique enters through ``ffn`` weights: any FFN projection
 may be sparse (``layers.linear`` dispatch, ``sparsify_stack``), and the
 ``relu_mlp`` layer kind *is* the paper's Fig. 4 layer. ``use_kernel``
@@ -50,7 +58,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
-from repro_torch.distribution import sharding
+from repro_torch.distribution import peer, sharding
 from repro_torch.distribution import tensor_parallel as tp
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -166,6 +174,8 @@ def _apply_mixer(p: Params, cfg: ModelConfig, spec: LayerSpec, x):
 
 
 def _apply_ffn_block(p: Params, cfg: ModelConfig, spec: LayerSpec, x, use_kernel):
+    """The FFN block, a generator (:func:`_layer`): a MoE yields its normed
+    input and is sent back its (output, aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.ffn == "relu_mlp":
         return _relu_mlp(p["ffn"], x, use_kernel), aux
@@ -173,12 +183,17 @@ def _apply_ffn_block(p: Params, cfg: ModelConfig, spec: LayerSpec, x, use_kernel
     if spec.ffn == "dense":
         out = apply_ffn(p["ffn"], h, cfg.act, cfg.glu, use_kernel=use_kernel)
     elif spec.ffn == "moe":
-        out, aux = moe_mod.apply_moe(p["ffn"], cfg.moe, h, cfg.act, cfg.glu)
+        out, aux = yield h
     else:  # rwkv_channel_mix
         out, _ = ssm.apply_rwkv_channel_mix(p["ffn"], h)
+    return _ffn_out(p, cfg, x, out), aux
+
+
+def _ffn_out(p: Params, cfg: ModelConfig, x, out):
+    """An FFN block's output ``out`` post-normed and added to the residual."""
     if cfg.post_norms:
         out = _norm(out, p["ffn_post_norm"], cfg.norm_eps)
-    return _add(x, out), aux
+    return _add(x, out)
 
 
 def apply_layer(
@@ -186,12 +201,43 @@ def apply_layer(
     use_kernel: bool | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward. Returns (x, moe_aux_loss)."""
-    x = sharding.constrain(x, _SEQ)
-    if spec.mixer != "none":
+    x, _, aux = _finish(_layer(p, cfg, spec, x, None, None, decode=False, donate=False,
+                               use_kernel=use_kernel), p, cfg)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device) if aux is None else aux
+
+
+def _layer(p: Params, cfg: ModelConfig, spec: LayerSpec, x, cache: Params | None,
+           pos: int | None, *, decode: bool, donate: bool, use_kernel):
+    """One layer, the mixer then the FFN block, as a generator: a MoE FFN
+    yields its normed input and is sent back its (output, aux), so that
+    :func:`stack_groups` can run the MoE of several groups' layers at once.
+    Without ``cache`` the full-sequence forward (:func:`apply_layer`), with
+    it the prefill's or, ``decode``, the step's at ``pos``. Returns (x, the
+    layer's new cache (None without ``cache``), the MoE aux loss or None)."""
+    if not decode:
+        x = sharding.constrain(x, _SEQ)
+    new, aux = cache, None
+    if spec.mixer != "none" and cache is None:
         x = _apply_mixer(p, cfg, spec, x)
-    if spec.ffn != "none":
-        return _apply_ffn_block(p, cfg, spec, x, use_kernel)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    elif spec.mixer != "none":
+        x, new = _mixer_with_cache(p, cfg, spec, x, new, pos, decode=decode, donate=donate)
+    if spec.ffn != "none" and cache is None:
+        x, aux = yield from _apply_ffn_block(p, cfg, spec, x, use_kernel)
+    elif spec.ffn != "none":
+        x, new = yield from _ffn_with_cache(p, cfg, spec, x, new, decode=decode, donate=donate,
+                                            use_kernel=use_kernel)
+    return x, new, aux
+
+
+def _finish(steps, p: Params, cfg: ModelConfig):
+    """Run a layer's generator (:func:`_layer`) to its end, its MoE FFN, if
+    any, by ``moe.apply_moe`` of its own rows."""
+    try:
+        h = next(steps)
+        while True:
+            h = steps.send(moe_mod.apply_moe(p["ffn"], cfg.moe, h, cfg.act, cfg.glu))
+    except StopIteration as done:
+        return done.value
 
 
 # ------------------------------- caches --------------------------------------
@@ -291,7 +337,9 @@ def _ffn_with_cache(
     decode: bool,
     donate: bool,
     use_kernel,
-) -> tuple[torch.Tensor, Params]:
+):
+    """The FFN block with a cache, a generator as :func:`_apply_ffn_block`:
+    returns (x, the new cache)."""
     new = dict(cache)
     if spec.ffn == "relu_mlp":
         return _relu_mlp(p["ffn"], x, use_kernel), new
@@ -299,27 +347,20 @@ def _ffn_with_cache(
     if spec.ffn == "dense":
         out = apply_ffn(p["ffn"], h, cfg.act, cfg.glu, use_kernel=use_kernel)
     elif spec.ffn == "moe":
-        out, _ = moe_mod.apply_moe(p["ffn"], cfg.moe, h, cfg.act, cfg.glu)
+        out, _ = yield h
     else:  # rwkv_channel_mix (stateful token shift)
         state = cache["cmix"] if decode else None
         out, state = ssm.apply_rwkv_channel_mix(p["ffn"], h, state)
         new["cmix"] = _store(cache["cmix"], state, donate)
-    if cfg.post_norms:
-        out = _norm(out, p["ffn_post_norm"], cfg.norm_eps)
-    return _add(x, out), new
+    return _ffn_out(p, cfg, x, out), new
 
 
 def prefill_layer(
     p: Params, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor, cache: Params, *,
     use_kernel: bool | None = None, donate: bool = False,
 ) -> tuple[torch.Tensor, Params]:
-    x = sharding.constrain(x, _SEQ)
-    new = cache
-    if spec.mixer != "none":
-        x, new = _mixer_with_cache(p, cfg, spec, x, new, None, decode=False, donate=donate)
-    if spec.ffn != "none":
-        x, new = _ffn_with_cache(p, cfg, spec, x, new, decode=False, donate=donate,
-                                 use_kernel=use_kernel)
+    x, new, _ = _finish(_layer(p, cfg, spec, x, cache, None, decode=False, donate=donate,
+                               use_kernel=use_kernel), p, cfg)
     return x, new
 
 
@@ -334,12 +375,8 @@ def decode_layer(
     use_kernel: bool | None = None,
     donate: bool = False,
 ) -> tuple[torch.Tensor, Params]:
-    new = cache
-    if spec.mixer != "none":
-        x, new = _mixer_with_cache(p, cfg, spec, x, new, pos, decode=True, donate=donate)
-    if spec.ffn != "none":
-        x, new = _ffn_with_cache(p, cfg, spec, x, new, decode=True, donate=donate,
-                                 use_kernel=use_kernel)
+    x, new, _ = _finish(_layer(p, cfg, spec, x, cache, pos, decode=True, donate=donate,
+                               use_kernel=use_kernel), p, cfg)
     return x, new
 
 
@@ -371,15 +408,26 @@ def init_stack_cache(
     }
 
 
+def layer_list(p: Params, cfg: ModelConfig, cache: Params | None = None) -> list[tuple]:
+    """Each layer of the stack in order, ``(params, spec, cache)``: head, the
+    period's layers for each period (views of slice i, :func:`tree_index`),
+    tail; the cache None without ``cache``."""
+    def part(name: str, specs, i: int | None = None) -> list[tuple]:
+        caches = [None] * len(specs) if cache is None else cache[name]
+        at = (lambda t: t) if i is None else (lambda t: None if t is None else tree_index(t, i))
+        return [(at(lp), spec, at(c)) for lp, spec, c in zip(p[name], specs, caches)]
+
+    layers = part("head", cfg.head)
+    for i in range(cfg.n_periods):
+        layers += part("period", cfg.period, i)
+    return layers + part("tail", cfg.tail)
+
+
 def apply_stack(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
                 use_kernel: bool | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward through the whole stack → (x, aux_sum)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    layers = list(zip(p["head"], cfg.head))
-    for i in range(cfg.n_periods):
-        layers += [(tree_index(lp, i), spec) for lp, spec in zip(p["period"], cfg.period)]
-    layers += list(zip(p["tail"], cfg.tail))
-    for lp, spec in layers:
+    for lp, spec, _ in layer_list(p, cfg):
         x, a = apply_layer(lp, cfg, spec, x, use_kernel=use_kernel)
         aux = aux + a
     return x, aux
@@ -390,26 +438,16 @@ def _stack_with_cache(step, p: Params, cfg: ModelConfig, x: torch.Tensor,
     """``step(layer_params, spec, x, layer_cache) -> (x, new_cache)`` over
     head, the periods and tail; the period's new caches restacked, or,
     when ``donate``, written through the views into the stacked buffers."""
-    new_head = []
-    for lp, spec, c in zip(p["head"], cfg.head, cache["head"]):
+    new = []
+    for lp, spec, c in layer_list(p, cfg, cache):
         x, nc = step(lp, spec, x, c)
-        new_head.append(nc)
-    new_period = cache["period"]
-    if cfg.n_periods > 0:
-        per_rep = []
-        for i in range(cfg.n_periods):
-            new = []
-            for lp, spec, c in zip(p["period"], cfg.period, cache["period"]):
-                x, nc = step(tree_index(lp, i), spec, x, tree_index(c, i))
-                new.append(nc)
-            per_rep.append(new)
-        if not donate:
-            new_period = tree_stack(per_rep)
-    new_tail = []
-    for lp, spec, c in zip(p["tail"], cfg.tail, cache["tail"]):
-        x, nc = step(lp, spec, x, c)
-        new_tail.append(nc)
-    return x, {"head": new_head, "period": new_period, "tail": new_tail}
+        new.append(nc)
+    n_head, n_period = len(cfg.head), len(cfg.period)
+    per_rep = [new[n_head + i * n_period:n_head + (i + 1) * n_period]
+               for i in range(cfg.n_periods)]
+    new_period = cache["period"] if donate or not per_rep else tree_stack(per_rep)
+    return x, {"head": new[:n_head], "period": new_period,
+               "tail": new[n_head + cfg.n_periods * n_period:]}
 
 
 def prefill_stack(
@@ -430,6 +468,77 @@ def decode_stack(
         return decode_layer(lp, cfg, spec, x, c, pos, use_kernel=use_kernel, donate=donate)
 
     return _stack_with_cache(step, p, cfg, x, cache, donate)
+
+
+# ------------------- groups whose MoE token groups cross ----------------------
+
+
+def stack_groups(run, stacks: list, cfg: ModelConfig, xs: list, caches: list | None = None,
+                 *, pos: int | None = None, use_kernel: bool | None = None
+                 ) -> tuple[list, torch.Tensor]:
+    """The stack for the groups of ``run`` (a ``sharding.GroupRun``) whose MoE
+    token groups cross data indices, layer by layer: at each layer each
+    group's :func:`_layer` in data order, inside its group, up to its MoE
+    FFN, which then runs once over every group's rows inside group 0
+    (:func:`_moe_groups`), each group's layer finishing with its rows of
+    the output. ``stacks[c]``/``xs[c]``: group c's stack params and input,
+    None for a group that does not compute (``run.computes``), which hands
+    each MoE layer zeros of the last computing group's rows. Without
+    ``caches``: :func:`apply_layer`'s forward; with them (each group's
+    stack cache), :func:`prefill_layer`'s, or at ``pos``
+    :func:`decode_layer`'s, the caches written in place (``donate``).
+    Returns (each group's output, the MoE layers' aux losses summed in
+    layer order, on group 0's home)."""
+    layers = [None if s is None else layer_list(s, cfg, None if caches is None else caches[c])
+              for c, s in enumerate(stacks)]
+    aux = None
+    for i, spec in enumerate(cfg.layer_specs()):
+        steps, hs = {}, {}
+        for c, x in enumerate(xs):
+            if x is None:
+                continue
+            lp, _, lc = layers[c][i]
+            with run.within(c):
+                step = _layer(lp, cfg, spec, x, lc, pos, decode=pos is not None, donate=True,
+                              use_kernel=use_kernel)
+                try:
+                    hs[c], steps[c] = next(step), step
+                except StopIteration as done:
+                    xs[c] = done.value[0]
+        if steps:  # a MoE FFN
+            outs, a = _moe_groups(run, layers[0][i][0], cfg, hs)
+            aux = a if aux is None else aux + a
+            for c, step in steps.items():
+                with run.within(c):
+                    out = outs[c]
+                    if isinstance(hs[c], tp.Split):  # back to the chunks of the sequence split
+                        out = tp.seq_reduce([out], hs[c].dim, hs[c].devices)
+                    try:
+                        step.send((out, None))
+                    except StopIteration as done:
+                        xs[c] = done.value[0]
+    return xs, aux
+
+
+def _moe_groups(run, p: Params, cfg: ModelConfig, hs: dict) -> tuple[list, torch.Tensor]:
+    """One MoE layer (``p``: group 0's layer params) over the normed inputs
+    ``hs`` of the groups that compute (:func:`stack_groups`), gathered whole
+    on each group's home and run once inside group 0
+    (``moe.apply_moe_groups``); a group that does not compute hands zeros of
+    the last computing group's rows, sent as a group's. Returns (each
+    group's output, whole on its home; the layer's aux loss)."""
+    whole = []
+    for c in range(run.groups):
+        with run.within(c):
+            if c in hs:
+                whole.append(tp.whole_on_home(hs[c]))
+                continue
+            device, position = run.home(c)
+            with peer.at(position):  # the dry run's shortcut
+                whole.append(torch.zeros(whole[-1].shape, dtype=whole[-1].dtype, device=device))
+    with run.within(0):
+        return moe_mod.apply_moe_groups(p["ffn"], cfg.moe, whole, cfg.act, cfg.glu,
+                                        [run.home(c) for c in range(run.groups)])
 
 
 # ------------------------- the paper's technique -----------------------------

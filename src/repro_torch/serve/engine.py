@@ -490,8 +490,11 @@ def make_serve_fns(model: Model):
     themselves, written in place); the copies of a leaf no group wrote are
     then refreshed (``sharding.sync_replicas``). The logits come back
     concatenated in data order on the mesh's home device, and the cache is
-    the placed tree it was given. A MoE whose token groups would cross
-    data indices is refused, as in the train step. Under
+    the placed tree it was given. Where a MoE's token groups would cross
+    data indices (``sharding.moe_groups_cross``), the groups run together
+    layer by layer (``Model.prefill_groups``/``decode_groups``), each MoE
+    layer once on group 0's home over every group's rows, as in the train
+    step. Under
     ``ShardingRules(seq_axis="model")`` active around a call
     (``sharding.activate``), a prefill splits its prompt's residual along
     the sequence over each group's positions and writes the cache to the
@@ -500,14 +503,18 @@ def make_serve_fns(model: Model):
 
     def prefill_fn(params, tokens, cache):
         if _placed(params):
-            return _serve_groups(model, params, tokens, cache, lambda p, rows, c: model.prefill(
-                p, rows, c, donate_cache=True))
+            return _serve_groups(
+                model, params, tokens, cache,
+                lambda p, rows, c: model.prefill(p, rows, c, donate_cache=True)[0],
+                model.prefill_groups)
         return model.prefill(params, tokens, cache, donate_cache=True)
 
     def decode_fn(params, token, cache, pos):
         if _placed(params):
-            return _serve_groups(model, params, token, cache, lambda p, rows, c:
-                                 model.decode_step(p, rows, c, pos, donate_cache=True))
+            return _serve_groups(
+                model, params, token, cache,
+                lambda p, rows, c: model.decode_step(p, rows, c, pos, donate_cache=True)[0],
+                lambda run, ps, rows, cs: model.decode_groups(run, ps, rows, cs, pos))
         return model.decode_step(params, token, cache, pos, donate_cache=True)
 
     return prefill_fn, decode_fn
@@ -517,9 +524,12 @@ def _placed(params) -> bool:
     return isinstance(checkpoint.leaves(params)[0], sh.Placed)
 
 
-def _serve_groups(model: Model, params, tokens: torch.Tensor, cache, step):
-    """``step(group params, group rows, group cache)`` for each group of the
-    mesh the placed ``params`` live on (:func:`make_serve_fns`)."""
+def _serve_groups(model: Model, params, tokens: torch.Tensor, cache, step, step_groups):
+    """``step(group params, group rows, group cache) -> logits`` for each group
+    of the mesh the placed ``params`` live on (:func:`make_serve_fns`), or,
+    where their MoE token groups cross data indices,
+    ``step_groups(run, each group's params, rows, cache) -> each group's
+    logits`` over all of them together (``sharding.GroupRun``)."""
     owners = checkpoint.leaves(params)
     mesh = owners[0].sharding.mesh
     m_size = mesh.shape.get("model", 1)
@@ -531,19 +541,39 @@ def _serve_groups(model: Model, params, tokens: torch.Tensor, cache, step):
     rows = tokens.shape[0]
     groups = n if rows % n == 0 else 1
     per = rows // groups
-    sh.check_moe_groups(model.cfg, {"inputs": tokens.narrow(0, 0, per)}, groups)
     trees = sh.group_params(params, owners, mesh, groups)
+
+    def rows_of(c):
+        return peer.send(tokens.narrow(0, c * per, per), mesh.devices[c * m_size], None,
+                         c * m_size)
+
+    # groups that do not cross run one after another, each through the
+    # one-group prefill or step: its compute-dtype copy of the params and its
+    # temporaries live only for its own call, so positions that share a card
+    # (the dry run's mesh cells, sized to the card by that peak) hold one
+    # group's at a time
+    crossing = sh.moe_groups_cross(model.cfg, {"inputs": tokens.narrow(0, 0, per)}, groups)
+    if crossing:
+        sent = []
+        for c in range(groups):
+            with peer.in_group(mesh, c):
+                sent.append(rows_of(c))
+        got = step_groups(sh.GroupRun(mesh, groups), trees, sent,
+                          [sh.group_cache(cache, mesh, c) for c in range(groups)])
     outs = []
     for c in range(groups):
         home = mesh.devices[c * m_size]
         with peer.in_group(mesh, c):
-            rows = peer.send(tokens.narrow(0, c * per, per), home, None, c * m_size)
-            if peer.computes(c):
-                logits, _ = step(trees[c], rows, sh.group_cache(cache, mesh, c))
-                like = (logits.shape, logits.dtype)
-            else:  # the dry run's shortcut (``peer.traced_groups``)
+            if crossing:
+                logits = got[c]
+            else:
+                rows_c = rows_of(c)
+                logits = (step(trees[c], rows_c, sh.group_cache(cache, mesh, c))
+                          if peer.computes(c) else None)
+            if logits is None:  # the dry run's shortcut (``peer.traced_groups``)
                 with peer.at(c * m_size):
                     logits = torch.zeros(like[0], dtype=like[1], device=home)
+            like = (logits.shape, logits.dtype)
             outs.append(peer.send(logits, mesh.device, c * m_size, 0, "logits"))
     sh.sync_replicas(cache, mesh, groups)
     return (outs[0] if groups == 1 else torch.cat(outs, 0)), cache

@@ -38,8 +38,12 @@ reference's step as GSPMD runs it, from one process, in a fixed order:
    through them, layers whose weights are whole once on the home device.
    Its ce is weighted by its share of the microbatch's unmasked labels and
    its MoE aux loss by its share of the token groups (1/D), so the groups'
-   losses add up to the global mean (a split whose MoE groups would cross
-   data indices is refused);
+   losses add up to the global mean. Where a data index's rows make
+   smaller MoE token groups than the microbatch's
+   (``sharding.moe_groups_cross``), the groups run one forward together,
+   layer by layer, each MoE layer once on group 0's home over every
+   group's rows (``Model.loss_groups``), its aux loss entering the loss
+   once, and one backward of their losses summed in data order;
 3. each group's gradients are added onto the owners at once, in card
    order, per ``model`` chunk (``sharding.constrain_like_params``), one
    group's gradients alive at a time;
@@ -68,10 +72,11 @@ import torch
 from repro_torch.distribution import peer
 from repro_torch.distribution import tensor_parallel as tp
 from repro_torch.distribution.sharding import (
+    GroupRun,
     Placed,
-    check_moe_groups,
     constrain_like_params,
     group_params,
+    moe_groups_cross,
     param_pspecs,
     place,
     shardings_for,
@@ -137,6 +142,16 @@ def loss_and_grads(model: Model, params, batch, *, shares=None) -> tuple[torch.T
     group's shares of a global batch. A leaf split over ``model``
     (``tensor_parallel.Split``) gets its gradient as a ``Split`` of its
     chunks' gradients, each on its chunk's device."""
+    flat, live = _differentiable(params)
+    with torch.enable_grad():
+        loss, metrics = model.loss(checkpoint.with_leaves(params, flat), batch, shares=shares)
+        got = torch.autograd.grad(loss, live, allow_unused=True)
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, _gradients(flat, got)
+
+
+def _differentiable(params) -> tuple[list, list]:
+    """(the flat leaves of ``params``, each float leaf, or each chunk of a
+    ``Split``, a fresh tensor that requires grad; those tensors in order)."""
     def fresh(t):
         return t.detach().requires_grad_()
 
@@ -144,17 +159,21 @@ def loss_and_grads(model: Model, params, batch, *, shares=None) -> tuple[torch.T
             if _is_float(leaf) else leaf for leaf in checkpoint.leaves(params)]
     live = [t for leaf in flat if _is_float(leaf)
             for t in (leaf.chunks if isinstance(leaf, tp.Split) else (leaf,))]
-    with torch.enable_grad():
-        loss, metrics = model.loss(checkpoint.with_leaves(params, flat), batch, shares=shares)
-        got = iter(torch.autograd.grad(loss, live, allow_unused=True))
+    return flat, live
+
+
+def _gradients(flat: list, got) -> list:
+    """The gradients ``got`` of :func:`_differentiable`'s tensors as the
+    flat leaves' (zeros where the loss does not reach, None for an index
+    leaf)."""
+    got = iter(got)
 
     def grad(t):
         g = next(got)
         return torch.zeros_like(t) if g is None else g
 
-    grads = [(leaf.map(grad) if isinstance(leaf, tp.Split) else grad(leaf))
-             if _is_float(leaf) else None for leaf in flat]
-    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+    return [(leaf.map(grad) if isinstance(leaf, tp.Split) else grad(leaf))
+            if _is_float(leaf) else None for leaf in flat]
 
 
 def _shares(labels: torch.Tensor, microbatches: int, n: int) -> torch.Tensor:
@@ -173,7 +192,7 @@ def _placed_step(model: Model, optimizer: Optimizer, microbatches: int, state: T
     homes = mesh.devices[::m_size]
     n = len(homes)
     split = split_batch(batch, mesh, microbatches)
-    check_moe_groups(model.cfg, split[0][0], n)
+    run = GroupRun(mesh, n) if moe_groups_cross(model.cfg, split[0][0], n) else None
     shares = _shares(batch["labels"], microbatches, n)
     # every group's rows and shares on its home device before any work is queued
     staged = [[({k: peer.send(v, d, None, c * m_size) for k, v in split[i][c].items()},
@@ -183,20 +202,23 @@ def _placed_step(model: Model, optimizer: Optimizer, microbatches: int, state: T
     groups = group_params(state.params, owners, mesh)
     acc, loss, metrics = None, None, None
     for i in range(microbatches):
-        terms = []
-        for c in range(n):
-            rows, sh = staged[i][c]
-            with peer.in_group(mesh, c):
-                if peer.computes(c):
-                    loss_c, metrics_c, g = loss_and_grads(model, groups[c], rows, shares=sh)
-                    like = _skeleton((loss_c, metrics_c, g))
-                else:
-                    loss_c, metrics_c, g = _stand_in(like, c * m_size)
-                acc = constrain_like_params(g, owners=owners, into=acc)
-                del g
-                terms.append((peer.send(loss_c, homes[0], c * m_size, 0, "metrics"),
-                              {k: peer.send(v, homes[0], c * m_size, 0, "metrics")
-                               for k, v in metrics_c.items()}))
+        if run is not None:
+            acc, terms = _crossing_microbatch(model, run, groups, staged[i], owners, acc)
+        else:  # one group's forward and backward at a time: one group's activations alive
+            terms = []
+            for c in range(n):
+                rows, sh = staged[i][c]
+                with peer.in_group(mesh, c):
+                    if peer.computes(c):
+                        loss_c, metrics_c, g = loss_and_grads(model, groups[c], rows, shares=sh)
+                        like = _skeleton((loss_c, metrics_c, g))
+                    else:
+                        loss_c, metrics_c, g = _stand_in(like, c * m_size)
+                    acc = constrain_like_params(g, owners=owners, into=acc)
+                    del g
+                    terms.append((peer.send(loss_c, homes[0], c * m_size, 0, "metrics"),
+                                  {k: peer.send(v, homes[0], c * m_size, 0, "metrics")
+                                   for k, v in metrics_c.items()}))
         loss_i = peer.shard_order_sum([t[0] for t in terms])
         metrics_i = {k: peer.shard_order_sum([t[1][k] for t in terms]) for k in terms[0][1]}
         loss = loss_i if loss is None else loss + loss_i
@@ -215,6 +237,52 @@ def _placed_step(model: Model, optimizer: Optimizer, microbatches: int, state: T
     metrics["loss"] = loss
     metrics["grad_norm"] = gnorm
     return TrainState(checkpoint.with_leaves(state.params, new_leaves), new_opt), metrics
+
+
+def _crossing_microbatch(model: Model, run: GroupRun, groups: list, staged: list, owners: list,
+                         acc) -> tuple[list, list]:
+    """One microbatch whose MoE token groups cross data indices: one forward
+    of every group together (``Model.loss_groups``, layer by layer), their
+    losses sent to position 0 and summed in data order, one
+    ``torch.autograd.grad`` of that sum, then each group's gradients added
+    onto the owners in card order (``constrain_like_params``). A MoE
+    layer's weights get their gradient on group 0's copy alone; the other
+    groups' copies get zeros. Returns (the sums, each group's loss and
+    metrics on position 0)."""
+    mesh = run.mesh
+    m_size = mesh.shape.get("model", 1)
+    home0 = mesh.devices[0]
+    diffs = [_differentiable(groups[c]) if run.computes(c) else None for c in range(run.groups)]
+    with torch.enable_grad():
+        out = model.loss_groups(
+            run, [None if d is None else checkpoint.with_leaves(groups[c], d[0])
+                  for c, d in enumerate(diffs)],
+            [rows for rows, _ in staged], [shares[0] for _, shares in staged])
+        terms = []
+        for c in range(run.groups):
+            with peer.in_group(mesh, c):
+                if out[c] is None:
+                    out[c] = _stand_in(out_like, c * m_size)
+                out_like = _skeleton(out[c])
+                loss_c, metrics_c = out[c]
+                terms.append((peer.send(loss_c, home0, c * m_size, 0, "metrics"),
+                              {k: peer.send(v, home0, c * m_size, 0, "metrics")
+                               for k, v in metrics_c.items()}))
+        live = [t for d in diffs if d is not None for t in d[1]]
+        got = torch.autograd.grad(peer.shard_order_sum([t[0] for t in terms]), live,
+                                  allow_unused=True)
+    k = 0
+    for c, d in enumerate(diffs):
+        with peer.in_group(mesh, c):
+            if d is None:
+                g = _stand_in(grads_like, c * m_size)
+            else:
+                g, k = _gradients(d[0], got[k:k + len(d[1])]), k + len(d[1])
+                grads_like = _skeleton(g)
+            acc = constrain_like_params(g, owners=owners, into=acc)
+            del g
+    return acc, [(loss.detach(), {name: v.detach() for name, v in metrics.items()})
+                 for loss, metrics in terms]
 
 
 class _Like(NamedTuple):

@@ -13,7 +13,6 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from repro.serve.engine import Engine as RefEngine
@@ -110,16 +109,3 @@ def assert_cache_is_the_reference(served: Served) -> None:
     assert len(leaves) == len(ref)
     mm.whole([[x.chunks[p] for x in leaves] for p in range(len(leaves[0].chunks))], leaves)
     tt.assert_leaves_close(ref, [tt.host(x.gather("cpu")) for x in leaves])
-
-
-def assert_moe_data_split_refused(arch):
-    """At decode a group of B/D rows makes other MoE token groups than the
-    batch's B: a MoE serves on ``data`` = 1."""
-    _, model, _, p = mm.models(arch)
-    pp, cache = placed(model, p, mm.grid(2, 2), 4, 32)
-    prefill_fn, decode_fn = make_serve_fns(model)
-    with pytest.raises(ValueError, match="MoE groups of 2.*groups of 4"):
-        decode_fn(pp, torch.zeros(4, dtype=torch.int32), cache, 0)
-    tokens = torch.from_numpy(prompts(model.cfg, 4, 12))
-    with pytest.raises(ValueError, match="MoE groups of 8.*groups of 16"):
-        prefill_fn(pp, tokens, cache)

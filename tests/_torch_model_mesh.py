@@ -67,10 +67,19 @@ def _pad_slots(jp):
     return jp
 
 
+def _moe_tight(cfg):
+    """Capacity factor 1 (the scaled-down MoE's 2 keeps every token): a
+    group of S tokens holds S/2 a expert, so routing each data index's rows
+    alone drops other (token, expert) assignments than the whole batch's
+    groups."""
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=1.0))
+
+
 # a variant's change to the reference's dense params before pruning
 BEFORE_PRUNING = {"mamba-sparse-ffn": _pad_slots}
 VARIANTS = {None: lambda cfg: cfg, "kv-split": _kv_split, "mla-heads4": _mla_heads4,
-            "rwkv-cut-heads": _rwkv_cut_heads, "mamba-sparse-ffn": _mamba_sparse_ffn}
+            "rwkv-cut-heads": _rwkv_cut_heads, "mamba-sparse-ffn": _mamba_sparse_ffn,
+            "moe-tight": _moe_tight}
 
 
 def grid(data: int, model: int):
@@ -100,10 +109,11 @@ def models(arch: str, variant: str | None = None):
     return ref_model, model, jp, convert.model_params(jp, device="cpu")
 
 
-def masked_batch(cfg, moe: bool = False) -> dict:
+def masked_batch(cfg, moe: bool = False, s: int | None = None) -> dict:
     """8 rows (of 64 tokens for a MoE, so each of 2 data indices keeps the
-    reference's groups of 256) with labels masked unevenly over the rows."""
-    host = tt.batch(cfg, b=8, s=64 if moe else 16)
+    reference's groups of 256; of ``s`` where given) with labels masked
+    unevenly over the rows."""
+    host = tt.batch(cfg, b=8, s=s or (64 if moe else 16))
     labels = host["labels"]
     labels[-2:] = -1
     labels[2, : max(1, labels.shape[1] // 2)] = -1
@@ -112,11 +122,12 @@ def masked_batch(cfg, moe: bool = False) -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def reference_step(arch: str, variant: str | None, microbatches: int):
+def reference_step(arch: str, variant: str | None, microbatches: int, s: int | None = None):
     """(batch, the reference's updated params, metrics and, with one
-    microbatch, gradients) of one jitted SGD step, as numpy."""
+    microbatch, gradients) of one jitted SGD step on
+    :func:`masked_batch`'s rows (of ``s`` tokens where given), as numpy."""
     ref_model, model, jp, _ = models(arch, variant)
-    host = masked_batch(model.cfg, moe=model.cfg.moe is not None)
+    host = masked_batch(model.cfg, moe=model.cfg.moe is not None, s=s)
     jopt, _ = tt.optimizers("sgd", lr=1e-2, momentum=0.0)
     step = jax.jit(tt.ref_make_train_step(ref_model, jopt, microbatches=microbatches))
     js, jm = step(RefTrainState(jp, jopt.init(jp)), tt.as_ref(host))
@@ -159,19 +170,21 @@ def placed_state(model, p, mesh, opt):
 
 
 def check_against_the_reference(arch: str, data: int, model_axis: int, microbatches: int,
-                                variant: str | None = None) -> TrainState:
+                                variant: str | None = None, s: int | None = None
+                                ) -> TrainState:
     """One SGD step on a ``data`` × ``model_axis`` mesh against the
     reference's one-device step: loss, ce, ``grad_norm``, every updated
     leaf (gathered) and, with one microbatch, every gradient put together
-    from its owners' chunks. Some leaf must be split over ``model``, the
-    copies of a chunk held by several positions are the same bits, and
-    topology passes through. Returns the new placed state."""
-    host, jparams, jm, jgrads = reference_step(arch, variant, microbatches)
+    from its owners' chunks. Some leaf must be split over ``model`` (where
+    ``model_axis`` > 1), the copies of a chunk held by several positions
+    are the same bits, and topology passes through. Returns the new
+    placed state."""
+    host, jparams, jm, jgrads = reference_step(arch, variant, microbatches, s)
     _, model, _, p = models(arch, variant)
     opt = sgd(1e-2, momentum=0.0)
     state = placed_state(model, p, grid(data, model_axis), opt)
     owners = checkpoint.leaves(state.params)
-    assert any(x.sharding.model_dim is not None for x in owners)
+    assert model_axis == 1 or any(x.sharding.model_dim is not None for x in owners)
     rec, seen = dm.recording(opt)
     new, pm = make_train_step(model, rec, microbatches=microbatches)(state, tt.as_port(host))
     tt.assert_metrics_close(jm, pm)

@@ -1738,21 +1738,24 @@ def test_a_pruned_ffn_serve_launches_bsr_spmm_on_each_group_home_card(cuda):
 def test_cards_a_2x2_serve_is_the_2x2_one_card_serve_bit_for_bit(arch):
     """The 2 × 2 serve on 4 cards (groups on cards 0-1 and 2-3) against the
     same mesh on card 0: every call's logits, the tokens and every chunk
-    of the cache bit for bit (a MoE arch on 1 × 2: its token groups would
-    cross data indices)."""
+    of the cache bit for bit. A MoE arch's token groups cross data indices
+    there (each MoE layer runs on group 0's home card over both groups'
+    rows); it is also served on 1 × 2 (cards 0-1), its experts split over
+    ``model`` and its groups its own."""
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.train import checkpoint
 
     cards = _cards(4)
     model, params, prompts, cache_len = _serve_model(arch)
-    data = 1 if any(s.ffn == "moe" for s in model.cfg.layer_specs()) else 2
-    runs = [_serve_on(model, params, make_local_mesh(data, model=2, **where), prompts, 6,
-                      cache_len)
-            for where in ({"device": cards[0]}, {"devices": cards[:2 * data]})]
-    (c1, t1, k1, _), (c4, t4, k4, _) = runs
-    assert torch.equal(t1, t4.to(t1.device))
-    assert all(torch.equal(a, b.to(a.device)) for a, b in zip(c1, c4))
-    for x, y in zip(checkpoint.leaves(k1), checkpoint.leaves(k4)):
-        assert [c.device for c in y.chunks] == cards[:2 * data]
-        for a, b in zip(x.chunks, y.chunks):
-            assert torch.equal(a.to(b.device), b)
+    moe = any(s.ffn == "moe" for s in model.cfg.layer_specs())
+    for data in (1, 2) if moe else (2,):
+        runs = [_serve_on(model, params, make_local_mesh(data, model=2, **where), prompts, 6,
+                          cache_len)
+                for where in ({"device": cards[0]}, {"devices": cards[:2 * data]})]
+        (c1, t1, k1, _), (c4, t4, k4, _) = runs
+        assert torch.equal(t1, t4.to(t1.device))
+        assert all(torch.equal(a, b.to(a.device)) for a, b in zip(c1, c4))
+        for x, y in zip(checkpoint.leaves(k1), checkpoint.leaves(k4)):
+            assert [c.device for c in y.chunks] == cards[:2 * data]
+            for a, b in zip(x.chunks, y.chunks):
+                assert torch.equal(a.to(b.device), b)

@@ -2,7 +2,8 @@
 so no file runs long under ``--dist loadfile``): a 4-position step of
 ``moonshot-v1-16b-a3b`` against the reference's one-device step, each
 position given 256 tokens so its MoE token groups are the reference's,
-and the refusal of a split whose groups would cross positions."""
+and the refusal of a batch that does not split into its microbatches (a
+split whose token groups cross positions: ``test_torch_moe_data_train.py``)."""
 
 import pytest
 
@@ -19,14 +20,12 @@ def test_a_4_position_moe_step_matches_the_reference_one_device_step():
     tm.check_against_the_reference(MOE_ARCH, 1)
 
 
-def test_a_split_whose_moe_groups_cross_positions_is_refused():
+def test_a_batch_that_does_not_split_into_its_microbatches_is_refused():
+    """A batch of 6 rows over 4 positions is refused with the mesh path's
+    message (a split whose token groups cross positions runs:
+    ``test_torch_moe_data_train.py``)."""
     _, model, _, p = tt.models(MOE_ARCH)
     state = TrainState(p, sgd(1e-2).init(checkpoint.leaves(p)))
     placed = sh.place(state, state_shardings(None, state, four_positions()))
-    host = tt.batch(model.cfg, b=8, s=16)  # 32 tokens a position, groups of 128 whole
-    with pytest.raises(ValueError, match="MoE groups of 32.*groups of 128"):
-        make_train_step(model, sgd(1e-2))(placed, tt.as_port(host))
     with pytest.raises(ValueError, match="does not split into 1 microbatches of 4"):
         make_train_step(model, sgd(1e-2))(placed, tt.as_port(tt.batch(model.cfg, b=6, s=16)))
-
-

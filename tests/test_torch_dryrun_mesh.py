@@ -4,8 +4,10 @@ same steps on real CPU tensors (per-position FLOPs, eager bytes and peaks,
 exchanges by kind, axis and position, all exact); the symmetry shortcut
 against the full trace on 2 × 2 × 2 with ``pod``; per-position argument
 bytes against ``per_device_bytes`` under the reference's pspecs; a hand
-count of a one-layer toy's exchanges and collective time; an MoE serve
-over ``data`` > 1 refused with the mesh path's message. Under
+count of a one-layer toy's exchanges and collective time; an MoE decode
+over ``data`` > 1, its token groups crossing data indices, recorded with
+its rows gathered on position 0 and the shortcut equal to its full trace.
+Under
 ``--seq-shard`` (``ShardingRules(seq_axis="model")``) the same holds of
 the split train step and prefill: the ``meta`` trace equal to the CPU
 tensors', the shortcut to the full trace, every model position carrying
@@ -195,16 +197,47 @@ def test_the_collective_layout_bills_each_axis_at_its_slowest_link():
     assert peer.axis_crossed({"pod": 2, "data": 2, "model": 2}, 2, 3) == "model"
 
 
-def test_an_moe_serve_over_data_is_refused_with_the_mesh_paths_message(tiny, monkeypatch):
-    mesh = _grid({"data": 2, "model": 2}, "meta")
-    with pytest.raises(ValueError, match="groups would cross positions"):
-        dryrun.mesh_trace(_plan(MOE, "decode_32k", mesh), mesh)
-    # 32 rows: two a group of pod16x16 (a batch the groups cannot split runs on group 0)
+def test_an_moe_decode_over_data_records_ok_with_its_rows_gathered_on_position_0(
+        tiny, monkeypatch):
+    """32 rows, two a group of pod16x16: the whole batch's token group of 32
+    crosses the 16 data indices, so the record is ``ok`` and each MoE layer
+    gathers every group's rows on position 0 and hands them back, over
+    ``data``."""
     monkeypatch.setitem(SHAPE_CELLS, "decode_32k", ShapeCell("decode_32k", 24, 32, "decode"))
     (rec,) = dryrun.run_cell(MOE, "decode_32k", meshes=("single",))
-    assert rec["status"] == "refused" and rec["chips"] == 256
-    assert "groups would cross positions" in rec["reason"]
-    assert set(rec) == {"arch", "shape", "mesh", "kind", "status", "chips", "reason"}
+    assert rec["status"] == "ok" and rec["chips"] == 256 and rec["traced_groups"] == 2
+    assert "moe_gather" in rec["notes"]["collectives"]
+    cfg = get_config(MOE).scaled_down()
+    layers = sum(s.ffn == "moe" for s in cfg.layer_specs())
+    row = 2 * cfg.d_model * getattr(torch, cfg.compute_dtype).itemsize  # two rows a group
+    ex = rec["collectives"]["exchange_counts"]
+    for kind in ("moe_gather", "moe_return"):
+        assert ex[kind] == {"calls": layers, "bytes": 15 * row * layers}, kind
+    mesh = make_local_mesh(16, model=16, device="meta")
+    plan = _plan(MOE, "decode_32k", mesh)
+    links = dryrun.mesh_trace(plan, mesh, groups=dryrun.SHORTCUT_GROUPS)["links"]
+    moves = {k: v for k, v in links.items() if k[0].startswith("moe_")}
+    assert moves == {**{("moe_gather", 16 * c, 0): {"calls": layers, "bytes": row * layers}
+                        for c in range(1, 16)},
+                     **{("moe_return", 0, 16 * c): {"calls": layers, "bytes": row * layers}
+                        for c in range(1, 16)}}
+    assert {peer.axis_crossed(mesh.shape, s, d) for _, s, d in moves} == {"data"}
+
+
+def test_the_two_group_shortcut_equals_the_full_trace_of_an_moe_decode_over_data(tiny):
+    """The MoE runs on group 0, traced; groups 2-3 stand in with zeros of
+    their rows at each MoE layer, sent and handed back as the full trace's."""
+    mesh = _grid({"pod": 2, "data": 2, "model": 2}, "meta")
+    plan = _plan(MOE, "decode_32k", mesh)
+    full = dryrun.mesh_trace(plan, mesh)
+    short = dryrun.mesh_trace(plan, mesh, groups=2)
+    for key in ("flops", "eager_bytes", "peak_bytes", "argument_bytes", "output_bytes",
+                "alias_bytes"):
+        assert short["positions"][key] == full["positions"][key], key
+    assert short["links"] == full["links"] and short["exchanges"] == full["exchanges"]
+    assert (short["flops"], short["eager_bytes"]) == (full["flops"], full["eager_bytes"])
+    axes = {(k, peer.axis_crossed(mesh.shape, s, d)) for k, s, d in full["links"]}
+    assert {("moe_gather", "data"), ("moe_gather", "pod"), ("moe_return", "pod")} <= axes
 
 
 @pytest.mark.parametrize("shape,mb", [("train_4k", 2), ("prefill_32k", None),

@@ -3,7 +3,7 @@
 ``model``, and the split Mamba beside a block-sparse FFN on 2 × 2,
 through ``make_serve_fns`` on meshes of the CPU against the reference's
 one-device engine at f32 (``_torch_mesh_serve``); each position scans
-its own channels; a MoE's ``data`` split refused."""
+its own channels; over ``data`` its MoE token groups cross data indices."""
 
 from unittest import mock
 
@@ -40,6 +40,17 @@ def test_jamba_with_a_block_sparse_ffn_on_2x2_matches_the_reference():
     assert {c for c, _ in calls} == {mm.models(JAMBA)[1].cfg.mamba.expand * 64 // 2}
 
 
-
-def test_a_moe_data_split_is_refused():
-    ms.assert_moe_data_split_refused(JAMBA)
+def test_jamba_over_data_with_its_moe_groups_crossing_matches_the_reference():
+    """4 rows on 2 × 2 at capacity factor 1 (``moe-tight``): each MoE layer
+    runs once on group 0's home over both groups' rows, beside the split
+    Mamba of each group."""
+    cfg = mm.models(JAMBA, "moe-tight")[1].cfg
+    with mock.patch.object(ssm, "_mamba_gated", wraps=ssm._mamba_gated) as spy:
+        served = ms.serve(JAMBA, "moe-tight", 2, 2, batch=4, cache_len=32, prompt_len=12,
+                          steps=3)
+    ms.assert_cache_is_the_reference(served)
+    assert {c.args[3]["D"].shape[-1] for c in spy.call_args_list} == {
+        cfg.mamba.expand * cfg.d_model // 2}
+    layers = sum(s.ffn == "moe" for s in cfg.layer_specs())
+    assert all(c["moe_gather"]["calls"] == c["moe_return"]["calls"] == layers
+               for c in served.exchanges)

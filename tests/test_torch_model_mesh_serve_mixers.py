@@ -3,8 +3,10 @@ over ``cache_seq``, its MoE experts over ``model``) and RWKV-6 (its
 ``wkv`` state over heads, the token shifts home; a split that cuts a
 head keeps the state whole) through ``make_serve_fns`` on meshes of the
 CPU, against the reference's one-device engine at f32
-(``_torch_mesh_serve``); and a MoE's ``data`` split refused. Jamba's
-Mamba is in ``test_torch_model_mesh_serve_mamba.py``."""
+(``_torch_mesh_serve``). Jamba's Mamba is in
+``test_torch_model_mesh_serve_mamba.py``; a MoE served over ``data`` > 1,
+its token groups crossing data indices, in
+``test_torch_moe_data_serve.py``."""
 
 from unittest import mock
 
@@ -42,7 +44,3 @@ def test_rwkv6_wkv_state_over_heads_matches_the_reference(variant, data, model):
     assert heads == ({h} if variant else {h // model})  # a cut head runs every head whole
     wkv = [x for x in served.cache["period"][0]["rwkv"].values() if x.ndim == 5][0]
     assert wkv.sharding.model_dim == (None if variant else 2)
-
-
-def test_a_moe_data_split_is_refused():
-    ms.assert_moe_data_split_refused(DEEPSEEK)

@@ -46,7 +46,11 @@ exchanges by kind equal to the trace's; with them the ``train_4k_seq``
 cell, its sequence split over ``model``). Sequence parallelism across
 cards: ``seq-cards-bits`` (the 2 × 2 train step and a prefill with
 greedy decode steps of Llama-3.2-1B under ``ShardingRules(seq_axis=
-"model")``, on 4 positions of card 0 and on 4 cards, bit for bit).
+"model")``, on 4 positions of card 0 and on 4 cards, bit for bit). A MoE
+whose token groups cross data indices: ``moe-serve-cards-bits``
+(``chip_smoke.SERVE_MOE``'s Moonlight cut at f32 served 2 × 2, and one
+step of ``chip_smoke.MOE_CROSSING``'s batch, on 4 positions of card 0
+and on 4 cards, bit for bit).
 ``dryrun-mesh`` runs the ``dryrun`` phase's mesh cells on one card on
 their own (with ``PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True`` in
 the environment, as the ``dryrun`` phase runs them: the decode cell
@@ -216,10 +220,11 @@ def same_step_on_one_card_and_cards(model, params, batch, one, cards, microbatch
                      {str(d): ops.launch_counts(d) for d in mesh.cards}, ms))
     (m1, s1, l1, _), (m4, s4, l4, ms4) = runs
     leaves1, leaves4 = smoke.placed_leaves(s1), smoke.placed_leaves(s4)
-    same = m1 == m4 and len(leaves1) == len(leaves4) and all(
-        torch.equal(a.to(b.device), b) for x, y in zip(leaves1, leaves4)
-        for a, b in zip(x.chunks, y.chunks))
-    smoke.check(same, (label, "a step on 4 cards is the 4-position one-card step", m1, m4))
+    differ = [j for j, (x, y) in enumerate(zip(leaves1, leaves4))
+              if not all(torch.equal(a.to(b.device), b) for a, b in zip(x.chunks, y.chunks))]
+    same = m1 == m4 and len(leaves1) == len(leaves4) and not differ
+    smoke.check(same, (label, "a step on 4 cards is the 4-position one-card step", m1, m4,
+                       "leaves that differ", differ))
     return {"metrics": m4, "same_bits": True, "leaves": len(leaves4), "cards_step_ms": ms4,
             "launches_one_card": l1, "launches_by_card": l4}
 
@@ -375,6 +380,56 @@ def serve_cards_bits(batch=4, cache_len=128, prompt_len=48, new_tokens=40, seed=
     return {"mesh": dict(cards.shape), "cards": len(cards.cards), "archs": out}
 
 
+def moe_serve_cards_bits(batch=4, cache_len=128, prompt_len=48, seed=0) -> dict:
+    """``chip_smoke.SERVE_MOE``'s Moonlight cut at f32, its MoE token groups
+    crossing data indices, on the 2 × 2 mesh on 4 positions of card 0 and on
+    4 cards: the serve (``chip_smoke.SERVE_MOE``'s new tokens) through
+    ``make_serve_fns``, every call's logits, the tokens and every cache
+    chunk bit for bit; then one step of ``chip_smoke.MOE_CROSSING``'s batch
+    (its microbatches' groups crossing too), the metrics and every chunk of
+    the new state bit for bit."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import Model
+    from repro_torch.train import checkpoint
+
+    one = make_local_mesh(2, model=2, device="cuda:0")
+    cards = make_local_mesh(2, model=2, devices=[f"cuda:{i}" for i in range(4)])
+    cut = smoke.SERVE_MOE
+    cfg = dataclasses.replace(get_config(cut["arch"]), num_layers=cut["num_layers"],
+                              compute_dtype="float32")
+    model = Model(cfg)
+    params = model.init(torch.Generator(device="cuda:0").manual_seed(seed), device="cuda:0")
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len), device="cuda:0",
+                            generator=torch.Generator(device="cuda:0").manual_seed(seed + 1))
+    (c1, t1, k1, _, ms1), (c4, t4, k4, l4, ms4) = (
+        serve_on(model, params, mesh, prompts, cut["new_tokens"], cache_len)
+        for mesh in (one, cards))
+    leaves = list(zip(checkpoint.leaves(k1), checkpoint.leaves(k4)))
+    same = (torch.equal(t1, t4.to(t1.device))
+            and all(torch.equal(a, b.to(a.device)) for a, b in zip(c1, c4))
+            and all(torch.equal(a.to(b.device), b) for x, y in leaves
+                    for a, b in zip(x.chunks, y.chunks)))
+    smoke.check(same, (cut["arch"], "the 4-card MoE serve is the 4-position one-card serve"))
+    del k1, k4, c1, c4
+    cross = smoke.MOE_CROSSING
+    batch_np = SyntheticLM(cfg.vocab_size, smoke.LLM_TRAIN["seq_len"], cross["global_batch"],
+                           seed=seed).batch(0)
+    train = same_step_on_one_card_and_cards(
+        model, params, {k: torch.from_numpy(v) for k, v in batch_np.items()}, one, cards,
+        cross["microbatches"], cut["arch"])
+    return {"mesh": dict(cards.shape), "cards": len(cards.cards), **cut,
+            "serve": {"same_bits": True, "cache_leaves": len(leaves),
+                      "first_tokens": t4[:, :8].tolist(), "decode_step_ms_one_card": ms1,
+                      "decode_step_ms_cards": ms4, "launches_by_card": l4},
+            "train": {**cross, **train}}
+
+
 def seq_cards_bits(arch="llama3.2-1b", seq_len=128, global_batch=8, microbatches=2,
                    batch=4, cache_len=128, prompt_len=48, new_tokens=8, seed=0) -> dict:
     """Sequence parallelism over ``model`` (``chip_smoke.seq_rules``) on the
@@ -456,7 +511,8 @@ def dryrun_cards(cards: bool = True) -> dict:
 PHASES = ("copy-modes", "sharded", "sharded-cards", "sharded-train", "sharded-cards-train",
           "capture-across-cards", "data-cards-bits", "llm-train-data", "launch-train-data",
           "model-cards-bits", "mixer-cards-bits", "llm-train-model", "serve-cards-bits",
-          "llm-serve-model", "dryrun-cards", "seq-cards-bits", "dryrun-mesh")
+          "llm-serve-model", "dryrun-cards", "seq-cards-bits", "dryrun-mesh",
+          "moe-serve-cards-bits")
 
 
 def main(argv=None) -> int:
@@ -512,6 +568,8 @@ def main(argv=None) -> int:
         smoke.emit({"phase": "dryrun-mesh", **dryrun_cards(cards=False)})
     if "seq-cards-bits" in chosen:
         smoke.emit({"phase": "seq-cards-bits", **seq_cards_bits()})
+    if "moe-serve-cards-bits" in chosen:
+        smoke.emit({"phase": "moe-serve-cards-bits", **moe_serve_cards_bits()})
     print(dev["nvidia_smi"], flush=True)
     return 0
 
